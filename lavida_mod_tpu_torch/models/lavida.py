@@ -1,0 +1,141 @@
+"""LaViDa: the composed multimodal masked-diffusion model, ported from
+lavida_mod_tpu/models/lavida.py for the single-image serving slice.
+
+An nn.Module holding the LLaDA LM, the SigLIP tower, the projector and the
+image-newline vector, with the entry points:
+  - `random_init(cfg, seed, dtype, device)`: seeded random weights made on
+    the device itself (16 GB of LLaDA-8B never pass through the host);
+  - `from_jax(cfg, params, device)`: weights carried over from the JAX
+    package's params (a pytree of numpy arrays, convert.py);
+  - `generate_fused(...)`: vision encode, the one-gather splice, the
+    prefill into preallocated K/V buffers and the denoise loop, with the
+    contract of the JAX `LaViDa.generate_fused` (lavida.py:533-601) run
+    with use_flash_prefill=True.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from lavida_mod_tpu.config import GenerationConfig, LaViDaConfig
+
+from ..generation.diffusion import build_control_table, generate_cached_fused
+from . import multimodal
+from .llada import LLaDA, RMSNorm
+from .projector import Projector
+from .siglip import LayerNorm, SigLIP
+
+
+class LaViDa(nn.Module):
+    def __init__(self, cfg: LaViDaConfig, device, dtype=None):
+        super().__init__()
+        self.cfg = cfg
+        kw = dict(device=device, dtype=dtype)
+        self.llada = LLaDA(cfg.llada, **kw)
+        self.siglip = SigLIP(cfg.vision.siglip, **kw)
+        self.projector = Projector(cfg.vision.projector_type,
+                                   cfg.vision.mm_hidden_size,
+                                   cfg.llada.d_model, **kw)
+        self.image_newline = nn.Parameter(torch.zeros(cfg.llada.d_model,
+                                                      **kw))
+
+    @property
+    def device(self) -> torch.device:
+        return self.image_newline.device
+
+    @classmethod
+    @torch.no_grad()
+    def random_init(cls, cfg: LaViDaConfig, seed: int, dtype: torch.dtype,
+                    device) -> "LaViDa":
+        """Seeded random weights drawn on `device` by a generator there:
+        every linear, embedding and position table ~ N(0, 0.02) with zero
+        biases, norms at one, the newline ~ N(0, 1/D), as the JAX
+        `init_params` draws them (llada.py:47-105)."""
+        model = cls(cfg, "meta", dtype).to_empty(device=device)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        for m in model.modules():
+            if isinstance(m, (RMSNorm, LayerNorm)):
+                m.weight.fill_(1.0)
+                if isinstance(m, LayerNorm):
+                    m.bias.zero_()
+            elif isinstance(m, (nn.Linear, nn.Embedding)):
+                m.weight.normal_(0.0, 0.02, generator=gen)
+                if getattr(m, "bias", None) is not None:
+                    m.bias.zero_()
+        model.siglip.pos_embed.normal_(0.0, 0.02, generator=gen)
+        model.image_newline.normal_(0.0, cfg.llada.d_model ** -0.5,
+                                    generator=gen)
+        return model.eval()
+
+    @classmethod
+    def from_jax(cls, cfg: LaViDaConfig, params: dict, device,
+                 dtype: Optional[torch.dtype] = None) -> "LaViDa":
+        """The model with the JAX package's params (a pytree of numpy
+        arrays, LLaDA blocks stacked or unstacked) on `device`, in the
+        params' dtype unless `dtype` is given."""
+        from ..convert import state_dict_from_jax
+
+        model = cls(cfg, "meta")
+        model.load_state_dict(state_dict_from_jax(params), strict=True,
+                              assign=True)
+        return model.to(device=device, dtype=dtype).eval()
+
+    @torch.no_grad()
+    def generate_fused(
+        self,
+        input_ids: np.ndarray,
+        images: Sequence[np.ndarray] = (),
+        image_sizes: Sequence[tuple[int, int]] = (),
+        gen: Optional[GenerationConfig] = None,
+        prefix_bucket: Optional[int] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> np.ndarray:
+        """One sample: ids with -200 image markers, one [V, C, S, S] view
+        stack and one (width, height) size per image.  Returns the [G]
+        generated ids.
+
+        prefix_bucket: front-pad the splice plan to a multiple of this
+        length (the pad rows are masked out), as the JAX path does to
+        reuse compiled executables; the tokens do not change.
+        generator: the randomness of temperature > 0 or random remasking
+        (default: seed 0 on the model's device)."""
+        gen = gen or GenerationConfig()
+        if not gen.prefix_lm:
+            raise NotImplementedError("generate_fused implements the "
+                                      "prefix-cache mode only")
+        cfg, device = self.cfg, self.device
+        ids = np.asarray(input_ids)
+        n_views = [[v.shape[0] for v in images]]
+        plan = dict(batch_input_ids=[ids], batch_n_views=n_views,
+                    batch_image_sizes=[list(image_sizes)])
+        gather_idx, text_ids, valid, _ = multimodal.build_gather_plan(
+            cfg, **plan)
+        prefix_valid = None
+        if prefix_bucket:
+            P = gather_idx.shape[1]
+            Pb = -(-P // prefix_bucket) * prefix_bucket
+            if Pb > P:
+                gather_idx, text_ids, valid, _ = multimodal.build_gather_plan(
+                    cfg, **plan, pad_to=Pb, pad_front=True)
+                prefix_valid = torch.as_tensor(valid, device=device)
+        G = gen.max_new_tokens
+        mask_id = cfg.llada.mask_token_id
+        k_table, block_end = build_control_table(
+            np.full((1, G), mask_id, np.int64), 0, G, gen, mask_id)
+        S = cfg.vision.siglip.image_size
+        pix = (torch.cat([torch.as_tensor(np.asarray(v)) for v in images])
+               if images else torch.zeros((0, 3, S, S)))
+        prefix = multimodal.multimodal_embeds(
+            self, pix.to(device), text_ids, gather_idx)
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        x = torch.full((1, G), mask_id, dtype=torch.long, device=device)
+        out = generate_cached_fused(
+            self.llada, x, prefix, torch.as_tensor(k_table, device=device),
+            torch.as_tensor(block_end, device=device), prefix_valid,
+            generator, gen.temperature, gen.remasking)
+        return out[0].cpu().numpy()

@@ -1,0 +1,72 @@
+"""Row gather `table[idx]`: the port of lavida_mod_tpu/ops/pallas_gather.py
+(`gather_rows`, the Pallas TPU kernel that streams the multimodal splice).
+
+The indices are a host plan (`models.multimodal.build_gather_plan` makes
+them in numpy), so `gather_rows` range-checks them on the host, where the
+check costs no device sync, and uploads them with the launch.  A table on
+a CUDA device launches the hand-written kernel in `csrc/gather_rows.cu`; a
+table on the CPU takes `gather_rows_reference`, the plain PyTorch version.
+There is no fallback from one to the other.
+
+Forward only: the TPU version's scatter-add VJP (`gather_rows_ad`) belongs
+to the training slice.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import kernels
+
+
+def gather_rows_reference(table: torch.Tensor,
+                          idx: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: table [N, D], idx [T] -> [T, D]."""
+    return table[idx]
+
+
+def _host_index(idx, n_rows: int) -> torch.Tensor:
+    """The plan as a CPU int32/int64 tensor, every entry in [0, n_rows)."""
+    if isinstance(idx, np.ndarray):
+        idx = torch.from_numpy(np.ascontiguousarray(idx))
+    if not isinstance(idx, torch.Tensor) or idx.is_cuda:
+        raise TypeError("gather_rows: idx must be a host plan (numpy array "
+                        "or CPU tensor), checked before upload")
+    if idx.dim() != 1 or idx.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"gather_rows: idx must be 1-D int32/int64, got "
+                         f"{idx.dtype} {tuple(idx.shape)}")
+    if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= n_rows):
+        raise IndexError(f"gather_rows: index out of [0, {n_rows}): "
+                         f"[{int(idx.min())}, {int(idx.max())}]")
+    return idx
+
+
+def gather_rows(table: torch.Tensor, idx) -> torch.Tensor:
+    """table [N, D] (any dtype) gathered at the host plan idx [T] (numpy or
+    CPU tensor, int32 or int64, every entry in [0, N)).  Returns [T, D] on
+    the table's device."""
+    if table.dim() != 2:
+        raise ValueError(f"gather_rows: table must be 2-D, got "
+                         f"{tuple(table.shape)}")
+    idx = _host_index(idx, table.shape[0])
+    if not table.is_cuda:
+        return gather_rows_reference(table, idx)
+    if not table.is_contiguous() or table.data_ptr() % 16:
+        raise ValueError("gather_rows: table must be contiguous and "
+                         "16-byte aligned")
+    T, D = idx.shape[0], table.shape[1]
+    out = torch.empty((T, D), dtype=table.dtype, device=table.device)
+    if T == 0 or D == 0:
+        return out
+    idx_dev = idx.to(table.device, non_blocking=True)
+    err = kernels.library().lavida_gather_rows(
+        table.data_ptr(), idx_dev.data_ptr(), idx_dev.element_size(),
+        out.data_ptr(), T, D * table.element_size(),
+        torch.cuda.current_stream(table.device).cuda_stream)
+    kernels.check(err, "gather_rows")
+    gather_rows.launches += 1
+    return out
+
+
+gather_rows.launches = 0

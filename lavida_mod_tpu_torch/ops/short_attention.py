@@ -1,0 +1,124 @@
+"""Non-causal GQA attention with segment-id masking: the port of
+lavida_mod_tpu/ops/short_attention.py.
+
+`short_attention` dispatches on where its tensors lie.  CUDA tensors launch
+the hand-written Hopper kernel in `csrc/short_attention.cu` (online softmax
+over streamed K/V tiles, so every S is served, with no 4096 cap); CPU
+tensors run `short_attention_reference`, the plain PyTorch version of the
+same function.  There is no fallback from one to the other.
+
+Semantics (as the TPU kernel): head h reads K/V head h // G; a key is
+masked with the finite -1e30 when its segment id differs from the query's;
+scores and softmax are f32; p is cast to v's dtype before the PV product,
+which accumulates in f32; the output has q's dtype.  The TPU wrapper pads
+T and S to 128 with pad segments -1/-2; here the ragged edges are masked
+in the kernel instead, so a query row that matches no key of its segment
+averages v over the S real keys (the TPU kernel also counts its zero pad
+keys in that average).  The main path never builds such a row.
+
+Forward only: the TPU kernel's custom VJP (`_short_bwd`) belongs to the
+training slice.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import kernels
+
+NEG_INF = -1e30
+
+
+def short_attention_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    segment_ids_q: torch.Tensor | None = None,
+    segment_ids_kv: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain PyTorch version.  q [B, T, Hq, hd]; k, v [B, S, Hkv, hd];
+    segment ids [B, T] / [B, S] or None.  Returns [B, T, Hq, hd]."""
+    B, T, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, T, Hkv, G, hd).float()
+    s = torch.einsum("bthgd,bshd->bhgts", qg, k.float()) * (1.0 / hd ** 0.5)
+    if segment_ids_q is not None:
+        ok = (segment_ids_q[:, None, None, :, None]
+              == segment_ids_kv[:, None, None, None, :])
+        s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgts,bshd->bthgd", p.to(v.dtype).float(), v.float())
+    return o.reshape(B, T, Hq, hd).to(q.dtype)
+
+
+def _check_cuda_args(q, k, v, segment_ids_q, segment_ids_kv):
+    B, T, Hq, hd = q.shape
+    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B \
+            or k.shape[3] != hd:
+        raise ValueError(f"short_attention: q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)} v {tuple(v.shape)}")
+    if Hq % k.shape[2] != 0:
+        raise ValueError(f"short_attention: {Hq} q heads over "
+                         f"{k.shape[2]} kv heads")
+    if hd % 8 != 0 or hd > 128:
+        raise ValueError(f"short_attention: head dim {hd} must be a "
+                         f"multiple of 8 and at most 128")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"short_attention: {name} on {t.device}, "
+                             f"q on {q.device}")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"short_attention: {name} is {t.dtype}; the "
+                            f"CUDA kernel takes bfloat16")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"short_attention: {name} must be contiguous "
+                             f"and 16-byte aligned")
+    if (segment_ids_q is None) != (segment_ids_kv is None):
+        raise ValueError("short_attention: give both segment id arrays "
+                         "or neither")
+    if segment_ids_q is not None:
+        S = k.shape[1]
+        for name, t, shape in (("segment_ids_q", segment_ids_q, (B, T)),
+                               ("segment_ids_kv", segment_ids_kv, (B, S))):
+            if t.device != q.device or t.dtype != torch.int32 \
+                    or tuple(t.shape) != shape or not t.is_contiguous():
+                raise ValueError(
+                    f"short_attention: {name} must be contiguous int32 "
+                    f"{shape} on {q.device}; got {t.dtype} "
+                    f"{tuple(t.shape)} on {t.device}")
+
+
+def short_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    segment_ids_q: torch.Tensor | None = None,
+    segment_ids_kv: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Attention of q [B, T, Hq, hd] over k, v [B, S, Hkv, hd] (GQA when
+    Hq > Hkv), masked by segment-id equality when both id arrays
+    ([B, T] / [B, S] int32) are given.  CUDA: bf16, contiguous, hd a
+    multiple of 8 up to 128.  Returns [B, T, Hq, hd] in q's dtype."""
+    if not q.is_cuda:
+        return short_attention_reference(q, k, v, segment_ids_q,
+                                         segment_ids_kv)
+    _check_cuda_args(q, k, v, segment_ids_q, segment_ids_kv)
+    B, T, Hq, hd = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    masked = segment_ids_q is not None
+    err = kernels.library().lavida_short_attention_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        segment_ids_q.data_ptr() if masked else None,
+        segment_ids_kv.data_ptr() if masked else None, out.data_ptr(),
+        B, T, S, Hq, Hkv, hd, ctypes.c_float(1.0 / hd ** 0.5),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    kernels.check(err, "short_attention")
+    short_attention.launches += 1
+    return out
+
+
+short_attention.launches = 0

@@ -1,0 +1,119 @@
+"""The port's short-attention op (lavida_mod_tpu_torch.ops.short_attention)
+against the JAX package's Pallas kernel run in interpret mode on the CPU.
+
+On a CPU tensor the port's wrapper runs its plain PyTorch version, which
+is what these tests hold to `short_attention(..., interpret=True)` at the
+tolerance of tests/test_short_attention.py (atol = rtol = 2e-5, f32).  The
+CUDA kernel itself is checked against the plain version by the test that
+needs a card (skipped without one) and by chip_smoke.py.
+
+jax is imported only by the tests that compare with it, so the CUDA
+tests also run on a GPU machine without jax (or with jax on the GPU, where
+its TF32 default precision would not meet the CPU tolerance):
+    python -m pytest --noconftest -k cuda tests/test_torch_short_attention.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from lavida_mod_tpu_torch.ops import attention as tattn
+from lavida_mod_tpu_torch.ops.short_attention import (
+    short_attention, short_attention_reference)
+
+torch.set_num_threads(2)
+
+
+def _inputs(seed, B, T, S, Hq, Hkv, hd, masked):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, T, Hq, hd)).astype(np.float32)
+    k = rng.standard_normal((B, S, Hkv, hd)).astype(np.float32)
+    v = rng.standard_normal((B, S, Hkv, hd)).astype(np.float32)
+    q_seg = kv_seg = None
+    if masked:
+        q_seg = rng.integers(0, 2, (B, T)).astype(np.int32)
+        kv_seg = rng.integers(0, 2, (B, S)).astype(np.int32)
+        # every query keeps a key of its own segment (no all-masked row)
+        kv_seg[:, 0], kv_seg[:, 1] = 1, 0
+    return q, k, v, q_seg, kv_seg
+
+
+def _both(q, k, v, q_seg, kv_seg):
+    jnp = pytest.importorskip("jax.numpy")
+    from lavida_mod_tpu.ops.short_attention import short_attention as j_short
+
+    t = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    j = lambda a: None if a is None else jnp.asarray(a)       # noqa: E731
+    out_t = short_attention(t(q), t(k), t(v), t(q_seg), t(kv_seg))
+    out_j = j_short(j(q), j(k), j(v), j(q_seg), j(kv_seg), interpret=True)
+    return out_t.numpy(), np.asarray(out_j)
+
+
+@pytest.mark.parametrize("B,T,S,Hq,Hkv,hd,masked", [
+    (1, 128, 128, 4, 4, 64, False),     # MHA
+    (2, 128, 256, 4, 2, 64, False),     # GQA, S != T
+    (1, 130, 200, 2, 2, 64, False),     # ragged, not multiples of 128
+    (1, 100, 150, 4, 2, 64, True),      # ragged + GQA + segment ids
+    (2, 128, 256, 4, 4, 64, True),      # segment ids
+    (2, 60, 60, 4, 4, 72, False),       # SigLIP so400m head dim
+    (1, 50, 70, 4, 2, 128, True),       # LLaDA head dim
+])
+def test_plain_matches_jax_kernel(B, T, S, Hq, Hkv, hd, masked):
+    out_t, out_j = _both(*_inputs(0, B, T, S, Hq, Hkv, hd, masked))
+    np.testing.assert_allclose(out_t, out_j, atol=2e-5, rtol=2e-5)
+
+
+def test_padding_mask_like_prefill():
+    """The prefill's masks: every query valid, keys valid up to P of a
+    [P + G] buffer (the filled-rows mask)."""
+    q, k, v, _, _ = _inputs(1, 1, 37, 53, 4, 2, 16, False)
+    q_seg = np.ones((1, 37), np.int32)
+    kv_seg = (np.arange(53) < 37)[None].astype(np.int32)
+    out_t, out_j = _both(q, k, v, q_seg, kv_seg)
+    np.testing.assert_allclose(out_t, out_j, atol=2e-5, rtol=2e-5)
+
+
+def test_cpu_routes_do_not_launch_the_kernel():
+    q, k, v, q_seg, kv_seg = (torch.from_numpy(a) for a in
+                              _inputs(2, 1, 9, 11, 2, 1, 8, True))
+    before = short_attention.launches
+    ref = short_attention_reference(q, k, v, q_seg, kv_seg)
+    assert torch.equal(tattn.flash_attention(q, k, v, q_seg, kv_seg), ref)
+    assert torch.equal(tattn.vision_attention(q, k, v),
+                       short_attention_reference(q, k, v))
+    assert short_attention.launches == before
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("qs,ks,masked", [
+    ((5, 729, 16, 72), (5, 729, 16, 72), False),     # SigLIP layer
+    ((1, 1056, 32, 128), (1, 1088, 32, 128), True),  # LLaDA prefill
+    ((2, 77, 8, 64), (2, 131, 2, 64), True),         # GQA, odd lengths
+    ((1, 65, 4, 72), (1, 63, 2, 72), True),          # hd 72, S < T
+])
+def test_kernel_matches_plain_on_cuda(cuda, qs, ks, masked):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(*s, generator=g, device=cuda).bfloat16()
+               for s in (qs, ks, ks))
+    q_seg = kv_seg = None
+    if masked:
+        q_seg = torch.ones(qs[:2], dtype=torch.int32, device=cuda)
+        kv_seg = (torch.arange(ks[1], device=cuda) < qs[1]).int()[None] \
+            .expand(ks[0], -1).contiguous()
+        q_seg[:, -3:] = 2   # rows that match no key: a finite average
+    ref = short_attention_reference(q, k, v, q_seg, kv_seg)
+    assert torch.isfinite(ref).all()
+    before = short_attention.launches
+    out = short_attention(q, k, v, q_seg, kv_seg)
+    torch.cuda.synchronize()
+    assert short_attention.launches == before + 1
+    # p is rounded to bf16 per streamed tile, and the online rescaling
+    # sums in another order than the single-pass plain version
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
