@@ -11,7 +11,12 @@ lavida_mod_tpu/generation/diffusion.py for the serving slice.
     (kv_write_index=0) through the short-attention kernel, then
     `denoise_cached` runs the write-index decode of
     `_denoise_scan_cached_body` (diffusion.py:216-295), which writes each
-    step's G rows of K/V in place at rows [P, P+G).
+    step's G rows of K/V in place at rows [P, P+G).  With
+    `act_int8_prefill` (the mixed serving layout) the prefill runs the
+    blocks' int8 prefill tree with per-token int8 activations and the
+    denoise loop the decode linears -- `_generate_cached_fused_body`'s
+    `params` / `decode_params` / `act_int8_prefill` (diffusion.py:111-168),
+    with the two trees inside one module.
   - The JAX scan becomes a Python loop over the control table.  The table
     and the block ends stay device tensors: the loop reads no value back
     to the host, so prefill + denoise can later be captured as one CUDA
@@ -113,11 +118,14 @@ def generate_cached_fused(
     generator: Optional[torch.Generator],
     temperature: float,
     remasking: str,
+    act_int8_prefill: bool = False,
 ) -> torch.Tensor:
     """Prefill the prefix [B, P, D] into preallocated [B, P+G] K/V buffers
     through the short-attention kernel (the JAX path with
     use_flash_prefill=True), then denoise x [B, G].  prefix_valid [B, P]
-    bool masks front padding rows.  Returns the final [B, G] tokens."""
+    bool masks front padding rows.  act_int8_prefill: the prefill runs
+    the int8 prefill tree (A8 activations).  Returns the final [B, G]
+    tokens."""
     cfg = model.cfg
     B, P, _ = prefix_embeds.shape
     G = x.shape[1]
@@ -130,6 +138,6 @@ def generate_cached_fused(
             B, G, dtype=torch.bool, device=x.device)], dim=1)
     model(prefix_embeds, kv_cache=cache, kv_write_index=0, kv_valid=kvv,
           self_valid=prefix_valid, use_cache=True, return_logits=False,
-          use_flash=True)
+          use_flash=True, act_int8=act_int8_prefill)
     return denoise_cached(model, x, cache, k_table, block_end, prefix_valid,
                           generator, temperature, remasking)

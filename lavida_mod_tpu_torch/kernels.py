@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 Every `.cu` file under `csrc/` is compiled by `nvcc` for Hopper
-(`sm_90a`) into one shared library with a plain C interface, which is
-loaded with `ctypes`.  The build runs at first use, into `build/` beside
+(`sm_90a`), one compiler process per source, all started together, and the
+objects are linked into one shared library with a plain C interface, which
+is loaded with `ctypes`.  The build runs at first use, into `build/` beside
 this file (listed in `.gitignore`), and is keyed by a hash of the sources
 and flags, so an edited source is rebuilt and an unchanged one is reused.
 No PyTorch headers are compiled: a build takes seconds, not minutes.
@@ -24,9 +25,11 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
+# no --use_fast_math: `/` stays the IEEE quotient and expf/rsqrtf keep
+# their full-precision forms, which the plain versions compute too
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -63,21 +66,29 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: a concurrent build never
+    nvcc = _nvcc()
+    # compile to private names, then rename: a concurrent build never
     # loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in _sources()]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(_sources(), objs)]
+        logs = [p.communicate()[0] for p in procs]
+        lib = os.path.join(tmp, "lib.so")
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+             "-o", lib, *objs], capture_output=True, text=True)
+        log = "".join(f"== {src.name}\n{text}" for src, text in
+                      zip(_sources(), logs)) + link.stdout + link.stderr
+        out.with_suffix(".log").write_text(log)
+        failed = [src.name for src, p in zip(_sources(), procs)
+                  if p.returncode != 0]
+        if failed or link.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({failed or 'link'}):\n"
+                               f"{log[-4000:]}")
+        os.replace(lib, out)
     return out
 
 
@@ -93,6 +104,15 @@ def library() -> ctypes.CDLL:
     lib.lavida_short_attention_bf16.restype = ci
     lib.lavida_gather_rows.argtypes = [vp, vp, ci, vp, cl, cl, vp]
     lib.lavida_gather_rows.restype = ci
+    lib.lavida_w8a8_matmul.argtypes = [vp] * 5 + [ci, ci, ci, vp]
+    lib.lavida_act_quant.argtypes = [vp, vp, vp, ci, ci, ci, vp]
+    lib.lavida_w4_qkv_norm.argtypes = [vp] * 7 + [ci, ci, ci, cf, vp]
+    lib.lavida_w4_matmul_res.argtypes = [vp] * 7 + [ci, ci, ci, vp]
+    lib.lavida_w4_ffn_fused.argtypes = [vp] * 12 + [ci, ci, ci, ci, cf, vp]
+    for fn in (lib.lavida_w8a8_matmul, lib.lavida_act_quant,
+               lib.lavida_w4_qkv_norm, lib.lavida_w4_matmul_res,
+               lib.lavida_w4_ffn_fused):
+        fn.restype = ci
     return lib
 
 

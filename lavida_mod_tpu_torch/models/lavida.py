@@ -5,12 +5,16 @@ An nn.Module holding the LLaDA LM, the SigLIP tower, the projector and the
 image-newline vector, with the entry points:
   - `random_init(cfg, seed, dtype, device)`: seeded random weights made on
     the device itself (16 GB of LLaDA-8B never pass through the host);
-  - `from_jax(cfg, params, device)`: weights carried over from the JAX
-    package's params (a pytree of numpy arrays, convert.py);
+  - `from_jax(cfg, params, device, prefill_params=None)`: weights carried
+    over from the JAX package's params (a pytree of numpy arrays,
+    convert.py), bf16 or after `to_serving_layout`;
+  - `to_serving_layout(quant, fuse)`: the LM in a quantized serving layout
+    (lavida.py:299-333), quantized where it lies;
   - `generate_fused(...)`: vision encode, the one-gather splice, the
     prefill into preallocated K/V buffers and the denoise loop, with the
     contract of the JAX `LaViDa.generate_fused` (lavida.py:533-601) run
-    with use_flash_prefill=True.
+    with use_flash_prefill=True; in the mixed layout the prefill runs the
+    int8 tree with A8 activations (lavida.py:594-595).
 """
 
 from __future__ import annotations
@@ -73,16 +77,75 @@ class LaViDa(nn.Module):
 
     @classmethod
     def from_jax(cls, cfg: LaViDaConfig, params: dict, device,
-                 dtype: Optional[torch.dtype] = None) -> "LaViDa":
+                 dtype: Optional[torch.dtype] = None,
+                 prefill_params: Optional[dict] = None) -> "LaViDa":
         """The model with the JAX package's params (a pytree of numpy
-        arrays, LLaDA blocks stacked or unstacked) on `device`, in the
-        params' dtype unless `dtype` is given."""
-        from ..convert import state_dict_from_jax
+        arrays, LLaDA blocks stacked or unstacked, linears plain, int8 or
+        int4) on `device`, its float parameters in the params' dtype unless
+        `dtype` is given.  `prefill_params`: the JAX model's int8 prefill
+        tree of the mixed layout (`LaViDa.prefill_params`).  `cfg` is the
+        JAX model's config after `to_serving_layout` (the sequential
+        block layout when it fused)."""
+        from ..convert import prefill_state_from_jax, state_dict_from_jax
 
+        state = state_dict_from_jax(params)
+        if prefill_params is not None:
+            state.update(prefill_state_from_jax(prefill_params,
+                                                params["llada"]))
+        trims = {k[:-len(".__trim__")]: int(state.pop(k))
+                 for k in [k for k in state if k.endswith(".__trim__")]}
         model = cls(cfg, "meta")
-        model.load_state_dict(state_dict_from_jax(params), strict=True,
-                              assign=True)
-        return model.to(device=device, dtype=dtype).eval()
+        model.llada.adopt_layout({k[len("llada."):]: v
+                                  for k, v in state.items()
+                                  if k.startswith("llada.")})
+        for name, n in trims.items():
+            if model.get_submodule(name).out_features != n:
+                raise ValueError(f"{name}: __trim_{n}__ disagrees with the "
+                                 f"config")
+        model.load_state_dict(state, strict=True, assign=True)
+        model.to(device=device)
+        if dtype is not None:
+            for p in model.parameters():
+                p.data = p.data.to(dtype)
+        return model.eval()
+
+    @torch.no_grad()
+    def to_serving_layout(self, quant: str = "mixed",
+                          fuse: bool = True) -> "LaViDa":
+        """The LM in a serving layout, in place (lavida.py:299-333), the
+        weights quantized where they lie and each bf16 linear freed once
+        quantized:
+
+          (fuse, int4 or mixed: the sequential layout, `to_fused_layout`)
+          -> (mixed: the int8 prefill tree, quantized before the int4
+          pass frees the bf16 linears) -> int4 or int8 quantization.
+
+        quant: "mixed" (int8 prefill + int4 decode, bench.py's default),
+        "int4", "int8" or "none".  The prefill tree shares the embedding,
+        ln_f and the norms with the decode tree.  "int4" and "int8" alone
+        run int4 linears outside the fused plan (or int8 weight-only
+        linears), which need kernels not ported yet: they raise on CUDA."""
+        if quant not in ("mixed", "int4", "int8", "none"):
+            raise ValueError(f"quant {quant!r}")
+        if quant == "none":
+            return self
+        if quant != "mixed" and self.device.type == "cuda":
+            raise NotImplementedError(
+                f"the {quant} layout needs w4_matmul_grouped "
+                f"(pallas_w4.py:129), not ported yet; use 'mixed'")
+        if fuse and quant in ("int4", "mixed"):
+            self.cfg = self.cfg.replace(llada=self.llada.to_fused_layout())
+        if quant == "mixed":
+            self.llada.add_prefill_tree()
+        self.llada.quantize(4 if quant in ("int4", "mixed") else 8)
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        return self
+
+    @property
+    def mixed(self) -> bool:
+        """Whether the LM carries the mixed layout's int8 prefill tree."""
+        return self.llada.blocks[0].prefill is not None
 
     @torch.no_grad()
     def generate_fused(
@@ -137,5 +200,6 @@ class LaViDa(nn.Module):
         out = generate_cached_fused(
             self.llada, x, prefix, torch.as_tensor(k_table, device=device),
             torch.as_tensor(block_end, device=device), prefix_valid,
-            generator, gen.temperature, gen.remasking)
+            generator, gen.temperature, gen.remasking,
+            act_int8_prefill=self.mixed)
         return out[0].cpu().numpy()

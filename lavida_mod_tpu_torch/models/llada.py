@@ -1,10 +1,12 @@
 """LLaDA: the bidirectional (non-causal) diffusion-LM transformer, ported
-from lavida_mod_tpu/models/llada.py for the serving slice.
+from lavida_mod_tpu/models/llada.py for the serving slices.
 
 Covered: the "llama" block (separate q/k/v projections, SwiGLU as
-silu(ff_proj) * up_proj, RMSNorm, RoPE) that LLaDA-8B uses, with the layers
-in a list (the JAX package's unrolled inference layout), and the forward
-paths the slice runs:
+silu(ff_proj) * up_proj, RMSNorm, RoPE) that LLaDA-8B uses, and the fused
+"sequential" block `to_fused_layout` makes of it (att_proj = [q|k|v],
+ff_proj = [up|gate] chunked by the swiglu activation, llada.py:111-124,
+719-752), with the layers in a list (the JAX package's unrolled inference
+layout, `unstack_blocks`), and the forward paths the slices run:
   - a full forward over the input, optionally returning each layer's
     rotated K and V;
   - prefill with kv_write_index=0 into preallocated [B, P+G] buffers, the
@@ -15,9 +17,19 @@ paths the slice runs:
   - the f32 logits head (llada.py:700-708).
 The cache holds keys rotated once at write time, as in the JAX package.
 
-The "sequential"/fused layouts, quantized leaves, the int8 KV cache,
-scan/remat and the prefix-flash training attention raise
-NotImplementedError here; ROADMAP.md queues them.
+Quantized serving (`quantize`, `add_prefill_tree`; llada.py:807-866): a
+linear may be an `Int8Linear` or an `Int4Linear` (ops/quant.py).  With
+`act_int8` the blocks run their int8 prefill tree, when one is attached,
+through the W8A8 kernel.  A block whose four linears are unpadded int4 in
+the sequential/swiglu layout runs decode-sized rows (<= 32, a multiple of
+8) through the three fused W4A8 kernels (`fused_plan`, llada.py:142-197),
+and an int4 head through `w4_qkv_norm` on ln_f, its logits rounded to
+bf16 and then cast to f32 as in the JAX package (`head_fusable`,
+llada.py:200-216, 684-699).  Unlike the JAX package the plans engage on
+the CPU too, where the ops run their plain versions.
+
+The int8 KV cache, scan/remat and the prefix-flash training attention
+raise NotImplementedError here; ROADMAP.md queues them.
 """
 
 from __future__ import annotations
@@ -30,15 +42,24 @@ from torch import nn
 
 from lavida_mod_tpu.config import LLaDAConfig
 
+from ..ops.activations import silu
 from ..ops.attention import bmm_f32, dense_attention, flash_attention, make_bias
 from ..ops.norms import rms_norm
+from ..ops.quant import Int4Linear, Int8Linear, quantize_module
 from ..ops.rope import apply_rope, rope_tables
+from ..ops.w4_fused import w4_ffn_fused, w4_matmul_res, w4_qkv_norm
+
+_LAYOUTS = {"llama": "silu", "sequential": "swiglu"}
+_LINEARS = {"llama": ("q_proj", "k_proj", "v_proj", "attn_out", "ff_proj",
+                      "up_proj", "ff_out"),
+            "sequential": ("att_proj", "attn_out", "ff_proj", "ff_out")}
+
 
 def check_supported(cfg: LLaDAConfig) -> None:
-    """Raise NotImplementedError for a config outside this slice."""
+    """Raise NotImplementedError for a config outside the port."""
     unsupported = {
-        "block_type": cfg.block_type != "llama",
-        "activation": cfg.activation != "silu",
+        "block_type": cfg.block_type not in _LAYOUTS,
+        "activation": _LAYOUTS.get(cfg.block_type) != cfg.activation,
         "layer_norm_type": cfg.layer_norm_type != "rms",
         "rope": not cfg.rope,
         "attention_layer_norm": cfg.attention_layer_norm,
@@ -50,8 +71,22 @@ def check_supported(cfg: LLaDAConfig) -> None:
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
-            f"LLaDA port covers the llama/silu/rms block with untied head "
-            f"and rope only; unsupported: {bad}")
+            f"LLaDA port covers the llama/silu and sequential/swiglu rms "
+            f"blocks with untied head and rope only; unsupported: {bad}")
+
+
+def _block_n(*ns: int) -> Optional[int]:
+    """llada.py:137-139: the largest of 512/256/128 dividing every n."""
+    return next((b for b in (512, 256, 128)
+                 if all(n % b == 0 for n in ns)), None)
+
+
+def _run_linear(m: nn.Module, x: torch.Tensor, act_int8: bool = False,
+                preferred=None) -> torch.Tensor:
+    """`linear` / `linear_act_int8` (quant.py:170-230) on any linear kind."""
+    if isinstance(m, nn.Linear):
+        return m(x)
+    return m(x, act_int8=act_int8, preferred=preferred)
 
 
 class RMSNorm(nn.Module):
@@ -66,7 +101,10 @@ class RMSNorm(nn.Module):
 
 
 class LLaDABlock(nn.Module):
-    """One llama-layout block (llada.py:219-362)."""
+    """One block (llada.py:219-362) in the llama or the sequential layout.
+    `prefill`, when set, is a ModuleDict of the int8 twins of the linears
+    that `act_int8` forwards use (the mixed layout's prefill tree); the
+    norms are shared with the decode linears."""
 
     def __init__(self, cfg: LLaDAConfig, device, dtype=None):
         super().__init__()
@@ -76,16 +114,52 @@ class LLaDABlock(nn.Module):
         self.cfg = cfg
         self.attn_norm = RMSNorm(D, cfg.rms_norm_eps, device, dtype)
         self.ff_norm = RMSNorm(D, cfg.rms_norm_eps, device, dtype)
-        self.q_proj = nn.Linear(D, D, **lin)
-        self.k_proj = nn.Linear(D, kvD, **lin)
-        self.v_proj = nn.Linear(D, kvD, **lin)
         self.attn_out = nn.Linear(D, D, **lin)
-        self.ff_proj = nn.Linear(D, H, **lin)
-        self.up_proj = nn.Linear(D, H, **lin)
-        self.ff_out = nn.Linear(H, D, **lin)
+        if cfg.block_type == "llama":
+            self.q_proj = nn.Linear(D, D, **lin)
+            self.k_proj = nn.Linear(D, kvD, **lin)
+            self.v_proj = nn.Linear(D, kvD, **lin)
+            self.ff_proj = nn.Linear(D, H, **lin)
+            self.up_proj = nn.Linear(D, H, **lin)
+            self.ff_out = nn.Linear(H, D, **lin)
+        else:
+            self.att_proj = nn.Linear(D, D + 2 * kvD, **lin)
+            self.ff_proj = nn.Linear(D, H, **lin)         # [up | gate]
+            self.ff_out = nn.Linear(H // 2, D, **lin)
+        self.prefill: Optional[nn.ModuleDict] = None
+
+    @property
+    def linear_names(self) -> tuple[str, ...]:
+        return _LINEARS[self.cfg.block_type]
+
+    def _lin(self, name: str, x: torch.Tensor, act_int8: bool):
+        if act_int8 and self.prefill is not None:
+            return self.prefill[name](x, act_int8=True)
+        return _run_linear(getattr(self, name), x, act_int8)
+
+    def fused_plan(self, rows: int, act_int8: bool) -> bool:
+        """`_w4_fused_plan` (llada.py:142-197) as a geometry gate: the
+        sequential/swiglu layout, decode-sized rows, four unpadded int4
+        linears whose widths the TPU kernels' blocks divide."""
+        cfg = self.cfg
+        if act_int8 or cfg.block_type != "sequential":
+            return False
+        if rows > 32 or rows % 8:
+            return False
+        lins = [getattr(self, n) for n in self.linear_names]
+        if not all(isinstance(m, Int4Linear) and not m.padded for m in lins):
+            return False
+        D = self.att_proj.scales.shape[0] * 128
+        Nqkv = self.att_proj.scales.shape[1]
+        H2 = self.ff_proj.scales.shape[1]
+        Hd = self.ff_out.scales.shape[0] * 128
+        if Hd < H2 // 2 or D > 4096 or self.attn_out.scales.shape[1] != D:
+            return False
+        return (_block_n(Nqkv, D) is not None
+                and _block_n(H2, H2 // 2, Hd, D) is not None)
 
     def forward(self, x, *, sin, cos, positions, bias, layer_past,
-                kv_write_index, use_flash, q_seg, kv_seg):
+                kv_write_index, use_flash, q_seg, kv_seg, act_int8=False):
         """x [B, T, D] -> (x, (k, v)).  With `layer_past` (preallocated
         [B, S, Hkv, hd] buffers) this call's rotated k and v are written
         IN PLACE at rows [kv_write_index, kv_write_index + T) -- the JAX
@@ -94,12 +168,26 @@ class LLaDABlock(nn.Module):
         cfg = self.cfg
         B, T, D = x.shape
         Hq, Hkv, hd = cfg.n_heads, cfg.effective_n_kv_heads, cfg.head_dim
-        h = self.attn_norm(x)
-        q = self.q_proj(h).view(B, T, Hq, hd)
-        k = self.k_proj(h).view(B, T, Hkv, hd)
-        v = self.v_proj(h).view(B, T, Hkv, hd)
-        q = apply_rope(q, positions, sin, cos, cfg.rope_full_precision)
-        k = apply_rope(k, positions, sin, cos, cfg.rope_full_precision)
+        eps = cfg.rms_norm_eps
+        fused = self.fused_plan(B * T, act_int8)
+        if fused:
+            qkv = w4_qkv_norm(x.reshape(B * T, D), self.attn_norm.weight,
+                              self.att_proj.packed, self.att_proj.scales,
+                              eps).view(B, T, -1)
+            q, k, v = qkv.split([D, Hkv * hd, Hkv * hd], dim=-1)
+        elif cfg.block_type == "llama":
+            h = self.attn_norm(x)
+            q = self._lin("q_proj", h, act_int8)
+            k = self._lin("k_proj", h, act_int8)
+            v = self._lin("v_proj", h, act_int8)
+        else:
+            qkv = self._lin("att_proj", self.attn_norm(x), act_int8)
+            q, k, v = qkv.split([D, Hkv * hd, Hkv * hd], dim=-1)
+        q = apply_rope(q.reshape(B, T, Hq, hd), positions, sin, cos,
+                       cfg.rope_full_precision)
+        k = apply_rope(k.reshape(B, T, Hkv, hd), positions, sin, cos,
+                       cfg.rope_full_precision)
+        v = v.reshape(B, T, Hkv, hd)
         if layer_past is not None:
             pk, pv = layer_past
             pk[:, kv_write_index:kv_write_index + T].copy_(k)
@@ -109,14 +197,29 @@ class LLaDABlock(nn.Module):
             att = flash_attention(q, k, v, q_seg, kv_seg)
         else:
             att = dense_attention(q, k, v, bias=bias)
-        x = x + self.attn_out(att.reshape(B, T, D))
+        if fused:
+            x2 = w4_matmul_res(att.reshape(B * T, D).contiguous(),
+                               x.reshape(B * T, D), self.attn_out.packed,
+                               self.attn_out.scales)
+            x = w4_ffn_fused(x2, self.ff_norm.weight, self.ff_proj.packed,
+                             self.ff_proj.scales, self.ff_out.packed,
+                             self.ff_out.scales, eps).view(B, T, D)
+            return x, (k, v)
+        x = x + self._lin("attn_out", att.reshape(B, T, D), act_int8)
         h2 = self.ff_norm(x)
-        x = x + self.ff_out(F.silu(self.ff_proj(h2)) * self.up_proj(h2))
+        if cfg.block_type == "llama":
+            ff = (F.silu(self._lin("ff_proj", h2, act_int8))
+                  * self._lin("up_proj", h2, act_int8))
+        else:
+            # swiglu chunks (xx, gate) and returns silu(gate) * xx
+            xx, gate = self._lin("ff_proj", h2, act_int8).chunk(2, dim=-1)
+            ff = silu(gate) * xx
+        x = x + self._lin("ff_out", ff, act_int8)
         return x, (k, v)
 
 
 class LLaDA(nn.Module):
-    """Embedding, blocks, final RMSNorm and the untied f32 logits head."""
+    """Embedding, blocks, final RMSNorm and the untied logits head."""
 
     def __init__(self, cfg: LLaDAConfig, device, dtype=None):
         super().__init__()
@@ -145,16 +248,35 @@ class LLaDA(nn.Module):
             self._rope_key = key
         return self._rope
 
+    def head_fusable(self, rows: int) -> bool:
+        """`_w4_head_fusable` (llada.py:200-216): an int4 head over d_model
+        <= 4096 and decode-sized rows."""
+        head, D = self.ff_out, self.cfg.d_model
+        return (isinstance(head, Int4Linear) and rows <= 128
+                and rows % 8 == 0 and head.scales.shape[0] * 128 == D
+                and D <= 4096 and head.scales.shape[1] % 512 == 0)
+
     def logits(self, x: torch.Tensor) -> torch.Tensor:
-        """ln_f, then the head with an f32 result from the model-dtype
-        weight (XLA's preferred_element_type=f32): on CUDA the bf16 tensor
-        cores accumulate and write f32 (torch.bmm out_dtype), so no f32
-        copy of the 2 GB head is kept and logits are never rounded to
-        bf16, which would create confidence ties."""
-        x = self.ln_f(x)
+        """ln_f, then the head, f32 logits [B, T, V].
+
+        bf16 head: an f32 result from the model-dtype weight (XLA's
+        preferred_element_type=f32): on CUDA the bf16 tensor cores
+        accumulate and write f32 (torch.bmm out_dtype), so no f32 copy of
+        the 2 GB head is kept and logits are never rounded to bf16.
+        Fused int4 head: `w4_qkv_norm` on ln_f's weight, bf16 logits cast
+        to f32 (llada.py:684-699).  Other quantized heads: their linear with
+        an f32 result."""
         B, T, D = x.shape
-        w = self.ff_out.weight
-        return bmm_f32(x.reshape(1, B * T, D), w.t()[None]).view(B, T, -1)
+        head = self.ff_out
+        if self.head_fusable(B * T):
+            lg = w4_qkv_norm(x.reshape(B * T, D), self.ln_f.weight,
+                             head.packed, head.scales, self.cfg.rms_norm_eps)
+            return lg[:, :head.out_features].float().view(B, T, -1)
+        x = self.ln_f(x)
+        if isinstance(head, nn.Linear):
+            return bmm_f32(x.reshape(1, B * T, D), head.weight.t()[None]) \
+                .view(B, T, -1)
+        return _run_linear(head, x, preferred=torch.float32)
 
     def forward(
         self,
@@ -168,6 +290,7 @@ class LLaDA(nn.Module):
         use_cache: bool = False,
         return_logits: bool = True,
         use_flash: bool = False,
+        act_int8: bool = False,
     ):
         """Run the blocks on input embeddings [B, T, D].
 
@@ -180,6 +303,8 @@ class LLaDA(nn.Module):
           bool over this call's rows.
         use_flash: attention through the short-attention kernel, masked by
           segment ids; otherwise dense attention with an additive bias.
+        act_int8: per-token int8 activations on int8 linears, through the
+          blocks' prefill tree when they have one (linear_act_int8).
 
         Returns (logits [B, T, V] f32, or ln_f(hidden) [B, T, D] when
         return_logits is False; the per-layer (k, v) list when use_cache,
@@ -226,10 +351,89 @@ class LLaDA(nn.Module):
                 x, sin=sin, cos=cos, positions=positions, bias=bias,
                 layer_past=None if kv_cache is None else kv_cache[li],
                 kv_write_index=kv_write_index, use_flash=use_flash,
-                q_seg=q_seg, kv_seg=kv_seg)
+                q_seg=q_seg, kv_seg=kv_seg, act_int8=act_int8)
             if use_cache:
                 presents.append(present)
         new_cache = presents if use_cache else None
         if not return_logits:
             return self.ln_f(x), new_cache
         return self.logits(x), new_cache
+
+    # ------------------------------------------------------------------
+    # serving layouts
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def to_fused_layout(self) -> LLaDAConfig:
+        """llada.py:719-752 in place: each llama block becomes a sequential
+        block with att_proj = [q|k|v] and ff_proj = [up|gate] (swiglu
+        chunking gives silu(gate) * up), the old linears freed block by
+        block.  Returns (and takes) the sequential config."""
+        cfg = self.cfg
+        if cfg.block_type != "llama":
+            raise ValueError("to_fused_layout needs llama-layout blocks")
+        new_cfg = cfg.replace(block_type="sequential", activation="swiglu",
+                              mlp_hidden_size=2 * cfg.hidden_size)
+        D = cfg.d_model
+        for b in self.blocks:
+            if not all(isinstance(getattr(b, n), nn.Linear)
+                       for n in b.linear_names):
+                raise ValueError("fuse before quantization")
+            qkv = [b.q_proj.weight, b.k_proj.weight, b.v_proj.weight]
+            upgate = [b.up_proj.weight, b.ff_proj.weight]
+            del b.q_proj, b.k_proj, b.v_proj, b.up_proj, b.ff_proj
+            for name, parts in (("att_proj", qkv), ("ff_proj", upgate)):
+                w = torch.cat(parts)
+                m = nn.Linear(D, w.shape[0], bias=False, device="meta")
+                m.weight = nn.Parameter(w)
+                setattr(b, name, m)
+            del qkv, upgate, parts, w
+            b.cfg = new_cfg
+        self.cfg = new_cfg
+        return new_cfg
+
+    @torch.no_grad()
+    def add_prefill_tree(self) -> None:
+        """The mixed layout's int8 prefill tree (lavida.py:327-328): each
+        block's linears quantized to int8 (`quantize_linear`) beside the
+        ones it has, sharing its norms; `act_int8` forwards run them.  The
+        head is left out: the prefill returns no logits."""
+        for b in self.blocks:
+            b.prefill = nn.ModuleDict({
+                n: Int8Linear.from_linear(getattr(b, n))
+                for n in b.linear_names})
+
+    @torch.no_grad()
+    def quantize(self, bits: int) -> None:
+        """`quantize_params(consume=True)` (llada.py:807-866) in place:
+        every linear of the blocks and the head becomes int8 (bits 8) or
+        grouped int4 (bits 4; int8 where K breaks the 128-group), each bf16
+        weight freed as soon as its quantized twin exists.  Norms and the
+        embedding stay as they are."""
+        for b in self.blocks:
+            for n in b.linear_names:
+                setattr(b, n, quantize_module(getattr(b, n), bits))
+        self.ff_out = quantize_module(self.ff_out, bits)
+
+    def adopt_layout(self, state: dict) -> None:
+        """Swap each linear for the kind `state` holds (keys of a quantized
+        state dict: `.weight_q` int8, `.packed` int4, `blocks.i.prefill.*`
+        an int8 prefill tree), as meta modules for load_state_dict(assign=
+        True); the true widths come from this model's config."""
+        def kind(prefix, lin):
+            if prefix + "packed" in state:
+                return Int4Linear(lin.in_features, lin.out_features, "meta")
+            if prefix + "weight_q" in state:
+                return Int8Linear(lin.in_features, lin.out_features, "meta")
+            return lin
+
+        for i, b in enumerate(self.blocks):
+            pre = f"blocks.{i}."
+            for n in b.linear_names:
+                setattr(b, n, kind(f"{pre}{n}.", getattr(b, n)))
+            if any(k.startswith(pre + "prefill.") for k in state):
+                b.prefill = nn.ModuleDict({
+                    n: Int8Linear(getattr(b, n).in_features,
+                                  getattr(b, n).out_features, "meta")
+                    for n in b.linear_names})
+        self.ff_out = kind("ff_out.", self.ff_out)

@@ -9,8 +9,9 @@ from __future__ import annotations
 import re
 
 import torch
-import torch.nn.functional as F
 from torch import nn
+
+from ..ops.activations import gelu_erf
 
 
 def mlp_depth(projector_type: str) -> int:
@@ -35,6 +36,6 @@ class Projector(nn.Module):
         """[N, tokens, mm_hidden] -> [N, tokens, hidden]."""
         for i, layer in enumerate(self.layers):
             if i > 0:
-                x = F.gelu(x)
+                x = gelu_erf(x)
             x = layer(x)
         return x

@@ -19,12 +19,12 @@ fused ViT-MLP kernel (off in `generate_fused`), int8 towers and LoRA.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from lavida_mod_tpu.config import SigLIPConfig
 
 from ..ops.attention import vision_attention
+from ..ops.activations import gelu_tanh
 from ..ops.norms import layer_norm
 
 
@@ -64,7 +64,7 @@ class SigLIPLayer(nn.Module):
                                self.k_proj(z).view(N, T, nh, hd),
                                self.v_proj(z).view(N, T, nh, hd))
         h = h + self.out_proj(att.reshape(N, T, D))
-        z = F.gelu(self.fc1(self.ln2(h)), approximate="tanh")
+        z = gelu_tanh(self.fc1(self.ln2(h)))
         return h + self.fc2(z)
 
 

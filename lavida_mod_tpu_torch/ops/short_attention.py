@@ -9,8 +9,9 @@ same function.  There is no fallback from one to the other.
 
 Semantics (as the TPU kernel): head h reads K/V head h // G; a key is
 masked with the finite -1e30 when its segment id differs from the query's;
-scores and softmax are f32; p is cast to v's dtype before the PV product,
-which accumulates in f32; the output has q's dtype.  The TPU wrapper pads
+scores and softmax are f32; the unnormalized p = exp(s - max) is cast to
+v's dtype before the PV product, which accumulates in f32 and is divided
+by the row sum; the output has q's dtype.  The TPU wrapper pads
 T and S to 128 with pad segments -1/-2; here the ragged edges are masked
 in the kernel instead, so a query row that matches no key of its segment
 averages v over the S real keys (the TPU kernel also counts its zero pad
@@ -49,9 +50,12 @@ def short_attention_reference(
         ok = (segment_ids_q[:, None, None, :, None]
               == segment_ids_kv[:, None, None, None, :])
         s = torch.where(ok, s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgts,bshd->bthgd", p.to(v.dtype).float(), v.float())
-    return o.reshape(B, T, Hq, hd).to(q.dtype)
+    # the TPU kernel's order: unnormalized p rounded to v's dtype for the
+    # PV product, the row sum applied after it
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    o = torch.einsum("bhgts,bshd->bhgtd", p.to(v.dtype).float(), v.float())
+    o = o / p.sum(dim=-1, keepdim=True)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, T, Hq, hd).to(q.dtype)
 
 
 def _check_cuda_args(q, k, v, segment_ids_q, segment_ids_kv):

@@ -1,0 +1,205 @@
+"""Fused W4A8 decode-layer ops: the port of lavida_mod_tpu/ops/w4_fused.py
+(kernels #5 `w4_qkv_norm`, #6 `w4_matmul_res`, #7 `w4_ffn_fused`).
+
+  w4_qkv_norm   RMSNorm -> per-token int8 -> grouped-int4 dot -> * sx
+                (the fused [q|k|v] projection, and the logits head on ln_f)
+  w4_matmul_res A8 quantization of `a`, grouped-int4 dot, * sa + res
+                (the attention output projection and its residual)
+  w4_ffn_fused  RMSNorm -> A8 -> [up|gate] int4 -> bf16 -> SwiGLU (f32 math,
+                bf16 result) -> per-token A8 -> down int4 -> + x
+
+The int4 weights are in the fragment layout of ops/quant.py, the grouped
+scales [K/128, N] f32 as in the JAX package.  CUDA tensors launch the
+kernels of csrc/w4_fused.cu; CPU tensors run the `*_reference` plain
+versions, which port `_rms_quant` (w4_fused.py:65-75) and `_group_dot_acc`
+(:46-62) exactly: each 128-group's integer dot is exact, and the f32
+accumulator takes `acc + d_g * s_g` group by group, in order, as the
+kernels do.  Each op counts its calls on the card in `.launches`, one per
+call (a call is a row pre-pass and a GEMM launch; for `w4_ffn_fused` two
+of each).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import kernels
+from .quant import GROUP, quantize_act_w4, unpack_w4
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def rms_quant(x: torch.Tensor, norm_w: torch.Tensor, eps: float):
+    """`_rms_quant`: RMSNorm with f32 statistics and a bf16 affine, then
+    the W4A8 per-token int8.  x [T, D] -> (x8 int8 [T, D], sx f32 [T, 1])."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    h = (xf * torch.rsqrt(var + eps)).to(torch.bfloat16)
+    h = (h * norm_w.to(torch.bfloat16)).float()
+    return quantize_act_w4(h)
+
+
+def group_dot_acc(x8: torch.Tensor, packed: torch.Tensor,
+                  scales: torch.Tensor) -> torch.Tensor:
+    """`_group_dot_acc` over the whole K: sum_g scales[g] * (x8[:, g] @
+    W[g]) in f32, group by group.  x8 [T, K] int8 -> [T, N] f32."""
+    w = unpack_w4(packed)
+    K, N = w.shape
+    G = K // GROUP
+    d = torch.einsum("tgk,gkn->gtn", x8.double().reshape(-1, G, GROUP),
+                     w.double().reshape(G, GROUP, N)).float()
+    acc = torch.zeros(x8.shape[0], N, dtype=torch.float32, device=x8.device)
+    for g in range(G):
+        acc = acc + d[g] * scales[g]
+    return acc
+
+
+def w4_qkv_norm_reference(x, norm_w, packed, scales, eps):
+    x8, sx = rms_quant(x, norm_w, eps)
+    return (group_dot_acc(x8, packed, scales) * sx).to(torch.bfloat16)
+
+
+def w4_matmul_res_reference(a, res, packed, scales):
+    a8, sa = quantize_act_w4(a)
+    acc = group_dot_acc(a8, packed, scales)
+    return (acc * sa + res.float()).to(torch.bfloat16)
+
+
+def swiglu_quant(prod: torch.Tensor):
+    """The SwiGLU transition of w4_ffn_fused (w4_fused.py:397-422): prod
+    [T, 2H] bf16 = [up | gate]; inter = (g * sigmoid(g)) * up in f32,
+    rounded to bf16; then per-token A8.  -> (a8, sa, inter)."""
+    H = prod.shape[1] // 2
+    up, g = prod[:, :H].float(), prod[:, H:].float()
+    inter = (g * torch.sigmoid(g) * up).to(torch.bfloat16)
+    a8, sa = quantize_act_w4(inter)
+    return a8, sa, inter
+
+
+def w4_ffn_fused_reference(x, norm_w, up_packed, up_scales, dn_packed,
+                           dn_scales, eps):
+    x8, sx = rms_quant(x, norm_w, eps)
+    prod = (group_dot_acc(x8, up_packed, up_scales) * sx).to(torch.bfloat16)
+    a8, sa, _ = swiglu_quant(prod)
+    Hd = dn_packed.shape[1] * GROUP
+    if Hd != a8.shape[1]:      # down K zero-padded (padded_in_dim)
+        a8 = torch.nn.functional.pad(a8, (0, Hd - a8.shape[1]))
+    acc = group_dot_acc(a8, dn_packed, dn_scales)
+    return (acc * sa + x.float()).to(torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _need(name, t, dtype, shape, device):
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape \
+            or not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name} must be contiguous 16-byte aligned {dtype} "
+                         f"{shape} on {device}; got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+
+
+def _weights(op, packed, scales, K, device):
+    """(N) of a fragment-layout weight with K input rows, checked."""
+    if packed.dim() != 3 or packed.shape[1] * GROUP != K \
+            or packed.shape[2] != 512:
+        raise ValueError(f"{op}: packed {tuple(packed.shape)} does not hold "
+                         f"K = {K} rows in the fragment layout")
+    N = packed.shape[0] * 8
+    if N % 32:
+        raise ValueError(f"{op}: N = {N} must be a multiple of 32")
+    _need(f"{op}: packed", packed, torch.uint8, tuple(packed.shape), device)
+    _need(f"{op}: scales", scales, torch.float32, (K // GROUP, N), device)
+    return N
+
+
+def _rows(op, x, width):
+    T = x.shape[0]
+    if x.dim() != 2 or x.shape[1] != width or T < 1:
+        raise ValueError(f"{op}: x {tuple(x.shape)}, want [T, {width}]")
+    _need(f"{op}: x", x, torch.bfloat16, (T, width), x.device)
+    return T
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def w4_qkv_norm(x, norm_w, packed, scales, eps: float = 1e-5):
+    """rmsnorm(x) @ W4 -> [T, N] bf16, with the norm and A8 quantization
+    in a pre-pass of the same call.  x [T, D] bf16, norm_w [D] bf16."""
+    if not x.is_cuda:
+        return w4_qkv_norm_reference(x, norm_w, packed, scales, eps)
+    D = packed.shape[1] * GROUP
+    T = _rows("w4_qkv_norm", x, D)
+    N = _weights("w4_qkv_norm", packed, scales, D, x.device)
+    _need("w4_qkv_norm: norm_w", norm_w, torch.bfloat16, (D,), x.device)
+    x8 = torch.empty(T, D, dtype=torch.int8, device=x.device)
+    sx = torch.empty(T, dtype=torch.float32, device=x.device)
+    out = torch.empty(T, N, dtype=torch.bfloat16, device=x.device)
+    kernels.check(kernels.library().lavida_w4_qkv_norm(
+        x.data_ptr(), norm_w.data_ptr(), packed.data_ptr(),
+        scales.data_ptr(), x8.data_ptr(), sx.data_ptr(), out.data_ptr(),
+        T, D, N, eps, _stream(x)), "w4_qkv_norm")
+    w4_qkv_norm.launches += 1
+    return out
+
+
+def w4_matmul_res(a, res, packed, scales):
+    """res + (a @ W4) -> [T, N] bf16, a [T, K] and res [T, N] bf16."""
+    if not a.is_cuda:
+        return w4_matmul_res_reference(a, res, packed, scales)
+    K = packed.shape[1] * GROUP
+    T = _rows("w4_matmul_res", a, K)
+    N = _weights("w4_matmul_res", packed, scales, K, a.device)
+    _need("w4_matmul_res: res", res, torch.bfloat16, (T, N), a.device)
+    a8 = torch.empty(T, K, dtype=torch.int8, device=a.device)
+    sa = torch.empty(T, dtype=torch.float32, device=a.device)
+    out = torch.empty(T, N, dtype=torch.bfloat16, device=a.device)
+    kernels.check(kernels.library().lavida_w4_matmul_res(
+        a.data_ptr(), res.data_ptr(), packed.data_ptr(), scales.data_ptr(),
+        a8.data_ptr(), sa.data_ptr(), out.data_ptr(), T, K, N, _stream(a)),
+        "w4_matmul_res")
+    w4_matmul_res.launches += 1
+    return out
+
+
+def w4_ffn_fused(x, norm_w, up_packed, up_scales, dn_packed, dn_scales,
+                 eps: float = 1e-5):
+    """x + down(swiglu(rmsnorm(x) @ W_upgate)) -> [T, D] bf16.  up|gate
+    [D -> 2H] with up first; down [Hd -> D], Hd >= H (zero rows past H)."""
+    if not x.is_cuda:
+        return w4_ffn_fused_reference(x, norm_w, up_packed, up_scales,
+                                      dn_packed, dn_scales, eps)
+    D = up_packed.shape[1] * GROUP
+    T = _rows("w4_ffn_fused", x, D)
+    H2 = _weights("w4_ffn_fused: up", up_packed, up_scales, D, x.device)
+    Hd = dn_packed.shape[1] * GROUP
+    H = H2 // 2
+    if H % 32 or Hd < H or Hd % GROUP:
+        raise ValueError(f"w4_ffn_fused: H = {H}, Hd = {Hd}")
+    if _weights("w4_ffn_fused: down", dn_packed, dn_scales, Hd,
+                x.device) != D:
+        raise ValueError("w4_ffn_fused: down must map back to D")
+    _need("w4_ffn_fused: norm_w", norm_w, torch.bfloat16, (D,), x.device)
+    x8 = torch.empty(T, D, dtype=torch.int8, device=x.device)
+    sx = torch.empty(T, dtype=torch.float32, device=x.device)
+    inter = torch.empty(T, H, dtype=torch.bfloat16, device=x.device)
+    a8 = torch.empty(T, Hd, dtype=torch.int8, device=x.device)
+    sa = torch.empty(T, dtype=torch.float32, device=x.device)
+    out = torch.empty(T, D, dtype=torch.bfloat16, device=x.device)
+    kernels.check(kernels.library().lavida_w4_ffn_fused(
+        x.data_ptr(), norm_w.data_ptr(), up_packed.data_ptr(),
+        up_scales.data_ptr(), dn_packed.data_ptr(), dn_scales.data_ptr(),
+        x8.data_ptr(), sx.data_ptr(), inter.data_ptr(), a8.data_ptr(),
+        sa.data_ptr(), out.data_ptr(), T, D, H, Hd, eps, _stream(x)),
+        "w4_ffn_fused")
+    w4_ffn_fused.launches += 1
+    return out
+
+
+w4_qkv_norm.launches = 0
+w4_matmul_res.launches = 0
+w4_ffn_fused.launches = 0

@@ -1,0 +1,261 @@
+"""The port's fused W4A8 decode ops (lavida_mod_tpu_torch.ops.w4_fused)
+against the JAX package's Pallas kernels run in interpret mode on the CPU,
+at the shapes of tests/test_w4_fused.py.
+
+On a CPU tensor each wrapper runs its plain PyTorch version.
+  - In this process (XLA's default excess precision) the plain versions
+    stay inside tests/test_w4_fused.py's bands: 2 % for one stage, 3 % for
+    the FFN chain (max |diff| / max |ref|).
+  - With excess precision off (tests/torch_jax_strict.py), where XLA keeps
+    every bf16 rounding the kernels write, qkv_norm and matmul_res are
+    bit-exact.  The FFN's SwiGLU takes XLA's logistic on one side and
+    1 / (1 + exp(-g)) on the other; they differ in the last bit for a few
+    inputs, and a bf16 intermediate that rounds the other way can move an
+    activation code by one: 1 % of max |ref| bounds that.
+The CUDA kernels are held to the plain versions on the card by the tests
+that need one (skipped without), at the LLaDA-8B decode shapes:
+    python -m pytest --noconftest -k cuda tests/test_torch_w4_fused.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from lavida_mod_tpu_torch.ops import quant as tq
+from lavida_mod_tpu_torch.ops import w4_fused as tw
+from torch_jax_strict import strict_jax
+
+torch.set_num_threads(2)
+
+TOL, TOL_CHAIN = 0.02, 0.03
+
+# (op, shape args) -- tests/test_w4_fused.py's cases
+CASES = [
+    ("qkv", dict(T=32, D=256, N=384)),
+    ("qkv", dict(T=16, D=512, N=1024)),
+    ("res", dict(T=32, K=256, N=256)),
+    ("res", dict(T=32, K=384, N=128)),
+    ("ffn", dict(T=32, D=256, H=384, Hd=384)),
+    ("ffn", dict(T=32, D=512, H=512, Hd=512)),
+    ("ffn", dict(T=32, D=256, H=384, Hd=512)),     # padded down K
+    ("ffn", dict(T=16, D=512, H=1536, Hd=1536)),   # the 8B block structure
+]
+
+
+def _bf16(a):
+    """f32 values that bf16 represents exactly (both frameworks read them
+    without rounding)."""
+    return torch.from_numpy(np.asarray(a, np.float32)).bfloat16().float() \
+        .numpy()
+
+
+def _w4(rng, K, N, Kp=None):
+    w = rng.standard_normal((K, N)).astype(np.float32) * 0.05
+    if Kp is not None:
+        w = np.pad(w, ((0, Kp - K), (0, 0)))
+    return tq.quantize_w4_grouped(w)
+
+
+def _inputs(op, seed, T, **d):
+    rng = np.random.default_rng(seed)
+    if op == "qkv":
+        packed, scales = _w4(rng, d["D"], d["N"])
+        return dict(x=_bf16(rng.standard_normal((T, d["D"]))),
+                    nw=_bf16(rng.standard_normal(d["D"])),
+                    packed=packed, scales=scales)
+    if op == "res":
+        packed, scales = _w4(rng, d["K"], d["N"])
+        return dict(a=_bf16(rng.standard_normal((T, d["K"]))),
+                    res=_bf16(rng.standard_normal((T, d["N"]))),
+                    packed=packed, scales=scales)
+    up_p, up_s = _w4(rng, d["D"], 2 * d["H"])
+    dn_p, dn_s = _w4(rng, d["H"], d["D"], d["Hd"])
+    return dict(x=_bf16(rng.standard_normal((T, d["D"]))),
+                nw=_bf16(1.0 + 0.1 * rng.standard_normal(d["D"])),
+                up_p=up_p, up_s=up_s, dn_p=dn_p, dn_s=dn_s)
+
+
+def _port(op, a):
+    b = lambda k: torch.from_numpy(a[k]).bfloat16()        # noqa: E731
+    f = lambda k: torch.from_numpy(tq.unpack_w4_jax(a[k]))  # noqa: E731
+    w = lambda k: tq.pack_w4_frag(f(k))                     # noqa: E731
+    s = lambda k: torch.from_numpy(a[k])                    # noqa: E731
+    if op == "qkv":
+        out = tw.w4_qkv_norm(b("x"), b("nw"), w("packed"), s("scales"), 1e-5)
+    elif op == "res":
+        out = tw.w4_matmul_res(b("a"), b("res"), w("packed"), s("scales"))
+    else:
+        out = tw.w4_ffn_fused(b("x"), b("nw"), w("up_p"), s("up_s"),
+                              w("dn_p"), s("dn_s"), 1e-5)
+    return out.float().numpy()
+
+
+# the JAX side, as code so it can also run in the strict child process
+JAX_CASE = """
+import jax.numpy as jnp
+from lavida_mod_tpu.ops.w4_fused import w4_ffn_fused, w4_matmul_res, w4_qkv_norm
+
+def jax_case(op, a):
+    b = lambda k: jnp.asarray(a[k], jnp.bfloat16)
+    j = lambda k: jnp.asarray(a[k])
+    if op == "qkv":
+        out = w4_qkv_norm(b("x"), b("nw"), j("packed"), j("scales"),
+                          eps=1e-5, block_n=128, interpret=True)
+    elif op == "res":
+        out = w4_matmul_res(b("a"), b("res"), j("packed"), j("scales"),
+                            block_n=128, interpret=True)
+    else:
+        out = w4_ffn_fused(b("x"), b("nw"), j("up_p"), j("up_s"), j("dn_p"),
+                           j("dn_s"), eps=1e-5, block_n=128, interpret=True)
+    return np.asarray(out.astype(jnp.float32))
+"""
+
+
+def _rel_err(a, b):
+    return np.abs(a - b).max() / max(np.abs(b).max(), 1e-6)
+
+
+@pytest.mark.parametrize("i", range(len(CASES)))
+def test_plain_within_band_of_jax_kernel(i):
+    ns = {"np": np}
+    exec(JAX_CASE, ns)
+    op, d = CASES[i]
+    a = _inputs(op, i, **d)
+    got, want = _port(op, a), ns["jax_case"](op, a)
+    assert got.shape == want.shape
+    assert _rel_err(got, want) < (TOL_CHAIN if op == "ffn" else TOL)
+
+
+def test_plain_bit_exact_without_excess_precision(tmp_path):
+    inputs = {}
+    for i, (op, d) in enumerate(CASES):
+        inputs.update({f"{i}/{k}": v for k, v in _inputs(op, i, **d).items()})
+    ref = strict_jax(JAX_CASE + f"""
+CASES = {[op for op, _ in CASES]!r}
+for i, op in enumerate(CASES):
+    a = {{k.split("/", 1)[1]: v for k, v in IN.items()
+         if k.startswith(f"{{i}}/")}}
+    OUT[str(i)] = jax_case(op, a)
+""", tmp_path, inputs)
+    for i, (op, d) in enumerate(CASES):
+        got = _port(op, _inputs(op, i, **d))
+        if op == "ffn":
+            assert _rel_err(got, ref[str(i)]) < 0.01, (op, d)
+        else:
+            np.testing.assert_array_equal(got, ref[str(i)],
+                                          err_msg=f"{op} {d}")
+
+
+def test_group_dot_acc_order():
+    """`group_dot_acc` adds d_g * s_g group by group into an f32
+    accumulator: bit-equal to that loop written out, and NOT in general to
+    the one-contraction form of `_linear_w4`'s CPU path."""
+    rng = np.random.default_rng(3)
+    packed, scales = _w4(rng, 1024, 256)
+    x8 = torch.from_numpy(rng.integers(-127, 128, (8, 1024)).astype(np.int8))
+    w = torch.from_numpy(tq.unpack_w4_jax(packed)).long()
+    s = torch.from_numpy(scales)
+    want = torch.zeros(8, 256)
+    for g in range(8):
+        d = (x8[:, g * 128:(g + 1) * 128].long()
+             @ w[g * 128:(g + 1) * 128]).float()
+        want = want + d * s[g]
+    got = tw.group_dot_acc(x8, tq.pack_w4_frag(w.to(torch.int8)), s)
+    assert torch.equal(got, want)
+
+
+def test_cpu_routes_count_no_launch():
+    a = _inputs("ffn", 0, **CASES[4][1])
+    before = (tw.w4_qkv_norm.launches, tw.w4_matmul_res.launches,
+              tw.w4_ffn_fused.launches)
+    _port("ffn", a)
+    _port("qkv", _inputs("qkv", 0, **CASES[0][1]))
+    _port("res", _inputs("res", 2, **CASES[2][1]))
+    assert (tw.w4_qkv_norm.launches, tw.w4_matmul_res.launches,
+            tw.w4_ffn_fused.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels against the plain versions on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _card_weights(K, N, gen, device):
+    w = torch.randn(N, K, generator=gen, device=device) * 0.02
+    packed, scales, _ = tq.quantize_linear4(w)
+    return packed, scales
+
+
+def _check(out, ref, band):
+    """Exact up to activation codes that flip on a rounding boundary: the
+    kernels reduce the RMSNorm statistics in another order than torch."""
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    err = _rel_err(out.float().cpu().numpy(), ref.float().cpu().numpy())
+    assert err < band, err
+    return err
+
+
+@pytest.mark.parametrize("T,D,N", [(32, 4096, 12288), (32, 4096, 126464),
+                                   (8, 384, 96), (40, 256, 160)])
+def test_qkv_norm_kernel_matches_plain_on_cuda(cuda, T, D, N):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(T, D, generator=g, device=cuda).bfloat16()
+    nw = (1 + 0.1 * torch.randn(D, generator=g, device=cuda)).bfloat16()
+    packed, scales = _card_weights(D, N, g, cuda)
+    scales = scales[:, :N].contiguous()
+    packed = packed[:N // 8].contiguous()
+    before = tw.w4_qkv_norm.launches
+    out = tw.w4_qkv_norm(x, nw, packed, scales, 1e-5)
+    torch.cuda.synchronize()
+    assert tw.w4_qkv_norm.launches == before + 1
+    _check(out, tw.w4_qkv_norm_reference(x, nw, packed, scales, 1e-5), 1e-2)
+
+
+@pytest.mark.parametrize("T,K,N", [(32, 4096, 4096), (5, 384, 64)])
+def test_matmul_res_kernel_matches_plain_on_cuda(cuda, T, K, N):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    a = torch.randn(T, K, generator=g, device=cuda).bfloat16()
+    res = torch.randn(T, N, generator=g, device=cuda).bfloat16()
+    packed, scales = _card_weights(K, N, g, cuda)
+    packed, scales = packed[:N // 8].contiguous(), scales[:, :N].contiguous()
+    out = tw.w4_matmul_res(a, res, packed, scales)
+    ref = tw.w4_matmul_res_reference(a, res, packed, scales)
+    torch.cuda.synchronize()
+    # same quantization formula, exact group dots, same f32 order
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("T,D,H,Hd", [(32, 4096, 12288, 12288),
+                                      (24, 256, 384, 512)])
+def test_ffn_fused_kernel_matches_plain_on_cuda(cuda, T, D, H, Hd):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(T, D, generator=g, device=cuda).bfloat16()
+    nw = (1 + 0.1 * torch.randn(D, generator=g, device=cuda)).bfloat16()
+    up_p, up_s = _card_weights(D, 2 * H, g, cuda)
+    w = torch.randn(D, H, generator=g, device=cuda) * 0.02
+    dn_p, dn_s, _ = tq.quantize_linear4(
+        torch.nn.functional.pad(w, (0, Hd - H)))
+    up_p, up_s = up_p[:2 * H // 8].contiguous(), up_s[:, :2 * H].contiguous()
+    dn_p, dn_s = dn_p[:D // 8].contiguous(), dn_s[:, :D].contiguous()
+    before = tw.w4_ffn_fused.launches
+    out = tw.w4_ffn_fused(x, nw, up_p, up_s, dn_p, dn_s, 1e-5)
+    torch.cuda.synchronize()
+    assert tw.w4_ffn_fused.launches == before + 1
+    ref = tw.w4_ffn_fused_reference(x, nw, up_p, up_s, dn_p, dn_s, 1e-5)
+    _check(out, ref, 2e-2)
+
+
+def test_kernels_reject_bad_shapes_on_cuda(cuda):
+    x = torch.zeros(4, 256, dtype=torch.bfloat16, device=cuda)
+    packed = torch.zeros(4, 2, 512, dtype=torch.uint8, device=cuda)
+    scales = torch.zeros(2, 32, device=cuda)
+    with pytest.raises(ValueError):
+        tw.w4_qkv_norm(x.float(), x[0], packed, scales)
+    with pytest.raises(ValueError):
+        tw.w4_matmul_res(x[:, :128], x[:, :32], packed, scales)
