@@ -13,7 +13,11 @@ exits non-zero and never prints the final line:
   3. kernels vs their plain PyTorch versions on the card, at the main
      paths' shapes plus a ragged/odd case each: max error and time of each
      (short_attention, gather_rows; w8a8_matmul, w4_qkv_norm,
-     w4_matmul_res, w4_ffn_fused).
+     w4_matmul_res, w4_ffn_fused; w4_matmul_grouped, kv8_decode_attention,
+     fused_vit_mlp), the time of one PyTorch call that computes the same
+     function where there is one, and each kernel's bound: the larger of
+     its bytes over 3.35 TB/s and its operations over the peak for their
+     type (989 TFLOP/s bf16, 1,979 TOP/s int8).
   4. the bf16 main path at full width: LaViDaConfig() (LLaDA-8B + SigLIP
      so400m) in bf16 with random weights made on the card from seed 0,
      three requests through LaViDa.generate_fused (gen 32, 16 steps, prefix
@@ -25,13 +29,24 @@ exits non-zero and never prints the final line:
      requests with the same checks and, per request, 128 w8a8_matmul,
      528 w4_qkv_norm, 512 w4_matmul_res and 512 w4_ffn_fused launches;
      request walls, phase times, peak memory, weight bytes per tree and
-     the device-busy share of one profiled request.
+     the device-busy share of one profiled request; one decode layer at
+     B = 1 timed through the fused plan.
   6. output checks on a small input: a tiny model in bf16 on the card
      against the same weights in f32 on the CPU (plain path), and a tiny
      mixed-layout model on the card against the same quantized weights on
-     the CPU (plain versions of the four new kernels).
-Then one JSON line of per-kernel results, and as the last line
-{"ok": true, "device": {...}}.
+     the CPU (plain versions of the fused w4 kernels).
+  7. the batched int4 main path (the serve worker's --int4 --decode-batch
+     N, bench.py --batch): a new LaViDaConfig() model from seed 0 through
+     to_serving_layout("int4", fuse=False), then eval.adapter.
+     generate_batch on B = 4 requests of four image sizes with the int8 KV
+     cache off and on, and on B = 8 requests through the chunked prefill:
+     walls per batch and per image, stage walls, peak memory, launches per
+     kernel asserted per batch, the profiler's device-busy share of one
+     batch; one decode layer at B = 1 timed through the unfused layout.
+  8. a tiny int4 + kv8 + fused-ViT-MLP model on the card against the same
+     weights on the CPU.
+Then the card's name and power limit, one JSON line of per-kernel results,
+and as the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -44,7 +59,10 @@ import numpy as np
 
 SIGLIP_LAYERS = 26   # so400m's 27 layers less the dropped last one
 LLADA_LAYERS = 32
+LLADA_LINEARS = 7    # q, k, v, attn_out, ff_proj, up_proj, ff_out
 TIME_ITERS = 20
+# H100 SXM published peaks (dense): HBM bytes/s, bf16 flop/s, int8 op/s
+HBM_BPS, BF16_FLOPS, INT8_OPS = 3.35e12, 989e12, 1979e12
 
 
 def card_line() -> str:
@@ -59,7 +77,7 @@ def cuda_ms(fn, iters: int = TIME_ITERS) -> float:
     after warm-up."""
     import torch
 
-    for _ in range(3):
+    for _ in range(min(3, iters)):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -71,12 +89,56 @@ def cuda_ms(fn, iters: int = TIME_ITERS) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound_ms(ops: float, nbytes: float, int8: bool = False):
+    """(least time in ms, "bytes" or "operations") of one launch."""
+    t_ops = ops / (INT8_OPS if int8 else BF16_FLOPS) * 1e3
+    t_bytes = nbytes / HBM_BPS * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
+                                 else "bytes")
+
+
+class Results:
+    """Per-kernel sums over one main-path run's launches: the kernel's,
+    the plain version's and the library call's time, and the bound."""
+
+    def __init__(self):
+        self.k = {}
+
+    def add(self, name, shape, per, err, ms, plain_ms, library_ms, ops,
+            nbytes, int8=False, note=""):
+        b, by = bound_ms(ops, nbytes, int8)
+        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+        print(f"[kernels] {name} {shape}: err {err:.3e}{note}, kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib}, bound "
+              f"{b:.4f} ms ({by})")
+        r = self.k.setdefault(name, {
+            "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+            "library_ms": None if library_ms is None else 0.0,
+            "bound_ms": 0.0, "bound_by": by, "per_shape": [], "_by": {}})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["ms"] += per * ms
+        r["plain_ms"] += per * plain_ms
+        if library_ms is not None and r["library_ms"] is not None:
+            r["library_ms"] += per * library_ms
+        r["bound_ms"] += per * b
+        r["_by"][by] = r["_by"].get(by, 0.0) + per * b
+        r["bound_by"] = max(r["_by"], key=r["_by"].get)
+        r["per_shape"].append({"shape": shape, "per_run": per, "ms": ms,
+                               "plain_ms": plain_ms, "library_ms": library_ms,
+                               "bound_ms": b, "err": err})
+
+    def get(self, name):
+        r = dict(self.k[name])
+        r.pop("_by")
+        return r
+
+
 def bench_request(n_text: int, image_size, rng):
     """(input_ids, views, image_size) of one request: a seeded prompt with
     the image marker after 8 text tokens (the bench.py protocol) and
     seeded preprocessed views for the image's anyres tiling."""
-    from lavida_mod_tpu.config import LaViDaConfig
-    from lavida_mod_tpu.data.anyres import anyres_grid_shape
+    from lavida_mod_tpu_torch.config import LaViDaConfig
+    from lavida_mod_tpu_torch.data.anyres import anyres_grid_shape
 
     vcfg = LaViDaConfig().vision
     nw, nh = anyres_grid_shape(image_size, vcfg.grid_pinpoints,
@@ -88,10 +150,13 @@ def bench_request(n_text: int, image_size, rng):
     return ids, views, image_size
 
 
-def phase_kernels(torch, device):
-    """Each kernel against its plain version at the slice's shapes."""
-    from lavida_mod_tpu.config import LaViDaConfig
+def phase_kernels(torch, device, res):
+    """short_attention and gather_rows against their plain versions and
+    the library calls at the bf16 path's shapes."""
+    import torch.nn.functional as F
+
     from lavida_mod_tpu_torch import kernels
+    from lavida_mod_tpu_torch.config import LaViDaConfig
     from lavida_mod_tpu_torch.models.multimodal import build_gather_plan
     from lavida_mod_tpu_torch.ops.gather import (gather_rows,
                                                  gather_rows_reference)
@@ -117,7 +182,6 @@ def phase_kernels(torch, device):
         ("gqa_odd", (2, 77, 8, 128), (2, 131, 2, 128), True, 0),
         ("gqa_odd_hd72", (1, 65, 4, 72), (1, 63, 2, 72), True, 0),
     ]
-    attn = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "per_shape": []}
     for name, qs, ks, masked, per_request in cases:
         q, k, v = randn(*qs), randn(*ks), randn(*ks)
         sq = skv = None
@@ -137,14 +201,20 @@ def phase_kernels(torch, device):
         ms = cuda_ms(lambda: short_attention(q, k, v, sq, skv))
         plain_ms = cuda_ms(
             lambda: short_attention_reference(q, k, v, sq, skv))
-        print(f"[kernels] short_attention {name} q{qs} kv{ks} "
-              f"masked={masked}: max_abs_err {err:.3e}, kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms")
-        attn["max_abs_err"] = max(attn["max_abs_err"], err)
-        attn["ms"] += per_request * ms
-        attn["plain_ms"] += per_request * plain_ms
-        attn["per_shape"].append({"shape": name, "ms": ms,
-                                  "plain_ms": plain_ms, "max_abs_err": err})
+        lib_ms = None
+        if per_request:
+            # one library call of the same function on the same inputs:
+            # SDPA with the segment mask as a boolean attention mask
+            mask = None if sq is None else (
+                sq[:, None, :, None] == skv[:, None, None, :])
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask))
+        B, T, H, hd = qs
+        keys = ks[1] if skv is None else int(skv[0].sum())
+        res.add("short_attention", f"{name} q{qs} kv{ks}", per_request, err,
+                ms, plain_ms, lib_ms, 4 * B * H * T * keys * hd,
+                2 * (q.numel() + k.numel() + v.numel() + q.numel()))
 
     ids, views, size = bench_request(48, (640, 640),
                                      np.random.default_rng(0))
@@ -166,7 +236,7 @@ def phase_kernels(torch, device):
     g_ms = cuda_ms(lambda: gather_rows(table, idx[0]))
     g_plain = cuda_ms(lambda: gather_rows_reference(
         table, torch.as_tensor(idx[0]).to(device)))
-    # the kernel alone, on an index already on the card
+    # the kernel alone, and the library call, on an index on the card
     idx_dev = torch.as_tensor(idx[0], device=device)
     out = torch.empty_like(ref)
     lib = kernels.library()
@@ -174,17 +244,11 @@ def phase_kernels(torch, device):
     g_kernel = cuda_ms(lambda: kernels.check(lib.lavida_gather_rows(
         table.data_ptr(), idx_dev.data_ptr(), 8, out.data_ptr(),
         idx.shape[1], table.shape[1] * 2, stream), "gather_rows"))
-    g_plain_dev = cuda_ms(lambda: gather_rows_reference(table, idx_dev))
-    print(f"[kernels] gather_rows table{tuple(table.shape)} "
-          f"idx[{idx.shape[1]}]: exact; from the host plan: wrapper "
-          f"{g_ms:.4f} ms, plain {g_plain:.4f} ms; index on the card: "
-          f"kernel {g_kernel:.4f} ms, plain {g_plain_dev:.4f} ms")
-    gather = {"max_abs_err": 0.0, "ms": g_ms, "plain_ms": g_plain,
-              "per_shape": [{"shape": "splice", "ms": g_ms,
-                             "plain_ms": g_plain, "max_abs_err": 0.0,
-                             "kernel_only_ms": g_kernel,
-                             "plain_device_index_ms": g_plain_dev}]}
-    return attn, gather
+    g_lib = cuda_ms(lambda: torch.index_select(table, 0, idx_dev))
+    T = idx.shape[1]
+    res.add("gather_rows", f"splice table{tuple(table.shape)} idx[{T}]", 1,
+            0.0, g_ms, g_plain, g_lib, 0, 2 * T * 4096 * 2 + 8 * T,
+            note=f" (exact; kernel alone {g_kernel:.4f} ms)")
 
 
 def bench_requests(rng):
@@ -197,11 +261,12 @@ def bench_requests(rng):
 
 GEN = dict(max_new_tokens=32, block_length=32, step_per_block=16,
            prefix_lm=True, remasking="low_confidence")
+STEPS = GEN["step_per_block"]
 
 
 def phase_main_path(torch, device, card):
     """Three full-width requests through generate_fused, bf16 layout."""
-    from lavida_mod_tpu.config import GenerationConfig, LaViDaConfig
+    from lavida_mod_tpu_torch.config import GenerationConfig, LaViDaConfig
     from lavida_mod_tpu_torch.models.lavida import LaViDa
     from lavida_mod_tpu_torch.models.multimodal import build_gather_plan
     from lavida_mod_tpu_torch.ops.gather import gather_rows
@@ -259,7 +324,7 @@ def phase_small_reference(torch, device):
     """A tiny model in bf16 on the card against the same weights in f32 on
     the CPU, which runs the plain versions the CPU tests hold to the JAX
     package."""
-    from lavida_mod_tpu.config import GenerationConfig
+    from lavida_mod_tpu_torch.config import GenerationConfig
     from lavida_mod_tpu_torch.models.lavida import LaViDa
     from lavida_mod_tpu_torch.models.multimodal import (build_gather_plan,
                                                         multimodal_embeds)
@@ -296,10 +361,26 @@ def phase_small_reference(torch, device):
         raise AssertionError(f"tiny-model logits differ: {rel}")
 
 
-def phase_quant_kernels(torch, device):
+def _w4_weights(torch, tq, randn, K, N):
+    packed, scales, _ = tq.quantize_linear4(randn(N, K, scale=0.02))
+    return packed[:N // 8].contiguous(), scales[:, :N].contiguous()
+
+
+def _w4_bytes(K, N):
+    """Bytes of a grouped int4 weight: codes and f32 group scales."""
+    return K * N // 2 + (K // 128) * N * 4
+
+
+def _rel(out, ref):
+    return ((out.float() - ref.float()).abs().max()
+            / ref.float().abs().max()).item()
+
+
+def phase_quant_kernels(torch, device, res):
     """The four kernels of the mixed layout against their plain versions
-    at every shape of its main path, plus a ragged/odd case each.  Returns
-    {name: result} with ms / plain_ms summed over one request's launches."""
+    at every shape of its main path (summed over one request's launches),
+    plus a ragged/odd case each; w4_qkv_norm also at the batched path's
+    fused head ([128, 4096] x 126464, once per decode step)."""
     from lavida_mod_tpu_torch.ops import quant as tq
     from lavida_mod_tpu_torch.ops import w4_fused as tw
     from lavida_mod_tpu_torch.ops import w8a8 as t8
@@ -308,28 +389,6 @@ def phase_quant_kernels(torch, device):
 
     def randn(*shape, scale=1.0):
         return torch.randn(*shape, device=device, generator=gen) * scale
-
-    def w4(K, N):
-        packed, scales, _ = tq.quantize_linear4(randn(N, K, scale=0.02))
-        return packed[:N // 8].contiguous(), scales[:, :N].contiguous()
-
-    def rel(out, ref):
-        return ((out.float() - ref.float()).abs().max()
-                / ref.float().abs().max()).item()
-
-    results = {}
-
-    def record(name, shape, per_request, err, ms, plain_ms, limit, note=""):
-        print(f"[kernels] {name} {shape}: max|diff|/max|ref| {err:.3e} "
-              f"(limit {limit}){note}, kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms")
-        r = results.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0,
-                                      "plain_ms": 0.0, "per_shape": []})
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        r["ms"] += per_request * ms
-        r["plain_ms"] += per_request * plain_ms
-        r["per_shape"].append({"shape": shape, "ms": ms,
-                               "plain_ms": plain_ms, "rel_err": err})
 
     # w8a8: the prefill's four linears at T = 1056, 32 layers; bit-exact
     for T, K, N, per in [(1056, 4096, 12288, LLADA_LAYERS),
@@ -345,63 +404,182 @@ def phase_quant_kernels(torch, device):
         ref = t8.w8a8_matmul_reference(x8, sx, q, sc)
         if not torch.equal(out, ref):
             raise AssertionError(f"w8a8_matmul differs at {(T, K, N)}")
-        record("w8a8_matmul", f"[{T},{K}]x[{K},{N}]", per, rel(out, ref),
-               cuda_ms(lambda: t8.w8a8_matmul(x8, sx, q, sc)),
-               cuda_ms(lambda: t8.w8a8_matmul_reference(x8, sx, q, sc), 5),
-               "exact")
+        lib_ms = None
+        if per:
+            # the int8 product in one library call (cuBLASLt through
+            # torch._int_mm), then the f32 scale epilogue as a second op
+            qt = q.t()
+            try:
+                torch._int_mm(x8, qt)
+            except RuntimeError:      # a build that takes row-major only
+                qt = qt.contiguous()
+            lib_ms = cuda_ms(lambda: (torch._int_mm(x8, qt).float() * sx
+                                      * sc).bfloat16())
+        res.add("w8a8_matmul", f"[{T},{K}]x[{K},{N}]", per, 0.0,
+                cuda_ms(lambda: t8.w8a8_matmul(x8, sx, q, sc)),
+                cuda_ms(lambda: t8.w8a8_matmul_reference(x8, sx, q, sc), 5),
+                lib_ms, 2 * T * K * N, T * K + N * K + 4 * (T + N) + 2 * T * N,
+                int8=True, note=" (exact)")
 
-    steps = GEN["step_per_block"]
-    # w4_qkv_norm: [q|k|v] per layer per step, and the head per step
-    for T, D, N, per in [(32, 4096, 12288, LLADA_LAYERS * steps),
-                         (32, 4096, 126464, steps), (40, 384, 160, 0)]:
+    # w4_qkv_norm: [q|k|v] per layer per step and the head per step
+    # (mixed path, 32 rows), the batched path's fused head (128 rows)
+    for T, D, N, per in [(32, 4096, 12288, LLADA_LAYERS * STEPS),
+                         (32, 4096, 126464, STEPS),
+                         (128, 4096, 126464, 0), (40, 384, 160, 0)]:
         x = randn(T, D).bfloat16()
         nw = (1 + randn(D, scale=0.1)).bfloat16()
-        packed, scales = w4(D, N)
+        packed, scales = _w4_weights(torch, tq, randn, D, N)
         out = tw.w4_qkv_norm(x, nw, packed, scales, 1e-5)
         torch.cuda.synchronize()
         ref = tw.w4_qkv_norm_reference(x, nw, packed, scales, 1e-5)
-        err = rel(out, ref)
+        err = _rel(out, ref)
         # the norm's sum of squares reduces in another order: an int8
         # code on a rounding boundary may move by one
         if not err < 1e-2:
             raise AssertionError(f"w4_qkv_norm {(T, D, N)}: {err}")
-        record("w4_qkv_norm", f"[{T},{D}]x[{D},{N}]", per, err,
-               cuda_ms(lambda: tw.w4_qkv_norm(x, nw, packed, scales, 1e-5)),
-               cuda_ms(lambda: tw.w4_qkv_norm_reference(
-                   x, nw, packed, scales, 1e-5), 5), 1e-2)
+        res.add("w4_qkv_norm", f"[{T},{D}]x[{D},{N}]", per, err,
+                cuda_ms(lambda: tw.w4_qkv_norm(x, nw, packed, scales, 1e-5)),
+                cuda_ms(lambda: tw.w4_qkv_norm_reference(
+                    x, nw, packed, scales, 1e-5), 3), None, 2 * T * D * N,
+                2 * T * D + 2 * D + _w4_bytes(D, N) + 2 * T * N, int8=True,
+                note=" (relative, limit 1e-2)")
 
-    for T, K, N, per in [(32, 4096, 4096, LLADA_LAYERS * steps),
+    for T, K, N, per in [(32, 4096, 4096, LLADA_LAYERS * STEPS),
                          (5, 384, 96, 0)]:
-        a, res = randn(T, K).bfloat16(), randn(T, N).bfloat16()
-        packed, scales = w4(K, N)
-        out = tw.w4_matmul_res(a, res, packed, scales)
+        a, r = randn(T, K).bfloat16(), randn(T, N).bfloat16()
+        packed, scales = _w4_weights(torch, tq, randn, K, N)
+        out = tw.w4_matmul_res(a, r, packed, scales)
         torch.cuda.synchronize()
-        ref = tw.w4_matmul_res_reference(a, res, packed, scales)
+        ref = tw.w4_matmul_res_reference(a, r, packed, scales)
         if not torch.equal(out, ref):
             raise AssertionError(f"w4_matmul_res differs at {(T, K, N)}")
-        record("w4_matmul_res", f"[{T},{K}]x[{K},{N}]", per, 0.0,
-               cuda_ms(lambda: tw.w4_matmul_res(a, res, packed, scales)),
-               cuda_ms(lambda: tw.w4_matmul_res_reference(
-                   a, res, packed, scales), 5), "exact")
+        res.add("w4_matmul_res", f"[{T},{K}]x[{K},{N}]", per, 0.0,
+                cuda_ms(lambda: tw.w4_matmul_res(a, r, packed, scales)),
+                cuda_ms(lambda: tw.w4_matmul_res_reference(
+                    a, r, packed, scales), 5), None, 2 * T * K * N,
+                2 * T * K + _w4_bytes(K, N) + 4 * T * N, int8=True,
+                note=" (exact)")
 
-    for T, D, H, Hd, per in [(32, 4096, 12288, 12288, LLADA_LAYERS * steps),
+    for T, D, H, Hd, per in [(32, 4096, 12288, 12288, LLADA_LAYERS * STEPS),
                              (24, 256, 384, 512, 0)]:
         x = randn(T, D).bfloat16()
         nw = (1 + randn(D, scale=0.1)).bfloat16()
-        up_p, up_s = w4(D, 2 * H)
+        up_p, up_s = _w4_weights(torch, tq, randn, D, 2 * H)
         dn_p, dn_s, _ = tq.quantize_linear4(torch.nn.functional.pad(
             randn(D, H, scale=0.02), (0, Hd - H)))
         dn_p, dn_s = dn_p[:D // 8].contiguous(), dn_s[:, :D].contiguous()
         args = (x, nw, up_p, up_s, dn_p, dn_s, 1e-5)
         out = tw.w4_ffn_fused(*args)
         torch.cuda.synchronize()
-        err = rel(out, tw.w4_ffn_fused_reference(*args))
+        err = _rel(out, tw.w4_ffn_fused_reference(*args))
         if not err < 2e-2:
             raise AssertionError(f"w4_ffn_fused {(T, D, H, Hd)}: {err}")
-        record("w4_ffn_fused", f"[{T},{D}] H {H} Hd {Hd}", per, err,
-               cuda_ms(lambda: tw.w4_ffn_fused(*args)),
-               cuda_ms(lambda: tw.w4_ffn_fused_reference(*args), 5), 2e-2)
-    return results
+        res.add("w4_ffn_fused", f"[{T},{D}] H {H} Hd {Hd}", per, err,
+                cuda_ms(lambda: tw.w4_ffn_fused(*args)),
+                cuda_ms(lambda: tw.w4_ffn_fused_reference(*args), 5), None,
+                2 * T * D * 2 * H + 2 * T * Hd * D,
+                4 * T * D + 2 * D + _w4_bytes(D, 2 * H) + _w4_bytes(Hd, D),
+                int8=True, note=" (relative, limit 2e-2)")
+
+
+def phase_batch_kernels(torch, device, res):
+    """The three kernels of the batched int4 path against their plain
+    versions at its shapes (summed over one B = 4 batch's launches; the
+    B = 8 shapes and a ragged case checked too)."""
+    from lavida_mod_tpu_torch.ops import kv8_attention as tk
+    from lavida_mod_tpu_torch.ops import quant as tq
+    from lavida_mod_tpu_torch.ops import vit_mlp as tv
+    from lavida_mod_tpu_torch.ops import w4_grouped as tg
+
+    gen = torch.Generator(device=device).manual_seed(2)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, device=device, generator=gen) * scale
+
+    # w4_matmul_grouped at B = 4: the prefill (T = 4 x 1152 rows, the
+    # bench image's bucket) and the decode steps (T = 4 x 32); at B = 8 the
+    # chunk-2 prefill (2304 rows), the decode (256) and its unfused head
+    lin = [(4096, 4096, 4), (4096, 12288, 2), (12288, 4096, 1)]
+    cases = [(T, K, N, per * (1 if T > 256 else STEPS))
+             for T in (4608, 128) for K, N, per in lin]
+    cases += [(T, K, N, 0) for T in (2304, 256) for K, N, _ in lin]
+    cases += [(256, 4096, 126464, 0), (77, 768, 576, 0)]
+    weights = {}
+    for T, K, N, per in cases:
+        if (K, N) not in weights:
+            weights[(K, N)] = _w4_weights(torch, tq, randn, K, N)
+        packed, scales = weights[(K, N)]
+        x = randn(T, K).bfloat16()
+        out = tg.w4_matmul_grouped(x, packed, scales)
+        torch.cuda.synchronize()
+        ref = tg.w4_matmul_grouped_reference(x, packed, scales)
+        if not torch.equal(out, ref):
+            raise AssertionError(f"w4_matmul_grouped differs at {(T, K, N)}")
+        res.add("w4_matmul_grouped", f"[{T},{K}]x[{K},{N}]", per * LLADA_LAYERS,
+                0.0, cuda_ms(lambda: tg.w4_matmul_grouped(x, packed, scales)),
+                cuda_ms(lambda: tg.w4_matmul_grouped_reference(
+                    x, packed, scales), 2 if T > 1000 else 3), None,
+                2 * T * K * N, 2 * T * K + _w4_bytes(K, N) + 2 * T * N,
+                int8=True, note=" (exact)")
+    del weights
+
+    # kv8_decode_attention: q [B, 32, 32, 128] over S = 1152 + 32 keys,
+    # each batch row front-padded by its own amount; GQA and ragged cases
+    for B, T, H, Hkv, hd, S, per in [(4, 32, 32, 32, 128, 1184, 1),
+                                     (8, 32, 32, 32, 128, 1184, 0),
+                                     (1, 13, 8, 2, 64, 77, 0),
+                                     (2, 32, 16, 1, 128, 300, 0)]:
+        q = randn(B, T, H, hd).bfloat16()
+        k8, ks = tk.quantize_kv(randn(B, S, Hkv, hd).bfloat16())
+        v8, vs = tk.quantize_kv(randn(B, S, Hkv, hd).bfloat16())
+        valid = torch.ones(B, S, dtype=torch.bool, device=device)
+        for b in range(B):
+            valid[b, :(37 * b) % (S // 4)] = False
+        out = tk.kv8_decode_attention(q, k8, ks, v8, vs, valid)
+        torch.cuda.synchronize()
+        ref = tk.kv8_decode_attention_reference(q, k8, ks, v8, vs, valid)
+        torch.testing.assert_close(out.float(), ref.float(), atol=6e-3,
+                                   rtol=6e-3)
+        err = (out.float() - ref.float()).abs().max().item()
+        keys = int(valid.sum())
+        res.add("kv8_decode_attention", f"q[{B},{T},{H},{hd}] S {S}",
+                per * LLADA_LAYERS * STEPS, err,
+                cuda_ms(lambda: tk.kv8_decode_attention(q, k8, ks, v8, vs,
+                                                        valid)),
+                cuda_ms(lambda: tk.kv8_decode_attention_reference(
+                    q, k8, ks, v8, vs, valid), 5), None,
+                4 * H * T * keys * hd,
+                2 * B * Hkv * S * (hd + 4) + 4 * q.numel() + B * S,
+                note=" (limit 6e-3)")
+
+    # fused_vit_mlp: one image (5 views x 729 tokens) per call in the
+    # adapter path, 26 layers x 4 images per batch; 20 views at once is
+    # bench's batched encode; a ragged case
+    D, F = 1152, 4304
+    w = [randn(F, D, scale=0.03).bfloat16(), randn(F, scale=0.1).bfloat16(),
+         randn(D, F, scale=0.03).bfloat16(), randn(D, scale=0.1).bfloat16()]
+    for M, per in [(3645, 4 * SIGLIP_LAYERS), (14580, 0), (77, 0)]:
+        x = randn(M, D).bfloat16()
+        ln = ((1 + randn(D, scale=0.1)).bfloat16(),
+              randn(D, scale=0.1).bfloat16())
+        Dm, Fm = (256, 520) if M == 77 else (D, F)
+        if M == 77:
+            x = x[:, :Dm].contiguous()
+            args = (x, ln[0][:Dm], ln[1][:Dm], w[0][:Fm, :Dm].contiguous(),
+                    w[1][:Fm], w[2][:Dm, :Fm].contiguous(), w[3][:Dm])
+        else:
+            args = (x, *ln, *w)
+        out = tv.fused_vit_mlp(*args)
+        torch.cuda.synchronize()
+        ref = tv.fused_vit_mlp_reference(*args)
+        torch.testing.assert_close(out.float(), ref.float(), atol=5e-2,
+                                   rtol=5e-2)
+        err = (out.float() - ref.float()).abs().max().item()
+        res.add("fused_vit_mlp", f"M {M} D {Dm} F {Fm}", per, err,
+                cuda_ms(lambda: tv.fused_vit_mlp(*args)),
+                cuda_ms(lambda: tv.fused_vit_mlp_reference(*args), 3), None,
+                4 * M * Dm * Fm, 4 * M * Dm + 4 * Dm * Fm + 2 * (Fm + 3 * Dm),
+                note=" (limit 5e-2)")
 
 
 def _tree_bytes(modules) -> int:
@@ -461,17 +639,16 @@ def _phase_times(torch, model, request, gen):
     return [t * 1e3 for t in times], [t * 1e3 for t in steps]
 
 
-def _profile_busy(torch, model, request, gen):
-    """Device time of one request from torch.profiler and its wall: (busy
-    ms, wall ms, top kernels) or None when the trace shows no device time."""
+def _profile_busy(torch, run):
+    """Device time of run() from torch.profiler and its wall: (busy ms,
+    wall ms, top kernels) or None when the trace shows no device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    ids, views, size = request
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        model.generate_fused(ids, [views], [size], gen)
+        run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
@@ -484,10 +661,66 @@ def _profile_busy(torch, model, request, gen):
     return busy, wall, rows[:12]
 
 
+def _print_profile(tag, prof, what, card):
+    if prof is None:
+        print(f"[{tag}] torch.profiler: no device time in the trace; "
+              f"device-busy share not measured")
+        return None
+    busy, wall, top = prof
+    print(f"[{tag}] torch.profiler over {what}: device busy {busy:.1f} ms "
+          f"of a {wall:.1f} ms wall ({100 * busy / wall:.1f} %, profiler "
+          f"on) ({card})")
+    for key, ms, n in top:
+        print(f"[{tag}]   {ms:9.3f} ms  {n:6d} x  {key[:90]}")
+    return busy / wall
+
+
+def _decode_layer_ms(torch, llada, P: int = 1088):
+    """One decode layer at B = 1 (32 rows over a [1, P + 32] bf16 cache),
+    block 0's forward as the decode loop calls it: (CUDA-event time per
+    call over back-to-back calls, which the host's enqueue sets when it is
+    slower than the card; device time per call, the profiler's sum over
+    the kernels of 20 calls; launches per call)."""
+    from lavida_mod_tpu_torch.ops.attention import make_bias
+
+    cfg, device = llada.cfg, llada.wte.weight.device
+    G, S = 32, P + 32
+    gen = torch.Generator(device=device).manual_seed(5)
+    x = torch.randn(1, G, cfg.d_model, generator=gen,
+                    device=device).bfloat16()
+    shape = (1, S, cfg.effective_n_kv_heads, cfg.head_dim)
+    past = (torch.randn(*shape, generator=gen, device=device).bfloat16(),
+            torch.randn(*shape, generator=gen, device=device).bfloat16())
+    sin, cos = llada._rope_tables(max(cfg.max_sequence_length, S), device)
+    positions = torch.arange(P, S, device=device)
+    bias = make_bias(kv_valid=torch.ones(1, S, dtype=torch.bool,
+                                         device=device))
+    block = llada.blocks[0]
+
+    def run():
+        block(x, sin=sin, cos=cos, positions=positions, bias=bias,
+              layer_past=past, kv_write_index=P, use_flash=False, q_seg=None,
+              kv_seg=None)
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad():
+        event_ms = cuda_ms(run)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                run()
+            torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in rows) / 1e3 / 20
+    launches = sum(e.count for e in rows) / 20
+    return event_ms, device_ms, launches
+
+
 def phase_mixed_path(torch, model, requests, card):
     """The bf16 model of phase 4 through to_serving_layout("mixed", fuse=
     True) on the card, then three requests through generate_fused."""
-    from lavida_mod_tpu.config import GenerationConfig
+    from lavida_mod_tpu_torch.config import GenerationConfig
     from lavida_mod_tpu_torch.models.multimodal import build_gather_plan
     from lavida_mod_tpu_torch.ops import w4_fused as tw
     from lavida_mod_tpu_torch.ops import w8a8 as t8
@@ -527,9 +760,9 @@ def phase_mixed_path(torch, model, requests, card):
            "w4_ffn_fused": tw.w4_ffn_fused}
     want = {"short_attention": SIGLIP_LAYERS + LLADA_LAYERS,
             "gather_rows": 1, "w8a8_matmul": 4 * LLADA_LAYERS,
-            "w4_qkv_norm": (LLADA_LAYERS + 1) * GEN["step_per_block"],
-            "w4_matmul_res": LLADA_LAYERS * GEN["step_per_block"],
-            "w4_ffn_fused": LLADA_LAYERS * GEN["step_per_block"]}
+            "w4_qkv_norm": (LLADA_LAYERS + 1) * STEPS,
+            "w4_matmul_res": LLADA_LAYERS * STEPS,
+            "w4_ffn_fused": LLADA_LAYERS * STEPS}
     for op in ops.values():
         op.launches = 0
     walls, peaks = [], []
@@ -564,27 +797,25 @@ def phase_mixed_path(torch, model, requests, card):
           f"{phases[1]:.2f} ms, decode steps {len(steps)} x "
           f"{np.mean(steps):.2f} ms (min {min(steps):.2f}, max "
           f"{max(steps):.2f}) ({card})")
-    prof = _profile_busy(torch, model, first, gen)
-    if prof is None:
-        print("[mixed] torch.profiler: no device time in the trace; "
-              "device-busy share not measured")
-    else:
-        busy, wall, top = prof
-        print(f"[mixed] torch.profiler over request 0: device busy "
-              f"{busy:.1f} ms of a {wall:.1f} ms wall ({100 * busy / wall:.1f}"
-              f" %, profiler on) ({card})")
-        for key, ms, n in top:
-            print(f"[mixed]   {ms:9.3f} ms  {n:6d} x  {key[:90]}")
-    return counts, walls, peaks, phases, steps
+    _print_profile("mixed", _profile_busy(
+        torch, lambda: model.generate_fused(first[0], [first[1]],
+                                            [first[2]], gen)),
+        "request 0", card)
+    layer_ms = _decode_layer_ms(torch, llada)
+    print(f"[mixed] one decode layer at B = 1 (32 rows, fused plan: "
+          f"w4_qkv_norm + w4_matmul_res + w4_ffn_fused): {layer_ms[0]:.4f} "
+          f"ms per call back to back, device {layer_ms[1]:.4f} ms in "
+          f"{layer_ms[2]:.0f} kernels ({card})")
+    return counts, walls, peaks, layer_ms
 
 
 def phase_small_mixed(torch, device):
     """A tiny mixed-layout model (fused plan and head engaged) on the card
-    against the same quantized weights on the CPU, where the four new ops
+    against the same quantized weights on the CPU, where the fused w4 ops
     run their plain versions."""
     import copy
 
-    from lavida_mod_tpu.config import GenerationConfig
+    from lavida_mod_tpu_torch.config import GenerationConfig
     from lavida_mod_tpu_torch.models.lavida import LaViDa
     from lavida_mod_tpu_torch.predict import tiny_mixed_config
 
@@ -617,6 +848,177 @@ def phase_small_mixed(torch, device):
         raise AssertionError(f"tiny mixed-model logits differ: {rel}")
 
 
+# the batched path: image sizes of B = 4 and of B = 8
+BATCH_SIZES = [(640, 640), (800, 600), (1024, 512), (448, 896)]
+BATCH8_SIZES = BATCH_SIZES + [(1100, 380), (512, 1024), (384, 384),
+                              (900, 700)]
+
+
+def _batch_ops():
+    from lavida_mod_tpu_torch.ops import kv8_attention as tk
+    from lavida_mod_tpu_torch.ops import vit_mlp as tv
+    from lavida_mod_tpu_torch.ops import w4_fused as tw
+    from lavida_mod_tpu_torch.ops import w4_grouped as tg
+    from lavida_mod_tpu_torch.ops import w8a8 as t8
+    from lavida_mod_tpu_torch.ops.gather import gather_rows
+    from lavida_mod_tpu_torch.ops.short_attention import short_attention
+
+    return {"short_attention": short_attention, "gather_rows": gather_rows,
+            "w8a8_matmul": t8.w8a8_matmul, "w4_qkv_norm": tw.w4_qkv_norm,
+            "w4_matmul_res": tw.w4_matmul_res,
+            "w4_ffn_fused": tw.w4_ffn_fused,
+            "w4_matmul_grouped": tg.w4_matmul_grouped,
+            "kv8_decode_attention": tk.kv8_decode_attention,
+            "fused_vit_mlp": tv.fused_vit_mlp}
+
+
+def _want_batch(B, kv8, chunk):
+    """Launches of one batch: 7 linears x 32 layers per prefill call and
+    per decode step; the head fused into w4_qkv_norm up to 128 decode rows
+    (B = 4), else one more grouped matmul per step; 26 SigLIP layers of
+    attention and MLP per image; one prefill attention per layer and
+    chunk."""
+    calls = -(-B // chunk)
+    head_fused = B * 32 <= 128
+    want = {k: 0 for k in _batch_ops()}
+    want["w4_matmul_grouped"] = (LLADA_LINEARS * LLADA_LAYERS * (calls + STEPS)
+                                 + (0 if head_fused else STEPS))
+    want["w4_qkv_norm"] = STEPS if head_fused else 0
+    want["short_attention"] = SIGLIP_LAYERS * B + LLADA_LAYERS * calls
+    want["fused_vit_mlp"] = SIGLIP_LAYERS * B
+    want["kv8_decode_attention"] = LLADA_LAYERS * STEPS if kv8 else 0
+    return want
+
+
+def phase_batched_path(torch, device, card):
+    """LaViDaConfig() from seed 0 through to_serving_layout("int4",
+    fuse=False), then generate_batch at B = 4 (kv8 off and on) and B = 8
+    (chunked prefill)."""
+    from lavida_mod_tpu_torch.config import GenerationConfig, LaViDaConfig
+    from lavida_mod_tpu_torch.eval.adapter import generate_batch
+    from lavida_mod_tpu_torch.models.lavida import LaViDa
+    from lavida_mod_tpu_torch.ops.quant import Int4Linear
+
+    cfg = LaViDaConfig()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LaViDa.random_init(cfg, 0, torch.bfloat16, device)
+    model.to_serving_layout("int4", fuse=False)
+    torch.cuda.synchronize()
+    llada = model.llada
+    blk = llada.blocks[0]
+    if not (all(isinstance(getattr(b, n), Int4Linear) for b in llada.blocks
+                for n in b.linear_names) and blk.cfg.block_type == "llama"
+            and not blk.fused_plan(32, False) and llada.head_fusable(128)
+            and not llada.head_fusable(256)
+            and model._vision_fused_mlp()):
+        raise AssertionError("the batched int4 layout is not as expected")
+    print(f"[batch] LaViDaConfig() bf16 random init + to_serving_layout("
+          f"'int4', fuse=False) on the card in {time.perf_counter() - t0:.2f}"
+          f" s (peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB); "
+          f"LM weights {_tree_bytes([llada]) / 1e9:.3f} GB ({card})")
+
+    gen = GenerationConfig(**GEN)
+    rng = np.random.default_rng(4)
+    req8 = [bench_request(48, s, rng) for s in BATCH8_SIZES]
+    reqs8 = [(ids, [views], [size]) for ids, views, size in req8]
+    reqs4 = reqs8[:4]
+    ops = _batch_ops()
+    generate_batch(model, reqs4, gen)                      # warm-up
+    torch.cuda.synchronize()
+    counts, walls = {}, {}
+    for name, reqs, kv8, chunk in [("b4", reqs4, False, 4),
+                                   ("b4_kv8", reqs4, True, 4),
+                                   ("b8_chunked", reqs8, False, 2)]:
+        B = len(reqs)
+        for op in ops.values():
+            op.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, stage = generate_batch(model, reqs, gen, kv8=kv8)
+        wall = time.perf_counter() - t0
+        got = {k: op.launches for k, op in ops.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want = _want_batch(B, kv8, chunk)
+        views = sum(r[1][0].shape[0] for r in reqs)
+        print(f"[batch] {name}: B={B}, {views} views, G=32: wall "
+              f"{wall * 1e3:.1f} ms ({wall * 1e3 / B:.1f} ms per image), "
+              f"stages encode {stage['encode'] * 1e3:.1f} ms generate "
+              f"{stage['generate'] * 1e3:.1f} ms, peak {peak:.2f} GiB "
+              f"({card}); launches {got}")
+        print(f"[batch] {name} tokens of request 0: {out[0].tolist()}")
+        if out.shape != (B, 32):
+            raise AssertionError(f"output shape {out.shape}")
+        if (out == cfg.llada.mask_token_id).any():
+            raise AssertionError("mask tokens left in the output")
+        if got != want:
+            raise AssertionError(f"launches {got}, want {want}")
+        counts[name], walls[name] = got, (wall, B, peak)
+
+    share = _print_profile("batch", _profile_busy(
+        torch, lambda: generate_batch(model, reqs4, gen, kv8=True)),
+        "one B = 4 kv8 batch", card)
+    layer_ms = _decode_layer_ms(torch, llada)
+    print(f"[batch] one decode layer at B = 1 (32 rows, unfused int4: seven "
+          f"w4_matmul_grouped + norms, SwiGLU, dense attention): "
+          f"{layer_ms[0]:.4f} ms per call back to back, device "
+          f"{layer_ms[1]:.4f} ms in {layer_ms[2]:.0f} kernels ({card})")
+    return model, counts, walls, share, layer_ms
+
+
+def phase_small_batch(torch, device):
+    """A tiny int4 (unfused) + kv8 + fused-ViT-MLP model on the card
+    against the same weights on the CPU, where every op runs its plain
+    version."""
+    import copy
+
+    from lavida_mod_tpu_torch.config import (GenerationConfig,
+                                             tiny_siglip_config)
+    from lavida_mod_tpu_torch.data.anyres import anyres_grid_shape
+    from lavida_mod_tpu_torch.eval.adapter import generate_batch
+    from lavida_mod_tpu_torch.models.lavida import LaViDa
+    from lavida_mod_tpu_torch.predict import tiny_mixed_config
+
+    cfg = tiny_mixed_config()
+    sig = tiny_siglip_config(hidden_size=128, intermediate_size=200)
+    cfg = cfg.replace(vision=cfg.vision.replace(siglip=sig,
+                                                mm_hidden_size=128))
+    cpu = LaViDa.random_init(cfg, 0, torch.bfloat16, "cpu")
+    with torch.no_grad():
+        for p in cpu.llada.parameters():  # diverse tokens, as in the tests
+            if p.dim() >= 2:
+                p.mul_(4.0)
+    cpu.to_serving_layout("int4", fuse=False)
+    gpu = copy.deepcopy(cpu).to(device)
+    rng = np.random.default_rng(5)
+    reqs = []
+    for size in ((100, 60), (60, 100), (112, 112)):
+        nw, nh = anyres_grid_shape(size, cfg.vision.grid_pinpoints, 56)
+        views = rng.standard_normal((1 + nw * nh, 3, 56, 56)).astype(
+            np.float32)
+        ids = np.concatenate([[5, 6, -200], rng.integers(3, 400, 4)])
+        reqs.append((ids, [views], [size]))
+    x = torch.full((3, 32), cfg.llada.mask_token_id, dtype=torch.long)
+    with torch.no_grad():
+        outs = [m.llada(m.llada.embed_tokens(x.to(m.device)))[0].float().cpu()
+                for m in (cpu, gpu)]
+    rel = ((outs[1] - outs[0]).abs().max() / outs[0].abs().max()).item()
+    gen = GenerationConfig(max_new_tokens=32, block_length=32,
+                           step_per_block=16)
+    a, _ = generate_batch(cpu, reqs, gen, kv8=True)
+    b, _ = generate_batch(gpu, reqs, gen, kv8=True)
+    agree = float((a == b).mean())
+    print(f"[check] tiny int4 + kv8 + fused-ViT-MLP model, kernels on the "
+          f"card vs plain versions on the CPU: decode logits max|diff|/"
+          f"max|ref| {rel:.3e} (limit 5e-2), B=3 kv8 generate_batch tokens "
+          f"agree {agree:.2f}")
+    if not np.isfinite(rel) or rel > 5e-2:
+        raise AssertionError(f"tiny int4 model logits differ: {rel}")
+    if (b == cfg.llada.mask_token_id).any():
+        raise AssertionError("mask tokens left in the tiny batch output")
+
+
 def main() -> None:
     import torch
 
@@ -626,6 +1028,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
+    t_start = time.perf_counter()
     print(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
           f"torch {torch.__version__} cuda {torch.version.cuda}")
 
@@ -639,53 +1042,82 @@ def main() -> None:
         if "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}")
 
+    res = Results()
     with torch.no_grad():
-        attn, gather = phase_kernels(torch, device)
-        quant = phase_quant_kernels(torch, device)
+        phase_kernels(torch, device, res)
+        phase_quant_kernels(torch, device, res)
+        phase_batch_kernels(torch, device, res)
     torch.cuda.empty_cache()
     model, requests, counts, walls = phase_main_path(torch, device, card)
-    mixed_counts, mixed_walls, peaks, phases, steps = phase_mixed_path(
+    mixed_counts, mixed_walls, peaks, fused_layer_ms = phase_mixed_path(
         torch, model, requests, card)
     del model
     torch.cuda.empty_cache()
     phase_small_reference(torch, device)
     phase_small_mixed(torch, device)
+    model, batch_counts, batch_walls, share, unfused_layer_ms = \
+        phase_batched_path(torch, device, card)
+    del model
+    torch.cuda.empty_cache()
+    phase_small_batch(torch, device)
+    print(f"[batch] #4 design point, one decode layer at B = 1, device "
+          f"time: fused plan {fused_layer_ms[1]:.4f} ms vs unfused grouped "
+          f"int4 {unfused_layer_ms[1]:.4f} ms; back to back "
+          f"{fused_layer_ms[0]:.4f} vs {unfused_layer_ms[0]:.4f} ms ({card})")
 
-    def entry(name, source, replaces, launches, res):
+    def entry(name, source, replaces, launches, **extra):
         return {"name": name, "route": "cuda",
                 "source": f"lavida_mod_tpu_torch/csrc/{source}",
                 "replaces": f"lavida_mod_tpu/ops/{replaces}",
-                "launches": launches, **res}
+                "launches": launches, **res.get(name), **extra}
 
+    b4, b4k, b8 = (batch_counts[k] for k in ("b4", "b4_kv8", "b8_chunked"))
     entries = [
         entry("short_attention", "short_attention.cu",
-              "short_attention.py:78", counts["short_attention"], attn),
+              "short_attention.py:78", counts["short_attention"],
+              launches_mixed_path=mixed_counts["short_attention"],
+              launches_batch_b4=b4["short_attention"]),
         entry("gather_rows", "gather_rows.cu", "pallas_gather.py:26",
-              counts["gather_rows"], gather),
+              counts["gather_rows"],
+              launches_mixed_path=mixed_counts["gather_rows"]),
         entry("w8a8_matmul", "w8a8_matmul.cu", "pallas_w8.py:53",
-              mixed_counts["w8a8_matmul"], quant["w8a8_matmul"]),
+              mixed_counts["w8a8_matmul"]),
         entry("w4_qkv_norm", "w4_fused.cu", "w4_fused.py:80",
-              mixed_counts["w4_qkv_norm"], quant["w4_qkv_norm"]),
+              mixed_counts["w4_qkv_norm"],
+              launches_batch_b4=b4["w4_qkv_norm"]),
         entry("w4_matmul_res", "w4_fused.cu", "w4_fused.py:250",
-              mixed_counts["w4_matmul_res"], quant["w4_matmul_res"]),
+              mixed_counts["w4_matmul_res"]),
         entry("w4_ffn_fused", "w4_fused.cu", "w4_fused.py:322",
-              mixed_counts["w4_ffn_fused"], quant["w4_ffn_fused"]),
+              mixed_counts["w4_ffn_fused"]),
+        entry("w4_matmul_grouped", "w4_grouped.cu", "pallas_w4.py:129",
+              b4["w4_matmul_grouped"],
+              launches_batch_b8=b8["w4_matmul_grouped"]),
+        entry("kv8_decode_attention", "kv8_attention.cu",
+              "kv8_attention.py:98", b4k["kv8_decode_attention"]),
+        entry("fused_vit_mlp", "vit_mlp.cu", "vit_mlp.py:63",
+              b4["fused_vit_mlp"], launches_batch_b8=b8["fused_vit_mlp"]),
     ]
-    for e in entries[:2]:
-        e["launches_mixed_path"] = mixed_counts[e["name"]]
-    print("[result] kernel ms/plain_ms: summed over one request's launches "
-          "(bf16 path: 26 SigLIP + 32 prefill short_attention, 1 "
-          "gather_rows; mixed path: 128 w8a8_matmul, 16 x 33 w4_qkv_norm, "
-          "16 x 32 w4_matmul_res and w4_ffn_fused); launches: each "
-          "path's three requests; request walls bf16 "
+    bw = {k: (round(w * 1e3, 1), round(w * 1e3 / B, 1), round(p, 2))
+          for k, (w, B, p) in batch_walls.items()}
+    print("[result] kernel ms / plain_ms / library_ms / bound_ms: summed "
+          "over one run's launches (bf16 path: 26 SigLIP + 32 prefill "
+          "short_attention, 1 gather_rows per request; mixed path: 128 "
+          "w8a8_matmul, 16 x 33 w4_qkv_norm, 16 x 32 w4_matmul_res and "
+          "w4_ffn_fused per request; batched path, one B = 4 batch: 7 x 32 "
+          "x 17 w4_matmul_grouped, 32 x 16 kv8_decode_attention, 4 x 26 "
+          "fused_vit_mlp); launches: each path's run; request walls bf16 "
           f"{[round(w * 1e3, 1) for w in walls]} ms, mixed "
           f"{[round(w * 1e3, 1) for w in mixed_walls]} ms, mixed peak "
-          f"{[round(p, 2) for p in peaks]} GiB on {card}")
+          f"{[round(p, 2) for p in peaks]} GiB; batches (wall ms, ms per "
+          f"image, peak GiB) {bw}; device busy of a B = 4 kv8 batch "
+          f"{'not measured' if share is None else f'{100 * share:.1f} %'}; "
+          f"whole script {time.perf_counter() - t_start:.1f} s on {card}")
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
 
 if __name__ == "__main__":
     main()

@@ -3,21 +3,28 @@ Hopper (H100), built beside the JAX package, which stays the reference.
 
 Layer map (mirrors lavida_mod_tpu):
 
+  config.py    the model and generation configs (a copy; `as_port_config`
+               takes the JAX package's dataclasses by field name)
+  constants.py, data/   token constants, anyres geometry and image
+               preprocessing (copies)
   ops/         plain tensor functions (norms, rope, attention, pooling,
                sampling, schedules, activations, quantizers and quantized
-               linears) and the wrappers of the hand-written CUDA kernels
-               (short_attention, gather, w8a8, w4_fused)
+               linears, the int8 KV cache) and the wrappers of the
+               hand-written CUDA kernels (short_attention, gather, w8a8,
+               w4_fused, w4_grouped, kv8_attention, vit_mlp)
   csrc/        the CUDA C++ kernels, built by kernels.py with nvcc at
                first use
-  models/      nn.Modules: SigLIP, projector, LLaDA (bf16 and the mixed
-               int8/int4 serving layout), the composed LaViDa, and the
-               host-side multimodal splice planner
-  generation/  the prefix-cached masked-diffusion denoise loop
+  models/      nn.Modules: SigLIP, projector, LLaDA (bf16, the mixed
+               int8/int4 and the int4 serving layouts), the composed
+               LaViDa, and the host-side multimodal splice planner
+  generation/  the prefix-cached masked-diffusion denoise loop, plain and
+               with chunked batch prefill
+  eval/        the batched generation adapter
   convert.py   JAX params (numpy pytree) -> this package's state dict
-  predict.py   single-image prediction CLI
+  predict.py   prediction CLI (one request or a batch)
 
-This package imports torch and never jax.  From the JAX package it uses
-only the jax-free `config`, `constants` and `data.anyres` modules.
+This package imports torch and never jax, and nothing of lavida_mod_tpu
+(tests/test_torch_config.py checks both).
 """
 
 __version__ = "0.1.0"

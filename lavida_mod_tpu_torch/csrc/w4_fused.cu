@@ -111,6 +111,9 @@ __device__ float block_reduce(float v) {
 //   kind 2: RMSNorm first -- f32 statistics, x * rsqrt(var + eps) rounded to
 //           bf16, times the bf16 weight rounded to bf16 -- then kind 1's
 //           formula (w4_fused.py:65-75).
+//   kind 3: sx = max(amax, 1e-8) * f32(1/127)  (pallas_w4.py:172 as XLA
+//           compiles it: a division by a constant becomes a multiplication
+//           by its reciprocal; the grouped W4A8 matmul of w4_grouped.cu)
 // q rows are `ldq` >= K bytes apart; columns [K, ldq) are written as 0.
 template <int kKind>
 __global__ void __launch_bounds__(kQuantThreads)
@@ -136,7 +139,9 @@ row_quant_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __res
   float mx = 0.0f;
   for (int k = threadIdx.x; k < K; k += kQuantThreads) mx = fmaxf(mx, fabsf(value(k)));
   mx = block_reduce<true>(mx);
-  const float sc = kKind == 0 ? fmaxf(mx / 127.0f, 1e-8f) : fmaxf(mx, 1e-8f) / 127.0f;
+  const float sc = kKind == 0   ? fmaxf(mx / 127.0f, 1e-8f)
+                   : kKind == 3 ? __fmul_rn(fmaxf(mx, 1e-8f), 1.0f / 127.0f)
+                                : fmaxf(mx, 1e-8f) / 127.0f;
   for (int k = threadIdx.x; k < K; k += kQuantThreads) q[row * ldq + k] = quant(value(k), sc);
   for (int k = K + threadIdx.x; k < ldq; k += kQuantThreads) q[row * ldq + k] = 0;
   if (threadIdx.x == 0) s[row] = sc;
@@ -289,6 +294,7 @@ int launch_quant(int kind, const void* x, const void* norm_w, void* q, void* s, 
   if (kind == 0) row_quant_kernel<0><<<T, kQuantThreads, 0, st>>>(xp, wp, qp, sp, K, ldq, eps);
   if (kind == 1) row_quant_kernel<1><<<T, kQuantThreads, 0, st>>>(xp, wp, qp, sp, K, ldq, eps);
   if (kind == 2) row_quant_kernel<2><<<T, kQuantThreads, 0, st>>>(xp, wp, qp, sp, K, ldq, eps);
+  if (kind == 3) row_quant_kernel<3><<<T, kQuantThreads, 0, st>>>(xp, wp, qp, sp, K, ldq, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -297,11 +303,12 @@ constexpr int kBad = static_cast<int>(cudaErrorInvalidValue);
 }  // namespace
 
 // Per-token int8 codes x8 [T, K] and scales sx [T] of bf16 x [T, K]
-// (formula 0: the W8A8 prefill's, 1: the W4A8 one).
+// (formula 0: the W8A8 prefill's, 1: the W4A8 one, 2: the W4A8 one with
+// the reciprocal, row kind 3).
 extern "C" int lavida_act_quant(const void* x, void* x8, void* sx, int T, int K, int formula,
                                 void* stream) {
-  if (T <= 0 || K <= 0 || (formula != 0 && formula != 1)) return kBad;
-  return launch_quant(formula, x, nullptr, x8, sx, T, K, K, 0.0f,
+  if (T <= 0 || K <= 0 || formula < 0 || formula > 2) return kBad;
+  return launch_quant(formula == 2 ? 3 : formula, x, nullptr, x8, sx, T, K, K, 0.0f,
                       static_cast<cudaStream_t>(stream));
 }
 

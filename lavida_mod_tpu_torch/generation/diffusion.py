@@ -17,6 +17,14 @@ lavida_mod_tpu/generation/diffusion.py for the serving slice.
     denoise loop the decode linears -- `_generate_cached_fused_body`'s
     `params` / `decode_params` / `act_int8_prefill` (diffusion.py:111-168),
     with the two trees inside one module.
+  - `generate` is the JAX `generate` (diffusion.py:682-766) in its
+    prefix-cache, non-verbose, non-dLLM branch: the control table, then
+    `generate_cached_fused`; `generate_chunked_prefill` (:406-529, the
+    prealloc branch) prefills fixed-size batch chunks straight into one
+    merged [B, P+G] buffer (the last chunk overlapping when B is not a
+    multiple of the chunk) and denoises the merged batch.  With `kv8` the
+    bf16 buffers are quantized once at decode entry into int8 (k8, ks, v8,
+    vs) buffers (:228-237) and the bf16 ones are freed.
   - The JAX scan becomes a Python loop over the control table.  The table
     and the block ends stay device tensors: the loop reads no value back
     to the host, so prefill + denoise can later be captured as one CUDA
@@ -30,10 +38,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from lavida_mod_tpu.config import GenerationConfig
+from ..config import GenerationConfig, as_port_config
 
 from ..models.llada import LLaDA
 from ..ops import sampling
+from ..ops.kv8_attention import quantize_kv
 from ..ops.schedules import num_transfer_tokens_scheduled, resolve_steps
 
 
@@ -89,7 +98,7 @@ def denoise_cached(
     x [B, G] token buffer; k_table [steps, B]; block_end [steps], both on
     x's device.  Returns the final x."""
     B, G = x.shape
-    P = cache[0][0].shape[1] - G
+    P = cache[0][0].shape[2 if len(cache[0]) == 4 else 1] - G
     positions = torch.arange(P, P + G, device=x.device)
     kv_valid = None
     if prefix_valid is not None:
@@ -119,25 +128,118 @@ def generate_cached_fused(
     temperature: float,
     remasking: str,
     act_int8_prefill: bool = False,
+    kv8: bool = False,
+    chunk: Optional[int] = None,
 ) -> torch.Tensor:
-    """Prefill the prefix [B, P, D] into preallocated [B, P+G] K/V buffers
-    through the short-attention kernel (the JAX path with
-    use_flash_prefill=True), then denoise x [B, G].  prefix_valid [B, P]
-    bool masks front padding rows.  act_int8_prefill: the prefill runs
-    the int8 prefill tree (A8 activations).  Returns the final [B, G]
-    tokens."""
-    cfg = model.cfg
+    """Prefill the prefix [B, P, D] (`prefill_cache`), then denoise x
+    [B, G] over the cache.  Returns the final [B, G] tokens."""
+    cache = prefill_cache(model, prefix_embeds, x.shape[1], prefix_valid,
+                          act_int8_prefill, kv8, chunk)
+    return denoise_cached(model, x, cache, k_table, block_end, prefix_valid,
+                          generator, temperature, remasking)
+
+
+@torch.no_grad()
+def prefill_cache(model: LLaDA, prefix_embeds: torch.Tensor, G: int,
+                  prefix_valid: Optional[torch.Tensor] = None,
+                  act_int8: bool = False, kv8: bool = False,
+                  chunk: Optional[int] = None) -> list:
+    """The prefix [B, P, D] prefilled into preallocated [B, P+G] K/V
+    buffers through the short-attention kernel (the JAX path with
+    use_flash_prefill=True); prefix_valid [B, P] bool masks front padding
+    rows.  act_int8: the prefill runs the int8 prefill tree (A8
+    activations).  kv8: the buffers quantized into the int8 cache.  chunk:
+    prefill in slices of this many rows, each written in place into the
+    merged buffers, the last slice an overlapping window ending at B when
+    chunk does not divide B (prefill is deterministic, so the rewritten
+    rows are identical).  Returns the per-layer cache list."""
     B, P, _ = prefix_embeds.shape
-    G = x.shape[1]
+    cfg = model.cfg
     shape = (B, P + G, cfg.effective_n_kv_heads, cfg.head_dim)
     cache = [(prefix_embeds.new_zeros(shape), prefix_embeds.new_zeros(shape))
              for _ in model.blocks]
+    c = min(chunk or B, B)
+    starts = list(range(0, B - c + 1, c))
+    if starts[-1] + c < B:
+        starts.append(B - c)
+    for lo in starts:
+        _prefill_into(model, cache, prefix_embeds[lo:lo + c],
+                      None if prefix_valid is None
+                      else prefix_valid[lo:lo + c], lo, act_int8)
+    return quantize_cache(cache) if kv8 else cache
+
+
+def _prefill_into(model: LLaDA, cache: list, embeds: torch.Tensor,
+                  valid: Optional[torch.Tensor], lo: int,
+                  act_int8: bool) -> None:
+    """Prefill embeds [C, P, D] into rows [lo, lo + C) of the [B, S]
+    buffers, in place (kv_write_index=0; the S - P unwritten rows masked)."""
+    C, P, _ = embeds.shape
+    S = cache[0][0].shape[1]
     kvv = None
-    if prefix_valid is not None:
-        kvv = torch.cat([prefix_valid, torch.ones(
-            B, G, dtype=torch.bool, device=x.device)], dim=1)
-    model(prefix_embeds, kv_cache=cache, kv_write_index=0, kv_valid=kvv,
-          self_valid=prefix_valid, use_cache=True, return_logits=False,
-          use_flash=True, act_int8=act_int8_prefill)
-    return denoise_cached(model, x, cache, k_table, block_end, prefix_valid,
-                          generator, temperature, remasking)
+    if valid is not None:
+        kvv = torch.cat([valid, torch.ones(C, S - P, dtype=torch.bool,
+                                           device=valid.device)], dim=1)
+    model(embeds, kv_cache=[(k[lo:lo + C], v[lo:lo + C]) for k, v in cache],
+          kv_write_index=0, kv_valid=kvv, self_valid=valid, use_cache=True,
+          return_logits=False, use_flash=True, act_int8=act_int8)
+
+
+def quantize_cache(cache: list) -> list:
+    """bf16 [B, S, Hkv, hd] (k, v) buffers -> int8 (k8, ks, v8, vs) ones
+    (diffusion.py:228-237), quantized once at decode entry."""
+    return [(*quantize_kv(k), *quantize_kv(v)) for k, v in cache]
+
+
+@torch.no_grad()
+def generate(
+    model: LLaDA,
+    prefix_embeds: torch.Tensor,
+    gen: GenerationConfig,
+    *,
+    prefix_valid: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    act_int8_prefill: bool = False,
+    kv8: bool = False,
+    chunk: Optional[int] = None,
+    draft_tokens=None,
+    verbose: bool = False,
+    dllm_cache: Optional[int] = None,
+) -> torch.Tensor:
+    """`gen.max_new_tokens` tokens after prefix_embeds [B, P, D] ->
+    [B, G] (diffusion.py:682-766, prefix_lm branch).  act_int8_prefill:
+    the mixed layout's split (the int8 tree prefills, the decode linears
+    denoise).  chunk: the chunked prefill of `generate_chunked_prefill`.
+    Draft tokens, the verbose and dLLM-cache paths and prefix_lm=False
+    raise NotImplementedError."""
+    gen = as_port_config(gen)
+    if not gen.prefix_lm or draft_tokens is not None or verbose \
+            or dllm_cache is not None:
+        raise NotImplementedError(
+            "the port's generate implements the prefix-cache, non-verbose, "
+            "non-dLLM path without draft tokens only")
+    B, G = prefix_embeds.shape[0], gen.max_new_tokens
+    mask_id = model.cfg.mask_token_id
+    device = prefix_embeds.device
+    x = torch.full((B, G), mask_id, dtype=torch.long, device=device)
+    k_table, block_end = build_control_table(
+        np.full((B, G), mask_id, np.int64), 0, G, gen, mask_id)
+    if k_table.shape[0] == 0:
+        return x
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    return generate_cached_fused(
+        model, x, prefix_embeds, torch.as_tensor(k_table, device=device),
+        torch.as_tensor(block_end, device=device), prefix_valid, generator,
+        gen.temperature, gen.remasking, act_int8_prefill=act_int8_prefill,
+        kv8=kv8, chunk=chunk)
+
+
+def generate_chunked_prefill(model: LLaDA, prefix_embeds: torch.Tensor,
+                             gen: GenerationConfig, *, chunk: int = 4,
+                             **kw) -> torch.Tensor:
+    """Large-batch serving (diffusion.py:406-529, prealloc branch): the
+    prefix prefilled in `chunk`-row slices straight into one merged
+    [B, P+G] buffer, then one denoise over the merged batch.  Keywords as
+    `generate`'s.  Returns [B, G]."""
+    return generate(model, prefix_embeds, gen, chunk=chunk, **kw)

@@ -14,7 +14,15 @@ image-newline vector, with the entry points:
     prefill into preallocated K/V buffers and the denoise loop, with the
     contract of the JAX `LaViDa.generate_fused` (lavida.py:533-601) run
     with use_flash_prefill=True; in the mixed layout the prefill runs the
-    int8 tree with A8 activations (lavida.py:594-595).
+    int8 tree with A8 activations (lavida.py:594-595);
+  - `encode_prompt(...)` and `generate(...)`: the multi-dispatch path
+    (lavida.py:430-531) the batched adapter runs, one image encode per
+    image and the splice by concatenation, then `diffusion.generate`
+    with optional front-padding to a bucket and the int8 KV cache.
+`use_vision_fused_mlp` (lavida.py:219-226, 421-428): None (auto) runs the
+SigLIP MLP halves through the fused kernel #9 in `encode_prompt` when the
+tower is plain bf16 and leaves it off in `generate_fused`; True / False
+force both.
 """
 
 from __future__ import annotations
@@ -25,8 +33,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from lavida_mod_tpu.config import GenerationConfig, LaViDaConfig
+from ..config import GenerationConfig, LaViDaConfig, as_port_config
 
+from ..generation import diffusion
 from ..generation.diffusion import build_control_table, generate_cached_fused
 from . import multimodal
 from .llada import LLaDA, RMSNorm
@@ -37,6 +46,7 @@ from .siglip import LayerNorm, SigLIP
 class LaViDa(nn.Module):
     def __init__(self, cfg: LaViDaConfig, device, dtype=None):
         super().__init__()
+        cfg = as_port_config(cfg)
         self.cfg = cfg
         kw = dict(device=device, dtype=dtype)
         self.llada = LLaDA(cfg.llada, **kw)
@@ -46,6 +56,7 @@ class LaViDa(nn.Module):
                                    cfg.llada.d_model, **kw)
         self.image_newline = nn.Parameter(torch.zeros(cfg.llada.d_model,
                                                       **kw))
+        self.use_vision_fused_mlp: Optional[bool] = None
 
     @property
     def device(self) -> torch.device:
@@ -85,8 +96,10 @@ class LaViDa(nn.Module):
         `dtype` is given.  `prefill_params`: the JAX model's int8 prefill
         tree of the mixed layout (`LaViDa.prefill_params`).  `cfg` is the
         JAX model's config after `to_serving_layout` (the sequential
-        block layout when it fused)."""
+        block layout when it fused), the JAX dataclass or the port's."""
         from ..convert import prefill_state_from_jax, state_dict_from_jax
+
+        cfg = as_port_config(cfg)
 
         state = state_dict_from_jax(params)
         if prefill_params is not None:
@@ -122,17 +135,15 @@ class LaViDa(nn.Module):
 
         quant: "mixed" (int8 prefill + int4 decode, bench.py's default),
         "int4", "int8" or "none".  The prefill tree shares the embedding,
-        ln_f and the norms with the decode tree.  "int4" and "int8" alone
-        run int4 linears outside the fused plan (or int8 weight-only
-        linears), which need kernels not ported yet: they raise on CUDA."""
+        ln_f and the norms with the decode tree.  With fuse=False (the
+        worker's choice for --decode-batch > 1) the llama blocks stay
+        unfused and every int4 linear runs the grouped W4A8 kernel #4;
+        "int8" alone runs weight-only int8 linears (a plain matmul, as
+        XLA's in the JAX package)."""
         if quant not in ("mixed", "int4", "int8", "none"):
             raise ValueError(f"quant {quant!r}")
         if quant == "none":
             return self
-        if quant != "mixed" and self.device.type == "cuda":
-            raise NotImplementedError(
-                f"the {quant} layout needs w4_matmul_grouped "
-                f"(pallas_w4.py:129), not ported yet; use 'mixed'")
         if fuse and quant in ("int4", "mixed"):
             self.cfg = self.cfg.replace(llada=self.llada.to_fused_layout())
         if quant == "mixed":
@@ -147,6 +158,63 @@ class LaViDa(nn.Module):
         """Whether the LM carries the mixed layout's int8 prefill tree."""
         return self.llada.blocks[0].prefill is not None
 
+    def _vision_fused_mlp(self) -> bool:
+        """The fused ViT-MLP policy of `encode_prompt`: the explicit
+        override, else on for a plain bf16 tower (SigLIP.fused_mlp_ok)."""
+        if self.use_vision_fused_mlp is not None:
+            return self.use_vision_fused_mlp
+        return self.siglip.fused_mlp_ok()
+
+    @torch.no_grad()
+    def encode_prompt(self, input_ids: np.ndarray,
+                      images: Sequence[np.ndarray] = (),
+                      image_sizes: Sequence[tuple[int, int]] = ()
+                      ) -> torch.Tensor:
+        """One sample: ids with -200 markers and per-image view stacks ->
+        spliced prefix embeddings [1, P, D] (lavida.py:430-452), one
+        vision encode per image."""
+        device = self.device
+        feats = [multimodal.encode_image(
+            self, torch.as_tensor(np.asarray(v), device=device), size,
+            fused_mlp=self._vision_fused_mlp())
+            for v, size in zip(images, image_sizes)]
+        embeds = multimodal.splice_embeddings(self, input_ids, feats)
+        if self.cfg.tokenizer_model_max_length:
+            embeds = embeds[:self.cfg.tokenizer_model_max_length]
+        return embeds[None]
+
+    @torch.no_grad()
+    def generate(
+        self,
+        input_ids: np.ndarray,
+        images: Sequence[np.ndarray] = (),
+        image_sizes: Sequence[tuple[int, int]] = (),
+        gen: Optional[GenerationConfig] = None,
+        prefix_bucket: Optional[int] = None,
+        kv8: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> np.ndarray:
+        """One sample through `encode_prompt` and `diffusion.generate`
+        (lavida.py:454-531, the LLaDA sampler): the prefix front-padded to
+        a multiple of prefix_bucket with the pad rows masked; in the mixed
+        layout the int8 tree prefills.  Returns the [G] generated ids."""
+        gen = as_port_config(gen) or GenerationConfig()
+        prefix = self.encode_prompt(input_ids, images, image_sizes)
+        prefix_valid = None
+        if prefix_bucket:
+            P = prefix.shape[1]
+            Pb = -(-P // prefix_bucket) * prefix_bucket
+            if Pb > P:
+                prefix = torch.cat([prefix.new_zeros(1, Pb - P,
+                                                     prefix.shape[-1]),
+                                    prefix], dim=1)
+                prefix_valid = torch.arange(Pb, device=self.device)[None] \
+                    >= Pb - P
+        out = diffusion.generate(
+            self.llada, prefix, gen, prefix_valid=prefix_valid,
+            generator=generator, act_int8_prefill=self.mixed, kv8=kv8)
+        return out[0].cpu().numpy()
+
     @torch.no_grad()
     def generate_fused(
         self,
@@ -156,6 +224,7 @@ class LaViDa(nn.Module):
         gen: Optional[GenerationConfig] = None,
         prefix_bucket: Optional[int] = None,
         generator: Optional[torch.Generator] = None,
+        kv8: bool = False,
     ) -> np.ndarray:
         """One sample: ids with -200 image markers, one [V, C, S, S] view
         stack and one (width, height) size per image.  Returns the [G]
@@ -165,8 +234,9 @@ class LaViDa(nn.Module):
         length (the pad rows are masked out), as the JAX path does to
         reuse compiled executables; the tokens do not change.
         generator: the randomness of temperature > 0 or random remasking
-        (default: seed 0 on the model's device)."""
-        gen = gen or GenerationConfig()
+        (default: seed 0 on the model's device).  kv8: decode over the
+        int8 KV cache."""
+        gen = as_port_config(gen) or GenerationConfig()
         if not gen.prefix_lm:
             raise NotImplementedError("generate_fused implements the "
                                       "prefix-cache mode only")
@@ -193,7 +263,8 @@ class LaViDa(nn.Module):
         pix = (torch.cat([torch.as_tensor(np.asarray(v)) for v in images])
                if images else torch.zeros((0, 3, S, S)))
         prefix = multimodal.multimodal_embeds(
-            self, pix.to(device), text_ids, gather_idx)
+            self, pix.to(device), text_ids, gather_idx,
+            fused_mlp=self.use_vision_fused_mlp is True)
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
         x = torch.full((1, G), mask_id, dtype=torch.long, device=device)
@@ -201,5 +272,5 @@ class LaViDa(nn.Module):
             self.llada, x, prefix, torch.as_tensor(k_table, device=device),
             torch.as_tensor(block_end, device=device), prefix_valid,
             generator, gen.temperature, gen.remasking,
-            act_int8_prefill=self.mixed)
+            act_int8_prefill=self.mixed, kv8=kv8)
         return out[0].cpu().numpy()

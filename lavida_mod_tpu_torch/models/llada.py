@@ -28,7 +28,11 @@ bf16 and then cast to f32 as in the JAX package (`head_fusable`,
 llada.py:200-216, 684-699).  Unlike the JAX package the plans engage on
 the CPU too, where the ops run their plain versions.
 
-The int8 KV cache, scan/remat and the prefix-flash training attention
+With an int8 KV cache (a per-layer 4-tuple (k8, ks, v8, vs) in the
+head-major layout of ops/kv8_attention.py, llada.py:285-295) each decode
+call quantizes its rows into the buffers in place (`write_rows`) and
+attends through `kv8_decode_attention` (kernel #8) under the filled-rows
+and padding mask.  Scan/remat and the prefix-flash training attention
 raise NotImplementedError here; ROADMAP.md queues them.
 """
 
@@ -37,13 +41,13 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from lavida_mod_tpu.config import LLaDAConfig
+from ..config import LLaDAConfig, as_port_config
 
 from ..ops.activations import silu
 from ..ops.attention import bmm_f32, dense_attention, flash_attention, make_bias
+from ..ops.kv8_attention import kv8_decode_attention, write_rows
 from ..ops.norms import rms_norm
 from ..ops.quant import Int4Linear, Int8Linear, quantize_module
 from ..ops.rope import apply_rope, rope_tables
@@ -159,12 +163,16 @@ class LLaDABlock(nn.Module):
                 and _block_n(H2, H2 // 2, Hd, D) is not None)
 
     def forward(self, x, *, sin, cos, positions, bias, layer_past,
-                kv_write_index, use_flash, q_seg, kv_seg, act_int8=False):
+                kv_write_index, use_flash, q_seg, kv_seg, act_int8=False,
+                kv8_valid=None):
         """x [B, T, D] -> (x, (k, v)).  With `layer_past` (preallocated
         [B, S, Hkv, hd] buffers) this call's rotated k and v are written
         IN PLACE at rows [kv_write_index, kv_write_index + T) -- the JAX
         package's dynamic_update_slice, without its functional copy -- and
-        attention reads the whole buffers."""
+        attention reads the whole buffers.  A 4-tuple `layer_past` is the
+        int8 cache: the rows are quantized into it and attention runs the
+        kv8 kernel masked by `kv8_valid` [B, S]; the present is the
+        4-tuple."""
         cfg = self.cfg
         B, T, D = x.shape
         Hq, Hkv, hd = cfg.n_heads, cfg.effective_n_kv_heads, cfg.head_dim
@@ -188,15 +196,23 @@ class LLaDABlock(nn.Module):
         k = apply_rope(k.reshape(B, T, Hkv, hd), positions, sin, cos,
                        cfg.rope_full_precision)
         v = v.reshape(B, T, Hkv, hd)
-        if layer_past is not None:
-            pk, pv = layer_past
-            pk[:, kv_write_index:kv_write_index + T].copy_(k)
-            pv[:, kv_write_index:kv_write_index + T].copy_(v)
-            k, v = pk, pv
-        if use_flash:
-            att = flash_attention(q, k, v, q_seg, kv_seg)
+        if layer_past is not None and len(layer_past) == 4:
+            if kv_write_index is None or use_flash:
+                raise ValueError("the int8 KV cache is a decode cache: it "
+                                 "needs kv_write_index and no flash")
+            present = write_rows(*layer_past, k, v, kv_write_index)
+            att = kv8_decode_attention(q, *present, kv_valid=kv8_valid)
         else:
-            att = dense_attention(q, k, v, bias=bias)
+            if layer_past is not None:
+                pk, pv = layer_past
+                pk[:, kv_write_index:kv_write_index + T].copy_(k)
+                pv[:, kv_write_index:kv_write_index + T].copy_(v)
+                k, v = pk, pv
+            present = (k, v)
+            if use_flash:
+                att = flash_attention(q, k, v, q_seg, kv_seg)
+            else:
+                att = dense_attention(q, k, v, bias=bias)
         if fused:
             x2 = w4_matmul_res(att.reshape(B * T, D).contiguous(),
                                x.reshape(B * T, D), self.attn_out.packed,
@@ -204,18 +220,20 @@ class LLaDABlock(nn.Module):
             x = w4_ffn_fused(x2, self.ff_norm.weight, self.ff_proj.packed,
                              self.ff_proj.scales, self.ff_out.packed,
                              self.ff_out.scales, eps).view(B, T, D)
-            return x, (k, v)
+            return x, present
         x = x + self._lin("attn_out", att.reshape(B, T, D), act_int8)
         h2 = self.ff_norm(x)
         if cfg.block_type == "llama":
-            ff = (F.silu(self._lin("ff_proj", h2, act_int8))
+            # jax.nn.silu's op order (ops/activations.py): in bf16 it
+            # rounds where PyTorch's fused F.silu does not
+            ff = (silu(self._lin("ff_proj", h2, act_int8))
                   * self._lin("up_proj", h2, act_int8))
         else:
             # swiglu chunks (xx, gate) and returns silu(gate) * xx
             xx, gate = self._lin("ff_proj", h2, act_int8).chunk(2, dim=-1)
             ff = silu(gate) * xx
         x = x + self._lin("ff_out", ff, act_int8)
-        return x, (k, v)
+        return x, present
 
 
 class LLaDA(nn.Module):
@@ -223,6 +241,7 @@ class LLaDA(nn.Module):
 
     def __init__(self, cfg: LLaDAConfig, device, dtype=None):
         super().__init__()
+        cfg = as_port_config(cfg)
         check_supported(cfg)
         self.cfg = cfg
         D, E = cfg.d_model, cfg.num_embeddings
@@ -296,7 +315,8 @@ class LLaDA(nn.Module):
 
         positions: [T] absolute RoPE positions (default: the row indices,
           offset by kv_write_index).
-        kv_cache: per-layer preallocated (k, v) buffers [B, S, Hkv, hd];
+        kv_cache: per-layer preallocated (k, v) buffers [B, S, Hkv, hd], or
+          int8 (k8, ks, v8, vs) buffers [B, Hkv, S, hd] / [B, Hkv, 1, S];
           requires kv_write_index (a host int), where this call's rows are
           written in place; keys at or past kv_write_index + T are masked.
         kv_valid: [B, S] bool over the buffer rows; self_valid: [B, T]
@@ -317,12 +337,13 @@ class LLaDA(nn.Module):
                 raise NotImplementedError(
                     "kv_cache needs kv_write_index: only preallocated "
                     "buffers written in place are ported")
-            S = kv_cache[0][0].shape[1]
+            kv8 = len(kv_cache[0]) == 4
+            S = kv_cache[0][0].shape[2 if kv8 else 1]
             start = kv_write_index
         elif kv_write_index is not None or kv_valid is not None:
             raise ValueError("kv_write_index / kv_valid need a kv_cache")
         else:
-            S, start = T, 0
+            S, start, kv8 = T, 0, False
         if positions is None:
             positions = torch.arange(start, start + T, device=device)
         sin, cos = self._rope_tables(max(self.cfg.max_sequence_length, S),
@@ -341,7 +362,7 @@ class LLaDA(nn.Module):
                 sv = (self_valid if self_valid is not None
                       else torch.ones(B, T, dtype=torch.bool, device=device))
                 q_seg = sv.to(torch.int32).contiguous()
-        elif valid is not None:
+        elif valid is not None and not kv8:
             bias = make_bias(kv_valid=valid)
 
         x = embeds
@@ -351,7 +372,8 @@ class LLaDA(nn.Module):
                 x, sin=sin, cos=cos, positions=positions, bias=bias,
                 layer_past=None if kv_cache is None else kv_cache[li],
                 kv_write_index=kv_write_index, use_flash=use_flash,
-                q_seg=q_seg, kv_seg=kv_seg, act_int8=act_int8)
+                q_seg=q_seg, kv_seg=kv_seg, act_int8=act_int8,
+                kv8_valid=valid if kv8 else None)
             if use_cache:
                 presents.append(present)
         new_cache = presents if use_cache else None

@@ -13,7 +13,12 @@ Pipeline (as the JAX package): the projector runs BEFORE pooling
 ("spatial_unpad", llava_arch.py:548-678) and the splice of each image
 block at its -200 marker are expressed as indices into one flat table
     [ all vision tokens ; image_newline ; text-token embeds ; zero row ]
-so the whole splice is one `gather_rows` call.
+so the whole splice is one `gather_rows` call (`multimodal_embeds`, the
+path of `generate_fused`).  The multi-dispatch path of `encode_prompt` is
+ported too: `encode_image` (multimodal.py:122-144) encodes one image and
+merges its views (`merge_anyres`, :89-119), and `splice_embeddings`
+(:162-210) concatenates text embeddings and image blocks at the -200
+markers; tests/test_torch_batch.py holds the two paths equal.
 """
 
 from __future__ import annotations
@@ -23,20 +28,90 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from lavida_mod_tpu.config import LaViDaConfig, VisionConfig
-from lavida_mod_tpu.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
-from lavida_mod_tpu.data.anyres import anyres_grid_shape, unpad_slice
-
+from ..config import LaViDaConfig, VisionConfig
+from ..constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
+from ..data.anyres import anyres_grid_shape, unpad_slice
 from ..ops.gather import gather_rows
 from ..ops.pooling import pool_2d
 
 
-def encode_views(model, pixel_values: torch.Tensor) -> torch.Tensor:
-    """[V, C, S, S] -> projected, pooled features [V, T', D_lm].  `model`
-    is a `LaViDa` (its siglip, projector and cfg are used)."""
-    feats = model.projector(model.siglip(pixel_values))
+def encode_views(model, pixel_values: torch.Tensor, pool: bool = True,
+                 fused_mlp: bool = False) -> torch.Tensor:
+    """[V, C, S, S] -> projected (and pooled) features [V, T', D_lm].
+    `model` is a `LaViDa` (its siglip, projector and cfg are used);
+    fused_mlp runs the tower's MLP halves through `fused_vit_mlp`."""
+    feats = model.projector(model.siglip(pixel_values, fused_mlp=fused_mlp))
+    if not pool:
+        return feats
     vcfg = model.cfg.vision
     return pool_2d(feats, vcfg.spatial_pool_mode, vcfg.spatial_pool_stride)
+
+
+def merge_anyres(features: torch.Tensor, image_size: tuple[int, int],
+                 cfg: VisionConfig, image_newline: torch.Tensor
+                 ) -> torch.Tensor:
+    """The anyres "spatial_unpad" merge of one image's pooled views
+    [V, T, D] (V = 1 base + nh*nw tiles): base tokens, then the unpadded
+    tile grid row by row, each row closed by the newline; a single view
+    gets one trailing newline.  -> [n_tokens, D]."""
+    V, T, D = features.shape
+    g = int(round(T ** 0.5))
+    nl = image_newline.to(features.dtype)
+    if V == 1:
+        return torch.cat([features[0], nl[None]])
+    nw, nh = anyres_grid_shape(image_size, cfg.grid_pinpoints,
+                               cfg.siglip.image_size)
+    if nh * nw != V - 1:
+        raise ValueError(f"{V} views for a {nh}x{nw} tile grid")
+    grid = features[1:].reshape(nh, nw, g, g, D).permute(0, 2, 1, 3, 4)
+    grid = grid.reshape(nh * g, nw * g, D)
+    rs, cs = unpad_slice(image_size, (nh * g, nw * g))
+    grid = grid[rs, cs]
+    H, W = grid.shape[:2]
+    grid = torch.cat([grid, nl.expand(H, 1, D)], dim=1)
+    return torch.cat([features[0], grid.reshape(H * (W + 1), D)])
+
+
+def encode_image(model, views: torch.Tensor,
+                 image_size: Optional[tuple[int, int]] = None,
+                 fused_mlp: bool = False) -> torch.Tensor:
+    """One image's views [V, C, S, S] -> its merged token block [n, D_lm].
+    A single view under the square / pad aspect modes is the tower and
+    projector only (unpooled, no newline), as in the reference."""
+    vcfg = model.cfg.vision
+    if views.shape[0] == 1 and vcfg.image_aspect_ratio in ("square", "pad"):
+        return encode_views(model, views, pool=False, fused_mlp=fused_mlp)[0]
+    feats = encode_views(model, views, fused_mlp=fused_mlp)
+    if image_size is None and views.shape[0] != 1:
+        raise ValueError("an anyres image needs its size")
+    return merge_anyres(feats, image_size or (vcfg.siglip.image_size,) * 2,
+                        vcfg, model.image_newline)
+
+
+def splice_embeddings(model, input_ids: np.ndarray,
+                      image_features: Sequence[torch.Tensor]
+                      ) -> torch.Tensor:
+    """One sample's ids [T] with -200 markers, each replaced by the next
+    image's block [n_i, D] -> embeddings [T', D] (unpadded)."""
+    input_ids = np.asarray(input_ids)
+    img_pos = np.where(input_ids == IMAGE_TOKEN_INDEX)[0]
+    if len(img_pos) != len(image_features):
+        raise ValueError(f"{len(img_pos)} image tokens vs "
+                         f"{len(image_features)} images")
+    device = model.image_newline.device
+    segments, prev = [], 0
+
+    def text(ids):
+        if len(ids):
+            segments.append(model.llada.embed_tokens(
+                torch.as_tensor(ids, dtype=torch.long, device=device)))
+
+    for feats, pos in zip(image_features, img_pos):
+        text(input_ids[prev:pos])
+        segments.append(feats)
+        prev = pos + 1
+    text(input_ids[prev:])
+    return torch.cat(segments)
 
 
 def merge_anyres_indices(
@@ -155,6 +230,7 @@ def multimodal_embeds(
     pixel_values: torch.Tensor,
     text_ids: np.ndarray,
     gather_idx: np.ndarray,
+    fused_mlp: bool = False,
 ) -> torch.Tensor:
     """Encode all views [N, C, S, S], build the flat table and splice it
     with ONE gather_rows call at the host plan gather_idx [B, T].  text_ids
@@ -163,7 +239,8 @@ def multimodal_embeds(
     nl = model.image_newline
     D = nl.shape[-1]
     if pixel_values.shape[0] > 0:
-        flat = encode_views(model, pixel_values).reshape(-1, D)
+        flat = encode_views(model, pixel_values,
+                            fused_mlp=fused_mlp).reshape(-1, D)
     else:
         flat = nl.new_zeros((0, D))
     text = torch.as_tensor(np.asarray(text_ids), device=nl.device)

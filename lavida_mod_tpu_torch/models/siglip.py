@@ -11,9 +11,11 @@
 
 Attention goes through `vision_attention`: the short-attention kernel on
 CUDA (all views of an image in one launch per layer), its plain version on
-the CPU.  Off this slice: bicubic interpolation of the position table for
-other resolutions (a token count that differs from the table raises), the
-fused ViT-MLP kernel (off in `generate_fused`), int8 towers and LoRA.
+the CPU.  With `fused_mlp` the MLP half of each layer runs as one
+`fused_vit_mlp` call (kernel #9, ops/vit_mlp.py; siglip.py:194-207), which
+`fused_mlp_ok` allows for a plain bf16 tower (siglip.py:84-100).  Off this
+slice: bicubic interpolation of the position table for other resolutions
+(a token count that differs from the table raises), int8 towers and LoRA.
 """
 
 from __future__ import annotations
@@ -21,11 +23,11 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from lavida_mod_tpu.config import SigLIPConfig
-
+from ..config import SigLIPConfig, as_port_config
 from ..ops.attention import vision_attention
 from ..ops.activations import gelu_tanh
 from ..ops.norms import layer_norm
+from ..ops.vit_mlp import fused_vit_mlp
 
 
 class LayerNorm(nn.Module):
@@ -56,7 +58,8 @@ class SigLIPLayer(nn.Module):
         self.fc1 = nn.Linear(D, I, **kw)
         self.fc2 = nn.Linear(I, D, **kw)
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, fused_mlp: bool = False
+                ) -> torch.Tensor:
         N, T, D = h.shape
         nh, hd = self.cfg.num_attention_heads, self.cfg.head_dim
         z = self.ln1(h)
@@ -64,6 +67,11 @@ class SigLIPLayer(nn.Module):
                                self.k_proj(z).view(N, T, nh, hd),
                                self.v_proj(z).view(N, T, nh, hd))
         h = h + self.out_proj(att.reshape(N, T, D))
+        if fused_mlp:
+            return fused_vit_mlp(h, self.ln2.weight, self.ln2.bias,
+                                 self.fc1.weight, self.fc1.bias,
+                                 self.fc2.weight, self.fc2.bias,
+                                 self.cfg.layer_norm_eps)
         z = gelu_tanh(self.fc1(self.ln2(h)))
         return h + self.fc2(z)
 
@@ -82,6 +90,7 @@ def patchify(pixel_values: torch.Tensor, patch: int) -> torch.Tensor:
 class SigLIP(nn.Module):
     def __init__(self, cfg: SigLIPConfig, device, dtype=None):
         super().__init__()
+        cfg = as_port_config(cfg)
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
         P, C, D = cfg.patch_size, cfg.num_channels, cfg.hidden_size
@@ -90,7 +99,17 @@ class SigLIP(nn.Module):
         self.layers = nn.ModuleList(
             SigLIPLayer(cfg, device, dtype) for _ in range(cfg.n_layers_used))
 
-    def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
+    def fused_mlp_ok(self) -> bool:
+        """siglip.py:84-100: the fused MLP kernel takes a plain bf16 tower
+        (fc1/fc2 with their biases, no quantized layout) whose width is
+        lane-aligned (128 | D)."""
+        return all(isinstance(fc, nn.Linear) and fc.bias is not None
+                   and fc.weight.dtype == torch.bfloat16
+                   for layer in self.layers for fc in (layer.fc1, layer.fc2)
+                   ) and self.cfg.hidden_size % 128 == 0
+
+    def forward(self, pixel_values: torch.Tensor,
+                fused_mlp: bool = False) -> torch.Tensor:
         """[N, C, H, W] preprocessed pixels -> raw features [N, tokens, D]
         after the tower's layers.  Pixels are cast to the tower's dtype
         first (the reference's images.to(dtype), llava_arch.py:700): f32
@@ -103,5 +122,5 @@ class SigLIP(nn.Module):
                 f"slot position table: bicubic interpolation is not ported")
         x = x + self.pos_embed[None]
         for layer in self.layers:
-            x = layer(x)
+            x = layer(x, fused_mlp)
         return x

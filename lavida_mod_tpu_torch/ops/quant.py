@@ -189,13 +189,24 @@ def quantize_act_int8(x: torch.Tensor):
     return torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8), sx
 
 
-def quantize_act_w4(x: torch.Tensor):
+INV_127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+def quantize_act_w4(x: torch.Tensor, reciprocal: bool = False):
     """The W4A8 activation quantization (quant.py:151-154, w4_fused.py:
     72-73, 275-278): `sx = max(amax, 1e-8) / 127` -- a different formula
-    from `quantize_act_int8`'s.  [.., K] -> (int8, f32 [.., 1])."""
+    from `quantize_act_int8`'s.  [.., K] -> (int8, f32 [.., 1]).
+
+    reciprocal: `sx = max(amax, 1e-8) * f32(1/127)` instead, which is what
+    XLA compiles `/ 127.0` into inside a jitted function (its algebraic
+    simplifier turns a division by a constant into a multiplication by the
+    reciprocal; the CPU HLO shows `multiply(.., 0.00787401572)`).  The
+    wrapper of `w4_matmul_grouped` (pallas_w4.py:170-173) is such a
+    function; the Pallas kernel bodies and op-by-op calls keep the
+    quotient."""
     xf = x.float()
-    sx = _div(torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True), 1e-8),
-              127.0)
+    amax = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True), 1e-8)
+    sx = amax * INV_127 if reciprocal else _div(amax, 127.0)
     return torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8), sx
 
 
@@ -258,12 +269,9 @@ class Int8Linear(nn.Module):
             from .w8a8 import linear_w8a8
 
             return linear_w8a8(x, self.weight_q, self.scale, preferred)
-        if x.is_cuda:
-            raise NotImplementedError(
-                "weight-only int8 linears are not ported to CUDA; the "
-                "mixed layout runs its int8 tree with act_int8")
         # quant.py:176-179: the codes cast to x's dtype, the product in
-        # `preferred` (exact upcasts), then the scale
+        # `preferred` (exact upcasts), then the scale -- a plain matmul in
+        # the JAX package too (XLA's), so torch.matmul on every device
         dt = preferred or x.dtype
         y = x.to(dt) @ self.weight_q.to(dt).t()
         return y * self.scale.to(dt)
@@ -298,12 +306,23 @@ class Int4Linear(nn.Module):
 
     def forward(self, x: torch.Tensor, act_int8: bool = False,
                 preferred=None) -> torch.Tensor:
-        if x.is_cuda:
-            raise NotImplementedError(
-                "an int4 linear outside the fused decode plan needs "
-                "w4_matmul_grouped (pallas_w4.py:129), not ported yet")
-        return linear_w4_reference(x, self.packed, self.scales,
-                                   self.out_features, preferred)
+        """`_linear_w4` (quant.py:120-167): on the card the grouped W4A8
+        kernel (pallas_w4.py:129, ops/w4_grouped.py) on bf16 rows, K
+        zero-padded, the padded N trimmed; on the CPU the JAX package's
+        own CPU math (`linear_w4_reference`)."""
+        if not x.is_cuda:
+            return linear_w4_reference(x, self.packed, self.scales,
+                                       self.out_features, preferred)
+        from .w4_grouped import w4_matmul_grouped
+
+        K = self.packed.shape[1] * GROUP
+        lead = x.shape[:-1]
+        x2d = x.reshape(-1, x.shape[-1]).to(torch.bfloat16)
+        if x2d.shape[-1] != K:
+            x2d = torch.nn.functional.pad(x2d, (0, K - x2d.shape[-1]))
+        y = w4_matmul_grouped(x2d.contiguous(), self.packed, self.scales)
+        y = y[:, :self.out_features].to(preferred or x.dtype)
+        return y.reshape(*lead, self.out_features)
 
 
 def quantize_module(lin: nn.Linear, bits: int) -> nn.Module:

@@ -24,6 +24,9 @@ from .quant import int_matmul, quantize_act_int8, quantize_act_w4
 
 ACT_FORMULA_W8 = 0   # sx = max(amax / 127, 1e-8)   (pallas_w8.py:45)
 ACT_FORMULA_W4 = 1   # sx = max(amax, 1e-8) / 127   (w4_fused.py:72-73)
+# sx = max(amax, 1e-8) * f32(1/127): pallas_w4.py:172 as XLA compiles it
+# (quant.quantize_act_w4(reciprocal=True))
+ACT_FORMULA_W4_RECIP = 2
 
 
 def w8a8_matmul_reference(x8: torch.Tensor, sx: torch.Tensor,
@@ -72,11 +75,11 @@ w8a8_matmul.launches = 0
 
 
 def act_quant(x: torch.Tensor, formula: int):
-    """Per-token int8 of x [T, K] by one of the two formulas: the row
+    """Per-token int8 of x [T, K] by one of the three formulas: the row
     kernel on the card (bf16 x), torch on the CPU.  Returns (x8, sx)."""
     if not x.is_cuda:
         return (quantize_act_int8(x) if formula == ACT_FORMULA_W8
-                else quantize_act_w4(x))
+                else quantize_act_w4(x, formula == ACT_FORMULA_W4_RECIP))
     T, K = x.shape
     if x.dtype != torch.bfloat16 or not x.is_contiguous() or K % 8 \
             or x.data_ptr() % 16:

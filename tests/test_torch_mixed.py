@@ -20,14 +20,25 @@ port engages the same plan by geometry and runs the ops' plain versions.
     the TPU it takes dense XLA attention, which normalizes before the PV
     product): the int8 prefill's hidden states are bit-exact; the decode
     logits and the first denoise step's logits of a whole request are
-    within the 5 % band.  They are not bit-exact: the FFN kernel's SwiGLU takes exp in
-    f32, where XLA's exp and PyTorch's differ in the last bit for some
-    inputs, and a bf16 intermediate rounding the other way moves an
-    activation code by one.  Such a flip also reorders near-tied
-    low-confidence commits, so `generate_fused`'s tokens are not exact
-    either: with the LLaDA weights x4, so the tiny model's tokens vary,
-    the test states their agreement and holds it at 75 % or more
-    (measured: 100 % and 97 % for the two requests).
+    within the 5 % band.  They are not bit-exact: the FFN kernel's SwiGLU
+    takes exp in f32, where XLA's exp and PyTorch's differ in the last bit
+    for some inputs, and a bf16 intermediate rounding the other way moves
+    an activation code by one.  The projector's erf GELU does the same
+    (XLA's erfc against PyTorch's): one prefix element of the second
+    request lands one bf16 rounding away, and the int8 prefill of the x4
+    model amplifies it.  Such a flip reorders near-tied low-confidence
+    commits, after which a free-running loop follows another trajectory
+    for good; how soon depends on the machine's libm (the same request
+    agreed 97 % with JAX on one machine and 47 % on another; JAX's own
+    one-executable generate_fused and its op-by-op replay differ there
+    too).  So, with the LLaDA weights x4 so the tiny model's tokens vary,
+    the test teacher-forces: the JAX child records its prefix, the token
+    buffer before every denoise step and that step's logits; the port
+    runs one step from each recorded buffer; every step's logits are
+    within the 5 % band and every step commits JAX's positions and
+    tokens, except at near-ties, which are counted and printed
+    (torch_jax_strict.teacher_forced).  The free-running agreement is
+    printed, not held.
 """
 
 import os
@@ -47,11 +58,12 @@ from lavida_mod_tpu.config import (GenerationConfig, LaViDaConfig,
 from lavida_mod_tpu.data.anyres import anyres_grid_shape
 from lavida_mod_tpu.models import llada as jl
 from lavida_mod_tpu.models.lavida import LaViDa as JLaViDa
+from lavida_mod_tpu_torch.config import as_port_config
 from lavida_mod_tpu_torch.convert import (prefill_state_from_jax,
                                           state_dict_from_jax)
 from lavida_mod_tpu_torch.models.lavida import LaViDa
 from lavida_mod_tpu_torch.ops import quant as tq
-from torch_jax_strict import REPO, strict_jax
+from torch_jax_strict import JAX_STEPS, REPO, strict_jax, teacher_forced
 
 torch.set_num_threads(2)
 
@@ -138,7 +150,7 @@ def test_port_layout_equals_converted_jax_layout(models):
     jm, tm = models
     bf = LaViDa.from_jax(CFG, _np(_jax_model(mixed=False).params), "cpu")
     bf.to_serving_layout("mixed", fuse=True)
-    assert bf.cfg == jm.cfg and bf.mixed and tm.mixed
+    assert bf.cfg == as_port_config(jm.cfg) and bf.mixed and tm.mixed
     a, b = tm.state_dict(), bf.state_dict()
     assert a.keys() == b.keys()
     assert any(k.endswith(".prefill.att_proj.weight_q") for k in a)
@@ -204,6 +216,17 @@ def test_int8_prefill_within_band_of_jax(models):
     assert _rel_err(got.float().numpy(), want.astype(jnp.float32)) < 0.03
 
 
+def _prefix(tm, ids, views, size):
+    """The port's one-gather prefix embeddings [1, P, D] of a request."""
+    from lavida_mod_tpu_torch.models import multimodal
+
+    idx, text_ids, _, _ = multimodal.build_gather_plan(
+        tm.cfg, [ids], [[views.shape[0]]], [[size]])
+    with torch.no_grad():
+        return multimodal.multimodal_embeds(tm, torch.from_numpy(views),
+                                            text_ids, idx)
+
+
 def _first_step_logits(tm, ids, views, size):
     """The port's logits of the first denoise step of one request."""
     from lavida_mod_tpu_torch.models import multimodal
@@ -240,7 +263,7 @@ def test_generate_without_excess_precision(models, scaled, tmp_path):
     inputs["x"] = x
     inputs["emb"] = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (1, 40, 512)).astype(np.float32)).bfloat16().float().numpy()
-    ref = strict_jax(JAX_MODEL + f"""
+    ref = strict_jax(JAX_MODEL + JAX_STEPS + f"""
 from lavida_mod_tpu.config import GenerationConfig
 from lavida_mod_tpu.models import llada as jl
 from lavida_mod_tpu.models import multimodal as jmm
@@ -261,21 +284,17 @@ for i, size in enumerate({[s for s, _ in REQUESTS]!r}):
                                              use_flash_prefill=True)
     idx, text_ids, _, _ = jmm.build_gather_plan(
         jm.cfg, [ids], [[views.shape[0]]], [[size]])
-    prefix = jmm.multimodal_embeds(jm.params, jm.cfg, jnp.asarray(views),
-                                   jnp.asarray(text_ids), jnp.asarray(idx))
-    P = prefix.shape[1]
-    z = jnp.zeros((1, P + G, lc.effective_n_kv_heads, lc.head_dim),
-                  prefix.dtype)
-    _, cache = jl.forward(jm.prefill_params, lc, prefix,
-                          kv_cache=[(z, z)] * lc.n_layers,
-                          kv_write_index=jnp.asarray(0, jnp.int32),
-                          use_cache=True, return_logits=False,
-                          use_flash=True, act_int8=True)
-    x0 = jnp.full((1, G), lc.mask_token_id, jnp.int32)
-    OUT[f"step{{i}}"] = np.asarray(jl.forward(
-        jm.params["llada"], lc, jl.embed_tokens(jm.params["llada"], x0),
-        positions=jnp.arange(P, P + G, dtype=jnp.int32), kv_cache=cache,
-        kv_write_index=P, use_cache=True)[0])
+    for name, m in (("", jm), ("4", jm4)):
+        prefix = jmm.multimodal_embeds(
+            m.params, m.cfg, jnp.asarray(views), jnp.asarray(text_ids),
+            jnp.asarray(idx))
+        xs, lg = jax_steps(m.params["llada"], lc, prefix, gen,
+                           pre_p=m.prefill_params, act_int8=True)
+        if name:
+            OUT[f"xs{{i}}"], OUT[f"steps{{i}}"] = xs, lg
+            OUT[f"prefix{{i}}"] = np.asarray(prefix.astype(jnp.float32))
+        else:
+            OUT[f"step{{i}}"] = lg[0]
 lp = jm.params["llada"]
 OUT["logits"] = np.asarray(jl.forward(
     lp, lc, jl.embed_tokens(lp, IN["x"]))[0])
@@ -293,7 +312,7 @@ OUT["prefill"] = np.asarray(jl.forward(
     np.testing.assert_array_equal(hidden.float().numpy(), ref["prefill"])
     assert _rel_err(logits.numpy(), ref["logits"]) < 0.05
     gen = GenerationConfig(**GEN)
-    agree = []
+    report = []
     for i, (size, seed) in enumerate(REQUESTS):
         ids, views = inputs[f"ids{i}"], inputs[f"views{i}"]
         step = _first_step_logits(tm, ids, views, size)
@@ -301,9 +320,23 @@ OUT["prefill"] = np.asarray(jl.forward(
         got = tm4.generate_fused(ids, [views], [size], gen)
         assert got.shape == (32,) and (got != mask).all()
         assert len(set(ref[f"tokens{i}"].tolist())) >= 4, "degenerate"
-        agree.append(float((got == ref[f"tokens{i}"]).mean()))
-    print(f"token agreement with JAX: {agree}")
-    assert np.mean(agree) >= 0.75, agree
+        # the port's prefix is JAX's up to a few elements a rounding or
+        # two apart (the projector's erf GELU, module note)
+        want = torch.from_numpy(ref[f"prefix{i}"])
+        prefix = _prefix(tm4, ids, views, size).float()
+        off = prefix != want
+        assert off.float().mean() < 1e-3, off.sum()
+        assert (prefix - want).abs().max() <= 2 ** -7 * want.abs().max()
+        # the free-running tokens need not agree (module note); each step
+        # from JAX's own prefix and token buffer must
+        ties = teacher_forced(tm4, want.bfloat16(), gen, ref[f"xs{i}"],
+                              ref[f"steps{i}"])
+        report.append(dict(prefix_off=int((prefix != want).sum()),
+                           agreement=float((got == ref[f"tokens{i}"]).mean()),
+                           near_ties=ties))
+    print(f"per request: prefix elements off JAX's, free-running token "
+          f"agreement, teacher-forced near-tie exceptions (step, row, gap, "
+          f"bound): {report}")
 
 
 @pytest.mark.parametrize("quant", ["int4", "int8"])
@@ -316,7 +349,7 @@ def test_single_tree_layouts_on_cpu(quant):
     tm = LaViDa.from_jax(CFG, _np(jm.params), "cpu")
     jm.to_serving_layout(quant, fuse=True)
     tm.to_serving_layout(quant, fuse=True)
-    assert tm.cfg == jm.cfg and not tm.mixed
+    assert tm.cfg == as_port_config(jm.cfg) and not tm.mixed
     sd = LaViDa.from_jax(jm.cfg, _np(jm.params), "cpu").state_dict()
     assert all(torch.equal(v, tm.state_dict()[k]) for k, v in sd.items())
     x = np.full((1, 32), CFG.llada.mask_token_id, np.int32)

@@ -262,3 +262,46 @@ def test_random_init_is_seeded():
     assert abs(a[w].std().item() - 0.02) < 0.005
     assert torch.equal(a["llada.ln_f.weight"], torch.ones(64))
     assert torch.equal(a["siglip.layers.0.fc1.bias"], torch.zeros(64))
+
+
+def test_llama_ffn_rounds_like_jax_in_bf16(tmp_path):
+    """The llama block's SwiGLU takes jax.nn.silu's op order in bf16
+    (ops/activations.silu), not PyTorch's fused F.silu, which rounds once.
+    A one-layer bf16 LLaDA whose attention weights are zero and whose FFN
+    linears are identities makes every product exact, so the block is
+    x + silu(h) * h with h = rmsnorm(x): bit-exact with JAX without
+    excess precision (tests/torch_jax_strict.py); F.silu differs there in
+    11 % of the elements."""
+    from torch_jax_strict import strict_jax
+
+    code = """
+import jax, jax.numpy as jnp, numpy as np
+from lavida_mod_tpu.config import tiny_llada_config
+from lavida_mod_tpu.models import llada as jl
+cfg = tiny_llada_config(d_model=64, n_heads=4, n_kv_heads=4,
+                        mlp_hidden_size=64, n_layers=1)
+p = jl.unstack_blocks(jl.init_params(cfg, jax.random.PRNGKey(0),
+                                     jnp.bfloat16))
+eye = jnp.eye(64, dtype=jnp.bfloat16)
+b = p["blocks"][0]
+for n in ("q_proj", "k_proj", "v_proj", "attn_out"):
+    b[n] = {"kernel": jnp.zeros_like(b[n]["kernel"])}
+for n in ("ff_proj", "up_proj", "ff_out"):
+    b[n] = {"kernel": eye}
+"""
+    x = (torch.randn(2, 16, 64, generator=torch.Generator().manual_seed(0))
+         * 3).bfloat16()
+    ref = strict_jax(code + """
+h, _ = jl.forward(p, cfg, jnp.asarray(IN["x"], jnp.bfloat16),
+                  return_logits=False)
+OUT["h"] = np.asarray(h.astype(jnp.float32))
+""", tmp_path, {"x": x.float().numpy()})
+    ns = {}
+    exec(code, ns)
+    m = LLaDA(ns["cfg"], "meta")
+    sd = state_dict_from_jax({"llada": jax.tree.map(np.asarray, ns["p"])})
+    m.load_state_dict({k[len("llada."):]: v for k, v in sd.items()},
+                      assign=True)
+    with torch.no_grad():
+        h, _ = m(x, return_logits=False)
+    np.testing.assert_array_equal(h.float().numpy(), ref["h"])
