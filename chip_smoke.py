@@ -45,6 +45,35 @@ exits non-zero and never prints the final line:
      batch; one decode layer at B = 1 timed through the unfused layout.
   8. a tiny int4 + kv8 + fused-ViT-MLP model on the card against the same
      weights on the CPU.
+  9. the training attention kernels (prefix_flash_fwd, prefix_flash_dq,
+     prefix_flash_dkv) against their plain versions on the card at the
+     stage-1 shape (8 doubled rows x 1152 tokens, 32 heads, hd 128, prefix
+     lengths near 1010, a kv_valid tail) and a ragged GQA case (28 / 4
+     heads, T 200, prefix length 0 and >= T): errors, kernel, plain and
+     library times (SDPA forward; SDPA's autograd backward for dq + dkv)
+     and bounds.
+ 10. stage-1 pretraining at full LaViDa-LLaDA-8B (LaViDaConfig(), 32 LLaDA
+     and 26 SigLIP layers, random bf16 weights from seed 0 on the card):
+     make_freeze_optimizer("mm_mlp_adapter", lr 1e-3, pretrain_stage1.sh's
+     warmup ratio 0.03 over 100 steps), the mixed-precision step with
+     whole-layer remat, ce_chunk 512 and prefix_flash attention, B = 4
+     samples of one bench-shaped image, an 8-token prompt and a 40-token
+     caption, T bucketed to 128 and views to 8; one warm-up step and three
+     timed steps: a finite loss, the launches per step asserted (2 x 32
+     prefix_flash_fwd, 32 dq, 32 dkv, 1 gather_rows, 26 short_attention),
+     the projector and image_newline moved after the first step with a
+     nonzero LR, every LLaDA and SigLIP weight bit-identical (checksums);
+     step wall, data tokens per second, peak memory, the profiler's
+     device-busy share of one step and device time by kernel.
+ 11. stage-2 finetuning at full width with the LLaDA depth cut to 4 layers
+     (the only cut; SigLIP keeps 26): every part tunable, lr 2e-5, tower lr
+     2e-6, grad_accum 2 (finetune_stage2.sh), B = 2, two microsteps make one
+     update: every group moved after the update and not before, the
+     short-attention VJP ran, nothing is NaN.
+ 12. a tiny LaViDa trained one stage-2 microstep on the card (bf16 compute,
+     kernels) and on the CPU (plain versions) from the same f32 masters
+     with the same injected mask: loss, trainable gradients and updated
+     masters within stated bands.
 Then the card's name and power limit, one JSON line of per-kernel results,
 and as the last line {"ok": true, "device": {...}}.
 """
@@ -1019,6 +1048,401 @@ def phase_small_batch(torch, device):
         raise AssertionError("mask tokens left in the tiny batch output")
 
 
+def phase_train_kernels(torch, device, res):
+    """The three prefix-LM flash attention kernels against their plain
+    versions, SDPA and their bounds at the stage-1 shape (per step: 2 x 32
+    forward launches, with the checkpoint's recompute, 32 dq, 32 dkv) and
+    a ragged GQA case."""
+    import torch.nn.functional as F
+
+    from lavida_mod_tpu_torch.ops import prefix_flash as tpf
+
+    gen = torch.Generator(device=device).manual_seed(9)
+    # (name, B, T, Hq, Hkv, prefix lengths, valid keys, per-step launches)
+    plen1 = [1010 - 9 * i for i in range(4)] * 2
+    cases = [("stage1", 8, 1152, 32, 32, plen1, [p + 48 for p in plen1],
+              (2 * LLADA_LAYERS, LLADA_LAYERS, LLADA_LAYERS)),
+             ("gqa_ragged", 2, 200, 28, 4, [0, 250], [193, 200], (0, 0, 0))]
+    hd = 128
+    for name, B, T, Hq, Hkv, plen, nvalid, per in cases:
+        q = torch.randn(B, T, Hq, hd, generator=gen, device=device).bfloat16()
+        k, v = (torch.randn(B, T, Hkv, hd, generator=gen,
+                            device=device).bfloat16() for _ in range(2))
+        dout = torch.randn(B, T, Hq, hd, generator=gen,
+                           device=device).bfloat16()
+        pl = torch.tensor(plen, dtype=torch.int32, device=device)
+        valid = (torch.arange(T, device=device)[None]
+                 < torch.tensor(nvalid, device=device)[:, None]).int()
+        o, lse = tpf.prefix_flash_fwd(q, k, v, pl, valid)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = tpf.prefix_flash_fwd_reference(q, k, v, pl, valid)
+        # p is rounded to bf16 per 64-key tile against the running max (the
+        # plain version once against the row max); sums run in another order.
+        # Read on an H100: o within 2.0e-3 (stage1) and 3.9e-3 (gqa_ragged,
+        # one bf16 ulp at |o| >= 0.5); dq, dk, dv within 1.3e-3 - 2.9e-3 of
+        # the tensor's max.
+        torch.testing.assert_close(o.float(), o_ref.float(), atol=8e-3,
+                                   rtol=0)
+        torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=1e-4)
+        delta = tpf.attention_delta(dout, o_ref)
+        args = (q, k, v, pl, valid, dout, lse_ref, delta)
+        dq = tpf.prefix_flash_dq(*args)
+        dk, dv = tpf.prefix_flash_dkv(*args)
+        torch.cuda.synchronize()
+        dq_ref = tpf.prefix_flash_dq_reference(*args)
+        dk_ref, dv_ref = tpf.prefix_flash_dkv_reference(*args)
+        errs = {"o": (o.float() - o_ref.float()).abs().max().item(),
+                "dq": _rel(dq, dq_ref), "dk": _rel(dk, dk_ref),
+                "dv": _rel(dv, dv_ref)}
+        for n in ("dq", "dk", "dv"):
+            if not errs[n] < 8e-3:
+                raise AssertionError(f"prefix_flash {n} at {name}: "
+                                     f"{errs[n]} (limit 8e-3 of max)")
+        del o_ref, dq_ref, dk_ref, dv_ref
+        # the library: SDPA with the same boolean mask, and its autograd
+        # backward (dq, dk and dv in one call)
+        qpos = torch.arange(T, device=device)
+        see = ((qpos[None, None, :] < pl[:, None, None])
+               | (qpos[None, :, None] >= pl[:, None, None])) \
+            & valid.bool()[:, None, :]
+        mask = see[:, None]
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        gqa = dict(enable_gqa=True) if Hq != Hkv else {}
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=mask, **gqa)
+        lib_fwd = cuda_ms(sdpa, 10)
+        with torch.enable_grad():
+            out = sdpa()
+        dot = dout.transpose(1, 2)
+        lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True), 10)
+        # the bound counts the (query, key) pairs this run's masks leave
+        # visible: keys past the valid tail and, for a query inside the
+        # prefix, keys past the prefix need no work
+        flops = int(see.sum()) * Hq * hd
+        del out, qt, kt, vt, mask, see
+        io = 2 * (q.numel() + k.numel() + v.numel()) + 4 * B * T
+        rows = 4 * B * Hq * T
+        shape = f"{name} q[{B},{T},{Hq},{hd}] kv heads {Hkv}"
+        res.add("prefix_flash_fwd", shape, per[0], max(errs["o"], 0.0),
+                cuda_ms(lambda: tpf.prefix_flash_fwd(q, k, v, pl, valid)),
+                cuda_ms(lambda: tpf.prefix_flash_fwd_reference(
+                    q, k, v, pl, valid), 3), lib_fwd, 4 * flops,
+                io + 2 * q.numel() + rows, note=" (o abs, limit 8e-3)")
+        res.add("prefix_flash_dq", shape, per[1], errs["dq"],
+                cuda_ms(lambda: tpf.prefix_flash_dq(*args)),
+                cuda_ms(lambda: tpf.prefix_flash_dq_reference(*args), 3),
+                lib_bwd, 6 * flops, io + 4 * q.numel() + 2 * rows,
+                note=" (relative, limit 8e-3; library = SDPA's whole "
+                     "backward)")
+        res.add("prefix_flash_dkv", shape, per[2],
+                max(errs["dk"], errs["dv"]),
+                cuda_ms(lambda: tpf.prefix_flash_dkv(*args)),
+                cuda_ms(lambda: tpf.prefix_flash_dkv_reference(*args), 3),
+                lib_bwd, 8 * flops,
+                io + 2 * q.numel() + 2 * rows + 2 * (k.numel() + v.numel()),
+                note=" (relative, limit 8e-3; library = SDPA's whole "
+                     "backward)")
+        del q, k, v, dout, dq, dk, dv, o, args
+        torch.cuda.empty_cache()
+
+
+TRAIN_TEXT, TRAIN_CAPTION = 8, 40
+
+
+def train_batch(cfg, sizes, rng, seq_bucket=128, view_bucket=8):
+    """A stage-1/2 batch as train.py's make_batch builds it (train.py:
+    319-357): one image per sample between an 8-token prompt and a 40-token
+    caption that carries the labels, the plan padded to a multiple of
+    seq_bucket and the views to a multiple of view_bucket (zero views)."""
+    from lavida_mod_tpu_torch.data.anyres import anyres_grid_shape
+    from lavida_mod_tpu_torch.models.multimodal import build_gather_plan
+
+    S = cfg.vision.siglip.image_size
+    ids, labels, views, n_views = [], [], [], []
+    for size in sizes:
+        nw, nh = anyres_grid_shape(size, cfg.vision.grid_pinpoints, S)
+        views.append(rng.uniform(-1, 1, (1 + nw * nh, 3, S, S)).astype(
+            np.float32))
+        n_views.append([views[-1].shape[0]])
+        text = rng.integers(3, min(30000, cfg.llada.mask_token_id),
+                            TRAIN_TEXT + TRAIN_CAPTION)
+        row = np.concatenate([text[:TRAIN_TEXT], [-200], text[TRAIN_TEXT:]])
+        lab = row.copy()
+        lab[:TRAIN_TEXT + 1] = -100
+        ids.append(row)
+        labels.append(lab)
+    plan = (cfg, ids, n_views, [[s] for s in sizes], labels)
+    T = build_gather_plan(*plan)[0].shape[1]
+    gather_idx, text_ids, _, labels = build_gather_plan(
+        *plan, pad_to=-(-T // seq_bucket) * seq_bucket)
+    pix = np.concatenate(views)
+    NV = -(-pix.shape[0] // view_bucket) * view_bucket
+    pix = np.concatenate([pix, np.zeros((NV - pix.shape[0],) + pix.shape[1:],
+                                        np.float32)])
+    return {"pixel_values": pix, "text_ids": text_ids,
+            "gather_idx": gather_idx, "labels": labels}
+
+
+def _train_ops():
+    from lavida_mod_tpu_torch.ops import prefix_flash as tpf
+    from lavida_mod_tpu_torch.ops.gather import gather_rows
+    from lavida_mod_tpu_torch.ops.short_attention import short_attention
+
+    return {"prefix_flash_fwd": tpf.prefix_flash_fwd,
+            "prefix_flash_dq": tpf.prefix_flash_dq,
+            "prefix_flash_dkv": tpf.prefix_flash_dkv,
+            "gather_rows": gather_rows, "short_attention": short_attention}
+
+
+def _checksums(torch, modules):
+    """Per parameter: the sum of its bf16 bit patterns, the f64 sum of its
+    squares and the bit sum of a strided subset (a change of any weight
+    moves them)."""
+    out = []
+    with torch.no_grad():
+        for m in modules:
+            for p in m.parameters():
+                bits = p.detach().reshape(-1).view(torch.int16)
+                out.append(torch.stack([
+                    bits.sum(dtype=torch.int64).double(),
+                    p.detach().double().square().sum(),
+                    bits[::97].sum(dtype=torch.int64).double()]))
+    return torch.stack(out).cpu()
+
+
+STAGE1_STEPS = 100
+
+
+def phase_stage1(torch, device, card):
+    """Stage-1 pretraining steps at full LaViDa-LLaDA-8B."""
+    from lavida_mod_tpu_torch.config import LaViDaConfig
+    from lavida_mod_tpu_torch.models.lavida import LaViDa
+    from lavida_mod_tpu_torch.train.step import (init_train_state,
+                                                 make_freeze_optimizer,
+                                                 make_multimodal_train_step)
+
+    cfg = LaViDaConfig()
+    t0 = time.perf_counter()
+    model = LaViDa.random_init(cfg, 0, torch.bfloat16, device)
+    opt = make_freeze_optimizer(
+        "mm_mlp_adapter", lr=1e-3,
+        warmup_steps=int(0.03 * STAGE1_STEPS), total_steps=STAGE1_STEPS)
+    state = init_train_state(model, opt, torch.bfloat16)
+    step = make_multimodal_train_step(
+        cfg, opt, remat="whole_layer", ce_chunk=512,
+        attention_impl="prefix_flash")
+    torch.cuda.synchronize()
+    n_train = sum(m.numel() for m in state.masters.values())
+    print(f"[stage1] LaViDaConfig() bf16 random init + train state on the "
+          f"card in {time.perf_counter() - t0:.2f} s: "
+          f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params,"
+          f" {n_train / 1e6:.3f} M trainable (projector + image_newline, "
+          f"f32 masters) ({card})")
+    rng = np.random.default_rng(10)
+    batch = train_batch(cfg, BATCH_SIZES, rng)
+    B, T = batch["labels"].shape
+    gen = torch.Generator(device=device).manual_seed(0)
+    frozen = [model.llada, model.siglip]
+    sums0 = _checksums(torch, frozen)
+    tunable = {n: m.clone() for n, m in state.masters.items()}
+    ops = _train_ops()
+    want = {"prefix_flash_fwd": 2 * LLADA_LAYERS,
+            "prefix_flash_dq": LLADA_LAYERS,
+            "prefix_flash_dkv": LLADA_LAYERS, "gather_rows": 1,
+            "short_attention": SIGLIP_LAYERS}
+
+    m = step(state, batch, gen)                 # warm-up: the LR is 0 here
+    torch.cuda.synchronize()
+    if not all(torch.equal(state.masters[n], t) for n, t in tunable.items()):
+        raise AssertionError("a master moved at LR 0")
+    for op in ops.values():
+        op.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses = [], [m["loss"].item()]
+    for i in range(3):
+        before = {k: op.launches for k, op in ops.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(state, batch, gen)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        got = {k: op.launches - before[k] for k, op in ops.items()}
+        losses.append(m["loss"].item())
+        nv = batch["pixel_values"].shape[0]
+        print(f"[stage1] step {i + 1}: B={B} T={T} ({nv} views): wall "
+              f"{walls[-1] * 1e3:.1f} ms, loss "
+              f"{losses[-1]:.4f}, acc_mask {m['acc_mask'].item():.4f}, "
+              f"grad_norm {m['grad_norm'].item():.4e}, launches {got} "
+              f"({card})")
+        if got != want:
+            raise AssertionError(f"launches {got}, want {want}")
+        if i == 0:
+            moved = {n.split(".")[0] for n, t in tunable.items()
+                     if not torch.equal(state.masters[n], t)}
+            if moved != {"projector", "image_newline"}:
+                raise AssertionError(f"after the first step with a nonzero "
+                                     f"LR only {moved} moved")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = {k: op.launches for k, op in ops.items()}
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"losses {losses}")
+    if not torch.equal(_checksums(torch, frozen), sums0):
+        raise AssertionError("a frozen LLaDA or SigLIP weight changed")
+    wall = float(np.mean(walls))
+    print(f"[stage1] 3 steps: wall {wall * 1e3:.1f} ms per step (min "
+          f"{min(walls) * 1e3:.1f}), {B * T / wall:.0f} data tokens/s (B x T"
+          f" = {B * T}), peak {peak:.2f} GiB; frozen LLaDA + SigLIP weights "
+          f"bit-identical, projector + image_newline moved ({card})")
+    share = _print_profile("stage1", _profile_busy(
+        torch, lambda: step(state, batch, gen)), "one step", card)
+    del state, model, step
+    torch.cuda.empty_cache()
+    return counts, {"wall_ms": wall * 1e3, "tokens_per_s": B * T / wall,
+                    "peak_gib": peak, "busy": share, "B": B, "T": T}
+
+
+def phase_stage2(torch, device, card):
+    """Stage-2 finetuning at full width, LLaDA depth cut to 4 layers."""
+    from lavida_mod_tpu_torch.config import LaViDaConfig
+    from lavida_mod_tpu_torch.models.lavida import LaViDa
+    from lavida_mod_tpu_torch.ops.short_attention import short_attention
+    from lavida_mod_tpu_torch.train.step import (init_train_state,
+                                                 make_freeze_optimizer,
+                                                 make_multimodal_train_step)
+
+    full = LaViDaConfig()
+    cfg = full.replace(llada=full.llada.replace(n_layers=4))
+    torch.cuda.reset_peak_memory_stats()
+    model = LaViDa.random_init(cfg, 1, torch.bfloat16, device)
+    total = 10          # finetune_stage2.sh's warmup ratio 0.03 -> 0 steps
+    opt = make_freeze_optimizer(
+        "mm_mlp_adapter,mm_vision_tower,mm_language_model", lr=2e-5,
+        vision_tower_lr=2e-6, grad_accum=2,
+        warmup_steps=int(0.03 * total), total_steps=total)
+    state = init_train_state(model, opt, torch.bfloat16)
+    step = make_multimodal_train_step(
+        cfg, opt, remat="whole_layer", ce_chunk=512,
+        attention_impl="prefix_flash")
+    n_train = sum(m.numel() for m in state.masters.values())
+    print(f"[stage2] cut: LLaDA depth {full.llada.n_layers} -> "
+          f"{cfg.llada.n_layers} layers (the only cut; widths, vocabulary "
+          f"and the 26 SigLIP layers as LaViDaConfig()): {n_train / 1e9:.3f}"
+          f" B trainable params, f32 masters + Adam moments + f32 "
+          f"accumulator ({card})")
+
+    def group_sums():
+        out = {}
+        with torch.no_grad():
+            for n, m in state.masters.items():
+                g = opt.label(n)
+                out[g] = out.get(g, 0.0) + m.double().sum().item()
+        return out
+
+    rng = np.random.default_rng(11)
+    gen = torch.Generator(device=device).manual_seed(1)
+    sums0 = group_sums()
+    vjp0 = short_attention.backward_calls
+    metrics = []
+    for i, sizes in enumerate((BATCH_SIZES[:2], BATCH_SIZES[2:])):
+        batch = train_batch(cfg, sizes, rng)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics.append({k: v.item() for k, v in
+                        step(state, batch, gen).items()})
+        torch.cuda.synchronize()
+        sums = group_sums()
+        moved = {g for g in sums if sums[g] != sums0[g]}
+        print(f"[stage2] microstep {i + 1}: B=2 T={batch['labels'].shape[1]}"
+              f" wall {(time.perf_counter() - t0) * 1e3:.1f} ms, {metrics[-1]}"
+              f", groups moved {sorted(moved)} ({card})")
+        if i == 0 and moved:
+            raise AssertionError(f"{moved} moved before the update")
+    if moved != {"base", "projector", "vision_tower"}:
+        raise AssertionError(f"after the update only {moved} moved")
+    vjp = short_attention.backward_calls - vjp0
+    if vjp != 2 * SIGLIP_LAYERS:
+        raise AssertionError(f"short_attention VJP ran {vjp} times")
+    finite = all(np.isfinite(v) for m in metrics for v in m.values()) and all(
+        bool(torch.isfinite(m).all()) for m in state.masters.values())
+    if not finite:
+        raise AssertionError("NaN or inf in the stage-2 step")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[stage2] one update (2 microsteps): every group moved, the "
+          f"short-attention VJP ran {vjp} times, no NaN; peak {peak:.2f} GiB"
+          f" ({card})")
+    del state, model, step
+    torch.cuda.empty_cache()
+    return peak
+
+
+def phase_small_train(torch, device):
+    """One stage-2 microstep of a tiny LaViDa on the card (bf16 compute,
+    kernels) and on the CPU (plain versions), same masters, same mask."""
+    from lavida_mod_tpu_torch.models.lavida import LaViDa
+    from lavida_mod_tpu_torch.models.multimodal import multimodal_embeds
+    from lavida_mod_tpu_torch.predict import tiny_config
+    from lavida_mod_tpu_torch.train.loss import diffusion_loss
+    from lavida_mod_tpu_torch.train.step import (init_train_state,
+                                                 make_freeze_optimizer,
+                                                 make_multimodal_train_step)
+
+    cfg = tiny_config()
+    lr = 1e-3
+    ref = LaViDa.random_init(cfg, 0, torch.float32, "cpu").state_dict()
+    batch = train_batch(cfg, [(100, 60), (112, 112)],
+                        np.random.default_rng(12), view_bucket=1)
+    mask = torch.from_numpy(np.random.default_rng(13).random(
+        batch["labels"].shape) < 0.5)
+    out = {}
+    for dev in ("cpu", device):
+        model = LaViDa(cfg, "cpu", torch.float32)
+        model.load_state_dict(ref)
+        model.to(dev)
+        opt = make_freeze_optimizer(
+            "mm_mlp_adapter,mm_vision_tower,mm_language_model", lr=lr,
+            warmup_steps=0, total_steps=10)
+        state = init_train_state(model, opt, torch.bfloat16)
+        pix = torch.as_tensor(batch["pixel_values"], device=dev)
+        emb = multimodal_embeds(model, pix, batch["text_ids"],
+                                batch["gather_idx"], remat=True)
+        loss, _ = diffusion_loss(model.llada, emb,
+                                 torch.as_tensor(batch["labels"]),
+                                 masked_indices=mask,
+                                 attention_impl="prefix_flash")
+        loss.backward()
+        params = dict(model.named_parameters())
+        grads = {n: params[n].grad.float().cpu() for n in state.masters}
+        model.zero_grad(set_to_none=True)
+        step = make_multimodal_train_step(cfg, opt, remat=True,
+                                          attention_impl="prefix_flash")
+        m = step(state, batch, masked_indices=mask)
+        out[str(dev)] = (m["loss"].item(), grads,
+                         {n: t.cpu() for n, t in state.masters.items()})
+    (l_cpu, g_cpu, m_cpu), (l_gpu, g_gpu, m_gpu) = out["cpu"], out[str(device)]
+    worst = max((_rel(g_gpu[n], g_cpu[n]), n) for n in g_cpu
+                if not n.endswith("k_proj.bias"))
+    far = sum(int(((m_gpu[n] - m_cpu[n]).abs() > lr / 100).sum())
+              for n in m_cpu)
+    total = sum(t.numel() for t in m_cpu.values())
+    dmax = max((m_gpu[n] - m_cpu[n]).abs().max().item() for n in m_cpu)
+    # A first Adam update moves each element by about lr * sign(g), so an
+    # element whose tiny gradient takes the other sign on the card lands
+    # 2 lr away: dmax cannot be held below 2 lr, the count beyond lr / 100
+    # bounds how many do.  Read on an H100: loss 1e-5 relative, worst
+    # gradient 8.5e-3, 0.63 % of elements beyond lr / 100.
+    print(f"[check] tiny LaViDa stage-2 microstep, kernels on the card vs "
+          f"plain versions on the CPU (bf16 compute, f32 masters, same "
+          f"mask): loss {l_gpu:.5f} vs {l_cpu:.5f} (limit 1e-4 relative); "
+          f"worst gradient {worst[0]:.3e} of max ({worst[1]}, limit 3e-2); "
+          f"masters max |diff| {dmax:.3e} (limit 2 lr), {far} of {total} "
+          f"beyond lr / 100 (limit 2 %)")
+    if not abs(l_gpu - l_cpu) < 1e-4 * abs(l_cpu) or not worst[0] < 3e-2 \
+            or not dmax <= 2.002 * lr or far > 0.02 * total:
+        raise AssertionError("the tiny training step differs on the card")
+
+
 def main() -> None:
     import torch
 
@@ -1047,6 +1471,7 @@ def main() -> None:
         phase_kernels(torch, device, res)
         phase_quant_kernels(torch, device, res)
         phase_batch_kernels(torch, device, res)
+        phase_train_kernels(torch, device, res)
     torch.cuda.empty_cache()
     model, requests, counts, walls = phase_main_path(torch, device, card)
     mixed_counts, mixed_walls, peaks, fused_layer_ms = phase_mixed_path(
@@ -1060,6 +1485,9 @@ def main() -> None:
     del model
     torch.cuda.empty_cache()
     phase_small_batch(torch, device)
+    train_counts, stage1 = phase_stage1(torch, device, card)
+    stage2_peak = phase_stage2(torch, device, card)
+    phase_small_train(torch, device)
     print(f"[batch] #4 design point, one decode layer at B = 1, device "
           f"time: fused plan {fused_layer_ms[1]:.4f} ms vs unfused grouped "
           f"int4 {unfused_layer_ms[1]:.4f} ms; back to back "
@@ -1096,9 +1524,17 @@ def main() -> None:
               "kv8_attention.py:98", b4k["kv8_decode_attention"]),
         entry("fused_vit_mlp", "vit_mlp.cu", "vit_mlp.py:63",
               b4["fused_vit_mlp"], launches_batch_b8=b8["fused_vit_mlp"]),
+        entry("prefix_flash_fwd", "prefix_flash.cu", "prefix_flash.py:53",
+              train_counts["prefix_flash_fwd"]),
+        entry("prefix_flash_dq", "prefix_flash.cu", "prefix_flash.py:143",
+              train_counts["prefix_flash_dq"]),
+        entry("prefix_flash_dkv", "prefix_flash.cu", "prefix_flash.py:179",
+              train_counts["prefix_flash_dkv"]),
     ]
     bw = {k: (round(w * 1e3, 1), round(w * 1e3 / B, 1), round(p, 2))
           for k, (w, B, p) in batch_walls.items()}
+    busy1 = ("not measured" if stage1["busy"] is None
+             else f"{100 * stage1['busy']:.1f} %")
     print("[result] kernel ms / plain_ms / library_ms / bound_ms: summed "
           "over one run's launches (bf16 path: 26 SigLIP + 32 prefill "
           "short_attention, 1 gather_rows per request; mixed path: 128 "
@@ -1111,6 +1547,11 @@ def main() -> None:
           f"{[round(p, 2) for p in peaks]} GiB; batches (wall ms, ms per "
           f"image, peak GiB) {bw}; device busy of a B = 4 kv8 batch "
           f"{'not measured' if share is None else f'{100 * share:.1f} %'}; "
+          f"training (prefix_flash ms summed over one stage-1 step: 2 x 32 "
+          f"fwd, 32 dq, 32 dkv; launches over 3 steps): stage-1 step "
+          f"{stage1['wall_ms']:.1f} ms, {stage1['tokens_per_s']:.0f} data "
+          f"tokens/s, peak {stage1['peak_gib']:.2f} GiB, device busy "
+          f"{busy1}; stage-2 (4 LLaDA layers) peak {stage2_peak:.2f} GiB; "
           f"whole script {time.perf_counter() - t_start:.1f} s on {card}")
     print(card)
     print(json.dumps({"kernels": entries}))

@@ -11,7 +11,7 @@ Layer map (mirrors lavida_mod_tpu):
                sampling, schedules, activations, quantizers and quantized
                linears, the int8 KV cache) and the wrappers of the
                hand-written CUDA kernels (short_attention, gather, w8a8,
-               w4_fused, w4_grouped, kv8_attention, vit_mlp)
+               w4_fused, w4_grouped, kv8_attention, vit_mlp, prefix_flash)
   csrc/        the CUDA C++ kernels, built by kernels.py with nvcc at
                first use
   models/      nn.Modules: SigLIP, projector, LLaDA (bf16, the mixed
@@ -20,7 +20,10 @@ Layer map (mirrors lavida_mod_tpu):
   generation/  the prefix-cached masked-diffusion denoise loop, plain and
                with chunked batch prefill
   eval/        the batched generation adapter
-  convert.py   JAX params (numpy pytree) -> this package's state dict
+  train/       the masked-diffusion loss, the optax-equivalent optimizer
+               and the multimodal train step (stage-1 / stage-2 training)
+  convert.py   JAX params (numpy pytree) -> this package's state dict, or
+               f32 training masters
   predict.py   prediction CLI (one request or a batch)
 
 This package imports torch and never jax, and nothing of lavida_mod_tpu

@@ -24,6 +24,11 @@ returns no logits).
 Every other leaf is mapped or the conversion raises: a quantized leaf
 outside the LM, a LoRA factor or any unknown name is an error, never
 dropped.
+
+Training: the JAX package's f32 tree (`multimodal.init_params` after
+`cast_floating(f32)`) becomes the compute model through `LaViDa.from_jax`
+(cast to the compute dtype) and the f32 masters through
+`masters_from_jax`, which `train.step.init_train_state` takes.
 """
 
 from __future__ import annotations
@@ -168,6 +173,13 @@ def state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
         else:
             raise _unmapped(path)
     return out
+
+
+def masters_from_jax(params: dict, device="cpu") -> dict[str, torch.Tensor]:
+    """The JAX f32 training tree (numpy leaves) -> f32 master tensors by
+    state-dict name on `device`."""
+    return {n: t.to(device=device, dtype=torch.float32)
+            for n, t in state_dict_from_jax(params).items()}
 
 
 def prefill_state_from_jax(prefill: dict, llada: dict) -> dict:

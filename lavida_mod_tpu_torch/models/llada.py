@@ -1,5 +1,5 @@
 """LLaDA: the bidirectional (non-causal) diffusion-LM transformer, ported
-from lavida_mod_tpu/models/llada.py for the serving slices.
+from lavida_mod_tpu/models/llada.py for the serving and training slices.
 
 Covered: the "llama" block (separate q/k/v projections, SwiGLU as
 silu(ff_proj) * up_proj, RMSNorm, RoPE) that LLaDA-8B uses, and the fused
@@ -32,8 +32,19 @@ With an int8 KV cache (a per-layer 4-tuple (k8, ks, v8, vs) in the
 head-major layout of ops/kv8_attention.py, llada.py:285-295) each decode
 call quantizes its rows into the buffers in place (`write_rows`) and
 attends through `kv8_decode_attention` (kernel #8) under the filled-rows
-and padding mask.  Scan/remat and the prefix-flash training attention
-raise NotImplementedError here; ROADMAP.md queues them.
+and padding mask.
+
+Training (llada.py:407-667 on the list-of-layers model): `forward` takes
+`prefix_lengths` [B], the prefix-LM block mask over SEQUENCE indices (never
+the RoPE `positions`, which training may shift), and `attention_impl`:
+"dense" builds make_bias's additive mask, "prefix_flash" runs the fused
+prefix-LM kernel #10 (ops/prefix_flash.py, plen 0 when none is given) and
+"auto" picks prefix_flash on CUDA and dense on the CPU, as train.py's
+--attn-impl auto picks by backend.  `remat="whole_layer"` (or True)
+checkpoints each block (torch.utils.checkpoint), keeping the layer
+boundaries and recomputing the inside in the backward; the JAX package's
+"nested", "dots", "dots_nobatch" and "one_in_N" strategies raise
+NotImplementedError (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -42,6 +53,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import LLaDAConfig, as_port_config
 
@@ -49,6 +61,7 @@ from ..ops.activations import silu
 from ..ops.attention import bmm_f32, dense_attention, flash_attention, make_bias
 from ..ops.kv8_attention import kv8_decode_attention, write_rows
 from ..ops.norms import rms_norm
+from ..ops.prefix_flash import prefix_flash_attention
 from ..ops.quant import Int4Linear, Int8Linear, quantize_module
 from ..ops.rope import apply_rope, rope_tables
 from ..ops.w4_fused import w4_ffn_fused, w4_matmul_res, w4_qkv_norm
@@ -77,6 +90,19 @@ def check_supported(cfg: LLaDAConfig) -> None:
         raise NotImplementedError(
             f"LLaDA port covers the llama/silu and sequential/swiglu rms "
             f"blocks with untied head and rope only; unsupported: {bad}")
+
+
+def remat_layers(remat) -> bool:
+    """Whether an activation-checkpointing strategy checkpoints each layer
+    (`_remat_group`, llada.py:368-394): False / None / "none" no, True /
+    "whole_layer" yes; the others are not ported."""
+    if remat in (False, None, "none"):
+        return False
+    if remat in (True, "whole_layer"):
+        return True
+    raise NotImplementedError(
+        f"activation checkpointing {remat!r}: the port has whole_layer only "
+        f"(nested, dots, dots_nobatch and one_in_N are ROADMAP work)")
 
 
 def _block_n(*ns: int) -> Optional[int]:
@@ -164,7 +190,7 @@ class LLaDABlock(nn.Module):
 
     def forward(self, x, *, sin, cos, positions, bias, layer_past,
                 kv_write_index, use_flash, q_seg, kv_seg, act_int8=False,
-                kv8_valid=None):
+                kv8_valid=None, prefix_flash=None):
         """x [B, T, D] -> (x, (k, v)).  With `layer_past` (preallocated
         [B, S, Hkv, hd] buffers) this call's rotated k and v are written
         IN PLACE at rows [kv_write_index, kv_write_index + T) -- the JAX
@@ -209,7 +235,9 @@ class LLaDABlock(nn.Module):
                 pv[:, kv_write_index:kv_write_index + T].copy_(v)
                 k, v = pk, pv
             present = (k, v)
-            if use_flash:
+            if prefix_flash is not None:
+                att = prefix_flash_attention(q, k, v, *prefix_flash)
+            elif use_flash:
                 att = flash_attention(q, k, v, q_seg, kv_seg)
             else:
                 att = dense_attention(q, k, v, bias=bias)
@@ -310,6 +338,9 @@ class LLaDA(nn.Module):
         return_logits: bool = True,
         use_flash: bool = False,
         act_int8: bool = False,
+        prefix_lengths: Optional[torch.Tensor] = None,
+        attention_impl: str = "dense",
+        remat=False,
     ):
         """Run the blocks on input embeddings [B, T, D].
 
@@ -325,6 +356,13 @@ class LLaDA(nn.Module):
           segment ids; otherwise dense attention with an additive bias.
         act_int8: per-token int8 activations on int8 linears, through the
           blocks' prefill tree when they have one (linear_act_int8).
+        prefix_lengths: [B] the prefix-LM block mask for training
+          (modeling_llada.py:1351-1368): key kv is visible from query q when
+          kv < prefix_length or q >= prefix_length, over sequence indices.
+        attention_impl: "dense", "prefix_flash" (self-attention only) or
+          "auto" (prefix_flash on CUDA, dense on the CPU).
+        remat: False or "whole_layer" / True (checkpoint each block while
+          autograd records; no cache then).
 
         Returns (logits [B, T, V] f32, or ln_f(hidden) [B, T, D] when
         return_logits is False; the per-layer (k, v) list when use_cache,
@@ -332,6 +370,16 @@ class LLaDA(nn.Module):
         """
         B, T, _ = embeds.shape
         device = embeds.device
+        if attention_impl == "auto":
+            attention_impl = ("prefix_flash" if device.type == "cuda"
+                              else "dense")
+        if attention_impl not in ("dense", "prefix_flash"):
+            raise NotImplementedError(
+                f"attention_impl {attention_impl!r}: the port has dense and "
+                f"prefix_flash")
+        remat = remat_layers(remat) and torch.is_grad_enabled()
+        if remat and use_cache:
+            raise ValueError("remat keeps no per-layer cache")
         if kv_cache is not None:
             if kv_write_index is None:
                 raise NotImplementedError(
@@ -355,25 +403,46 @@ class LLaDA(nn.Module):
             valid = filled[None].expand(B, S)
             if kv_valid is not None:
                 valid = valid & kv_valid
-        bias = q_seg = kv_seg = None
-        if use_flash:
+        bias = q_seg = kv_seg = pf_args = None
+        if attention_impl == "prefix_flash":
+            if kv_cache is not None or use_flash:
+                raise ValueError("prefix_flash is the training self-attention:"
+                                 " no kv_cache, no use_flash")
+            plen = (prefix_lengths if prefix_lengths is not None else
+                    torch.zeros(B, dtype=torch.int32, device=device))
+            pf_args = (plen, valid)
+        elif use_flash:
+            if prefix_lengths is not None:
+                raise ValueError("the flash path masks by segment ids; the "
+                                 "prefix-LM mask needs prefix_flash or dense")
             if valid is not None:
                 kv_seg = valid.to(torch.int32).contiguous()
                 sv = (self_valid if self_valid is not None
                       else torch.ones(B, T, dtype=torch.bool, device=device))
                 q_seg = sv.to(torch.int32).contiguous()
-        elif valid is not None and not kv8:
-            bias = make_bias(kv_valid=valid)
+        elif (valid is not None or prefix_lengths is not None) and not kv8:
+            # the prefix-LM mask is about SEQUENCE structure: sequence
+            # indices, not the RoPE positions (llada.py:496-504)
+            prefix = prefix_lengths is not None
+            bias = make_bias(
+                kv_valid=valid, prefix_lengths=prefix_lengths,
+                q_positions=(torch.arange(start, start + T, device=device)
+                             if prefix else None),
+                kv_positions=torch.arange(S, device=device) if prefix else None)
 
         x = embeds
         presents = []
         for li, block in enumerate(self.blocks):
-            x, present = block(
-                x, sin=sin, cos=cos, positions=positions, bias=bias,
-                layer_past=None if kv_cache is None else kv_cache[li],
-                kv_write_index=kv_write_index, use_flash=use_flash,
-                q_seg=q_seg, kv_seg=kv_seg, act_int8=act_int8,
-                kv8_valid=valid if kv8 else None)
+            kw = dict(sin=sin, cos=cos, positions=positions, bias=bias,
+                      layer_past=None if kv_cache is None else kv_cache[li],
+                      kv_write_index=kv_write_index, use_flash=use_flash,
+                      q_seg=q_seg, kv_seg=kv_seg, act_int8=act_int8,
+                      kv8_valid=valid if kv8 else None, prefix_flash=pf_args)
+            if remat:
+                x = checkpoint(lambda h, blk=block, kw=kw: blk(h, **kw)[0],
+                               x, use_reentrant=False)
+                continue
+            x, present = block(x, **kw)
             if use_cache:
                 presents.append(present)
         new_cache = presents if use_cache else None

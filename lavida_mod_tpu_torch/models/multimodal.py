@@ -19,6 +19,12 @@ ported too: `encode_image` (multimodal.py:122-144) encodes one image and
 merges its views (`merge_anyres`, :89-119), and `splice_embeddings`
 (:162-210) concatenates text embeddings and image blocks at the -200
 markers; tests/test_torch_batch.py holds the two paths equal.
+
+`multimodal_embeds` is the splice of the training step too: it is
+differentiable from the tower through the projector, the pool and
+`image_newline` to the gathered rows (gather_rows' scatter-add VJP), with
+`remat` passed to the tower.  A tower with no trainable parameter runs
+without autograd recording it (stage-1 pretraining).
 """
 
 from __future__ import annotations
@@ -36,11 +42,17 @@ from ..ops.pooling import pool_2d
 
 
 def encode_views(model, pixel_values: torch.Tensor, pool: bool = True,
-                 fused_mlp: bool = False) -> torch.Tensor:
+                 fused_mlp: bool = False, remat: bool = False
+                 ) -> torch.Tensor:
     """[V, C, S, S] -> projected (and pooled) features [V, T', D_lm].
     `model` is a `LaViDa` (its siglip, projector and cfg are used);
-    fused_mlp runs the tower's MLP halves through `fused_vit_mlp`."""
-    feats = model.projector(model.siglip(pixel_values, fused_mlp=fused_mlp))
+    fused_mlp runs the tower's MLP halves through `fused_vit_mlp`; remat
+    checkpoints the tower's layers.  A frozen tower is not recorded."""
+    tower_grad = torch.is_grad_enabled() and any(
+        p.requires_grad for p in model.siglip.parameters())
+    with torch.set_grad_enabled(tower_grad):
+        feats = model.siglip(pixel_values, fused_mlp=fused_mlp, remat=remat)
+    feats = model.projector(feats)
     if not pool:
         return feats
     vcfg = model.cfg.vision
@@ -231,16 +243,17 @@ def multimodal_embeds(
     text_ids: np.ndarray,
     gather_idx: np.ndarray,
     fused_mlp: bool = False,
+    remat: bool = False,
 ) -> torch.Tensor:
     """Encode all views [N, C, S, S], build the flat table and splice it
     with ONE gather_rows call at the host plan gather_idx [B, T].  text_ids
     [B, T_text] is the plan's text table.  Returns [B, T, D_lm] on the
-    model's device."""
+    model's device, differentiable (multimodal.py:346-410)."""
     nl = model.image_newline
     D = nl.shape[-1]
     if pixel_values.shape[0] > 0:
-        flat = encode_views(model, pixel_values,
-                            fused_mlp=fused_mlp).reshape(-1, D)
+        flat = encode_views(model, pixel_values, fused_mlp=fused_mlp,
+                            remat=remat).reshape(-1, D)
     else:
         flat = nl.new_zeros((0, D))
     text = torch.as_tensor(np.asarray(text_ids), device=nl.device)

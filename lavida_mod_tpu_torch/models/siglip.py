@@ -13,15 +13,20 @@ Attention goes through `vision_attention`: the short-attention kernel on
 CUDA (all views of an image in one launch per layer), its plain version on
 the CPU.  With `fused_mlp` the MLP half of each layer runs as one
 `fused_vit_mlp` call (kernel #9, ops/vit_mlp.py; siglip.py:194-207), which
-`fused_mlp_ok` allows for a plain bf16 tower (siglip.py:84-100).  Off this
-slice: bicubic interpolation of the position table for other resolutions
-(a token count that differs from the table raises), int8 towers and LoRA.
+`fused_mlp_ok` allows for a plain bf16 tower (siglip.py:84-100); it is a
+serving choice, which the training step never makes.  The tower trains:
+its ops are differentiable (the attention through the short-attention VJP)
+and `remat` checkpoints each layer while autograd records (siglip.py:214-215).
+Not ported: bicubic interpolation of the position table for other
+resolutions (a token count that differs from the table raises), int8
+towers and LoRA.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import SigLIPConfig, as_port_config
 from ..ops.attention import vision_attention
@@ -108,12 +113,13 @@ class SigLIP(nn.Module):
                    for layer in self.layers for fc in (layer.fc1, layer.fc2)
                    ) and self.cfg.hidden_size % 128 == 0
 
-    def forward(self, pixel_values: torch.Tensor,
-                fused_mlp: bool = False) -> torch.Tensor:
+    def forward(self, pixel_values: torch.Tensor, fused_mlp: bool = False,
+                remat: bool = False) -> torch.Tensor:
         """[N, C, H, W] preprocessed pixels -> raw features [N, tokens, D]
         after the tower's layers.  Pixels are cast to the tower's dtype
         first (the reference's images.to(dtype), llava_arch.py:700): f32
-        pixels must not promote a bf16 tower to f32."""
+        pixels must not promote a bf16 tower to f32.  `remat`: checkpoint
+        each layer when autograd records."""
         x = pixel_values.to(self.patch_embed.weight.dtype)
         x = self.patch_embed(patchify(x, self.cfg.patch_size))
         if x.shape[1] != self.pos_embed.shape[0]:
@@ -121,6 +127,10 @@ class SigLIP(nn.Module):
                 f"{x.shape[1]} patch tokens vs a {self.pos_embed.shape[0]}-"
                 f"slot position table: bicubic interpolation is not ported")
         x = x + self.pos_embed[None]
+        remat = remat and torch.is_grad_enabled()
         for layer in self.layers:
-            x = layer(x, fused_mlp)
+            if remat:
+                x = checkpoint(layer, x, fused_mlp, use_reentrant=False)
+            else:
+                x = layer(x, fused_mlp)
         return x

@@ -4,7 +4,8 @@
     bias, in plain PyTorch (the JAX package leaves it to XLA).  GQA is a
     reshape of the queries into [kv_heads, groups], never a repeat of K/V;
     scores and softmax are f32; probabilities are cast to v's dtype before
-    the PV product.  Serves the decode steps over the bf16 KV cache.
+    the PV product.  Serves the decode steps over the bf16 KV cache and
+    the dense training attention (make_bias's prefix-LM mask).
   - `flash_attention` and `vision_attention`: the segment-masked and the
     unmasked entry points of the short-attention kernel
     (ops/short_attention.py), which runs on CUDA and falls to its plain
@@ -28,9 +29,11 @@ NEG_INF = -1e30
 def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched a @ b with an f32 result, as XLA's
     `preferred_element_type=f32`: on CUDA, bf16/fp16 inputs go to the
-    tensor cores with f32 accumulation and output; elsewhere the inputs
+    tensor cores with f32 accumulation and output; elsewhere, and where
+    autograd records (the out_dtype product has no derivative), the inputs
     are upcast (exact: a product of two bf16 values fits in f32)."""
-    if a.is_cuda and a.dtype != torch.float32:
+    grad = torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)
+    if a.is_cuda and a.dtype != torch.float32 and not grad:
         return torch.bmm(a, b, out_dtype=torch.float32)
     return torch.bmm(a.float(), b.float())
 

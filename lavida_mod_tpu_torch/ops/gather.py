@@ -8,8 +8,12 @@ a CUDA device launches the hand-written kernel in `csrc/gather_rows.cu`; a
 table on the CPU takes `gather_rows_reference`, the plain PyTorch version.
 There is no fallback from one to the other.
 
-Forward only: the TPU version's scatter-add VJP (`gather_rows_ad`) belongs
-to the training slice.
+Differentiable in the table (`_GatherRows`): the backward is the TPU
+version's VJP (`_gather_rows_ad_for`, pallas_gather.py:95-111), a
+scatter-add of the output gradient into a zero table accumulated in f32
+(`index_add_`, duplicate indices add up) and cast to the table's dtype, on
+the CPU as on the card.  JAX's CPU path differentiates a plain `table[idx]`
+instead, whose transpose adds duplicates in the table's dtype.
 """
 
 from __future__ import annotations
@@ -42,14 +46,7 @@ def _host_index(idx, n_rows: int) -> torch.Tensor:
     return idx
 
 
-def gather_rows(table: torch.Tensor, idx) -> torch.Tensor:
-    """table [N, D] (any dtype) gathered at the host plan idx [T] (numpy or
-    CPU tensor, int32 or int64, every entry in [0, N)).  Returns [T, D] on
-    the table's device."""
-    if table.dim() != 2:
-        raise ValueError(f"gather_rows: table must be 2-D, got "
-                         f"{tuple(table.shape)}")
-    idx = _host_index(idx, table.shape[0])
+def _forward(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if not table.is_cuda:
         return gather_rows_reference(table, idx)
     if not table.is_contiguous() or table.data_ptr() % 16:
@@ -67,6 +64,29 @@ def gather_rows(table: torch.Tensor, idx) -> torch.Tensor:
     kernels.check(err, "gather_rows")
     gather_rows.launches += 1
     return out
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.idx, ctx.shape, ctx.dtype = idx, table.shape, table.dtype
+        return _forward(table, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        dtable = torch.zeros(ctx.shape, dtype=torch.float32, device=g.device)
+        dtable.index_add_(0, ctx.idx.to(g.device), g.float())
+        return dtable.to(ctx.dtype), None
+
+
+def gather_rows(table: torch.Tensor, idx) -> torch.Tensor:
+    """table [N, D] (any dtype) gathered at the host plan idx [T] (numpy or
+    CPU tensor, int32 or int64, every entry in [0, N)).  Returns [T, D] on
+    the table's device; differentiable in the table."""
+    if table.dim() != 2:
+        raise ValueError(f"gather_rows: table must be 2-D, got "
+                         f"{tuple(table.shape)}")
+    return _GatherRows.apply(table, _host_index(idx, table.shape[0]))
 
 
 gather_rows.launches = 0

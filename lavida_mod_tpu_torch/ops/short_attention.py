@@ -17,8 +17,15 @@ in the kernel instead, so a query row that matches no key of its segment
 averages v over the S real keys (the TPU kernel also counts its zero pad
 keys in that average).  The main path never builds such a row.
 
-Forward only: the TPU kernel's custom VJP (`_short_bwd`) belongs to the
-training slice.
+Differentiable (`_ShortAttention`, an autograd Function, the counterpart of
+the TPU kernel's custom VJP): the backward recomputes through
+`short_attention_reference` and takes its VJP with torch autograd, as
+`_short_bwd` (short_attention.py:163-170) takes the VJP of its plain twin
+`_short_reference` with jax.vjp.  The two plain functions are one function
+in f32; in bf16 JAX's rounds the normalized p, this one the unnormalized p
+as the kernels do.  That backward is plain tensor math on both packages,
+not a kernel; `short_attention.backward_calls` counts it.  The SigLIP
+tower of stage-2 training runs it.
 """
 
 from __future__ import annotations
@@ -95,17 +102,7 @@ def _check_cuda_args(q, k, v, segment_ids_q, segment_ids_kv):
                     f"{tuple(t.shape)} on {t.device}")
 
 
-def short_attention(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    segment_ids_q: torch.Tensor | None = None,
-    segment_ids_kv: torch.Tensor | None = None,
-) -> torch.Tensor:
-    """Attention of q [B, T, Hq, hd] over k, v [B, S, Hkv, hd] (GQA when
-    Hq > Hkv), masked by segment-id equality when both id arrays
-    ([B, T] / [B, S] int32) are given.  CUDA: bf16, contiguous, hd a
-    multiple of 8 up to 128.  Returns [B, T, Hq, hd] in q's dtype."""
+def _forward(q, k, v, segment_ids_q, segment_ids_kv):
     if not q.is_cuda:
         return short_attention_reference(q, k, v, segment_ids_q,
                                          segment_ids_kv)
@@ -125,4 +122,37 @@ def short_attention(
     return out
 
 
+class _ShortAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, segment_ids_q, segment_ids_kv):
+        ctx.save_for_backward(q, k, v, segment_ids_q, segment_ids_kv)
+        return _forward(q, k, v, segment_ids_q, segment_ids_kv)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, seg_q, seg_kv = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            o = short_attention_reference(*leaves, seg_q, seg_kv)
+            dq, dk, dv = torch.autograd.grad(o, leaves, g)
+        short_attention.backward_calls += 1
+        return dq, dk, dv, None, None
+
+
+def short_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    segment_ids_q: torch.Tensor | None = None,
+    segment_ids_kv: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Attention of q [B, T, Hq, hd] over k, v [B, S, Hkv, hd] (GQA when
+    Hq > Hkv), masked by segment-id equality when both id arrays
+    ([B, T] / [B, S] int32) are given.  CUDA: bf16, contiguous, hd a
+    multiple of 8 up to 128.  Returns [B, T, Hq, hd] in q's dtype;
+    differentiable in q, k and v."""
+    return _ShortAttention.apply(q, k, v, segment_ids_q, segment_ids_kv)
+
+
 short_attention.launches = 0
+short_attention.backward_calls = 0

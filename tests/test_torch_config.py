@@ -147,3 +147,21 @@ def test_no_jax_package_import_in_the_port():
     bad = [(f.relative_to(REPO), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("lavida_mod_tpu", "jax", "jaxlib")]
     assert not bad, bad
+
+
+def test_import_scans_cover_the_training_slice():
+    """The two scans above walk the whole package: the training slice's
+    modules are among the files and the walked module names."""
+    files = {f.relative_to(REPO).as_posix()
+             for f in (REPO / "lavida_mod_tpu_torch").rglob("*.py")}
+    assert {"lavida_mod_tpu_torch/train/__init__.py",
+            "lavida_mod_tpu_torch/train/loss.py",
+            "lavida_mod_tpu_torch/train/step.py",
+            "lavida_mod_tpu_torch/ops/prefix_flash.py"} <= files
+    import pkgutil
+
+    import lavida_mod_tpu_torch as p
+    names = {m.name for m in pkgutil.walk_packages(
+        p.__path__, "lavida_mod_tpu_torch.")}
+    assert {"lavida_mod_tpu_torch.train.loss",
+            "lavida_mod_tpu_torch.train.step"} <= names

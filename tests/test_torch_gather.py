@@ -57,6 +57,31 @@ def test_rejects_non_plan_index():
         gather_rows(torch.zeros(10, 4), np.zeros((2, 2), np.int64))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_vjp_matches_jax_gather_rows_ad(dtype):
+    """The scatter-add backward against jax.vjp of the TPU version's
+    custom-VJP gather (`gather_rows_ad`, interpret mode) with duplicate
+    indices: f32 accumulation, then the table's dtype; equal."""
+    jax = pytest.importorskip("jax")
+    jnp = jax.numpy
+    from lavida_mod_tpu.ops.pallas_gather import gather_rows_ad
+
+    rng = np.random.default_rng(7)
+    table = rng.standard_normal((20, 128)).astype(np.float32)
+    idx = np.concatenate([rng.integers(0, 20, 40), [3, 3, 3, 3, 11, 11]])
+    g = rng.standard_normal((len(idx), 128)).astype(np.float32)
+    jdt = getattr(jnp, dtype)
+    _, vjp = jax.vjp(lambda t: gather_rows_ad(t, jnp.asarray(idx, jnp.int32),
+                                              interpret=True),
+                     jnp.asarray(table, jdt))
+    ref = np.asarray(vjp(jnp.asarray(g, jdt))[0].astype(jnp.float32))
+    tdt = getattr(torch, dtype)
+    t = torch.from_numpy(table).to(tdt).requires_grad_()
+    gather_rows(t, idx).backward(torch.from_numpy(g).to(tdt))
+    assert t.grad.dtype == tdt
+    np.testing.assert_array_equal(t.grad.float().numpy(), ref)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
