@@ -11,9 +11,14 @@ Layer map (mirrors lavida_mod_tpu):
                sampling, schedules, activations, quantizers and quantized
                linears, the int8 KV cache) and the wrappers of the
                hand-written CUDA kernels (short_attention, gather, w8a8,
-               w4_fused, w4_grouped, kv8_attention, vit_mlp, prefix_flash)
-  csrc/        the CUDA C++ kernels, built by kernels.py with nvcc at
-               first use
+               w4_fused, w4_matmul, w4_grouped, kv8_attention, vit_mlp,
+               prefix_flash)
+  csrc/        the CUDA C++ kernels (hopper.cuh: the TMA / mbarrier /
+               wgmma helpers two of them share), built by kernels.py with
+               nvcc at first use
+  kernel_times.py  device, back-to-back and host time per call of the
+               short_attention and w8a8_matmul wrappers of any checkout
+               (chip_smoke.py's timers)
   models/      nn.Modules: SigLIP, projector, LLaDA (bf16, the mixed
                int8/int4 and the int4 serving layouts), the composed
                LaViDa, and the host-side multimodal splice planner

@@ -1,0 +1,173 @@
+// Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels
+// (short_attention.cu, w8a8_matmul.cu): shared-memory addresses, mbarriers,
+// TMA tile loads, the wgmma fence / commit / wait, and the host-side
+// encoding of TMA tensor maps, cached by their arguments.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include <string.h>
+
+#include <mutex>
+#include <unordered_map>
+
+namespace hopper {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// waits until at most N committed groups are still running
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Registers that an asynchronous product writes (accumulators) or still
+// reads (A fragments): the compiler must neither move their uses across
+// the wait nor give their registers to other values until then.
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_acc(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
+// (nothing links against libcuda); null if the driver does not have it.
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err != cudaSuccess || q != cudaDriverEntryPointSuccess) p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+struct MapKey {
+  uint64_t v[14];
+  bool operator==(const MapKey& o) const { return memcmp(v, o.v, sizeof v) == 0; }
+};
+
+struct MapKeyHash {
+  size_t operator()(const MapKey& k) const {
+    uint64_t h = 1469598103934665603ull;  // FNV-1a over the words
+    for (uint64_t x : k.v) h = (h ^ x) * 1099511628211ull;
+    return static_cast<size_t>(h);
+  }
+};
+
+// A tiled tensor map of `rank` (<= 4) dimensions, innermost first, with
+// byte strides of the outer rank - 1, elements of 1 x ... x 1, L2 promotion
+// 256 B and zero fill past the bounds.  A map is a pure function of these
+// arguments (it holds the address, not the data), so one encoded before for
+// the same arguments is reused: the serving paths call with the same few
+// buffers, and an encode costs the host microseconds per map.  Returns
+// false if the driver refuses the map.
+inline bool encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base,
+                       const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                       CUtensorMapSwizzle swizzle) {
+  if (rank < 1 || rank > 4) return false;
+  MapKey key{};
+  key.v[0] = static_cast<uint64_t>(type) | static_cast<uint64_t>(rank) << 8 |
+             static_cast<uint64_t>(swizzle) << 16;
+  key.v[1] = reinterpret_cast<uint64_t>(base);
+  for (int i = 0; i < rank; ++i) {
+    key.v[2 + i] = dims[i];
+    key.v[6 + i] = box[i];
+    if (i + 1 < rank) key.v[10 + i] = strides[i];
+  }
+  static std::mutex mu;
+  static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> cache;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    const auto it = cache.find(key);
+    if (it != cache.end()) {
+      *map = it->second;
+      return true;
+    }
+  }
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  if (fn(map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(base), dims, strides, box,
+         elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
+    return false;
+  }
+  std::lock_guard<std::mutex> lock(mu);
+  if (cache.size() >= 4096) cache.clear();  // bounded: old buffers' maps go
+  cache.emplace(key, *map);
+  return true;
+}
+
+}  // namespace hopper

@@ -1,0 +1,164 @@
+#!/usr/bin/env python3
+"""Time the wrappers of the mixed request's attention and int8 GEMM kernels
+(`short_attention`, `w8a8_matmul`) of a checkout on one CUDA card, beside
+the PyTorch call that computes the same function:
+
+    python3 lavida_mod_tpu_torch/kernel_times.py [CHECKOUT]
+
+CHECKOUT is the root of a tree whose `lavida_mod_tpu_torch` package is
+timed (default: the tree holding this file), so two versions of the
+kernels can be timed in turns on one card, one process each.  Per shape of
+one mixed request (26 SigLIP + 32 prefill short_attention launches, 32 of
+each of the prefill's four w8a8_matmul shapes) it prints three times:
+
+  device         CUDA events over 20 calls while a spin kernel holds the
+                 stream, so the calls are timed by their kernels alone;
+  back to back   CUDA events over 20 calls as the host issues them: the
+                 larger of the host's and the card's time per call;
+  host           the host's time per call, enqueued without a sync;
+
+then their sums over the request, and as its last line one JSON object.
+chip_smoke.py takes its timers (`cuda_ms`, `host_us`) from here.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import time
+
+TIME_ITERS = 20
+
+
+def cuda_ms(fn, iters: int = TIME_ITERS, hold: bool = True) -> float:
+    """Mean time of fn() in ms over `iters` calls (CUDA events), after
+    warm-up.  With `hold`, a spin kernel holds the stream while the host
+    enqueues the timed calls, so a call whose host side is slower than its
+    kernels is timed by its kernels (device time); without, the calls are
+    timed back to back as the host issues them."""
+    import torch
+
+    for _ in range(min(3, iters)):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    if hold:  # about 2e9 spin cycles a second on an H100
+        torch.cuda._sleep(int((1.5 * iters * host_s + 1e-3) * 2e9))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def host_us(fn, iters: int = 50) -> float:
+    """Host time per call of fn() in microseconds, calls enqueued back to
+    back without a sync (what a host-bound caller pays per launch)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def three_times(fn) -> dict:
+    return {"ms": cuda_ms(fn), "ms_back_to_back": cuda_ms(fn, hold=False),
+            "host_us": host_us(fn)}
+
+
+def main(argv: list[str]) -> None:
+    here = os.path.dirname(os.path.abspath(__file__))
+    tree = os.path.abspath(argv[0] if argv else os.path.dirname(here))
+    # import the checkout's package, not a sibling of this file
+    sys.path[:] = [tree] + [p for p in sys.path
+                            if os.path.abspath(p or ".") != here]
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("kernel_times.py needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from lavida_mod_tpu_torch.ops import quant as tq
+    from lavida_mod_tpu_torch.ops import w8a8 as t8
+    from lavida_mod_tpu_torch.ops.short_attention import short_attention
+
+    pkg = os.path.dirname(sys.modules["lavida_mod_tpu_torch"].__file__)
+    if os.path.dirname(pkg) != tree:
+        raise RuntimeError(f"lavida_mod_tpu_torch came from {pkg}, not {tree}")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    name = torch.cuda.get_device_name(0)
+    print(f"[times] lavida_mod_tpu_torch of {tree} on {name}")
+    rows, sums = [], {}
+
+    def record(kernel, shape, per, mine, lib):
+        rows.append({"kernel": kernel, "shape": shape, "per_request": per,
+                     "kernel_times": mine, "library_times": lib})
+        s = sums.setdefault(kernel, {"kernel": {}, "library": {}})
+        for side, t in (("kernel", mine), ("library", lib)):
+            for k, val in t.items():
+                s[side][k] = s[side].get(k, 0.0) + per * val
+        print(f"[times] {kernel} {shape} x {per}: kernel device "
+              f"{mine['ms']:.4f} ms, back to back "
+              f"{mine['ms_back_to_back']:.4f} ms, host {mine['host_us']:.1f} "
+              f"us; library device {lib['ms']:.4f} ms, back to back "
+              f"{lib['ms_back_to_back']:.4f} ms, host {lib['host_us']:.1f} us")
+
+    with torch.no_grad():
+        for shape, kv, valid, per in [((5, 729, 16, 72), (5, 729, 16, 72),
+                                       None, 26),
+                                      ((1, 1056, 32, 128), (1, 1088, 32, 128),
+                                       1056, 32)]:
+            q = torch.randn(*shape, device=dev, generator=gen).bfloat16()
+            k, v = (torch.randn(*kv, device=dev, generator=gen).bfloat16()
+                    for _ in range(2))
+            sq = skv = mask = None
+            if valid is not None:   # the prefill's filled-rows mask
+                sq = torch.ones(shape[:2], dtype=torch.int32, device=dev)
+                skv = (torch.arange(kv[1], device=dev) < valid).int()[None]
+                mask = sq[:, None, :, None] == skv[:, None, None, :]
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            record("short_attention", f"q{shape} kv{kv}", per,
+                   three_times(lambda: short_attention(q, k, v, sq, skv)),
+                   three_times(lambda: F.scaled_dot_product_attention(
+                       qt, kt, vt, attn_mask=mask)))
+        for T, K, N in [(1056, 4096, 12288), (1056, 4096, 4096),
+                        (1056, 4096, 24576), (1056, 12288, 4096)]:
+            x = torch.randn(T, K, device=dev, generator=gen).bfloat16()
+            w, sc = tq.quantize_linear(
+                torch.randn(N, K, device=dev, generator=gen) * 0.02)
+            x8, sx = t8.act_quant(x, t8.ACT_FORMULA_W8)
+            wt = w.t()
+            try:
+                torch._int_mm(x8, wt)
+            except RuntimeError:      # a build that takes row-major only
+                wt = wt.contiguous()
+            record("w8a8_matmul", f"[{T},{K}]x[{K},{N}]", 32,
+                   three_times(lambda: t8.w8a8_matmul(x8, sx, w, sc)),
+                   three_times(lambda: (torch._int_mm(x8, wt).float()
+                                        * sx * sc).bfloat16()))
+    for kernel, s in sums.items():
+        a, b = s["kernel"], s["library"]
+        print(f"[times] {kernel} per mixed request: kernel device "
+              f"{a['ms']:.4f} ms, back to back {a['ms_back_to_back']:.4f} "
+              f"ms, host {a['host_us'] / 1e3:.4f} ms; library device "
+              f"{b['ms']:.4f} ms, back to back {b['ms_back_to_back']:.4f} "
+              f"ms, host {b['host_us'] / 1e3:.4f} ms ({name})")
+    print(json.dumps({"tree": tree, "device": name, "shapes": rows,
+                      "per_request": sums}))
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -4,9 +4,12 @@ Every `.cu` file under `csrc/` is compiled by `nvcc` for Hopper
 (`sm_90a`), one compiler process per source, all started together, and the
 objects are linked into one shared library with a plain C interface, which
 is loaded with `ctypes`.  The build runs at first use, into `build/` beside
-this file (listed in `.gitignore`), and is keyed by a hash of the sources
-and flags, so an edited source is rebuilt and an unchanged one is reused.
-No PyTorch headers are compiled: a build takes seconds, not minutes.
+this file (listed in `.gitignore`), and is keyed by a hash of the sources,
+the shared headers (`csrc/*.cuh`) and the flags, so an edited source is
+rebuilt and an unchanged one is reused.  No PyTorch headers are compiled: a
+build takes seconds, not minutes.  Before the library is loaded, the
+compiler's report is held to the register counts that a kernel's design
+depends on (`REGISTERS_AT_ENTRY`).
 
 Wrappers launch on PyTorch's current stream and raise when the C entry
 point returns a CUDA error (`check`).
@@ -18,6 +21,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -32,6 +36,12 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+# Kernels whose design needs ptxas to give each thread exactly this many
+# registers at launch: short_attention's producer warpgroup drops to 24
+# (`setmaxnreg.dec`) and its two consumer warpgroups rise to 240
+# (`setmaxnreg.inc`), and 128 x 24 + 256 x 240 = 384 x 168.  With fewer at
+# entry the pool is short and `setmaxnreg.inc` waits for ever.
+REGISTERS_AT_ENTRY = {"short_attention_kernel": 168}
 
 
 def _sources() -> list[Path]:
@@ -52,7 +62,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"liblavida_kernels_{h.hexdigest()[:16]}.so"
@@ -92,11 +102,38 @@ def build() -> Path:
     return out
 
 
+def check_registers(log: str) -> None:
+    """Raise unless every instance of each kernel in `REGISTERS_AT_ENTRY`
+    is reported by ptxas in `log` (the build's `-v` output) with exactly
+    its register count, and at least one instance is."""
+    entry = re.compile(r"Compiling entry function '([^']+)'")
+    used = re.compile(r"Used (\d+) registers")
+    found = {name: [] for name in REGISTERS_AT_ENTRY}
+    current = None
+    for line in log.splitlines():
+        m = entry.search(line)
+        if m:
+            current = next((n for n in REGISTERS_AT_ENTRY if n in m.group(1)),
+                           None)
+            continue
+        m = used.search(line)
+        if m and current is not None:
+            found[current].append(int(m.group(1)))
+            current = None
+    for name, want in REGISTERS_AT_ENTRY.items():
+        if not found[name] or any(n != want for n in found[name]):
+            raise RuntimeError(
+                f"{name}: ptxas reports {found[name] or 'no instance'} "
+                f"registers, the design needs {want} in every instance")
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call), with the argument
-    types of every entry point declared."""
-    lib = ctypes.CDLL(str(build()))
+    """The loaded kernel library (built on first call, its register counts
+    checked), with the argument types of every entry point declared."""
+    path = build()
+    check_registers(path.with_suffix(".log").read_text())
+    lib = ctypes.CDLL(str(path))
     vp, ci, cl, cf = (ctypes.c_void_p, ctypes.c_int, ctypes.c_long,
                       ctypes.c_float)
     lib.lavida_short_attention_bf16.argtypes = [
@@ -115,12 +152,13 @@ def library() -> ctypes.CDLL:
     lib.lavida_prefix_flash_fwd.argtypes = [vp] * 7 + [ci] * 6 + [cf, vp]
     lib.lavida_prefix_flash_dq.argtypes = [vp] * 9 + [ci] * 6 + [cf, vp]
     lib.lavida_prefix_flash_dkv.argtypes = [vp] * 10 + [ci] * 6 + [cf, vp]
+    lib.lavida_w4_matmul.argtypes = [vp] * 4 + [ci] * 3 + [vp]
     for fn in (lib.lavida_w8a8_matmul, lib.lavida_act_quant,
                lib.lavida_w4_qkv_norm, lib.lavida_w4_matmul_res,
                lib.lavida_w4_ffn_fused, lib.lavida_w4_grouped,
                lib.lavida_kv8_decode_attention, lib.lavida_vit_mlp,
                lib.lavida_prefix_flash_fwd, lib.lavida_prefix_flash_dq,
-               lib.lavida_prefix_flash_dkv):
+               lib.lavida_prefix_flash_dkv, lib.lavida_w4_matmul):
         fn.restype = ci
     return lib
 

@@ -151,7 +151,12 @@ def short_attention(
     ([B, T] / [B, S] int32) are given.  CUDA: bf16, contiguous, hd a
     multiple of 8 up to 128.  Returns [B, T, Hq, hd] in q's dtype;
     differentiable in q, k and v."""
-    return _ShortAttention.apply(q, k, v, segment_ids_q, segment_ids_kv)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _ShortAttention.apply(q, k, v, segment_ids_q, segment_ids_kv)
+    # nothing to differentiate (serving): the same forward without the
+    # autograd Function's per-call host cost
+    return _forward(q, k, v, segment_ids_q, segment_ids_kv)
 
 
 short_attention.launches = 0

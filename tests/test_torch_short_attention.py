@@ -114,6 +114,56 @@ def test_vjp_matches_jax_custom_vjp(B, T, S, Hq, Hkv, hd, masked):
                                    atol=1e-5, rtol=1e-5, err_msg=f"d{name}")
 
 
+def test_no_grad_call_skips_the_autograd_function():
+    """Serving calls (nothing requires grad) take the forward directly; a
+    call with a leaf that requires grad goes through the Function."""
+    q, k, v, q_seg, kv_seg = (torch.from_numpy(a) for a in
+                              _inputs(5, 1, 9, 11, 2, 1, 8, True))
+    ref = short_attention_reference(q, k, v, q_seg, kv_seg)
+    out = short_attention(q, k, v, q_seg, kv_seg)
+    assert out.grad_fn is None and torch.equal(out, ref)
+    q.requires_grad_()
+    with torch.no_grad():
+        assert short_attention(q, k, v, q_seg, kv_seg).grad_fn is None
+    out = short_attention(q, k, v, q_seg, kv_seg)
+    assert out.grad_fn is not None and torch.equal(out.detach(), ref)
+
+
+def _ptxas_log(regs):
+    """A build log in ptxas -v's format: one short_attention instance per
+    register count, between two other kernels."""
+    lines = ["== short_attention.cu",
+             "ptxas info    : Compiling entry function '_Z5otherv' for "
+             "'sm_90a'", "ptxas info    : Used 96 registers, used 1 "
+             "barriers"]
+    for hdp, n in zip((128, 72, 16), regs):
+        name = f"_ZN12_GLOBAL__N_122short_attention_kernelILi{hdp}EEEv"
+        lines += [f"ptxas info    : Compiling entry function '{name}' for "
+                  f"'sm_90a'",
+                  f"ptxas info    : Function properties for {name}",
+                  "    0 bytes stack frame, 0 bytes spill stores, 0 bytes "
+                  "spill loads",
+                  f"ptxas info    : Used {n} registers, used 16 barriers"]
+    lines += ["ptxas info    : Compiling entry function '_Z5afterv' for "
+              "'sm_90a'", "ptxas info    : Used 40 registers"]
+    return "\n".join(lines)
+
+
+@pytest.mark.parametrize("regs,ok", [
+    ((168, 168, 168), True),
+    ((168, 165, 168), False),   # setmaxnreg.inc 240 would wait for ever
+    ((), False),                # no instance found: a renamed kernel
+])
+def test_register_check_of_the_build_log(regs, ok):
+    from lavida_mod_tpu_torch import kernels
+
+    if ok:
+        kernels.check_registers(_ptxas_log(regs))
+    else:
+        with pytest.raises(RuntimeError, match="short_attention_kernel"):
+            kernels.check_registers(_ptxas_log(regs))
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -121,29 +171,58 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("qs,ks,masked", [
-    ((5, 729, 16, 72), (5, 729, 16, 72), False),     # SigLIP layer
-    ((1, 1056, 32, 128), (1, 1088, 32, 128), True),  # LLaDA prefill
-    ((2, 77, 8, 64), (2, 131, 2, 64), True),         # GQA, odd lengths
-    ((1, 65, 4, 72), (1, 63, 2, 72), True),          # hd 72, S < T
+def _segments(kind, B, T, S, device):
+    """None; "pad": keys valid up to T, the last 3 rows match no key (a
+    finite average over the S keys); "late": every query's first 260 keys
+    (two whole 128-key tiles and more) are masked, and every 5th query sees
+    only those (its visible keys all come first)."""
+    if kind is None:
+        return None, None
+    q_seg = torch.ones(B, T, dtype=torch.int32, device=device)
+    if kind == "pad":
+        kv_seg = (torch.arange(S, device=device) < T).int()
+        q_seg[:, -3:] = 2
+    else:
+        kv_seg = (torch.arange(S, device=device) >= 260).int()
+        q_seg[:, ::5] = 0
+    return q_seg, kv_seg[None].expand(B, -1).contiguous()
+
+
+@pytest.mark.parametrize("B,T,S,Hq,Hkv,hd,kind", [
+    (5, 729, 729, 16, 16, 72, None),    # SigLIP layer
+    (1, 1056, 1088, 32, 32, 128, "pad"),  # LLaDA prefill
+    (2, 77, 131, 8, 2, 64, "pad"),      # GQA, odd lengths
+    (1, 65, 63, 4, 2, 72, "pad"),       # hd 72, S < T
+    (1, 37, 1, 4, 4, 64, None),         # S = 1
+    (1, 37, 1, 4, 1, 128, "pad"),       # S = 1, G = 4, rows with no key
+    (2, 50, 50, 4, 4, 16, None),        # hd 16, S shorter than one tile
+    (1, 64, 64, 2, 2, 32, None),        # hd 32
+    (2, 65, 129, 14, 2, 48, None),      # hd 48, G = 7, S = a tile + 1
+    (1, 200, 257, 7, 1, 80, "pad"),     # hd 80, G = 7, S = two tiles + 1
+    (1, 130, 300, 8, 2, 72, "late"),    # hd 72, G = 4, leading tiles masked
+    (1, 70, 90, 2, 1, 96, "pad"),       # hd 96
+    (1, 33, 520, 4, 1, 112, "late"),    # hd 112, G = 4
+    (1, 129, 300, 4, 4, 128, "late"),   # hd 128, G = 1
 ])
-def test_kernel_matches_plain_on_cuda(cuda, qs, ks, masked):
+def test_kernel_matches_plain_on_cuda(cuda, B, T, S, Hq, Hkv, hd, kind):
     g = torch.Generator(device=cuda).manual_seed(0)
-    q, k, v = (torch.randn(*s, generator=g, device=cuda).bfloat16()
-               for s in (qs, ks, ks))
-    q_seg = kv_seg = None
-    if masked:
-        q_seg = torch.ones(qs[:2], dtype=torch.int32, device=cuda)
-        kv_seg = (torch.arange(ks[1], device=cuda) < qs[1]).int()[None] \
-            .expand(ks[0], -1).contiguous()
-        q_seg[:, -3:] = 2   # rows that match no key: a finite average
-    ref = short_attention_reference(q, k, v, q_seg, kv_seg)
-    assert torch.isfinite(ref).all()
-    before = short_attention.launches
-    out = short_attention(q, k, v, q_seg, kv_seg)
-    torch.cuda.synchronize()
-    assert short_attention.launches == before + 1
-    # p is rounded to bf16 per streamed tile, and the online rescaling
-    # sums in another order than the single-pass plain version
-    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
-                               rtol=2e-2)
+    q = torch.randn(B, T, Hq, hd, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(B, S, Hkv, hd, generator=g, device=cuda).bfloat16()
+            for _ in range(2))
+    q_seg, kv_seg = _segments(kind, B, T, S, cuda)
+    for i in range(2):
+        if i:   # new data at the same addresses: the tensor maps the
+            # wrapper reuses for them hold addresses, never data
+            for t in (q, k, v):
+                t.copy_(torch.randn(t.shape, generator=g, device=cuda))
+        ref = short_attention_reference(q, k, v, q_seg, kv_seg)
+        assert torch.isfinite(ref).all()
+        before = short_attention.launches
+        out = short_attention(q, k, v, q_seg, kv_seg)
+        torch.cuda.synchronize()
+        assert short_attention.launches == before + 1
+        # p is rounded to bf16 per streamed tile, and the online rescaling
+        # sums in another order than the single-pass plain version: read
+        # on an H100 within 1.95e-3 - 3.9e-3 (one bf16 ulp of |o| < 1)
+        torch.testing.assert_close(out.float(), ref.float(), atol=8e-3,
+                                   rtol=8e-3)

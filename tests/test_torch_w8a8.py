@@ -95,7 +95,12 @@ def cuda():
 
 @pytest.mark.parametrize("T,K,N", [(1056, 4096, 12288), (1056, 4096, 4096),
                                    (1056, 4096, 24576), (1056, 12288, 4096),
-                                   (77, 208, 200), (5, 4304, 1152)])
+                                   (77, 208, 200), (5, 4304, 1152),
+                                   # the wgmma tiles' edges: one row, one
+                                   # 16-byte K slice, ragged K and N, odd N
+                                   (1, 4096, 4096), (7, 16, 24),
+                                   (77, 4304, 1000), (33, 4304, 1001),
+                                   (1, 16, 1), (300, 12288, 136)])
 def test_kernel_matches_plain_on_cuda(cuda, T, K, N):
     g = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(T, K, generator=g, device=cuda).bfloat16()
