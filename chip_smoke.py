@@ -64,9 +64,13 @@ exits non-zero and never prints the final line:
      prefix_flash_dkv) against their plain versions on the card at the
      stage-1 shape (8 doubled rows x 1152 tokens, 32 heads, hd 128, prefix
      lengths near 1010, a kv_valid tail) and a ragged GQA case (28 / 4
-     heads, T 200, prefix length 0 and >= T): errors, kernel, plain and
-     library times (SDPA forward; SDPA's autograd backward for dq + dkv)
-     and bounds.
+     heads, T 200, prefix length 0 and >= T): errors, kernel (device time
+     and back to back), plain and library times (SDPA forward; SDPA's
+     autograd backward for dq + dkv, both also back to back) and bounds
+     (4 / 6 / 8 x the visible (query, key) pairs x Hq x hd operations);
+     then at the stage-1 shape the forward against SDPA's forward and dq +
+     dkv against SDPA's whole backward, per launch and per step, each with
+     its share of the bound and its ratio to the library call.
  10. stage-1 pretraining at full LaViDa-LLaDA-8B (LaViDaConfig(), 32 LLaDA
      and 26 SigLIP layers, random bf16 weights from seed 0 on the card):
      make_freeze_optimizer("mm_mlp_adapter", lr 1e-3, pretrain_stage1.sh's
@@ -75,11 +79,15 @@ exits non-zero and never prints the final line:
      samples of one bench-shaped image, an 8-token prompt and a 40-token
      caption, T bucketed to 128 and views to 8; one warm-up step and three
      timed steps: a finite loss, the launches per step asserted (2 x 32
-     prefix_flash_fwd, 32 dq, 32 dkv, 1 gather_rows, 26 short_attention),
-     the projector and image_newline moved after the first step with a
-     nonzero LR, every LLaDA and SigLIP weight bit-identical (checksums);
-     step wall, data tokens per second, peak memory, the profiler's
-     device-busy share of one step and device time by kernel.
+     prefix_flash_fwd, 32 dq, 32 dkv, 1 gather_rows, 2 x 26
+     short_attention: grad_norm covers every leaf, as JAX's, so the frozen
+     tower runs under autograd and its remat recomputes each layer), the
+     projector and image_newline moved after the first step with a nonzero
+     LR, every LLaDA and SigLIP weight bit-identical (checksums); step
+     wall, data tokens per second, peak memory, the profiler's device-busy
+     share of one step, device time by kernel and by kernel kind
+     (lavida_mod_tpu_torch/step_times.py, which times the stage-1 step of
+     any checkout the same way) and #10's device time.
  11. stage-2 finetuning at full width with the LLaDA depth cut to 4 layers
      (the only cut; SigLIP keeps 26): every part tunable, lr 2e-5, tower lr
      2e-6, grad_accum 2 (finetune_stage2.sh), B = 2, two microsteps make one
@@ -102,6 +110,7 @@ import time
 import numpy as np
 
 from lavida_mod_tpu_torch.kernel_times import cuda_ms, host_us
+from lavida_mod_tpu_torch.step_times import print_by_kind
 
 SIGLIP_LAYERS = 26   # so400m's 27 layers less the dropped last one
 LLADA_LAYERS = 32
@@ -824,7 +833,8 @@ def _phase_times(torch, model, request, gen):
 
 def _profile_busy(torch, run):
     """Device time of run() from torch.profiler and its wall: (busy ms,
-    wall ms, top kernels) or None when the trace shows no device time."""
+    wall ms, top kernels, every kernel as (name, ms, count)) or None when
+    the trace shows no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -841,7 +851,7 @@ def _profile_busy(torch, run):
     if busy <= 0:
         return None
     rows.sort(key=lambda r: -r[1])
-    return busy, wall, rows[:12]
+    return busy, wall, rows[:12], rows
 
 
 def _print_profile(tag, prof, what, card):
@@ -849,7 +859,7 @@ def _print_profile(tag, prof, what, card):
         print(f"[{tag}] torch.profiler: no device time in the trace; "
               f"device-busy share not measured")
         return None
-    busy, wall, top = prof
+    busy, wall, top = prof[:3]
     print(f"[{tag}] torch.profiler over {what}: device busy {busy:.1f} ms "
           f"of a {wall:.1f} ms wall ({100 * busy / wall:.1f} %, profiler "
           f"on) ({card})")
@@ -1230,7 +1240,7 @@ def phase_train_kernels(torch, device, res):
         o, lse = tpf.prefix_flash_fwd(q, k, v, pl, valid)
         torch.cuda.synchronize()
         o_ref, lse_ref = tpf.prefix_flash_fwd_reference(q, k, v, pl, valid)
-        # p is rounded to bf16 per 64-key tile against the running max (the
+        # p is rounded to bf16 per 128-key tile against the running max (the
         # plain version once against the row max); sums run in another order.
         # Read on an H100: o within 2.0e-3 (stage1) and 3.9e-3 (gqa_ragged,
         # one bf16 ulp at |o| >= 0.5); dq, dk, dv within 1.3e-3 - 2.9e-3 of
@@ -1265,12 +1275,18 @@ def phase_train_kernels(torch, device, res):
         gqa = dict(enable_gqa=True) if Hq != Hkv else {}
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qt, kt, vt, attn_mask=mask, **gqa)
-        lib_fwd = cuda_ms(sdpa, 10)
+        lib_fwd, lib_fwd_b2b = cuda_ms(sdpa, 10), cuda_ms(sdpa, 10,
+                                                          hold=False)
         with torch.enable_grad():
             out = sdpa()
         dot = dout.transpose(1, 2)
-        lib_bwd = cuda_ms(lambda: torch.autograd.grad(
-            out, (qt, kt, vt), dot, retain_graph=True), 10)
+
+        def sdpa_bwd():
+            return torch.autograd.grad(out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
+        lib_bwd, lib_bwd_b2b = cuda_ms(sdpa_bwd, 10), cuda_ms(sdpa_bwd, 10,
+                                                              hold=False)
         # the bound counts the (query, key) pairs this run's masks leave
         # visible: keys past the valid tail and, for a query inside the
         # prefix, keys past the prefix need no work
@@ -1283,13 +1299,14 @@ def phase_train_kernels(torch, device, res):
                 lambda: tpf.prefix_flash_fwd(q, k, v, pl, valid),
                 cuda_ms(lambda: tpf.prefix_flash_fwd_reference(
                     q, k, v, pl, valid), 3), lib_fwd, 4 * flops,
-                io + 2 * q.numel() + rows, note=" (o abs, limit 8e-3)")
+                io + 2 * q.numel() + rows, note=" (o abs, limit 8e-3)",
+                library_b2b=lib_fwd_b2b)
         res.add("prefix_flash_dq", shape, per[1], errs["dq"],
                 lambda: tpf.prefix_flash_dq(*args),
                 cuda_ms(lambda: tpf.prefix_flash_dq_reference(*args), 3),
                 lib_bwd, 6 * flops, io + 4 * q.numel() + 2 * rows,
                 note=" (relative, limit 8e-3; library = SDPA's whole "
-                     "backward)")
+                     "backward)", library_b2b=lib_bwd_b2b)
         res.add("prefix_flash_dkv", shape, per[2],
                 max(errs["dk"], errs["dv"]),
                 lambda: tpf.prefix_flash_dkv(*args),
@@ -1297,9 +1314,30 @@ def phase_train_kernels(torch, device, res):
                 lib_bwd, 8 * flops,
                 io + 2 * q.numel() + 2 * rows + 2 * (k.numel() + v.numel()),
                 note=" (relative, limit 8e-3; library = SDPA's whole "
-                     "backward)")
+                     "backward)", library_b2b=lib_bwd_b2b)
         del q, k, v, dout, dq, dk, dv, o, args
         torch.cuda.empty_cache()
+
+
+def prefix_flash_summary(res, card):
+    """#10 at the stage-1 shape, per launch and per step: the forward
+    against SDPA's forward, dq + dkv against SDPA's whole backward, each
+    beside its bound, device time and back to back."""
+    fwd, dq, dkv = (res.get(n)["per_shape"][0] for n in (
+        "prefix_flash_fwd", "prefix_flash_dq", "prefix_flash_dkv"))
+    bwd = {k: dq[k] + dkv[k] for k in ("ms", "ms_back_to_back", "bound_ms")}
+    for what, r, lib_name in (("forward", fwd, "SDPA's forward"),
+                              ("dq + dkv", bwd, "SDPA's whole backward")):
+        lib = fwd["library_ms"] if r is fwd else dq["library_ms"]
+        print(f"[kernels] prefix_flash {what} at the stage-1 shape, per "
+              f"launch: {r['ms']:.4f} ms (back to back "
+              f"{r['ms_back_to_back']:.4f} ms), {lib_name} {lib:.4f} ms "
+              f"(kernel {r['ms'] / lib:.2f}x its time), bound "
+              f"{r['bound_ms']:.4f} ms (kernel at "
+              f"{100 * r['bound_ms'] / r['ms']:.1f} % of it) ({card})")
+    for name in ("prefix_flash_fwd", "prefix_flash_dq", "prefix_flash_dkv"):
+        res.summary(name, "one stage-1 step (64 fwd with the remat "
+                    "recompute, 32 dq, 32 dkv)", card)
 
 
 TRAIN_TEXT, TRAIN_CAPTION = 8, 40
@@ -1402,10 +1440,12 @@ def phase_stage1(torch, device, card):
     sums0 = _checksums(torch, frozen)
     tunable = {n: m.clone() for n, m in state.masters.items()}
     ops = _train_ops()
+    # the frozen tower runs under autograd (grad_norm covers every leaf):
+    # its layers' remat recompute launches short_attention again
     want = {"prefix_flash_fwd": 2 * LLADA_LAYERS,
             "prefix_flash_dq": LLADA_LAYERS,
             "prefix_flash_dkv": LLADA_LAYERS, "gather_rows": 1,
-            "short_attention": SIGLIP_LAYERS}
+            "short_attention": 2 * SIGLIP_LAYERS}
 
     m = step(state, batch, gen)                 # warm-up: the LR is 0 here
     torch.cuda.synchronize()
@@ -1449,12 +1489,22 @@ def phase_stage1(torch, device, card):
           f"{min(walls) * 1e3:.1f}), {B * T / wall:.0f} data tokens/s (B x T"
           f" = {B * T}), peak {peak:.2f} GiB; frozen LLaDA + SigLIP weights "
           f"bit-identical, projector + image_newline moved ({card})")
-    share = _print_profile("stage1", _profile_busy(
-        torch, lambda: step(state, batch, gen)), "one step", card)
+    prof = _profile_busy(torch, lambda: step(state, batch, gen))
+    share = _print_profile("stage1", prof, "one step", card)
+    attn = None
+    if prof is not None:
+        print_by_kind("stage1", prof[3], "the profiled step")
+        attn = {k: sum(ms for key, ms, _ in prof[3] if f"prefix_flash_{k}_"
+                       in key) for k in ("fwd", "dq", "dkv")}
+        print(f"[stage1] #10 device time in the profiled step: fwd "
+              f"{attn['fwd']:.2f} ms, dq {attn['dq']:.2f} ms, dkv "
+              f"{attn['dkv']:.2f} ms, total {sum(attn.values()):.2f} ms; "
+              f"step wall {wall * 1e3:.1f} ms, peak {peak:.2f} GiB ({card})")
     del state, model, step
     torch.cuda.empty_cache()
     return counts, {"wall_ms": wall * 1e3, "tokens_per_s": B * T / wall,
-                    "peak_gib": peak, "busy": share, "B": B, "T": T}
+                    "peak_gib": peak, "busy": share, "B": B, "T": T,
+                    "prefix_flash_ms": attn}
 
 
 def phase_stage2(torch, device, card):
@@ -1633,6 +1683,7 @@ def main() -> None:
     res.summary("short_attention", "one mixed request (26 SigLIP + 32 "
                 "prefill launches)", card)
     res.summary("w8a8_matmul", "one mixed request (128 launches)", card)
+    prefix_flash_summary(res, card)
     torch.cuda.empty_cache()
     model, requests, counts, walls = phase_main_path(torch, device, card)
     mixed_counts, mixed_walls, peaks, fused_layer_ms = phase_mixed_path(
@@ -1697,6 +1748,8 @@ def main() -> None:
           for k, (w, B, p) in batch_walls.items()}
     busy1 = ("not measured" if stage1["busy"] is None
              else f"{100 * stage1['busy']:.1f} %")
+    attn1 = ("not measured" if stage1["prefix_flash_ms"] is None
+             else f"{sum(stage1['prefix_flash_ms'].values()):.2f} ms")
     print("[result] kernel ms / plain_ms / library_ms / bound_ms: summed "
           "over one run's launches (bf16 path: 26 SigLIP + 32 prefill "
           "short_attention, 1 gather_rows per request; mixed path: 128 "
@@ -1715,7 +1768,8 @@ def main() -> None:
           f"fwd, 32 dq, 32 dkv; launches over 3 steps): stage-1 step "
           f"{stage1['wall_ms']:.1f} ms, {stage1['tokens_per_s']:.0f} data "
           f"tokens/s, peak {stage1['peak_gib']:.2f} GiB, device busy "
-          f"{busy1}; stage-2 (4 LLaDA layers) peak {stage2_peak:.2f} GiB; "
+          f"{busy1}, #10 device time {attn1}; stage-2 (4 LLaDA layers) peak "
+          f"{stage2_peak:.2f} GiB; "
           f"whole script {time.perf_counter() - t_start:.1f} s on {card}")
     print(card)
     print(json.dumps({"kernels": entries}))

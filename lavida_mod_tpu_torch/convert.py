@@ -175,9 +175,10 @@ def state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
     return out
 
 
-def masters_from_jax(params: dict, device="cpu") -> dict[str, torch.Tensor]:
+def masters_from_jax(params: dict, device="cuda") -> dict[str, torch.Tensor]:
     """The JAX f32 training tree (numpy leaves) -> f32 master tensors by
-    state-dict name on `device`."""
+    state-dict name on `device` (the card unless the caller asks for the
+    CPU)."""
     return {n: t.to(device=device, dtype=torch.float32)
             for n, t in state_dict_from_jax(params).items()}
 

@@ -1,15 +1,26 @@
 #!/usr/bin/env python3
-"""Time the wrappers of the mixed request's attention and int8 GEMM kernels
-(`short_attention`, `w8a8_matmul`) of a checkout on one CUDA card, beside
-the PyTorch call that computes the same function:
+"""Time kernel wrappers of a checkout on one CUDA card, beside the PyTorch
+call that computes the same function:
 
     python3 lavida_mod_tpu_torch/kernel_times.py [CHECKOUT]
 
 CHECKOUT is the root of a tree whose `lavida_mod_tpu_torch` package is
 timed (default: the tree holding this file), so two versions of the
-kernels can be timed in turns on one card, one process each.  Per shape of
-one mixed request (26 SigLIP + 32 prefill short_attention launches, 32 of
-each of the prefill's four w8a8_matmul shapes) it prints three times:
+kernels can be timed in turns on one card, one process each.  It times
+three groups:
+
+  short_attention  per shape of one mixed request (26 SigLIP + 32 prefill
+                   launches), against SDPA with the same mask;
+  w8a8_matmul      32 of each of the mixed prefill's four shapes, against
+                   torch._int_mm + the f32 epilogue;
+  prefix_flash     the training attention of one stage-1 step at full
+                   LLaDA-8B ([8, 1152, 32, 128], prefix lengths near 1010,
+                   a valid tail; 64 forward launches with the remat
+                   recompute, 32 dq, 32 dkv), the forward against SDPA's
+                   forward and dq + dkv against SDPA's whole autograd
+                   backward, both with the same boolean mask.
+
+Each is timed three ways:
 
   device         CUDA events over 20 calls while a spin kernel holds the
                  stream, so the calls are timed by their kernels alone;
@@ -17,8 +28,8 @@ each of the prefill's four w8a8_matmul shapes) it prints three times:
                  larger of the host's and the card's time per call;
   host           the host's time per call, enqueued without a sync;
 
-then their sums over the request, and as its last line one JSON object.
-chip_smoke.py takes its timers (`cuda_ms`, `host_us`) from here.
+then their sums over the request or step, and as its last line one JSON
+object.  chip_smoke.py takes its timers (`cuda_ms`, `host_us`) from here.
 """
 
 from __future__ import annotations
@@ -78,6 +89,26 @@ def three_times(fn) -> dict:
             "host_us": host_us(fn)}
 
 
+# the stage-1 step's attention (chip_smoke.py phase 9): prefix lengths and
+# valid keys per row, launches per step of fwd, dq and dkv
+STAGE1_PLEN = [1010 - 9 * i for i in range(4)] * 2
+STAGE1_LAUNCHES = (64, 32, 32)
+
+
+def stage1_attention_inputs(torch, dev, gen, B=8, T=1152, H=32, hd=128):
+    """q, k, v, dout [B, T, H, hd] bf16, plen [B] and kv_valid [B, T] int32
+    of the stage-1 shape, and the [B, 1, T, T] boolean mask SDPA takes."""
+    q, k, v, dout = (torch.randn(B, T, H, hd, device=dev,
+                                 generator=gen).bfloat16() for _ in range(4))
+    pl = torch.tensor(STAGE1_PLEN[:B], dtype=torch.int32, device=dev)
+    pos = torch.arange(T, device=dev)
+    valid = (pos[None] < pl[:, None] + 48).int()
+    see = (((pos[None, None, :] < pl[:, None, None])
+            | (pos[None, :, None] >= pl[:, None, None]))
+           & valid.bool()[:, None, :])
+    return q, k, v, dout, pl, valid, see[:, None]
+
+
 def main(argv: list[str]) -> None:
     here = os.path.dirname(os.path.abspath(__file__))
     tree = os.path.abspath(argv[0] if argv else os.path.dirname(here))
@@ -90,6 +121,7 @@ def main(argv: list[str]) -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("kernel_times.py needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
+    from lavida_mod_tpu_torch.ops import prefix_flash as tpf
     from lavida_mod_tpu_torch.ops import quant as tq
     from lavida_mod_tpu_torch.ops import w8a8 as t8
     from lavida_mod_tpu_torch.ops.short_attention import short_attention
@@ -149,9 +181,39 @@ def main(argv: list[str]) -> None:
                    three_times(lambda: t8.w8a8_matmul(x8, sx, w, sc)),
                    three_times(lambda: (torch._int_mm(x8, wt).float()
                                         * sx * sc).bfloat16()))
+    # the stage-1 step's training attention
+    q, k, v, dout, pl, valid, mask = stage1_attention_inputs(
+        torch, dev, gen)
+    o, lse = tpf.prefix_flash_fwd(q, k, v, pl, valid)
+    delta = tpf.attention_delta(dout, o)
+    args = (q, k, v, pl, valid, dout, lse, delta)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    with torch.enable_grad():
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    dot = dout.transpose(1, 2)
+    shape = f"q{tuple(q.shape)} plen {STAGE1_PLEN}"
+    nf, nb = STAGE1_LAUNCHES[:2]    # dq and dkv launch as often
+    with torch.no_grad():
+        record("prefix_flash_fwd", shape, nf,
+               three_times(lambda: tpf.prefix_flash_fwd(q, k, v, pl,
+                                                        valid)),
+               three_times(lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, attn_mask=mask)))
+    # SDPA computes dq, dk and dv in one backward: it stands beside
+    # dq + dkv, once per step's 32 launches of each
+    lib_bwd = three_times(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True))
+    record("prefix_flash_dq+dkv", shape, nb,
+           {key: a + b for (key, a), b in zip(
+               three_times(lambda: tpf.prefix_flash_dq(*args)).items(),
+               three_times(lambda: tpf.prefix_flash_dkv(*args)).values())},
+           lib_bwd)
     for kernel, s in sums.items():
         a, b = s["kernel"], s["library"]
-        print(f"[times] {kernel} per mixed request: kernel device "
+        what = ("stage-1 step" if kernel.startswith("prefix_flash")
+                else "mixed request")
+        print(f"[times] {kernel} per {what}: kernel device "
               f"{a['ms']:.4f} ms, back to back {a['ms_back_to_back']:.4f} "
               f"ms, host {a['host_us'] / 1e3:.4f} ms; library device "
               f"{b['ms']:.4f} ms, back to back {b['ms_back_to_back']:.4f} "

@@ -37,11 +37,15 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 # Kernels whose design needs ptxas to give each thread exactly this many
-# registers at launch: short_attention's producer warpgroup drops to 24
-# (`setmaxnreg.dec`) and its two consumer warpgroups rise to 240
-# (`setmaxnreg.inc`), and 128 x 24 + 256 x 240 = 384 x 168.  With fewer at
-# entry the pool is short and `setmaxnreg.inc` waits for ever.
-REGISTERS_AT_ENTRY = {"short_attention_kernel": 168}
+# registers at launch: the producer warpgroup of short_attention and of the
+# three prefix_flash kernels drops to 24 (`setmaxnreg.dec`) and their two
+# consumer warpgroups rise to 240 (`setmaxnreg.inc`), and 128 x 24 + 256 x
+# 240 = 384 x 168.  With fewer at entry the pool is short and
+# `setmaxnreg.inc` waits for ever.
+REGISTERS_AT_ENTRY = {"short_attention_kernel": 168,
+                      "prefix_flash_fwd_kernel": 168,
+                      "prefix_flash_dq_kernel": 168,
+                      "prefix_flash_dkv_kernel": 168}
 
 
 def _sources() -> list[Path]:

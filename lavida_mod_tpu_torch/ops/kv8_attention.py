@@ -17,6 +17,15 @@ Layout, as in the JAX package: K/V as int8 codes [B, Hkv, S, hd]
     masked to -1e30, the whole row softmaxed, p * vs rounded to bf16, the
     PV product in f32, the result in q's dtype.
 
+The kernel's caps (ROADMAP Queue 3, item 1): it softmaxes a whole row of
+scores in shared memory, so it takes S <= 6400 cached positions (4 x S x
+8 bytes of scores within 200 KB) and a head dim that is a multiple of 16
+dividing 256 (16, 32, 64, 128 or 256); the wrapper raises past them.  The JAX kernel holds the whole per-KV-head
+cache as one VMEM block with no online softmax either
+(lavida_mod_tpu/ops/kv8_attention.py:108-128, "S=1088, hd=128 -> 2x136 KB
+int8"); its cap is the v5e's VMEM, not measured.  The paths today stay
+near S = 1184; a longer cache needs the row tiled with an online softmax.
+
 The int4 cache (`--kv4`) is not ported: `quantize_kv(bits=4)` raises.
 """
 

@@ -25,7 +25,7 @@ lse = m + log(max(l, 1e-30)); in the backward p = where(visible, exp(s -
 lse), 0), ds = p * (dp - delta), dq = scale * bf16(ds) @ k, dv = bf16(p)^T
 @ dO, dk = scale * bf16(ds)^T @ q.  The plain versions take one pass over
 all keys where the kernels stream tiles (the TPU 512-row blocks, the CUDA
-64-row ones): the same function up to rounding.  The TPU wrapper pads T
+128-key ones): the same function up to rounding.  The TPU wrapper pads T
 and S to its block (at T = 1152 to 1536) and masks the pad keys; the CUDA
 kernels mask the ragged edges in place, which only differs for a row that
 sees no key at all (it averages v over the S real keys here), a row no

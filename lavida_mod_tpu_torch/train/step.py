@@ -24,13 +24,16 @@ DeepSpeed's bf16 engine: the state holds f32 masters and
 f32 Adam moments for the trainable leaves and a bf16 compute model; each
 microstep copies the masters into the model, runs forward and backward in
 bf16, takes the bf16 leaves' gradients as f32 and updates the masters.
-Frozen leaves have requires_grad=False: no gradient, no optimizer state.
-The port updates the masters and moments in place, where optax returns
-new trees.
+Frozen leaves have requires_grad=False outside a step and no optimizer
+state.  The port updates the masters and moments in place, where optax
+returns new trees.
 
-`grad_norm` is the global norm of the gradients the port computes, the
-trainable leaves'; the JAX step logs the norm over every leaf, frozen ones
-included (step.py:308-315).  Sharding (`mesh`, `batch_axes`) is not ported.
+`grad_norm` is JAX's metric, optax.global_norm over the gradient of every
+leaf, frozen ones included (step.py:247, 314): a step differentiates the
+frozen leaves too (their requires_grad is set for its forward and
+backward, so a frozen tower runs under autograd as in JAX), sums their
+squared gradients into the norm, and frees the gradients; they do not
+reach the optimizer.  Sharding (`mesh`, `batch_axes`) is not ported.
 """
 
 from __future__ import annotations
@@ -326,17 +329,39 @@ def _no_sharding(mesh, batch_axes) -> None:
                                   "not ported")
 
 
-def _backward_and_update(state: TrainState, optimizer: Optimizer, loss,
-                         metrics) -> dict:
-    loss.backward()
+def _microstep(state: TrainState, optimizer: Optimizer, forward) -> dict:
+    """forward() -> (loss, metrics); backward, grad_norm over every leaf,
+    one optimizer microstep on the masters.  The frozen leaves require a
+    gradient for this forward and backward only: their gradients enter the
+    norm and are freed."""
     params = dict(state.model.named_parameters())
+    frozen = [p for n, p in params.items() if n not in state.masters
+              and p.is_floating_point() and not p.requires_grad]
+    for p in frozen:
+        p.requires_grad_(True)
+    try:
+        loss, metrics = forward()
+        loss.backward()
+    finally:
+        for p in frozen:
+            p.requires_grad_(False)
     grads = {}
     for n in state.masters:
         p = params[n]
         grads[n] = (p.grad if p.grad is not None
                     else torch.zeros_like(p))
         p.grad = None
-    metrics["grad_norm"] = global_norm(grads.values())
+    sq = sum((g.float().square().sum() for g in grads.values()),
+             torch.zeros((), device=loss.device))
+    frozen_grads = [p.grad for p in frozen if p.grad is not None]
+    if frozen_grads:
+        # one fused pass, f32 sums of the bf16 gradients (no f32 copies)
+        norms = torch._foreach_norm(frozen_grads, 2, dtype=torch.float32)
+        sq = sq + torch.stack(norms).square().sum()
+    del frozen_grads    # the gradients go with their last references
+    for p in frozen:
+        p.grad = None
+    metrics["grad_norm"] = torch.sqrt(sq)
     optimizer.step(grads, state.opt_state, state.masters)
     return {k: v.detach() for k, v in metrics.items()}
 
@@ -359,12 +384,11 @@ def make_train_step(cfg, optimizer: Optimizer, *, prefix_lm: bool = True,
         model = state.model
         lm = getattr(model, "llada", model)
         embeds = batch["inputs_embeds"].to(lm.wte.weight.dtype)
-        loss, metrics = diffusion_loss(
+        return _microstep(state, optimizer, lambda: diffusion_loss(
             lm, embeds, batch["labels"], generator, prefix_lm=prefix_lm,
             policy=policy, policy_args=policy_args,
             masked_indices=masked_indices, remat=remat, use_flash=use_flash,
-            attention_impl=attention_impl, ce_chunk=ce_chunk)
-        return _backward_and_update(state, optimizer, loss, metrics)
+            attention_impl=attention_impl, ce_chunk=ce_chunk))
 
     return train_step
 
@@ -397,14 +421,17 @@ def make_multimodal_train_step(cfg, optimizer: Optimizer, *,
         state.load_masters()
         model = state.model
         pix = torch.as_tensor(batch["pixel_values"]).to(model.device)
-        embeds = multimodal_embeds(model, pix, batch["text_ids"],
-                                   batch["gather_idx"], remat=remat)
-        loss, metrics = diffusion_loss(
-            model.llada, embeds, torch.as_tensor(batch["labels"]), generator,
-            prefix_lm=prefix_lm, policy=policy, policy_args=policy_args,
-            masked_indices=masked_indices, fim_id=fim_id, remat=remat,
-            use_flash=use_flash, attention_impl=attention_impl,
-            ce_chunk=ce_chunk)
-        return _backward_and_update(state, optimizer, loss, metrics)
+
+        def forward():
+            embeds = multimodal_embeds(model, pix, batch["text_ids"],
+                                       batch["gather_idx"], remat=remat)
+            return diffusion_loss(
+                model.llada, embeds, torch.as_tensor(batch["labels"]),
+                generator, prefix_lm=prefix_lm, policy=policy,
+                policy_args=policy_args, masked_indices=masked_indices,
+                fim_id=fim_id, remat=remat, use_flash=use_flash,
+                attention_impl=attention_impl, ce_chunk=ce_chunk)
+
+        return _microstep(state, optimizer, forward)
 
     return train_step

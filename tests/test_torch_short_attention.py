@@ -129,23 +129,32 @@ def test_no_grad_call_skips_the_autograd_function():
     assert out.grad_fn is not None and torch.equal(out.detach(), ref)
 
 
-def _ptxas_log(regs):
+def _ptxas_log(regs, prefix_regs=(168, 168, 168)):
     """A build log in ptxas -v's format: one short_attention instance per
-    register count, between two other kernels."""
+    register count in `regs`, between two other kernels, then one instance
+    of each prefix_flash kernel (fwd, dq, dkv) with `prefix_regs`."""
     lines = ["== short_attention.cu",
              "ptxas info    : Compiling entry function '_Z5otherv' for "
              "'sm_90a'", "ptxas info    : Used 96 registers, used 1 "
              "barriers"]
+
+    def instance(name, n):
+        return [f"ptxas info    : Compiling entry function '{name}' for "
+                f"'sm_90a'",
+                f"ptxas info    : Function properties for {name}",
+                "    0 bytes stack frame, 0 bytes spill stores, 0 bytes "
+                "spill loads",
+                f"ptxas info    : Used {n} registers, used 16 barriers"]
+
     for hdp, n in zip((128, 72, 16), regs):
-        name = f"_ZN12_GLOBAL__N_122short_attention_kernelILi{hdp}EEEv"
-        lines += [f"ptxas info    : Compiling entry function '{name}' for "
-                  f"'sm_90a'",
-                  f"ptxas info    : Function properties for {name}",
-                  "    0 bytes stack frame, 0 bytes spill stores, 0 bytes "
-                  "spill loads",
-                  f"ptxas info    : Used {n} registers, used 16 barriers"]
+        lines += instance(
+            f"_ZN12_GLOBAL__N_122short_attention_kernelILi{hdp}EEEv", n)
     lines += ["ptxas info    : Compiling entry function '_Z5afterv' for "
-              "'sm_90a'", "ptxas info    : Used 40 registers"]
+              "'sm_90a'", "ptxas info    : Used 40 registers",
+              "== prefix_flash.cu"]
+    for kind, n in zip(("fwd", "dq", "dkv"), prefix_regs):
+        name = f"prefix_flash_{kind}_kernel"
+        lines += instance(f"_ZN12_GLOBAL__N_1{len(name)}{name}ILi128EEEv", n)
     return "\n".join(lines)
 
 
@@ -162,6 +171,19 @@ def test_register_check_of_the_build_log(regs, ok):
     else:
         with pytest.raises(RuntimeError, match="short_attention_kernel"):
             kernels.check_registers(_ptxas_log(regs))
+
+
+@pytest.mark.parametrize("prefix_regs,name", [
+    ((168, 168, 160), "prefix_flash_dkv_kernel"),
+    ((168,), "prefix_flash_dq_kernel"),   # no dq instance in the log
+])
+def test_register_check_covers_prefix_flash_kernels(prefix_regs, name):
+    """The three prefix_flash kernels hand registers over with setmaxnreg
+    too: each must be in the log, at 168 registers."""
+    from lavida_mod_tpu_torch import kernels
+
+    with pytest.raises(RuntimeError, match=name):
+        kernels.check_registers(_ptxas_log((168, 168, 168), prefix_regs))
 
 
 @pytest.fixture
