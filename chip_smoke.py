@@ -29,7 +29,10 @@ exits non-zero and never prints the final line:
      call of both (their wrappers pass TMA tensor maps, cached per buffer)
      beside the library call's; then both kernels summed over one mixed
      request against SDPA and torch._int_mm + epilogue, device time and
-     back to back.  w4_matmul, which no path
+     back to back.  w4_ffn_fused at 8 / 16 / 24 / 32 / 40 rows of the 8B
+     decode shape and a padded down K, each twice with new data at the
+     same addresses, and 20 calls chained back to back without a sync,
+     each matched to its plain version.  w4_matmul, which no path
      launches, at [32, 4096] x 12288, [1056, 4096] x 12288 and [5, 4304] x
      1000, within one bf16 ulp of its plain version, beside
      torch._weight_int4pack_mm on the same codes.
@@ -44,8 +47,9 @@ exits non-zero and never prints the final line:
      requests with the same checks and, per request, 128 w8a8_matmul,
      528 w4_qkv_norm, 512 w4_matmul_res and 512 w4_ffn_fused launches;
      request walls, phase times, peak memory, weight bytes per tree and
-     the device-busy share of one profiled request; one decode layer at
-     B = 1 timed through the fused plan.
+     the device-busy share of one profiled request, and w4_ffn_fused's
+     device time in it split by its four kernels (512 launches of each
+     asserted); one decode layer at B = 1 timed through the fused plan.
   6. output checks on a small input: a tiny model in bf16 on the card
      against the same weights in f32 on the CPU (plain path), and a tiny
      mixed-layout model on the card against the same quantized weights on
@@ -109,7 +113,7 @@ import time
 
 import numpy as np
 
-from lavida_mod_tpu_torch.kernel_times import cuda_ms, host_us
+from lavida_mod_tpu_torch.kernel_times import added_times, cuda_ms, host_us
 from lavida_mod_tpu_torch.step_times import print_by_kind
 
 SIGLIP_LAYERS = 26   # so400m's 27 layers less the dropped last one
@@ -576,26 +580,53 @@ def phase_quant_kernels(torch, device, res):
                 2 * T * K + _w4_bytes(K, N) + 4 * T * N, int8=True,
                 note=" (exact)")
 
-    for T, D, H, Hd, per in [(32, 4096, 12288, 12288, LLADA_LAYERS * STEPS),
+    # w4_ffn_fused: the decode FFN at 8 / 16 / 24 / 32 rows (32 on the
+    # main path, once per layer per step), 40 (two 32-row slices) and a
+    # padded down K; each case twice with new data at the same addresses
+    weights = {}
+    for T, D, H, Hd, per in [(8, 4096, 12288, 12288, 0),
+                             (16, 4096, 12288, 12288, 0),
+                             (24, 4096, 12288, 12288, 0),
+                             (32, 4096, 12288, 12288, LLADA_LAYERS * STEPS),
+                             (40, 4096, 12288, 12288, 0),
                              (24, 256, 384, 512, 0)]:
-        x = randn(T, D).bfloat16()
-        nw = (1 + randn(D, scale=0.1)).bfloat16()
-        up_p, up_s = _w4_weights(torch, tq, randn, D, 2 * H)
-        dn_p, dn_s, _ = tq.quantize_linear4(torch.nn.functional.pad(
-            randn(D, H, scale=0.02), (0, Hd - H)))
-        dn_p, dn_s = dn_p[:D // 8].contiguous(), dn_s[:, :D].contiguous()
-        args = (x, nw, up_p, up_s, dn_p, dn_s, 1e-5)
-        out = tw.w4_ffn_fused(*args)
-        torch.cuda.synchronize()
-        err = _rel(out, tw.w4_ffn_fused_reference(*args))
-        if not err < 2e-2:
-            raise AssertionError(f"w4_ffn_fused {(T, D, H, Hd)}: {err}")
+        if (D, H, Hd) not in weights:
+            up_p, up_s = _w4_weights(torch, tq, randn, D, 2 * H)
+            dn_p, dn_s, _ = tq.quantize_linear4(torch.nn.functional.pad(
+                randn(D, H, scale=0.02), (0, Hd - H)))
+            weights[D, H, Hd] = ((1 + randn(D, scale=0.1)).bfloat16(),
+                                 up_p, up_s, dn_p[:D // 8].contiguous(),
+                                 dn_s[:, :D].contiguous())
+        x = torch.empty(T, D, dtype=torch.bfloat16, device=device)
+        args = (x, *weights[D, H, Hd], 1e-5)
+        err = 0.0
+        for _ in range(2):
+            x.copy_(randn(T, D))
+            out = tw.w4_ffn_fused(*args)
+            torch.cuda.synchronize()
+            err = max(err, _rel(out, tw.w4_ffn_fused_reference(*args)))
+            if not err < 2e-2:
+                raise AssertionError(f"w4_ffn_fused {(T, D, H, Hd)}: {err}")
         res.add("w4_ffn_fused", f"[{T},{D}] H {H} Hd {Hd}", per, err,
                 lambda: tw.w4_ffn_fused(*args),
                 cuda_ms(lambda: tw.w4_ffn_fused_reference(*args), 5), None,
                 2 * T * D * 2 * H + 2 * T * Hd * D,
                 4 * T * D + 2 * D + _w4_bytes(D, 2 * H) + _w4_bytes(Hd, D),
                 int8=True, note=" (relative, limit 2e-2)")
+    # 20 calls back to back, each on the output of the one before, no sync
+    # between them: each matched to its plain version afterwards
+    chain = [randn(32, 4096).bfloat16()]
+    for _ in range(20):
+        chain.append(tw.w4_ffn_fused(chain[-1], *weights[4096, 12288, 12288],
+                                     1e-5))
+    torch.cuda.synchronize()
+    err = max(_rel(out, tw.w4_ffn_fused_reference(
+        x, *weights[4096, 12288, 12288], 1e-5))
+        for x, out in zip(chain[:-1], chain[1:]))
+    if not err < 2e-2:
+        raise AssertionError(f"w4_ffn_fused back to back: {err}")
+    print(f"[kernels] w4_ffn_fused 20 chained calls without a sync: max "
+          f"err {err:.3e} (relative, limit 2e-2)")
 
 
 def _int4pack_library(torch, x, codes, scale):
@@ -833,8 +864,11 @@ def _phase_times(torch, model, request, gen):
 
 def _profile_busy(torch, run):
     """Device time of run() from torch.profiler and its wall: (busy ms,
-    wall ms, top kernels, every kernel as (name, ms, count)) or None when
-    the trace shows no device time."""
+    wall ms, top kernels, every kernel as (name, ms, count), every kernel's
+    added time as kernel_times.added_times gives it) or None when the
+    trace shows no device time.  Busy is the union of the kernels'
+    intervals: kernels launched with programmatic dependent launch
+    overlap the one before them."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -847,11 +881,12 @@ def _profile_busy(torch, run):
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(r[1] for r in rows)
+    added = added_times(torch, prof)
+    busy = sum(r[0] for r in added.values())
     if busy <= 0:
         return None
     rows.sort(key=lambda r: -r[1])
-    return busy, wall, rows[:12], rows
+    return busy, wall, rows[:12], rows, added
 
 
 def _print_profile(tag, prof, what, card):
@@ -908,6 +943,12 @@ def _decode_layer_ms(torch, llada, P: int = 1088):
     device_ms = sum(e.self_device_time_total for e in rows) / 1e3 / 20
     launches = sum(e.count for e in rows) / 20
     return event_ms, device_ms, launches
+
+
+# w4_ffn_fused's kernels (csrc/w4_fused.cu), one launch each per call of
+# 32 rows
+FFN_KERNELS = ("ffn_norm_kernel", "ffn_up_kernel", "ffn_quant_kernel",
+               "ffn_down_kernel")
 
 
 def phase_mixed_path(torch, model, requests, card):
@@ -990,10 +1031,23 @@ def phase_mixed_path(torch, model, requests, card):
           f"{phases[1]:.2f} ms, decode steps {len(steps)} x "
           f"{np.mean(steps):.2f} ms (min {min(steps):.2f}, max "
           f"{max(steps):.2f}) ({card})")
-    _print_profile("mixed", _profile_busy(
-        torch, lambda: model.generate_fused(first[0], [first[1]],
-                                            [first[2]], gen)),
-        "request 0", card)
+    prof = _profile_busy(
+        torch, lambda: model.generate_fused(first[0], [first[1]], [first[2]],
+                                            gen))
+    _print_profile("mixed", prof, "request 0", card)
+    if prof is not None:   # #7's device time, split by its own kernels
+        parts = {k: [0.0, 0.0, 0] for k in FFN_KERNELS}
+        for key, (added, ms, n) in prof[4].items():
+            for k in FFN_KERNELS:
+                if k in key:
+                    parts[k] = [a + b for a, b in zip(parts[k], (added, ms, n))]
+        print(f"[mixed] w4_ffn_fused device time of request 0: "
+              f"{sum(v[0] for v in parts.values()):.3f} ms = " + ", ".join(
+                  f"{k} {added:.3f} ms ({n} launches; {ms:.3f} ms from "
+                  f"launch to end)" for k, (added, ms, n) in parts.items())
+              + f" ({card})")
+        if any(n != want["w4_ffn_fused"] for _, _, n in parts.values()):
+            raise AssertionError(f"w4_ffn_fused kernels launched {parts}")
     layer_ms = _decode_layer_ms(torch, llada)
     print(f"[mixed] one decode layer at B = 1 (32 rows, fused plan: "
           f"w4_qkv_norm + w4_matmul_res + w4_ffn_fused): {layer_ms[0]:.4f} "

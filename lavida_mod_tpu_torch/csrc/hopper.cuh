@@ -56,6 +56,30 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// A contiguous copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from global to shared memory, counted on `bar` as transaction
+// bytes: no tensor map, one instruction per copy.
+__device__ __forceinline__ void bulk_load_1d(void* dst, const void* src, uint32_t bytes,
+                                             uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Programmatic dependent launch: `griddep_launch_dependents` lets the next
+// kernel of the stream, launched with programmatic stream serialization,
+// start once every CTA of this one has issued it; `griddep_wait` blocks
+// until the kernel before this one has completed and its writes are
+// visible.  Both are no-ops for a kernel launched without the attribute.
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1, int c2, int c3) {
   asm volatile(

@@ -11,37 +11,42 @@
 // + the 259 MB head): 1.2 ms at 3.35 TB/s, against 0.26 ms of int8
 // tensor-core work.
 //
-// What the design does about it: one GEMM kernel, three epilogues.  A CTA of
-// 4 warps owns 32 output columns (one mma n8 tile per warp; the up|gate pass
-// owns the matching up and gate tiles) and up to 32 rows (blockIdx.y takes
-// more).  The weights are in the fragment layout of ops/quant.py, so each
-// lane's B operands for one 128-group are one coalesced 16-byte load, and
-// the nibbles become int8 in two instructions: (w << 4) & 0xF0F0F0F0 and
-// w & 0xF0F0F0F0 give 16 x the signed codes, which the exact int32 group sum
-// divides back out with a shift.  A 1024-column slice of the activation
-// codes (32 rows) is staged in shared memory, rows padded by 16 bytes so the
-// fragment loads are conflict-free; the slice's eight groups of weights are
-// all loaded before the slice is staged.  Each group's int32 dot
-// (`mma.sync.m16n8k32.s8`) is flushed into the f32 accumulator as
-// acc + d_g * s_g with IEEE multiply and add, group by group in order: the
-// TPU kernel's `_group_dot_acc`, bit for bit.
+// What the design does about it, #5 and #6: one GEMM kernel, two
+// epilogues.  A CTA of 4 warps owns 32 output columns (one mma n8 tile per
+// warp) and up to 32 rows (blockIdx.y takes more).  The weights are in the
+// fragment layout of ops/quant.py, so each lane's B operands for one
+// 128-group are one coalesced 16-byte load, and the nibbles become int8 in
+// two instructions: (w << 4) & 0xF0F0F0F0 and w & 0xF0F0F0F0 give 16 x the
+// signed codes, which the exact int32 group sum divides back out with a
+// shift.  A 1024-column slice of the activation codes (32 rows) is staged
+// in shared memory, rows padded by 16 bytes so the fragment loads are
+// conflict-free; the slice's eight groups of weights are all loaded before
+// the slice is staged.  Each group's int32 dot (`mma.sync.m16n8k32.s8`) is
+// flushed into the f32 accumulator as acc + d_g * s_g with IEEE multiply
+// and add, group by group in order: the TPU kernel's `_group_dot_acc`, bit
+// for bit.  The RMSNorm and activation quantization run as a pre-pass
+// kernel per row (a CTA per row) instead of in every CTA.
 //
-// The RMSNorm and activation quantization run as a pre-pass kernel per row
-// (a CTA per row) instead of in every CTA: [32, 4096] re-normalized by 384
-// CTAs would cost more than the weights.  `w4_ffn_fused` is two GEMM
-// launches with a row pass before each: up|gate with the SwiGLU epilogue
-// writes the bf16 [T, H] intermediate (786 KB at 8B, it stays in L2); a
-// CTA per row then takes its amax and codes, sa = max(amax, 1e-8) / 127;
-// the down GEMM adds the residual in the matmul_res epilogue.  The TPU's
-// sequential grid carried the amax from the up phase to the down phase
-// inside one kernel; here the launch boundaries are the grid-wide barriers
-// (no cooperative launch).  Quantizing the intermediate while staging it in
-// each down CTA instead was measured at 0.29 ms per call on the H100, 2.4x
-// the whole rest of the FFN: every CTA re-divided all T x H values.
+// #7, w4_ffn_fused: 80.7 MB to read per call at [32, 4096], H 12288 (24.1
+// us at 3.35 TB/s) against 9.7 GOP of int8 work (4.9 us).  Both GEMMs run
+// on the weight-streaming core of w4_stream.cuh: persistent CTAs, one
+// producer warp keeping a ring of 1D bulk copies in flight, the activation
+// codes read once per pass in K-slices through the ring, the group scales
+// once per CTA, the same exact group flush.  Four launches per 32 rows: the
+// norm pass (which also zeroes the intermediate's amax), up|gate with the
+// SwiGLU epilogue and the amax as an atomicMax, the quant pass (codes only,
+// 384 CTAs at 8B), down with the residual.  The last three are launched
+// with programmatic dependent launch, so each GEMM fills its weight ring
+// while the pass before it runs.  The TPU's sequential grid carried the
+// amax from the up phase to the down phase inside one kernel; here the
+// launch boundaries are the grid-wide barriers (no cooperative launch, so
+// nothing guarantees that every CTA of one grid is resident).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "w4_stream.cuh"
 
 namespace {
 
@@ -54,7 +59,7 @@ constexpr int kChunkGroups = 8;             // groups staged per slice
 constexpr int kRowBytes = kChunkGroups * kGroup + 16;   // padded smem row
 constexpr int kQuantThreads = 256;
 
-enum Mode { kQkv = 0, kRes = 1, kUpGate = 2 };
+enum Mode { kQkv = 0, kRes = 1 };
 
 struct Gemm {
   const int8_t* a8;             // [T, K] activation codes
@@ -62,8 +67,8 @@ struct Gemm {
   const uint8_t* packed;        // [N/8, K/128, 512] fragment layout
   const float* scales;          // [K/128, N]
   const __nv_bfloat16* res;     // [T, N] residual (kRes)
-  __nv_bfloat16* out;           // [T, N]; kUpGate: the intermediate [T, H]
-  int T, K, N, H;               // kUpGate: N = 2H
+  __nv_bfloat16* out;           // [T, N]
+  int T, K, N;
 };
 
 __device__ __forceinline__ float bf(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -149,7 +154,6 @@ row_quant_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __res
 
 template <int kMode>
 __global__ void __launch_bounds__(kThreads) w4_gemm_kernel(Gemm p) {
-  constexpr int NT = kMode == kUpGate ? 2 : 1;   // weight tiles per warp
   __shared__ __align__(16) int8_t sA[kRows * kRowBytes];
   __shared__ float sRow[kRows];
 
@@ -158,32 +162,26 @@ __global__ void __launch_bounds__(kThreads) w4_gemm_kernel(Gemm p) {
   const int r0 = blockIdx.y * kRows;
   const int rows = min(kRows, p.T - r0);
   const int G = p.K / kGroup;
-  int tile[NT];
-  tile[0] = blockIdx.x * kWarps + warp;
-  if constexpr (NT == 2) tile[1] = p.H / 8 + tile[0];   // the matching gate tile
+  const int tile = blockIdx.x * kWarps + warp;
 
   if (threadIdx.x < kRows)
     sRow[threadIdx.x] = static_cast<int>(threadIdx.x) < rows ? p.row_scale[r0 + threadIdx.x] : 0.0f;
 
-  float accf[NT][2][4];
+  float accf[2][4];
 #pragma unroll
-  for (int t = 0; t < NT; ++t)
+  for (int m = 0; m < 2; ++m)
 #pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) accf[t][m][e] = 0.0f;
+    for (int e = 0; e < 4; ++e) accf[m][e] = 0.0f;
 
   for (int g0 = 0; g0 < G; g0 += kChunkGroups) {
     const int ng = min(kChunkGroups, G - g0);
-    uint4 w[NT][kChunkGroups];
+    uint4 w[kChunkGroups];
 #pragma unroll
-    for (int t = 0; t < NT; ++t)
-#pragma unroll
-      for (int gi = 0; gi < kChunkGroups; ++gi)
-        if (gi < ng)
-          w[t][gi] = __ldg(reinterpret_cast<const uint4*>(
-                               p.packed + (static_cast<long>(tile[t]) * G + g0 + gi) * 512) +
-                           lane);
+    for (int gi = 0; gi < kChunkGroups; ++gi)
+      if (gi < ng)
+        w[gi] = __ldg(reinterpret_cast<const uint4*>(
+                          p.packed + (static_cast<long>(tile) * G + g0 + gi) * 512) +
+                      lane);
     __syncthreads();   // the previous slice is consumed (and sRow is written)
     const int kb = g0 * kGroup, cb = ng * kGroup;
     for (int c = threadIdx.x; c < kRows * (cb / 16); c += kThreads) {
@@ -198,13 +196,11 @@ __global__ void __launch_bounds__(kThreads) w4_gemm_kernel(Gemm p) {
 #pragma unroll
     for (int gi = 0; gi < kChunkGroups; ++gi) {
       if (gi < ng) {
-        int acci[NT][2][4];
+        int acci[2][4];
 #pragma unroll
-        for (int t = 0; t < NT; ++t)
+        for (int m = 0; m < 2; ++m)
 #pragma unroll
-          for (int m = 0; m < 2; ++m)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acci[t][m][e] = 0;
+          for (int e = 0; e < 4; ++e) acci[m][e] = 0;
 #pragma unroll
         for (int s = 0; s < 4; ++s) {
           int a[2][4];
@@ -216,29 +212,23 @@ __global__ void __launch_bounds__(kThreads) w4_gemm_kernel(Gemm p) {
             a[m][2] = lds32(q + 16);
             a[m][3] = lds32(q + 8 * kRowBytes + 16);
           }
+          const uint32_t word = s == 0 ? w[gi].x : s == 1 ? w[gi].y
+                              : s == 2 ? w[gi].z : w[gi].w;
+          const int b[2] = {static_cast<int>((word << 4) & 0xF0F0F0F0u),
+                            static_cast<int>(word & 0xF0F0F0F0u)};
 #pragma unroll
-          for (int t = 0; t < NT; ++t) {
-            const uint32_t word = s == 0 ? w[t][gi].x : s == 1 ? w[t][gi].y
-                                : s == 2 ? w[t][gi].z : w[t][gi].w;
-            const int b[2] = {static_cast<int>((word << 4) & 0xF0F0F0F0u),
-                              static_cast<int>(word & 0xF0F0F0F0u)};
-#pragma unroll
-            for (int m = 0; m < 2; ++m) mma_s8(acci[t][m], a[m], b);
-          }
+          for (int m = 0; m < 2; ++m) mma_s8(acci[m], a[m], b);
         }
         const int g = g0 + gi;
+        const float2 sc = *reinterpret_cast<const float2*>(
+            p.scales + static_cast<long>(g) * p.N + tile * 8 + tig * 2);
 #pragma unroll
-        for (int t = 0; t < NT; ++t) {
-          const float2 sc = *reinterpret_cast<const float2*>(
-              p.scales + static_cast<long>(g) * p.N + tile[t] * 8 + tig * 2);
+        for (int m = 0; m < 2; ++m)
 #pragma unroll
-          for (int m = 0; m < 2; ++m)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              accf[t][m][e] = __fadd_rn(accf[t][m][e],
-                                        __fmul_rn(__int2float_rn(acci[t][m][e] >> 4),
-                                                  (e & 1) ? sc.y : sc.x));
-        }
+          for (int e = 0; e < 4; ++e)
+            accf[m][e] = __fadd_rn(accf[m][e],
+                                   __fmul_rn(__int2float_rn(acci[m][e] >> 4),
+                                             (e & 1) ? sc.y : sc.x));
       }
     }
   }
@@ -254,28 +244,236 @@ __global__ void __launch_bounds__(kThreads) w4_gemm_kernel(Gemm p) {
       const long row = r0 + r;
       const float rs = sRow[r];
       if (!ok) continue;
-      if constexpr (kMode == kUpGate) {
-        // SwiGLU in f32 on the bf16-rounded up and gate, result in bf16
 #pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int e = half * 2 + c;
-          const float u = round_bf16(__fmul_rn(accf[0][m][e], rs));
-          const float gt = round_bf16(__fmul_rn(accf[1][m][e], rs));
-          const float sig = 1.0f / (1.0f + expf(-gt));
-          p.out[row * p.H + tile[0] * 8 + tig * 2 + c] =
-              __float2bfloat16_rn(__fmul_rn(__fmul_rn(gt, sig), u));
-        }
-      } else {
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const long o = row * p.N + tile[0] * 8 + tig * 2 + c;
-          float v = __fmul_rn(accf[0][m][half * 2 + c], rs);
-          if constexpr (kMode != kQkv) v = __fadd_rn(v, bf(p.res[o]));
-          p.out[o] = __float2bfloat16_rn(v);
-        }
+      for (int c = 0; c < 2; ++c) {
+        const long o = row * p.N + tile * 8 + tig * 2 + c;
+        float v = __fmul_rn(accf[m][half * 2 + c], rs);
+        if constexpr (kMode != kQkv) v = __fadd_rn(v, bf(p.res[o]));
+        p.out[o] = __float2bfloat16_rn(v);
       }
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// w4_ffn_fused: four launches chained by programmatic dependent launch
+// ---------------------------------------------------------------------------
+// The up|gate GEMM streams pairs of matching up and gate tiles, the down
+// GEMM single tiles, each with the codes' K-slices through the ring.  The
+// plan (CTAs, stages, shared bytes) comes from ops/w4_fused.py::ffn_plan
+// and is checked against these constants.
+constexpr int kUpSG = 8, kUpPU = 4;      // groups per stage, units per pass
+constexpr int kDnSG = 8, kDnPU = 4;
+constexpr int kSmemLimit = 232448;
+constexpr int kQuantCols = 4 * kQuantThreads;   // columns per CTA of the quant pass
+
+// The norm pass: RMSNorm + A8 of row blockIdx.x (quant_row's kind 2, the
+// row read as 16-byte chunks of 8 values) into the up GEMM's slice layout;
+// rows past T get zero codes and scale 0.  Zeroes the row's amax, which
+// the up|gate epilogue raises with atomicMax.
+__global__ void __launch_bounds__(kQuantThreads)
+ffn_norm_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ norm_w,
+                int8_t* __restrict__ x8, float* __restrict__ sx, float* __restrict__ amax, int T,
+                int D, int sg, float eps) {
+  hopper::griddep_launch_dependents();   // the up GEMM starts streaming weights
+  const int row = blockIdx.x, G = D / kGroup, chunks = D / 8;
+  if (threadIdx.x == 0) amax[row] = 0.0f;
+  auto store = [&](int c, uint2 codes) {
+    *reinterpret_cast<uint2*>(x8 + w4s::slice_offset(row, c * 8, sg, G)) = codes;
+  };
+  if (row >= T) {
+    for (int c = threadIdx.x; c < chunks; c += kQuantThreads) store(c, make_uint2(0u, 0u));
+    if (threadIdx.x == 0) sx[row] = 0.0f;
+    return;
+  }
+  const uint4* xr = reinterpret_cast<const uint4*>(x + static_cast<long>(row) * D);
+  const uint4* wr = reinterpret_cast<const uint4*>(norm_w);
+  auto unpack = [](uint4 v, float (&f)[8]) {
+    const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&u[i]);
+      f[2 * i] = __low2float(h);
+      f[2 * i + 1] = __high2float(h);
+    }
+  };
+  float ss = 0.0f;
+  for (int c = threadIdx.x; c < chunks; c += kQuantThreads) {
+    float f[8];
+    unpack(xr[c], f);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) ss = __fadd_rn(ss, __fmul_rn(f[i], f[i]));
+  }
+  ss = block_reduce<false>(ss);
+  const float inv = rsqrtf(ss / static_cast<float>(D) + eps);
+  auto values = [&](int c, float (&h)[8]) {
+    float f[8], g[8];
+    unpack(xr[c], f);
+    unpack(wr[c], g);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) h[i] = round_bf16(__fmul_rn(round_bf16(__fmul_rn(f[i], inv)), g[i]));
+  };
+  float mx = 0.0f;
+  for (int c = threadIdx.x; c < chunks; c += kQuantThreads) {
+    float h[8];
+    values(c, h);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) mx = fmaxf(mx, fabsf(h[i]));
+  }
+  mx = block_reduce<true>(mx);
+  const float sc = fmaxf(mx, 1e-8f) / 127.0f;
+  for (int c = threadIdx.x; c < chunks; c += kQuantThreads) {
+    float h[8];
+    values(c, h);
+    uint32_t q[2] = {0u, 0u};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      q[i / 4] |= static_cast<uint32_t>(static_cast<uint8_t>(quant(h[i], sc))) << (8 * (i % 4));
+    store(c, make_uint2(q[0], q[1]));
+  }
+  if (threadIdx.x == 0) sx[row] = sc;
+}
+
+// The up|gate epilogue: up and gate rounded to bf16 after * sx, SwiGLU in
+// f32 rounded to bf16 (w4_fused.py:397-422), and each row's amax of the
+// intermediate raised with atomicMax on the bits of a non-negative f32 (a
+// max does not depend on the order, so sa is exact).
+struct UpGateEpi {
+  const float* row_scale;
+  __nv_bfloat16* inter;   // [T, H]
+  float* amax;            // [32]
+  int T, H;
+  float mx[2];
+
+  __device__ void unit(int u, int m, const float (&acc)[2][4]) {
+    const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = m * 16 + gid + half * 8;
+      if (r >= T) continue;
+      const float rs = row_scale[r];
+      __nv_bfloat16 o[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int e = half * 2 + c;
+        const float up = round_bf16(__fmul_rn(acc[0][e], rs));
+        const float gt = round_bf16(__fmul_rn(acc[1][e], rs));
+        const float sig = 1.0f / (1.0f + expf(-gt));
+        o[c] = __float2bfloat16_rn(__fmul_rn(__fmul_rn(gt, sig), up));
+        mx[half] = fmaxf(mx[half], fabsf(bf(o[c])));
+      }
+      *reinterpret_cast<__nv_bfloat162*>(inter + static_cast<long>(r) * H + u * 8 + tig * 2) =
+          __halves2bfloat162(o[0], o[1]);
+    }
+  }
+
+  __device__ void finish(int m) {
+    const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float v = mx[half];
+      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+      const int r = m * 16 + gid + half * 8;
+      if (tig == 0 && r < T) atomicMax(reinterpret_cast<int*>(amax + r), __float_as_int(v));
+    }
+  }
+};
+
+// The down epilogue: bf16(acc * sa + x), the residual in f32.
+struct ResEpi {
+  const float* row_scale;
+  const __nv_bfloat16* res;   // [T, N]
+  __nv_bfloat16* out;         // [T, N]
+  int T, N;
+
+  __device__ void unit(int u, int m, const float (&acc)[1][4]) {
+    const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = m * 16 + gid + half * 8;
+      if (r >= T) continue;
+      const float rs = row_scale[r];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const long o = static_cast<long>(r) * N + u * 8 + tig * 2 + c;
+        out[o] = __float2bfloat16_rn(__fadd_rn(__fmul_rn(acc[0][half * 2 + c], rs), bf(res[o])));
+      }
+    }
+  }
+  __device__ void finish(int) {}
+};
+
+__global__ void __launch_bounds__(w4s::kThreads, 1)
+ffn_up_kernel(w4s::Stream p, const float* __restrict__ sx, __nv_bfloat16* __restrict__ inter,
+              float* __restrict__ amax, int T, int H) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  hopper::griddep_launch_dependents();
+  UpGateEpi epi{sx, inter, amax, T, H, {0.0f, 0.0f}};
+  w4s::stream_gemm<2, kUpSG, kUpPU>(p, smem, epi);
+}
+
+// The intermediate's A8 pass: sa = max(amax, 1e-8) / 127 from the amax the
+// up|gate epilogue left, codes of [T, H] into the down GEMM's slice layout
+// (columns [H, Hd) and rows past T as zeros), four columns per thread.
+__global__ void __launch_bounds__(kQuantThreads)
+ffn_quant_kernel(const __nv_bfloat16* __restrict__ inter, const float* __restrict__ amax,
+                 int8_t* __restrict__ a8, float* __restrict__ sa, int T, int H, int G) {
+  hopper::griddep_launch_dependents();
+  hopper::griddep_wait();
+  const int row = blockIdx.y, c0 = blockIdx.x * kQuantCols + threadIdx.x * 4;
+  const float sc = fmaxf(amax[row], 1e-8f) / 127.0f;
+  if (blockIdx.x == 0 && threadIdx.x == 0) sa[row] = row < T ? sc : 0.0f;
+  if (c0 >= G * kGroup) return;
+  uint32_t word = 0;
+  if (row < T && c0 < H) {
+    const uint2 v = *reinterpret_cast<const uint2*>(inter + static_cast<long>(row) * H + c0);
+    const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&v.x);
+    const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&v.y);
+    const float f[4] = {__low2float(lo), __high2float(lo), __low2float(hi), __high2float(hi)};
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      word |= static_cast<uint32_t>(static_cast<uint8_t>(quant(f[c], sc))) << (8 * c);
+  }
+  *reinterpret_cast<uint32_t*>(a8 + w4s::slice_offset(row, c0, kDnSG, G)) = word;
+}
+
+__global__ void __launch_bounds__(w4s::kThreads, 1)
+ffn_down_kernel(w4s::Stream p, const float* __restrict__ sa,
+                const __nv_bfloat16* __restrict__ res, __nv_bfloat16* __restrict__ out, int T) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  hopper::griddep_launch_dependents();
+  ResEpi epi{sa, res, out, T, p.N};
+  w4s::stream_gemm<1, kDnSG, kDnPU>(p, smem, epi);
+}
+
+// Launch with programmatic stream serialization: the kernel may start
+// while the one before it runs, and waits for it with griddepcontrol.wait.
+template <typename... Params, typename... Args>
+int launch_dependent(void (*kernel)(Params...), dim3 grid, dim3 block, int smem,
+                     cudaStream_t st, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...));
+}
+
+// Raise the kernel's dynamic shared-memory cap to `smem` if it is lower.
+template <typename Kernel>
+int allow_smem(Kernel kernel, int smem, int& allowed) {
+  if (smem <= allowed) return 0;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  allowed = smem;
+  return 0;
 }
 
 template <int kMode>
@@ -353,39 +551,67 @@ extern "C" int lavida_w4_matmul_res(const void* a, const void* res, const void* 
 }
 
 // out [T, D] = x + down(swiglu(rmsnorm(x) @ W_up|gate)); up [D -> 2H] (up
-// columns first), down [Hd -> D] with Hd >= H.  x8 [T, D], sx [T],
-// inter [T, H] bf16, a8 [T, Hd] and sa [T] are scratch.  Four launches:
-// the norm pre-pass, up|gate + SwiGLU, the intermediate's row pass, down
-// + residual.
+// columns first), down [Hd -> D] with Hd >= H.  Scratch: x8 and a8, the
+// codes of [32, D] and [32, Hd] in the up and down GEMMs' slice layouts,
+// inter [32, H] bf16, sx, amax and sa [32] f32.  Rows go 32 at a time,
+// four launches each: the norm pass, up|gate + SwiGLU (+ the amax), the
+// quant pass, down + residual; the last three with programmatic dependent
+// launch.  The plan (ops/w4_fused.py::ffn_plan): CTAs, ring stages and
+// dynamic shared bytes of each GEMM.
 extern "C" int lavida_w4_ffn_fused(const void* x, const void* norm_w, const void* up_packed,
                                    const void* up_scales, const void* dn_packed,
-                                   const void* dn_scales, void* x8, void* sx, void* inter,
-                                   void* a8, void* sa, void* out, int T, int D, int H, int Hd,
-                                   float eps, void* stream) {
-  if (T <= 0 || D <= 0 || D % kGroup || D % kCtaCols || H <= 0 || H % kCtaCols || Hd < H ||
-      Hd % kGroup)
+                                   const void* dn_scales, void* x8, void* sx, void* amax,
+                                   void* inter, void* a8, void* sa, void* out, int T, int D,
+                                   int H, int Hd, float eps, int up_ctas, int up_stages,
+                                   int up_smem, int dn_ctas, int dn_stages, int dn_smem,
+                                   void* stream) {
+  using Up = w4s::Layout<2, kUpSG, kUpPU>;
+  using Dn = w4s::Layout<1, kDnSG, kDnPU>;
+  const int Gu = D / kGroup, Gd = Hd / kGroup;
+  if (T <= 0 || D <= 0 || D % kGroup || H <= 0 || H % 8 || Hd < H || Hd % kGroup ||
+      up_ctas < 1 || up_ctas > H / 8 || dn_ctas < 1 || dn_ctas > D / 8 || up_stages < 2 ||
+      up_stages > w4s::kMaxStages || dn_stages < 2 || dn_stages > w4s::kMaxStages)
     return kBad;
+  const int up_max = (H / 8 + up_ctas - 1) / up_ctas, dn_max = (D / 8 + dn_ctas - 1) / dn_ctas;
+  if (up_smem > kSmemLimit || dn_smem > kSmemLimit || up_smem != Up::smem(Gu, up_max, up_stages) ||
+      dn_smem != Dn::smem(Gd, dn_max, dn_stages))
+    return kBad;
+  static int up_allowed = 0, dn_allowed = 0;
+  int err = allow_smem(ffn_up_kernel, up_smem, up_allowed);
+  if (err) return err;
+  err = allow_smem(ffn_down_kernel, dn_smem, dn_allowed);
+  if (err) return err;
   const auto st = static_cast<cudaStream_t>(stream);
-  int err = launch_quant(2, x, norm_w, x8, sx, T, D, D, eps, st);
-  if (err) return err;
-  Gemm up{};
-  up.a8 = static_cast<const int8_t*>(x8);
-  up.row_scale = static_cast<const float*>(sx);
-  up.packed = static_cast<const uint8_t*>(up_packed);
-  up.scales = static_cast<const float*>(up_scales);
-  up.out = static_cast<__nv_bfloat16*>(inter);
-  up.T = T, up.K = D, up.N = 2 * H, up.H = H;
-  err = launch_gemm<kUpGate>(up, H, st);
-  if (err) return err;
-  err = launch_quant(1, inter, nullptr, a8, sa, T, H, Hd, 0.0f, st);
-  if (err) return err;
-  Gemm dn{};
-  dn.a8 = static_cast<const int8_t*>(a8);
-  dn.row_scale = static_cast<const float*>(sa);
-  dn.packed = static_cast<const uint8_t*>(dn_packed);
-  dn.scales = static_cast<const float*>(dn_scales);
-  dn.res = static_cast<const __nv_bfloat16*>(x);
-  dn.out = static_cast<__nv_bfloat16*>(out);
-  dn.T = T, dn.K = Hd, dn.N = D;
-  return launch_gemm<kRes>(dn, D, st);
+  const auto* xp = static_cast<const __nv_bfloat16*>(x);
+  auto* op = static_cast<__nv_bfloat16*>(out);
+  auto* x8p = static_cast<int8_t*>(x8);
+  auto* a8p = static_cast<int8_t*>(a8);
+  auto* sxp = static_cast<float*>(sx);
+  auto* sap = static_cast<float*>(sa);
+  auto* amp = static_cast<float*>(amax);
+  auto* ip = static_cast<__nv_bfloat16*>(inter);
+  const w4s::Stream up{x8p, static_cast<const uint8_t*>(up_packed),
+                       static_cast<const float*>(up_scales), Gu, 2 * H, H / 8, H / 8,
+                       up_stages, up_max};
+  const w4s::Stream dn{a8p, static_cast<const uint8_t*>(dn_packed),
+                       static_cast<const float*>(dn_scales), Gd, D, D / 8, 0, dn_stages, dn_max};
+  for (int r0 = 0; r0 < T; r0 += w4s::kRows) {
+    const int rows = min(w4s::kRows, T - r0);
+    const __nv_bfloat16* xr = xp + static_cast<long>(r0) * D;
+    ffn_norm_kernel<<<w4s::kRows, kQuantThreads, 0, st>>>(
+        xr, static_cast<const __nv_bfloat16*>(norm_w), x8p, sxp, amp, rows, D, kUpSG, eps);
+    err = static_cast<int>(cudaGetLastError());
+    if (err) return err;
+    err = launch_dependent(ffn_up_kernel, dim3(up_ctas), dim3(w4s::kThreads), up_smem, st, up,
+                           sxp, ip, amp, rows, H);
+    if (err) return err;
+    err = launch_dependent(ffn_quant_kernel, dim3((Gd * kGroup + kQuantCols - 1) / kQuantCols,
+                                                  w4s::kRows),
+                           dim3(kQuantThreads), 0, st, ip, amp, a8p, sap, rows, H, Gd);
+    if (err) return err;
+    err = launch_dependent(ffn_down_kernel, dim3(dn_ctas), dim3(w4s::kThreads), dn_smem, st, dn,
+                           sap, xr, op + static_cast<long>(r0) * D, rows);
+    if (err) return err;
+  }
+  return 0;
 }

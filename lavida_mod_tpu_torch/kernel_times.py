@@ -7,7 +7,7 @@ call that computes the same function:
 CHECKOUT is the root of a tree whose `lavida_mod_tpu_torch` package is
 timed (default: the tree holding this file), so two versions of the
 kernels can be timed in turns on one card, one process each.  It times
-three groups:
+four groups:
 
   short_attention  per shape of one mixed request (26 SigLIP + 32 prefill
                    launches), against SDPA with the same mask;
@@ -18,7 +18,12 @@ three groups:
                    a valid tail; 64 forward launches with the remat
                    recompute, 32 dq, 32 dkv), the forward against SDPA's
                    forward and dq + dkv against SDPA's whole autograd
-                   backward, both with the same boolean mask.
+                   backward, both with the same boolean mask;
+  w4 fused decode  #5 w4_qkv_norm, #6 w4_matmul_res and #7 w4_ffn_fused
+                   at one mixed request's shapes (32 rows; 512 calls of
+                   each at the layers' shapes, 16 of #5 at the head's), no
+                   library call; #7 also split by its own kernels from the
+                   profiler (`kernel_split`).
 
 Each is timed three ways:
 
@@ -139,14 +144,16 @@ def main(argv: list[str]) -> None:
         rows.append({"kernel": kernel, "shape": shape, "per_request": per,
                      "kernel_times": mine, "library_times": lib})
         s = sums.setdefault(kernel, {"kernel": {}, "library": {}})
-        for side, t in (("kernel", mine), ("library", lib)):
+        for side, t in (("kernel", mine), ("library", lib or {})):
             for k, val in t.items():
                 s[side][k] = s[side].get(k, 0.0) + per * val
+        lib_text = "none" if lib is None else (
+            f"device {lib['ms']:.4f} ms, back to back "
+            f"{lib['ms_back_to_back']:.4f} ms, host {lib['host_us']:.1f} us")
         print(f"[times] {kernel} {shape} x {per}: kernel device "
               f"{mine['ms']:.4f} ms, back to back "
               f"{mine['ms_back_to_back']:.4f} ms, host {mine['host_us']:.1f} "
-              f"us; library device {lib['ms']:.4f} ms, back to back "
-              f"{lib['ms_back_to_back']:.4f} ms, host {lib['host_us']:.1f} us")
+              f"us; library {lib_text}")
 
     with torch.no_grad():
         for shape, kv, valid, per in [((5, 729, 16, 72), (5, 729, 16, 72),
@@ -209,17 +216,99 @@ def main(argv: list[str]) -> None:
                three_times(lambda: tpf.prefix_flash_dq(*args)).items(),
                three_times(lambda: tpf.prefix_flash_dkv(*args)).values())},
            lib_bwd)
+    split = time_w4_decode(torch, dev, gen, record)
     for kernel, s in sums.items():
         a, b = s["kernel"], s["library"]
         what = ("stage-1 step" if kernel.startswith("prefix_flash")
                 else "mixed request")
+        lib_text = "none" if not b else (
+            f"device {b['ms']:.4f} ms, back to back "
+            f"{b['ms_back_to_back']:.4f} ms, host {b['host_us'] / 1e3:.4f} "
+            f"ms")
         print(f"[times] {kernel} per {what}: kernel device "
               f"{a['ms']:.4f} ms, back to back {a['ms_back_to_back']:.4f} "
-              f"ms, host {a['host_us'] / 1e3:.4f} ms; library device "
-              f"{b['ms']:.4f} ms, back to back {b['ms_back_to_back']:.4f} "
-              f"ms, host {b['host_us'] / 1e3:.4f} ms ({name})")
+              f"ms, host {a['host_us'] / 1e3:.4f} ms; library {lib_text} "
+              f"({name})")
     print(json.dumps({"tree": tree, "device": name, "shapes": rows,
-                      "per_request": sums}))
+                      "per_request": sums, "w4_ffn_fused_split": split}))
+
+
+def added_times(torch, prof) -> dict:
+    """{kernel name: [added ms, ms, launches]} over the CUDA kernels of a
+    torch.profiler trace.  `ms` runs from a kernel's start to its end; a
+    kernel launched with programmatic dependent launch starts while the
+    one before it runs and waits inside, so `added ms` counts only the
+    time from the later of its start and the end of every kernel before
+    it to its end: what it adds to the device's busy time, which is the
+    sum of the added times (the union of the kernels' intervals)."""
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    split, done = {}, float("-inf")
+    for e in events:
+        start, end = e.time_range.start, e.time_range.end
+        r = split.setdefault(e.name, [0.0, 0.0, 0])
+        r[0] += max(end - max(start, done), 0) / 1e3
+        r[1] += (end - start) / 1e3
+        r[2] += 1
+        done = max(done, end)
+    return split
+
+
+def kernel_split(torch, fn, calls: int = 20) -> dict:
+    """{kernel name: (added ms, ms)} per call of fn(), from torch.profiler
+    over `calls` calls (`added_times`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {k: (added / calls, ms / calls)
+            for k, (added, ms, _) in added_times(torch, prof).items()}
+
+
+def time_w4_decode(torch, dev, gen, record) -> dict:
+    """#5, #6 and #7 at one mixed request's decode shapes; returns #7's
+    device time per call split by kernel."""
+    from lavida_mod_tpu_torch.ops import quant as tq
+    from lavida_mod_tpu_torch.ops import w4_fused as tw
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, device=dev, generator=gen) * scale
+
+    def w4(K, N):
+        packed, scales, _ = tq.quantize_linear4(randn(N, K, scale=0.02))
+        return packed[:N // 8].contiguous(), scales[:, :N].contiguous()
+
+    T, D, H = 32, 4096, 12288
+    x = randn(T, D).bfloat16()
+    nw = (1 + randn(D, scale=0.1)).bfloat16()
+    with torch.no_grad():
+        for N, per in [(3 * D, 512), (126464, 16)]:
+            w = w4(D, N)
+            record("w4_qkv_norm", f"[{T},{D}]x[{D},{N}]", per,
+                   three_times(lambda: tw.w4_qkv_norm(x, nw, *w, 1e-5)),
+                   None)
+        res = randn(T, D).bfloat16()
+        w = w4(D, D)
+        record("w4_matmul_res", f"[{T},{D}]x[{D},{D}]", 512,
+               three_times(lambda: tw.w4_matmul_res(x, res, *w)), None)
+        w = w4(D, 2 * H) + w4(H, D)
+
+        def ffn():
+            return tw.w4_ffn_fused(x, nw, *w, 1e-5)
+
+        record("w4_ffn_fused", f"[{T},{D}] H {H} Hd {H}", 512,
+               three_times(ffn), None)
+        split = kernel_split(torch, ffn)
+    for key, (added, ms) in sorted(split.items(), key=lambda kv: -kv[1][0]):
+        print(f"[times] w4_ffn_fused split: adds {added:.4f} ms per call "
+              f"({512 * added:.3f} ms per request), runs {ms:.4f} ms from "
+              f"launch to end  {key[:100]}")
+    return split
 
 
 if __name__ == "__main__":

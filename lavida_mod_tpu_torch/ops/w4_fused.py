@@ -15,11 +15,15 @@ versions, which port `_rms_quant` (w4_fused.py:65-75) and `_group_dot_acc`
 (:46-62) exactly: each 128-group's integer dot is exact, and the f32
 accumulator takes `acc + d_g * s_g` group by group, in order, as the
 kernels do.  Each op counts its calls on the card in `.launches`, one per
-call (a call is a row pre-pass and a GEMM launch; for `w4_ffn_fused` two
-of each).
+call (a call is a row pre-pass and a GEMM launch; for `w4_ffn_fused` four
+launches per 32 rows: two row passes and two weight-streaming GEMMs, laid
+out by `ffn_plan`).
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -87,6 +91,97 @@ def w4_ffn_fused_reference(x, norm_w, up_packed, up_scales, dn_packed,
         a8 = torch.nn.functional.pad(a8, (0, Hd - a8.shape[1]))
     acc = group_dot_acc(a8, dn_packed, dn_scales)
     return (acc * sa + x.float()).to(torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# the plan of w4_ffn_fused's two weight-streaming GEMMs (csrc/w4_stream.cuh)
+# ---------------------------------------------------------------------------
+
+SMEM_LIMIT = 232448          # dynamic shared memory a block can use
+ROWS = 32                    # rows per launch (two m16 tiles)
+ROW_PAD = 16                 # bytes after each row of an activation slice
+BAR_BYTES = 128              # the ring's mbarriers
+MAX_STAGES = 6
+MIN_STAGES = 3
+IN_FLIGHT_MIN = 32 * 1024    # bytes the producer keeps in flight per SM
+# (groups per stage, column units per pass) of each GEMM, as in
+# csrc/w4_fused.cu: up|gate units are (up, gate) tile pairs, down units
+# single n8 tiles
+UP_SLICE_GROUPS, UP_PASS_UNITS = 8, 4
+DN_SLICE_GROUPS, DN_PASS_UNITS = 8, 4
+
+
+def slice_bytes(sg: int, G: int) -> int:
+    """Bytes of 32 rows of G groups of codes in the slice layout: K cut
+    into slices of `sg` groups, each slice [32, ng * 128 + 16]."""
+    return ROWS * (G * GROUP + ROW_PAD * -(-G // sg))
+
+
+class GemmPlan(NamedTuple):
+    ctas: int         # persistent CTAs; CTA c owns units [c*units//ctas, ..)
+    units: int        # column units
+    tiles: int        # n8 tiles per unit
+    slice_groups: int # groups per stage (and per slice of the codes)
+    stages: int       # ring stages
+    stage_bytes: int  # codes' K-slice + the weights of a pass's units
+    smem: int         # dynamic shared memory per CTA, the scales included
+
+    def owned(self, c: int) -> range:
+        return range(c * self.units // self.ctas,
+                     (c + 1) * self.units // self.ctas)
+
+
+class FfnPlan(NamedTuple):
+    row_slices: int
+    up: GemmPlan
+    down: GemmPlan
+    # byte offsets of x8, a8, inter, sx, amax and sa in one workspace of
+    # `work_bytes` (the scratch of one 32-row slice, reused by the next)
+    offsets: tuple
+    work_bytes: int
+
+
+def _gemm_plan(G, units, tiles, sg, pu, sms) -> GemmPlan:
+    """One CTA per SM, or a multiple of that where a CTA's group scales
+    would leave fewer than MIN_STAGES stages."""
+    stage = ROWS * (sg * GROUP + ROW_PAD) + pu * tiles * sg * 512
+    for waves in range(1, units + 1):
+        ctas = min(units, waves * sms)
+        fixed = BAR_BYTES + G * tiles * -(-units // ctas) * 32   # + scales
+        stages = min(MAX_STAGES, max(SMEM_LIMIT - fixed, 0) // stage)
+        if stages >= MIN_STAGES or ctas == units:
+            break
+    return GemmPlan(ctas, units, tiles, sg, stages, stage,
+                    fixed + stages * stage)
+
+
+@functools.lru_cache(maxsize=64)
+def ffn_plan(T: int, D: int, H: int, Hd: int, sms: int) -> FfnPlan:
+    """CTAs, ring stages and shared bytes of w4_ffn_fused's GEMMs for x
+    [T, D], up|gate [D -> 2H], down [Hd -> D] on a card of `sms` SMs, and
+    the scratch of its passes."""
+    up = _gemm_plan(D // GROUP, H // 8, 2, UP_SLICE_GROUPS, UP_PASS_UNITS,
+                    sms)
+    down = _gemm_plan(Hd // GROUP, D // 8, 1, DN_SLICE_GROUPS, DN_PASS_UNITS,
+                      sms)
+    for g in (up, down):
+        if g.stages < MIN_STAGES \
+                or (g.stages - 1) * g.stage_bytes < IN_FLIGHT_MIN:
+            raise ValueError(f"w4_ffn_fused: D = {D}, Hd = {Hd} leave "
+                             f"{g.stages} ring stages of {g.stage_bytes} "
+                             f"bytes")
+    sizes = [slice_bytes(up.slice_groups, D // GROUP),
+             slice_bytes(down.slice_groups, Hd // GROUP), 2 * ROWS * H,
+             4 * ROWS, 4 * ROWS, 4 * ROWS]
+    offsets = [0]
+    for n in sizes:
+        offsets.append(offsets[-1] + -(-n // 128) * 128)
+    return FfnPlan(-(-T // ROWS), up, down, tuple(offsets[:-1]), offsets[-1])
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 # ---------------------------------------------------------------------------
@@ -184,18 +279,17 @@ def w4_ffn_fused(x, norm_w, up_packed, up_scales, dn_packed, dn_scales,
                 x.device) != D:
         raise ValueError("w4_ffn_fused: down must map back to D")
     _need("w4_ffn_fused: norm_w", norm_w, torch.bfloat16, (D,), x.device)
-    x8 = torch.empty(T, D, dtype=torch.int8, device=x.device)
-    sx = torch.empty(T, dtype=torch.float32, device=x.device)
-    inter = torch.empty(T, H, dtype=torch.bfloat16, device=x.device)
-    a8 = torch.empty(T, Hd, dtype=torch.int8, device=x.device)
-    sa = torch.empty(T, dtype=torch.float32, device=x.device)
+    plan = ffn_plan(T, D, H, Hd, _sms(x.device.index))
+    up, dn = plan.up, plan.down
+    work = torch.empty(plan.work_bytes, dtype=torch.uint8, device=x.device)
+    x8, a8, inter, sx, amax, sa = (work.data_ptr() + o for o in plan.offsets)
     out = torch.empty(T, D, dtype=torch.bfloat16, device=x.device)
     kernels.check(kernels.library().lavida_w4_ffn_fused(
         x.data_ptr(), norm_w.data_ptr(), up_packed.data_ptr(),
         up_scales.data_ptr(), dn_packed.data_ptr(), dn_scales.data_ptr(),
-        x8.data_ptr(), sx.data_ptr(), inter.data_ptr(), a8.data_ptr(),
-        sa.data_ptr(), out.data_ptr(), T, D, H, Hd, eps, _stream(x)),
-        "w4_ffn_fused")
+        x8, sx, amax, inter, a8, sa, out.data_ptr(), T, D, H, Hd, eps,
+        up.ctas, up.stages, up.smem, dn.ctas, dn.stages, dn.smem,
+        _stream(x)), "w4_ffn_fused")
     w4_ffn_fused.launches += 1
     return out
 

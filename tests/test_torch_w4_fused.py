@@ -175,6 +175,59 @@ def test_cpu_routes_count_no_launch():
             tw.w4_ffn_fused.launches) == before
 
 
+# the plan of w4_ffn_fused's GEMMs: the 8B decode shape at every row count
+# the fused plan takes (and one above it), and the FFN cases above
+PLAN_CASES = [(T, 4096, 12288, 12288) for T in (8, 16, 24, 32, 40)] + [
+    (d["T"], d["D"], d["H"], d["Hd"]) for op, d in CASES if op == "ffn"]
+
+
+@pytest.mark.parametrize("T,D,H,Hd", PLAN_CASES)
+def test_ffn_plan_owns_every_tile_once_within_shared_memory(T, D, H, Hd):
+    for sms in (132, 114, 78):
+        plan = tw.ffn_plan(T, D, H, Hd, sms)
+        assert plan.row_slices == -(-T // 32)
+        for g, tiles, pair in ((plan.up, 2 * H // 8, H // 8),
+                               (plan.down, D // 8, 0)):
+            owned = sorted(u + t * pair for c in range(g.ctas)
+                           for u in g.owned(c) for t in range(g.tiles))
+            assert owned == list(range(tiles)), (sms, g)
+            assert min(g.units, sms) <= g.ctas <= g.units
+            assert g.smem <= tw.SMEM_LIMIT == 232448
+            # the ring keeps the in-flight minimum while one stage is read
+            assert tw.MIN_STAGES <= g.stages <= tw.MAX_STAGES
+            assert (g.stages - 1) * g.stage_bytes >= tw.IN_FLIGHT_MIN
+        # the scratch regions do not overlap and hold their contents
+        sizes = [tw.slice_bytes(plan.up.slice_groups, D // 128),
+                 tw.slice_bytes(plan.down.slice_groups, Hd // 128),
+                 2 * 32 * H, 128, 128, 128]
+        ends = list(plan.offsets[1:]) + [plan.work_bytes]
+        for off, end, n in zip(plan.offsets, ends, sizes):
+            assert off % 128 == 0 and end - off >= n
+
+
+def test_intermediate_scale_is_a_max_over_column_blocks():
+    """The up|gate epilogue raises each row's amax of the bf16
+    intermediate with an atomicMax on the bits of a non-negative f32, one
+    n8 column block at a time, in whatever order the CTAs finish: the
+    resulting sa and codes are the plain version's whatever the order."""
+    rng = np.random.default_rng(7)
+    T, H = 32, 384
+    prod = torch.from_numpy(rng.standard_normal((T, 2 * H)).astype(
+        np.float32) * 3).bfloat16()
+    prod[5] = 0                                    # an all-zero row
+    a8, sa, inter = tw.swiglu_quant(prod)
+    blocks = inter.float().abs().split(8, dim=1)
+    for _ in range(4):
+        bits = torch.zeros(T, dtype=torch.int32)
+        for i in rng.permutation(len(blocks)):
+            bits = torch.maximum(bits, blocks[i].amax(dim=1).view(torch.int32))
+        amax = bits.view(torch.float32)[:, None]
+        sa2 = tq._div(torch.clamp_min(amax, 1e-8), 127.0)
+        assert torch.equal(sa2, sa)
+        q = torch.clamp(torch.round(inter.float() / sa2), -127, 127)
+        assert torch.equal(q.to(torch.int8), a8)
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernels against the plain versions on the card
 # ---------------------------------------------------------------------------
@@ -231,24 +284,50 @@ def test_matmul_res_kernel_matches_plain_on_cuda(cuda, T, K, N):
     assert torch.equal(out, ref)
 
 
-@pytest.mark.parametrize("T,D,H,Hd", [(32, 4096, 12288, 12288),
+def _ffn_card_weights(D, H, Hd, gen, device):
+    up_p, up_s = _card_weights(D, 2 * H, gen, device)
+    w = torch.randn(D, H, generator=gen, device=device) * 0.02
+    dn_p, dn_s, _ = tq.quantize_linear4(
+        torch.nn.functional.pad(w, (0, Hd - H)))
+    return (up_p[:2 * H // 8].contiguous(), up_s[:, :2 * H].contiguous(),
+            dn_p[:D // 8].contiguous(), dn_s[:, :D].contiguous())
+
+
+@pytest.mark.parametrize("T,D,H,Hd", [(8, 4096, 12288, 12288),
+                                      (16, 4096, 12288, 12288),
+                                      (24, 4096, 12288, 12288),
+                                      (32, 4096, 12288, 12288),
+                                      (40, 4096, 12288, 12288),
                                       (24, 256, 384, 512)])
 def test_ffn_fused_kernel_matches_plain_on_cuda(cuda, T, D, H, Hd):
     g = torch.Generator(device=cuda).manual_seed(2)
-    x = torch.randn(T, D, generator=g, device=cuda).bfloat16()
+    x = torch.empty(T, D, dtype=torch.bfloat16, device=cuda)
     nw = (1 + 0.1 * torch.randn(D, generator=g, device=cuda)).bfloat16()
-    up_p, up_s = _card_weights(D, 2 * H, g, cuda)
-    w = torch.randn(D, H, generator=g, device=cuda) * 0.02
-    dn_p, dn_s, _ = tq.quantize_linear4(
-        torch.nn.functional.pad(w, (0, Hd - H)))
-    up_p, up_s = up_p[:2 * H // 8].contiguous(), up_s[:, :2 * H].contiguous()
-    dn_p, dn_s = dn_p[:D // 8].contiguous(), dn_s[:, :D].contiguous()
-    before = tw.w4_ffn_fused.launches
-    out = tw.w4_ffn_fused(x, nw, up_p, up_s, dn_p, dn_s, 1e-5)
+    w = _ffn_card_weights(D, H, Hd, g, cuda)
+    # twice, with new data at the same addresses
+    for _ in range(2):
+        x.copy_(torch.randn(T, D, generator=g, device=cuda))
+        before = tw.w4_ffn_fused.launches
+        out = tw.w4_ffn_fused(x, nw, *w, 1e-5)
+        torch.cuda.synchronize()
+        assert tw.w4_ffn_fused.launches == before + 1
+        _check(out, tw.w4_ffn_fused_reference(x, nw, *w, 1e-5), 2e-2)
+
+
+def test_ffn_fused_back_to_back_on_cuda(cuda):
+    """20 calls with no sync between them, each on the output of the one
+    before: a pass that read its predecessor's output before the
+    predecessor finished (a missing griddepcontrol.wait) shows here."""
+    D, H = 4096, 12288
+    g = torch.Generator(device=cuda).manual_seed(3)
+    nw = (1 + 0.1 * torch.randn(D, generator=g, device=cuda)).bfloat16()
+    w = _ffn_card_weights(D, H, H, g, cuda)
+    xs = [torch.randn(32, D, generator=g, device=cuda).bfloat16()]
+    for _ in range(20):
+        xs.append(tw.w4_ffn_fused(xs[-1], nw, *w, 1e-5))
     torch.cuda.synchronize()
-    assert tw.w4_ffn_fused.launches == before + 1
-    ref = tw.w4_ffn_fused_reference(x, nw, up_p, up_s, dn_p, dn_s, 1e-5)
-    _check(out, ref, 2e-2)
+    for x, out in zip(xs[:-1], xs[1:]):
+        _check(out, tw.w4_ffn_fused_reference(x, nw, *w, 1e-5), 2e-2)
 
 
 def test_kernels_reject_bad_shapes_on_cuda(cuda):
