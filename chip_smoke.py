@@ -32,7 +32,9 @@ exits non-zero and never prints the final line:
      back to back.  w4_ffn_fused at 8 / 16 / 24 / 32 / 40 rows of the 8B
      decode shape and a padded down K, each twice with new data at the
      same addresses, and 20 calls chained back to back without a sync,
-     each matched to its plain version.  w4_matmul, which no path
+     each matched to its plain version; w4_qkv_norm at [q|k|v], the head
+     at 32 and 128 rows and a ragged width, and 20 chained calls of [32,
+     4096] x 4096 likewise.  w4_matmul, which no path
      launches, at [32, 4096] x 12288, [1056, 4096] x 12288 and [5, 4304] x
      1000, within one bf16 ulp of its plain version, beside
      torch._weight_int4pack_mm on the same codes.
@@ -47,9 +49,10 @@ exits non-zero and never prints the final line:
      requests with the same checks and, per request, 128 w8a8_matmul,
      528 w4_qkv_norm, 512 w4_matmul_res and 512 w4_ffn_fused launches;
      request walls, phase times, peak memory, weight bytes per tree and
-     the device-busy share of one profiled request, and w4_ffn_fused's
-     device time in it split by its four kernels (512 launches of each
-     asserted); one decode layer at B = 1 timed through the fused plan.
+     the device-busy share of one profiled request, and w4_qkv_norm's and
+     w4_ffn_fused's device time in it split by their two and four kernels
+     (528 and 512 launches of each asserted); one decode layer at B = 1
+     timed through the fused plan.
   6. output checks on a small input: a tiny model in bf16 on the card
      against the same weights in f32 on the CPU (plain path), and a tiny
      mixed-layout model on the card against the same quantized weights on
@@ -563,6 +566,20 @@ def phase_quant_kernels(torch, device, res):
                     x, nw, packed, scales, 1e-5), 3), None, 2 * T * D * N,
                 2 * T * D + 2 * D + _w4_bytes(D, N) + 2 * T * N, int8=True,
                 note=" (relative, limit 1e-2)")
+    # 20 calls back to back, each on the output of the one before ([32,
+    # 4096] x 4096), no sync between them: each matched to its plain version
+    nw = (1 + randn(4096, scale=0.1)).bfloat16()
+    w = _w4_weights(torch, tq, randn, 4096, 4096)
+    chain = [randn(32, 4096).bfloat16()]
+    for _ in range(20):
+        chain.append(tw.w4_qkv_norm(chain[-1], nw, *w, 1e-5))
+    torch.cuda.synchronize()
+    err = max(_rel(out, tw.w4_qkv_norm_reference(x, nw, *w, 1e-5))
+              for x, out in zip(chain[:-1], chain[1:]))
+    if not err < 1e-2:
+        raise AssertionError(f"w4_qkv_norm back to back: {err}")
+    print(f"[kernels] w4_qkv_norm 20 chained calls without a sync: max "
+          f"err {err:.3e} (relative, limit 1e-2)")
 
     for T, K, N, per in [(32, 4096, 4096, LLADA_LAYERS * STEPS),
                          (5, 384, 96, 0)]:
@@ -945,10 +962,11 @@ def _decode_layer_ms(torch, llada, P: int = 1088):
     return event_ms, device_ms, launches
 
 
-# w4_ffn_fused's kernels (csrc/w4_fused.cu), one launch each per call of
-# 32 rows
-FFN_KERNELS = ("ffn_norm_kernel", "ffn_up_kernel", "ffn_quant_kernel",
-               "ffn_down_kernel")
+# the kernels of w4_qkv_norm and w4_ffn_fused (csrc/w4_fused.cu), one
+# launch each per call of 32 rows
+SPLIT_KERNELS = {"w4_qkv_norm": ("qkv_norm_kernel", "qkv_kernel"),
+                 "w4_ffn_fused": ("ffn_norm_kernel", "ffn_up_kernel",
+                                  "ffn_quant_kernel", "ffn_down_kernel")}
 
 
 def phase_mixed_path(torch, model, requests, card):
@@ -1035,19 +1053,20 @@ def phase_mixed_path(torch, model, requests, card):
         torch, lambda: model.generate_fused(first[0], [first[1]], [first[2]],
                                             gen))
     _print_profile("mixed", prof, "request 0", card)
-    if prof is not None:   # #7's device time, split by its own kernels
-        parts = {k: [0.0, 0.0, 0] for k in FFN_KERNELS}
+    # #5's and #7's device time, split by their own kernels
+    for op, names in SPLIT_KERNELS.items() if prof is not None else ():
+        parts = {k: [0.0, 0.0, 0] for k in names}
         for key, (added, ms, n) in prof[4].items():
-            for k in FFN_KERNELS:
+            for k in names:
                 if k in key:
                     parts[k] = [a + b for a, b in zip(parts[k], (added, ms, n))]
-        print(f"[mixed] w4_ffn_fused device time of request 0: "
+        print(f"[mixed] {op} device time of request 0: "
               f"{sum(v[0] for v in parts.values()):.3f} ms = " + ", ".join(
                   f"{k} {added:.3f} ms ({n} launches; {ms:.3f} ms from "
                   f"launch to end)" for k, (added, ms, n) in parts.items())
               + f" ({card})")
-        if any(n != want["w4_ffn_fused"] for _, _, n in parts.values()):
-            raise AssertionError(f"w4_ffn_fused kernels launched {parts}")
+        if any(n != want[op] for _, _, n in parts.values()):
+            raise AssertionError(f"{op} kernels launched {parts}")
     layer_ms = _decode_layer_ms(torch, llada)
     print(f"[mixed] one decode layer at B = 1 (32 rows, fused plan: "
           f"w4_qkv_norm + w4_matmul_res + w4_ffn_fused): {layer_ms[0]:.4f} "

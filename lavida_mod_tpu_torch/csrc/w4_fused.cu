@@ -11,36 +11,44 @@
 // + the 259 MB head): 1.2 ms at 3.35 TB/s, against 0.26 ms of int8
 // tensor-core work.
 //
-// What the design does about it, #5 and #6: one GEMM kernel, two
-// epilogues.  A CTA of 4 warps owns 32 output columns (one mma n8 tile per
-// warp) and up to 32 rows (blockIdx.y takes more).  The weights are in the
-// fragment layout of ops/quant.py, so each lane's B operands for one
-// 128-group are one coalesced 16-byte load, and the nibbles become int8 in
-// two instructions: (w << 4) & 0xF0F0F0F0 and w & 0xF0F0F0F0 give 16 x the
-// signed codes, which the exact int32 group sum divides back out with a
-// shift.  A 1024-column slice of the activation codes (32 rows) is staged
-// in shared memory, rows padded by 16 bytes so the fragment loads are
-// conflict-free; the slice's eight groups of weights are all loaded before
-// the slice is staged.  Each group's int32 dot (`mma.sync.m16n8k32.s8`) is
-// flushed into the f32 accumulator as acc + d_g * s_g with IEEE multiply
-// and add, group by group in order: the TPU kernel's `_group_dot_acc`, bit
-// for bit.  The RMSNorm and activation quantization run as a pre-pass
-// kernel per row (a CTA per row) instead of in every CTA.
+// #6, w4_matmul_res: a plain GEMM kernel.  A CTA of 4 warps owns 32 output
+// columns (one mma n8 tile per warp) and up to 32 rows (blockIdx.y takes
+// more).  The weights are in the fragment layout of ops/quant.py, so each
+// lane's B operands for one 128-group are one coalesced 16-byte load, and
+// the nibbles become int8 in two instructions: (w << 4) & 0xF0F0F0F0 and
+// w & 0xF0F0F0F0 give 16 x the signed codes, which the exact int32 group
+// sum divides back out with a shift.  A 1024-column slice of the
+// activation codes (32 rows) is staged in shared memory, rows padded by 16
+// bytes so the fragment loads are conflict-free; the slice's eight groups
+// of weights are all loaded before the slice is staged.  Each group's
+// int32 dot (`mma.sync.m16n8k32.s8`) is flushed into the f32 accumulator
+// as acc + d_g * s_g with IEEE multiply and add, group by group in order:
+// the TPU kernel's `_group_dot_acc`, bit for bit.  The activation
+// quantization runs as a pre-pass kernel per row (a CTA per row).
+//
+// #5 and #7 run on the weight-streaming core of w4_stream.cuh: persistent
+// CTAs, one producer warp keeping a ring of 1D bulk copies in flight, the
+// activation codes read once per pass in K-slices through the ring, the
+// group scales once per CTA, the same exact group flush.  Each GEMM is
+// launched with programmatic dependent launch, so it fills its weight
+// ring and reads its scales while the row pass before it runs.
+//
+// #5, w4_qkv_norm: 26.7 MB of int4 weights and scales per call at [32,
+// 4096] x 12288 ([q|k|v], 8.0 us at 3.35 TB/s), 275 MB at the head's
+// 126464 columns.  Two launches per 32 rows: the norm pass (RMSNorm + A8
+// into the slice layout, one CTA per row) and the GEMM with a bf16(acc *
+// sx) epilogue.  Its stages are 4 groups of 12 tiles, so that at [q|k|v]
+// a CTA's 11-12 tiles take one pass and the codes cross L2 once per CTA.
 //
 // #7, w4_ffn_fused: 80.7 MB to read per call at [32, 4096], H 12288 (24.1
-// us at 3.35 TB/s) against 9.7 GOP of int8 work (4.9 us).  Both GEMMs run
-// on the weight-streaming core of w4_stream.cuh: persistent CTAs, one
-// producer warp keeping a ring of 1D bulk copies in flight, the activation
-// codes read once per pass in K-slices through the ring, the group scales
-// once per CTA, the same exact group flush.  Four launches per 32 rows: the
-// norm pass (which also zeroes the intermediate's amax), up|gate with the
-// SwiGLU epilogue and the amax as an atomicMax, the quant pass (codes only,
-// 384 CTAs at 8B), down with the residual.  The last three are launched
-// with programmatic dependent launch, so each GEMM fills its weight ring
-// while the pass before it runs.  The TPU's sequential grid carried the
-// amax from the up phase to the down phase inside one kernel; here the
-// launch boundaries are the grid-wide barriers (no cooperative launch, so
-// nothing guarantees that every CTA of one grid is resident).
+// us at 3.35 TB/s) against 9.7 GOP of int8 work (4.9 us).  Four launches
+// per 32 rows: the norm pass (which also zeroes the intermediate's amax),
+// up|gate with the SwiGLU epilogue and the amax as an atomicMax, the
+// quant pass (codes only, 384 CTAs at 8B), down with the residual.  The
+// TPU's sequential grid carried the amax from the up phase to the down
+// phase inside one kernel; here the launch boundaries are the grid-wide
+// barriers (no cooperative launch, so nothing guarantees that every CTA
+// of one grid is resident).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,14 +67,12 @@ constexpr int kChunkGroups = 8;             // groups staged per slice
 constexpr int kRowBytes = kChunkGroups * kGroup + 16;   // padded smem row
 constexpr int kQuantThreads = 256;
 
-enum Mode { kQkv = 0, kRes = 1 };
-
 struct Gemm {
   const int8_t* a8;             // [T, K] activation codes
   const float* row_scale;       // [T] their per-row scale
   const uint8_t* packed;        // [N/8, K/128, 512] fragment layout
   const float* scales;          // [K/128, N]
-  const __nv_bfloat16* res;     // [T, N] residual (kRes)
+  const __nv_bfloat16* res;     // [T, N] residual
   __nv_bfloat16* out;           // [T, N]
   int T, K, N;
 };
@@ -113,46 +119,26 @@ __device__ float block_reduce(float v) {
 // Per-token int8 codes of one row per CTA.
 //   kind 0: sx = max(amax / 127, 1e-8)      (pallas_w8.py:45, the prefill)
 //   kind 1: sx = max(amax, 1e-8) / 127      (w4_fused.py:276, w4_matmul_res)
-//   kind 2: RMSNorm first -- f32 statistics, x * rsqrt(var + eps) rounded to
-//           bf16, times the bf16 weight rounded to bf16 -- then kind 1's
-//           formula (w4_fused.py:65-75).
-//   kind 3: sx = max(amax, 1e-8) * f32(1/127)  (pallas_w4.py:172 as XLA
+//   kind 2: sx = max(amax, 1e-8) * f32(1/127)  (pallas_w4.py:172 as XLA
 //           compiles it: a division by a constant becomes a multiplication
 //           by its reciprocal; the grouped W4A8 matmul of w4_grouped.cu)
-// q rows are `ldq` >= K bytes apart; columns [K, ldq) are written as 0.
 template <int kKind>
 __global__ void __launch_bounds__(kQuantThreads)
-row_quant_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ norm_w,
-                 int8_t* __restrict__ q, float* __restrict__ s, int K, int ldq, float eps) {
+row_quant_kernel(const __nv_bfloat16* __restrict__ x, int8_t* __restrict__ q,
+                 float* __restrict__ s, int K) {
   const long row = blockIdx.x;
   const __nv_bfloat16* xr = x + row * K;
-  float inv = 0.0f;
-  if (kKind == 2) {
-    float ss = 0.0f;
-    for (int k = threadIdx.x; k < K; k += kQuantThreads) {
-      const float f = bf(xr[k]);
-      ss = __fadd_rn(ss, __fmul_rn(f, f));
-    }
-    ss = block_reduce<false>(ss);
-    inv = rsqrtf(ss / static_cast<float>(K) + eps);
-  }
-  auto value = [&](int k) {
-    const float f = bf(xr[k]);
-    if (kKind != 2) return f;
-    return round_bf16(__fmul_rn(round_bf16(__fmul_rn(f, inv)), bf(norm_w[k])));
-  };
   float mx = 0.0f;
-  for (int k = threadIdx.x; k < K; k += kQuantThreads) mx = fmaxf(mx, fabsf(value(k)));
+  for (int k = threadIdx.x; k < K; k += kQuantThreads) mx = fmaxf(mx, fabsf(bf(xr[k])));
   mx = block_reduce<true>(mx);
   const float sc = kKind == 0   ? fmaxf(mx / 127.0f, 1e-8f)
-                   : kKind == 3 ? __fmul_rn(fmaxf(mx, 1e-8f), 1.0f / 127.0f)
+                   : kKind == 2 ? __fmul_rn(fmaxf(mx, 1e-8f), 1.0f / 127.0f)
                                 : fmaxf(mx, 1e-8f) / 127.0f;
-  for (int k = threadIdx.x; k < K; k += kQuantThreads) q[row * ldq + k] = quant(value(k), sc);
-  for (int k = K + threadIdx.x; k < ldq; k += kQuantThreads) q[row * ldq + k] = 0;
+  for (int k = threadIdx.x; k < K; k += kQuantThreads) q[row * K + k] = quant(bf(xr[k]), sc);
   if (threadIdx.x == 0) s[row] = sc;
 }
 
-template <int kMode>
+// out = bf16(a8 @ W4 * row_scale + res)
 __global__ void __launch_bounds__(kThreads) w4_gemm_kernel(Gemm p) {
   __shared__ __align__(16) int8_t sA[kRows * kRowBytes];
   __shared__ float sRow[kRows];
@@ -247,37 +233,38 @@ __global__ void __launch_bounds__(kThreads) w4_gemm_kernel(Gemm p) {
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const long o = row * p.N + tile * 8 + tig * 2 + c;
-        float v = __fmul_rn(accf[m][half * 2 + c], rs);
-        if constexpr (kMode != kQkv) v = __fadd_rn(v, bf(p.res[o]));
-        p.out[o] = __float2bfloat16_rn(v);
+        p.out[o] =
+            __float2bfloat16_rn(__fadd_rn(__fmul_rn(accf[m][half * 2 + c], rs), bf(p.res[o])));
       }
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// w4_ffn_fused: four launches chained by programmatic dependent launch
+// w4_qkv_norm and w4_ffn_fused: launches chained by programmatic dependent
+// launch
 // ---------------------------------------------------------------------------
-// The up|gate GEMM streams pairs of matching up and gate tiles, the down
-// GEMM single tiles, each with the codes' K-slices through the ring.  The
-// plan (CTAs, stages, shared bytes) comes from ops/w4_fused.py::ffn_plan
-// and is checked against these constants.
-constexpr int kUpSG = 8, kUpPU = 4;      // groups per stage, units per pass
+// #5's GEMM and #7's down GEMM stream single tiles, #7's up|gate GEMM pairs
+// of matching up and gate tiles, each with the codes' K-slices through the
+// ring.  The plans (CTAs, stages, shared bytes) come from
+// ops/w4_fused.py::qkv_plan and ::ffn_plan and are checked against these
+// constants.
+constexpr int kQkvSG = 4, kQkvPU = 12;   // groups per stage, units per pass
+constexpr int kUpSG = 8, kUpPU = 4;
 constexpr int kDnSG = 8, kDnPU = 4;
 constexpr int kSmemLimit = 232448;
 constexpr int kQuantCols = 4 * kQuantThreads;   // columns per CTA of the quant pass
 
-// The norm pass: RMSNorm + A8 of row blockIdx.x (quant_row's kind 2, the
-// row read as 16-byte chunks of 8 values) into the up GEMM's slice layout;
-// rows past T get zero codes and scale 0.  Zeroes the row's amax, which
-// the up|gate epilogue raises with atomicMax.
-__global__ void __launch_bounds__(kQuantThreads)
-ffn_norm_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ norm_w,
-                int8_t* __restrict__ x8, float* __restrict__ sx, float* __restrict__ amax, int T,
-                int D, int sg, float eps) {
-  hopper::griddep_launch_dependents();   // the up GEMM starts streaming weights
+// The norm pass: RMSNorm + A8 of row blockIdx.x (f32 statistics, x *
+// rsqrt(var + eps) rounded to bf16, times the bf16 weight rounded to bf16,
+// then sx = max(amax, 1e-8) / 127: w4_fused.py:65-75; the row read as
+// 16-byte chunks of 8 values) into the next GEMM's slice layout of `sg`
+// groups; rows past T get zero codes and scale 0.
+__device__ __forceinline__ void norm_pass(const __nv_bfloat16* __restrict__ x,
+                                          const __nv_bfloat16* __restrict__ norm_w,
+                                          int8_t* __restrict__ x8, float* __restrict__ sx, int T,
+                                          int D, int sg, float eps) {
   const int row = blockIdx.x, G = D / kGroup, chunks = D / 8;
-  if (threadIdx.x == 0) amax[row] = 0.0f;
   auto store = [&](int c, uint2 codes) {
     *reinterpret_cast<uint2*>(x8 + w4s::slice_offset(row, c * 8, sg, G)) = codes;
   };
@@ -332,6 +319,54 @@ ffn_norm_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __rest
     store(c, make_uint2(q[0], q[1]));
   }
   if (threadIdx.x == 0) sx[row] = sc;
+}
+
+// #5's norm pass.
+__global__ void __launch_bounds__(kQuantThreads)
+qkv_norm_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ norm_w,
+                int8_t* __restrict__ x8, float* __restrict__ sx, int T, int D, float eps) {
+  hopper::griddep_launch_dependents();   // the GEMM starts streaming weights
+  norm_pass(x, norm_w, x8, sx, T, D, kQkvSG, eps);
+}
+
+// The [q|k|v] and head epilogue: bf16(acc * sx), a column pair per store.
+struct QkvEpi {
+  const float* row_scale;
+  __nv_bfloat16* out;   // [T, N]
+  int T, N;
+
+  __device__ void unit(int u, int m, const float (&acc)[1][4]) {
+    const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = m * 16 + gid + half * 8;
+      if (r >= T) continue;
+      const float rs = row_scale[r];
+      *reinterpret_cast<__nv_bfloat162*>(out + static_cast<long>(r) * N + u * 8 + tig * 2) =
+          __floats2bfloat162_rn(__fmul_rn(acc[0][half * 2], rs),
+                                __fmul_rn(acc[0][half * 2 + 1], rs));
+    }
+  }
+  __device__ void finish(int) {}
+};
+
+__global__ void __launch_bounds__(w4s::kThreads, 1)
+qkv_kernel(w4s::Stream p, const float* __restrict__ sx, __nv_bfloat16* __restrict__ out, int T) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  hopper::griddep_launch_dependents();
+  QkvEpi epi{sx, out, T, p.N};
+  w4s::stream_gemm<1, kQkvSG, kQkvPU>(p, smem, epi);
+}
+
+// #7's norm pass; it also zeroes the row's amax, which the up|gate
+// epilogue raises with atomicMax.
+__global__ void __launch_bounds__(kQuantThreads)
+ffn_norm_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ norm_w,
+                int8_t* __restrict__ x8, float* __restrict__ sx, float* __restrict__ amax, int T,
+                int D, int sg, float eps) {
+  hopper::griddep_launch_dependents();   // the up GEMM starts streaming weights
+  if (threadIdx.x == 0) amax[blockIdx.x] = 0.0f;
+  norm_pass(x, norm_w, x8, sx, T, D, sg, eps);
 }
 
 // The up|gate epilogue: up and gate rounded to bf16 after * sx, SwiGLU in
@@ -476,23 +511,13 @@ int allow_smem(Kernel kernel, int smem, int& allowed) {
   return 0;
 }
 
-template <int kMode>
-int launch_gemm(const Gemm& p, int cols, cudaStream_t st) {
-  const dim3 grid(cols / kCtaCols, (p.T + kRows - 1) / kRows);
-  w4_gemm_kernel<kMode><<<grid, kThreads, 0, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int launch_quant(int kind, const void* x, const void* norm_w, void* q, void* s, int T, int K,
-                 int ldq, float eps, cudaStream_t st) {
+int launch_quant(int kind, const void* x, void* q, void* s, int T, int K, cudaStream_t st) {
   const auto* xp = static_cast<const __nv_bfloat16*>(x);
-  const auto* wp = static_cast<const __nv_bfloat16*>(norm_w);
   auto* qp = static_cast<int8_t*>(q);
   auto* sp = static_cast<float*>(s);
-  if (kind == 0) row_quant_kernel<0><<<T, kQuantThreads, 0, st>>>(xp, wp, qp, sp, K, ldq, eps);
-  if (kind == 1) row_quant_kernel<1><<<T, kQuantThreads, 0, st>>>(xp, wp, qp, sp, K, ldq, eps);
-  if (kind == 2) row_quant_kernel<2><<<T, kQuantThreads, 0, st>>>(xp, wp, qp, sp, K, ldq, eps);
-  if (kind == 3) row_quant_kernel<3><<<T, kQuantThreads, 0, st>>>(xp, wp, qp, sp, K, ldq, eps);
+  if (kind == 0) row_quant_kernel<0><<<T, kQuantThreads, 0, st>>>(xp, qp, sp, K);
+  if (kind == 1) row_quant_kernel<1><<<T, kQuantThreads, 0, st>>>(xp, qp, sp, K);
+  if (kind == 2) row_quant_kernel<2><<<T, kQuantThreads, 0, st>>>(xp, qp, sp, K);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -502,32 +527,52 @@ constexpr int kBad = static_cast<int>(cudaErrorInvalidValue);
 
 // Per-token int8 codes x8 [T, K] and scales sx [T] of bf16 x [T, K]
 // (formula 0: the W8A8 prefill's, 1: the W4A8 one, 2: the W4A8 one with
-// the reciprocal, row kind 3).
+// the reciprocal).
 extern "C" int lavida_act_quant(const void* x, void* x8, void* sx, int T, int K, int formula,
                                 void* stream) {
   if (T <= 0 || K <= 0 || formula < 0 || formula > 2) return kBad;
-  return launch_quant(formula == 2 ? 3 : formula, x, nullptr, x8, sx, T, K, K, 0.0f,
-                      static_cast<cudaStream_t>(stream));
+  return launch_quant(formula, x, x8, sx, T, K, static_cast<cudaStream_t>(stream));
 }
 
 // out [T, N] = bf16(rmsnorm(x) @ W4 * sx); x [T, D] bf16, norm_w [D] bf16,
-// packed [N/8, D/128, 512], scales [D/128, N] f32; x8 [T, D] and sx [T]
-// are scratch.
+// packed [N/8, D/128, 512], scales [D/128, N] f32.  Scratch: x8, the codes
+// of [32, D] in the GEMM's slice layout, and sx [32] f32.  Rows go 32 at a
+// time, two launches each: the norm pass, then the GEMM with programmatic
+// dependent launch.  The plan (ops/w4_fused.py::qkv_plan): the GEMM's
+// CTAs, ring stages and dynamic shared bytes.
 extern "C" int lavida_w4_qkv_norm(const void* x, const void* norm_w, const void* packed,
                                   const void* scales, void* x8, void* sx, void* out, int T,
-                                  int D, int N, float eps, void* stream) {
-  if (T <= 0 || D <= 0 || D % kGroup || N <= 0 || N % kCtaCols) return kBad;
-  const auto st = static_cast<cudaStream_t>(stream);
-  int err = launch_quant(2, x, norm_w, x8, sx, T, D, D, eps, st);
+                                  int D, int N, float eps, int ctas, int stages, int smem,
+                                  void* stream) {
+  using L = w4s::Layout<1, kQkvSG, kQkvPU>;
+  const int G = D / kGroup;
+  if (T <= 0 || D <= 0 || D % kGroup || N <= 0 || N % 8 || ctas < 1 || ctas > N / 8 ||
+      stages < 2 || stages > w4s::kMaxStages)
+    return kBad;
+  const int max_units = (N / 8 + ctas - 1) / ctas;
+  if (smem > kSmemLimit || smem != L::smem(G, max_units, stages)) return kBad;
+  static int allowed = 0;
+  int err = allow_smem(qkv_kernel, smem, allowed);
   if (err) return err;
-  Gemm p{};
-  p.a8 = static_cast<const int8_t*>(x8);
-  p.row_scale = static_cast<const float*>(sx);
-  p.packed = static_cast<const uint8_t*>(packed);
-  p.scales = static_cast<const float*>(scales);
-  p.out = static_cast<__nv_bfloat16*>(out);
-  p.T = T, p.K = D, p.N = N;
-  return launch_gemm<kQkv>(p, N, st);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* xp = static_cast<const __nv_bfloat16*>(x);
+  auto* op = static_cast<__nv_bfloat16*>(out);
+  auto* x8p = static_cast<int8_t*>(x8);
+  auto* sxp = static_cast<float*>(sx);
+  const w4s::Stream p{x8p, static_cast<const uint8_t*>(packed), static_cast<const float*>(scales),
+                      G, N, N / 8, 0, stages, max_units};
+  for (int r0 = 0; r0 < T; r0 += w4s::kRows) {
+    const int rows = min(w4s::kRows, T - r0);
+    qkv_norm_kernel<<<w4s::kRows, kQuantThreads, 0, st>>>(
+        xp + static_cast<long>(r0) * D, static_cast<const __nv_bfloat16*>(norm_w), x8p, sxp, rows,
+        D, eps);
+    err = static_cast<int>(cudaGetLastError());
+    if (err) return err;
+    err = launch_dependent(qkv_kernel, dim3(ctas), dim3(w4s::kThreads), smem, st, p, sxp,
+                           op + static_cast<long>(r0) * N, rows);
+    if (err) return err;
+  }
+  return 0;
 }
 
 // out [T, N] = bf16(a @ W4 * sa + res); a [T, K] bf16, res [T, N] bf16;
@@ -537,7 +582,7 @@ extern "C" int lavida_w4_matmul_res(const void* a, const void* res, const void* 
                                     int K, int N, void* stream) {
   if (T <= 0 || K <= 0 || K % kGroup || N <= 0 || N % kCtaCols) return kBad;
   const auto st = static_cast<cudaStream_t>(stream);
-  int err = launch_quant(1, a, nullptr, a8, sa, T, K, K, 0.0f, st);
+  int err = launch_quant(1, a, a8, sa, T, K, st);
   if (err) return err;
   Gemm p{};
   p.a8 = static_cast<const int8_t*>(a8);
@@ -547,7 +592,8 @@ extern "C" int lavida_w4_matmul_res(const void* a, const void* res, const void* 
   p.res = static_cast<const __nv_bfloat16*>(res);
   p.out = static_cast<__nv_bfloat16*>(out);
   p.T = T, p.K = K, p.N = N;
-  return launch_gemm<kRes>(p, N, st);
+  w4_gemm_kernel<<<dim3(N / kCtaCols, (T + kRows - 1) / kRows), kThreads, 0, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // out [T, D] = x + down(swiglu(rmsnorm(x) @ W_up|gate)); up [D -> 2H] (up

@@ -22,8 +22,10 @@ four groups:
   w4 fused decode  #5 w4_qkv_norm, #6 w4_matmul_res and #7 w4_ffn_fused
                    at one mixed request's shapes (32 rows; 512 calls of
                    each at the layers' shapes, 16 of #5 at the head's), no
-                   library call; #7 also split by its own kernels from the
-                   profiler (`kernel_split`).
+                   library call; #5 also at the B = 4 batch's fused head
+                   (128 rows, outside the request's sums); #5 and #7 also
+                   split by their own kernels from the profiler
+                   (`kernel_split`).
 
 Each is timed three ways:
 
@@ -216,7 +218,7 @@ def main(argv: list[str]) -> None:
                three_times(lambda: tpf.prefix_flash_dq(*args)).items(),
                three_times(lambda: tpf.prefix_flash_dkv(*args)).values())},
            lib_bwd)
-    split = time_w4_decode(torch, dev, gen, record)
+    splits = time_w4_decode(torch, dev, gen, record)
     for kernel, s in sums.items():
         a, b = s["kernel"], s["library"]
         what = ("stage-1 step" if kernel.startswith("prefix_flash")
@@ -230,7 +232,7 @@ def main(argv: list[str]) -> None:
               f"ms, host {a['host_us'] / 1e3:.4f} ms; library {lib_text} "
               f"({name})")
     print(json.dumps({"tree": tree, "device": name, "shapes": rows,
-                      "per_request": sums, "w4_ffn_fused_split": split}))
+                      "per_request": sums, "splits": splits}))
 
 
 def added_times(torch, prof) -> dict:
@@ -271,8 +273,9 @@ def kernel_split(torch, fn, calls: int = 20) -> dict:
 
 
 def time_w4_decode(torch, dev, gen, record) -> dict:
-    """#5, #6 and #7 at one mixed request's decode shapes; returns #7's
-    device time per call split by kernel."""
+    """#5, #6 and #7 at one mixed request's decode shapes (and #5 at the
+    B = 4 head); returns {call: device time per call split by kernel} of
+    each #5 shape and of #7."""
     from lavida_mod_tpu_torch.ops import quant as tq
     from lavida_mod_tpu_torch.ops import w4_fused as tw
 
@@ -286,12 +289,19 @@ def time_w4_decode(torch, dev, gen, record) -> dict:
     T, D, H = 32, 4096, 12288
     x = randn(T, D).bfloat16()
     nw = (1 + randn(D, scale=0.1)).bfloat16()
+    splits = {}
     with torch.no_grad():
-        for N, per in [(3 * D, 512), (126464, 16)]:
+        for rows, N, per in [(T, 3 * D, 512), (T, 126464, 16),
+                             (128, 126464, 0)]:
             w = w4(D, N)
-            record("w4_qkv_norm", f"[{T},{D}]x[{D},{N}]", per,
-                   three_times(lambda: tw.w4_qkv_norm(x, nw, *w, 1e-5)),
-                   None)
+            xr = randn(rows, D).bfloat16()
+            shape = f"[{rows},{D}]x[{D},{N}]"
+
+            def qkv():
+                return tw.w4_qkv_norm(xr, nw, *w, 1e-5)
+
+            record("w4_qkv_norm", shape, per, three_times(qkv), None)
+            splits[f"w4_qkv_norm {shape}"] = kernel_split(torch, qkv)
         res = randn(T, D).bfloat16()
         w = w4(D, D)
         record("w4_matmul_res", f"[{T},{D}]x[{D},{D}]", 512,
@@ -303,12 +313,13 @@ def time_w4_decode(torch, dev, gen, record) -> dict:
 
         record("w4_ffn_fused", f"[{T},{D}] H {H} Hd {H}", 512,
                three_times(ffn), None)
-        split = kernel_split(torch, ffn)
-    for key, (added, ms) in sorted(split.items(), key=lambda kv: -kv[1][0]):
-        print(f"[times] w4_ffn_fused split: adds {added:.4f} ms per call "
-              f"({512 * added:.3f} ms per request), runs {ms:.4f} ms from "
-              f"launch to end  {key[:100]}")
-    return split
+        splits[f"w4_ffn_fused [{T},{D}] H {H}"] = kernel_split(torch, ffn)
+    for call, split in splits.items():
+        for key, (added, ms) in sorted(split.items(),
+                                       key=lambda kv: -kv[1][0]):
+            print(f"[times] {call} split: adds {added:.4f} ms per call, "
+                  f"runs {ms:.4f} ms from launch to end  {key[:100]}")
+    return splits
 
 
 if __name__ == "__main__":

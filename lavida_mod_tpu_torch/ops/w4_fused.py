@@ -15,9 +15,12 @@ versions, which port `_rms_quant` (w4_fused.py:65-75) and `_group_dot_acc`
 (:46-62) exactly: each 128-group's integer dot is exact, and the f32
 accumulator takes `acc + d_g * s_g` group by group, in order, as the
 kernels do.  Each op counts its calls on the card in `.launches`, one per
-call (a call is a row pre-pass and a GEMM launch; for `w4_ffn_fused` four
-launches per 32 rows: two row passes and two weight-streaming GEMMs, laid
-out by `ffn_plan`).
+call.  A call of `w4_matmul_res` is a row pre-pass and a GEMM launch.
+`w4_qkv_norm` and `w4_ffn_fused` run on the weight-streaming GEMM of
+csrc/w4_stream.cuh, 32 rows at a time, each GEMM chained to the row pass
+before it by programmatic dependent launch: two launches per 32 rows for
+`w4_qkv_norm` (the norm pass, the GEMM; laid out by `qkv_plan`), four for
+`w4_ffn_fused` (two row passes, two GEMMs; `ffn_plan`).
 """
 
 from __future__ import annotations
@@ -94,7 +97,8 @@ def w4_ffn_fused_reference(x, norm_w, up_packed, up_scales, dn_packed,
 
 
 # ---------------------------------------------------------------------------
-# the plan of w4_ffn_fused's two weight-streaming GEMMs (csrc/w4_stream.cuh)
+# the plans of the weight-streaming GEMMs (csrc/w4_stream.cuh): w4_qkv_norm's
+# and w4_ffn_fused's two
 # ---------------------------------------------------------------------------
 
 SMEM_LIMIT = 232448          # dynamic shared memory a block can use
@@ -105,8 +109,11 @@ MAX_STAGES = 6
 MIN_STAGES = 3
 IN_FLIGHT_MIN = 32 * 1024    # bytes the producer keeps in flight per SM
 # (groups per stage, column units per pass) of each GEMM, as in
-# csrc/w4_fused.cu: up|gate units are (up, gate) tile pairs, down units
-# single n8 tiles
+# csrc/w4_fused.cu: up|gate units are (up, gate) tile pairs, the others'
+# single n8 tiles.  w4_qkv_norm's stage is 4 groups of 12 tiles: at [q|k|v]
+# (1536 tiles over 132 CTAs) a CTA's tiles take one pass, so the codes'
+# K-slices cross L2 once per CTA and not once per 4 tiles.
+QKV_SLICE_GROUPS, QKV_PASS_UNITS = 4, 12
 UP_SLICE_GROUPS, UP_PASS_UNITS = 8, 4
 DN_SLICE_GROUPS, DN_PASS_UNITS = 8, 4
 
@@ -129,6 +136,14 @@ class GemmPlan(NamedTuple):
     def owned(self, c: int) -> range:
         return range(c * self.units // self.ctas,
                      (c + 1) * self.units // self.ctas)
+
+
+class QkvPlan(NamedTuple):
+    row_slices: int
+    gemm: GemmPlan
+    # byte offsets of x8 and sx in one workspace of `work_bytes`
+    offsets: tuple
+    work_bytes: int
 
 
 class FfnPlan(NamedTuple):
@@ -155,6 +170,35 @@ def _gemm_plan(G, units, tiles, sg, pu, sms) -> GemmPlan:
                     fixed + stages * stage)
 
 
+def _check_ring(op: str, g: GemmPlan, what: str) -> None:
+    if g.stages < MIN_STAGES \
+            or (g.stages - 1) * g.stage_bytes < IN_FLIGHT_MIN:
+        raise ValueError(f"{op}: {what} leave {g.stages} ring stages of "
+                         f"{g.stage_bytes} bytes")
+
+
+def _workspace(sizes):
+    """(offsets, total bytes) of regions of `sizes` bytes, each aligned to
+    128 bytes, in one buffer."""
+    offsets = [0]
+    for n in sizes:
+        offsets.append(offsets[-1] + -(-n // 128) * 128)
+    return tuple(offsets[:-1]), offsets[-1]
+
+
+@functools.lru_cache(maxsize=64)
+def qkv_plan(T: int, D: int, N: int, sms: int) -> QkvPlan:
+    """CTAs, ring stages and shared bytes of w4_qkv_norm's GEMM for x
+    [T, D] and a weight [D -> N] on a card of `sms` SMs, and the scratch of
+    its norm pass (the codes of 32 rows in the slice layout, sx)."""
+    g = _gemm_plan(D // GROUP, N // 8, 1, QKV_SLICE_GROUPS, QKV_PASS_UNITS,
+                   sms)
+    _check_ring("w4_qkv_norm", g, f"D = {D}, N = {N}")
+    offsets, work = _workspace([slice_bytes(g.slice_groups, D // GROUP),
+                                4 * ROWS])
+    return QkvPlan(-(-T // ROWS), g, offsets, work)
+
+
 @functools.lru_cache(maxsize=64)
 def ffn_plan(T: int, D: int, H: int, Hd: int, sms: int) -> FfnPlan:
     """CTAs, ring stages and shared bytes of w4_ffn_fused's GEMMs for x
@@ -165,18 +209,11 @@ def ffn_plan(T: int, D: int, H: int, Hd: int, sms: int) -> FfnPlan:
     down = _gemm_plan(Hd // GROUP, D // 8, 1, DN_SLICE_GROUPS, DN_PASS_UNITS,
                       sms)
     for g in (up, down):
-        if g.stages < MIN_STAGES \
-                or (g.stages - 1) * g.stage_bytes < IN_FLIGHT_MIN:
-            raise ValueError(f"w4_ffn_fused: D = {D}, Hd = {Hd} leave "
-                             f"{g.stages} ring stages of {g.stage_bytes} "
-                             f"bytes")
-    sizes = [slice_bytes(up.slice_groups, D // GROUP),
-             slice_bytes(down.slice_groups, Hd // GROUP), 2 * ROWS * H,
-             4 * ROWS, 4 * ROWS, 4 * ROWS]
-    offsets = [0]
-    for n in sizes:
-        offsets.append(offsets[-1] + -(-n // 128) * 128)
-    return FfnPlan(-(-T // ROWS), up, down, tuple(offsets[:-1]), offsets[-1])
+        _check_ring("w4_ffn_fused", g, f"D = {D}, Hd = {Hd}")
+    offsets, work = _workspace([slice_bytes(up.slice_groups, D // GROUP),
+                                slice_bytes(down.slice_groups, Hd // GROUP),
+                                2 * ROWS * H, 4 * ROWS, 4 * ROWS, 4 * ROWS])
+    return FfnPlan(-(-T // ROWS), up, down, offsets, work)
 
 
 @functools.cache
@@ -224,20 +261,23 @@ def _stream(t):
 
 def w4_qkv_norm(x, norm_w, packed, scales, eps: float = 1e-5):
     """rmsnorm(x) @ W4 -> [T, N] bf16, with the norm and A8 quantization
-    in a pre-pass of the same call.  x [T, D] bf16, norm_w [D] bf16."""
+    in a row pass before each 32 rows' GEMM.  x [T, D] bf16, norm_w [D]
+    bf16."""
     if not x.is_cuda:
         return w4_qkv_norm_reference(x, norm_w, packed, scales, eps)
     D = packed.shape[1] * GROUP
     T = _rows("w4_qkv_norm", x, D)
     N = _weights("w4_qkv_norm", packed, scales, D, x.device)
     _need("w4_qkv_norm: norm_w", norm_w, torch.bfloat16, (D,), x.device)
-    x8 = torch.empty(T, D, dtype=torch.int8, device=x.device)
-    sx = torch.empty(T, dtype=torch.float32, device=x.device)
+    plan = qkv_plan(T, D, N, _sms(x.device.index))
+    g = plan.gemm
+    work = torch.empty(plan.work_bytes, dtype=torch.uint8, device=x.device)
+    x8, sx = (work.data_ptr() + o for o in plan.offsets)
     out = torch.empty(T, N, dtype=torch.bfloat16, device=x.device)
     kernels.check(kernels.library().lavida_w4_qkv_norm(
         x.data_ptr(), norm_w.data_ptr(), packed.data_ptr(),
-        scales.data_ptr(), x8.data_ptr(), sx.data_ptr(), out.data_ptr(),
-        T, D, N, eps, _stream(x)), "w4_qkv_norm")
+        scales.data_ptr(), x8, sx, out.data_ptr(), T, D, N, eps, g.ctas,
+        g.stages, g.smem, _stream(x)), "w4_qkv_norm")
     w4_qkv_norm.launches += 1
     return out
 

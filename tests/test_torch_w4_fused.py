@@ -17,6 +17,9 @@ that need one (skipped without), at the LLaDA-8B decode shapes:
     python -m pytest --noconftest -k cuda tests/test_torch_w4_fused.py
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -205,6 +208,58 @@ def test_ffn_plan_owns_every_tile_once_within_shared_memory(T, D, H, Hd):
             assert off % 128 == 0 and end - off >= n
 
 
+# the plan of w4_qkv_norm's GEMM: [q|k|v] and the head of the 8B at every
+# row count of the decode paths (and one above a 32-row slice), the tiny
+# mixed models' [q|k|v] and head widths, and the other cases of this file
+QKV_PLAN_CASES = [(T, 4096, N) for N in (12288, 126464)
+                  for T in (8, 16, 24, 32, 40, 128)] + [
+    (32, 512, 1536), (32, 512, 512), (32, 4096, 13600), (8, 384, 96),
+    (40, 256, 160), (40, 384, 160)] + [
+    (d["T"], d["D"], d["N"]) for op, d in CASES if op == "qkv"]
+
+
+@pytest.mark.parametrize("T,D,N", QKV_PLAN_CASES)
+def test_qkv_plan_owns_every_tile_once_within_shared_memory(T, D, N):
+    G = D // 128
+    for sms in (132, 114, 78):
+        plan = tw.qkv_plan(T, D, N, sms)
+        g = plan.gemm
+        assert plan.row_slices == -(-T // 32)
+        owned = sorted(u for c in range(g.ctas) for u in g.owned(c))
+        assert owned == list(range(N // 8)), (sms, g)
+        assert g.tiles == 1 and min(g.units, sms) <= g.ctas <= g.units
+        # what lavida_w4_qkv_norm recomputes from its constants
+        sg, pu = tw.QKV_SLICE_GROUPS, tw.QKV_PASS_UNITS
+        stage = 32 * (sg * 128 + 16) + pu * sg * 512
+        max_units = -(-g.units // g.ctas)
+        assert (g.slice_groups, g.stage_bytes) == (sg, stage)
+        assert g.smem == 128 + G * max_units * 32 + g.stages * stage
+        assert g.smem <= tw.SMEM_LIMIT == 232448
+        assert tw.MIN_STAGES <= g.stages <= tw.MAX_STAGES
+        assert (g.stages - 1) * g.stage_bytes >= tw.IN_FLIGHT_MIN
+        # the codes of 32 rows in the slice layout, then sx [32]
+        sizes = [tw.slice_bytes(sg, G), 128]
+        ends = list(plan.offsets[1:]) + [plan.work_bytes]
+        for off, end, n in zip(plan.offsets, ends, sizes):
+            assert off % 128 == 0 and end - off >= n
+
+
+@pytest.mark.parametrize("name,sg,pu", [("Qkv", tw.QKV_SLICE_GROUPS,
+                                         tw.QKV_PASS_UNITS),
+                                        ("Up", tw.UP_SLICE_GROUPS,
+                                         tw.UP_PASS_UNITS),
+                                        ("Dn", tw.DN_SLICE_GROUPS,
+                                         tw.DN_PASS_UNITS)])
+def test_plan_constants_match_the_cuda_source(name, sg, pu):
+    """The plans' stage shapes are the constants the C entry points check
+    a plan against (csrc/w4_fused.cu), and a pass's units split evenly over
+    the core's four warp classes (csrc/w4_stream.cuh)."""
+    src = (Path(tw.__file__).parents[1] / "csrc" / "w4_fused.cu").read_text()
+    m = re.search(rf"k{name}SG = (\d+), k{name}PU = (\d+);", src)
+    assert m and (int(m[1]), int(m[2])) == (sg, pu)
+    assert pu % 4 == 0 and 2 <= sg <= 32
+
+
 def test_intermediate_scale_is_a_max_over_column_blocks():
     """The up|gate epilogue raises each row's amax of the bf16
     intermediate with an atomicMax on the bits of a non-negative f32, one
@@ -255,7 +310,11 @@ def _check(out, ref, band):
 
 
 @pytest.mark.parametrize("T,D,N", [(32, 4096, 12288), (32, 4096, 126464),
-                                   (8, 384, 96), (40, 256, 160)])
+                                   (8, 384, 96), (40, 256, 160),
+                                   (8, 4096, 126464), (24, 4096, 126464),
+                                   (40, 4096, 126464), (128, 4096, 126464),
+                                   # 1700 tiles: passes of 12 and 1
+                                   (32, 4096, 13600)])
 def test_qkv_norm_kernel_matches_plain_on_cuda(cuda, T, D, N):
     g = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(T, D, generator=g, device=cuda).bfloat16()
@@ -267,6 +326,63 @@ def test_qkv_norm_kernel_matches_plain_on_cuda(cuda, T, D, N):
     out = tw.w4_qkv_norm(x, nw, packed, scales, 1e-5)
     torch.cuda.synchronize()
     assert tw.w4_qkv_norm.launches == before + 1
+    _check(out, tw.w4_qkv_norm_reference(x, nw, packed, scales, 1e-5), 1e-2)
+
+
+def test_qkv_norm_back_to_back_on_cuda(cuda):
+    """20 calls with no sync between them, each on the output of the one
+    before ([32, 4096] x 4096): a GEMM that read the codes before its norm
+    pass wrote them (a missing griddepcontrol.wait), or a norm pass that
+    overwrote them while the GEMM before read them, shows here.  Then the
+    chain again from new data at the same address."""
+    D = 4096
+    g = torch.Generator(device=cuda).manual_seed(4)
+    nw = (1 + 0.1 * torch.randn(D, generator=g, device=cuda)).bfloat16()
+    w = _card_weights(D, D, g, cuda)
+    x0 = torch.empty(32, D, dtype=torch.bfloat16, device=cuda)
+    for _ in range(2):
+        x0.copy_(torch.randn(32, D, generator=g, device=cuda))
+        xs = [x0]
+        for _ in range(20):
+            xs.append(tw.w4_qkv_norm(xs[-1], nw, *w, 1e-5))
+        torch.cuda.synchronize()
+        for x, out in zip(xs[:-1], xs[1:]):
+            _check(out, tw.w4_qkv_norm_reference(x, nw, *w, 1e-5), 1e-2)
+
+
+def test_qkv_norm_rejects_a_plan_that_does_not_match_on_cuda(cuda):
+    """lavida_w4_qkv_norm recomputes the GEMM's shared bytes from its own
+    constants and refuses a plan that does not reproduce them, or whose
+    CTAs or stages it cannot run, before it launches anything."""
+    from lavida_mod_tpu_torch import kernels
+
+    T, D, N = 32, 4096, 12288
+    x = torch.randn(T, D, device=cuda).bfloat16()
+    nw = torch.ones(D, dtype=torch.bfloat16, device=cuda)
+    packed, scales = _card_weights(D, N, torch.Generator(
+        device=cuda).manual_seed(5), cuda)
+    plan = tw.qkv_plan(T, D, N, tw._sms(cuda.index or 0))
+    work = torch.empty(plan.work_bytes, dtype=torch.uint8, device=cuda)
+    out = torch.zeros(T, N, dtype=torch.bfloat16, device=cuda)
+    g = plan.gemm
+
+    def call(ctas, stages, smem):
+        return kernels.library().lavida_w4_qkv_norm(
+            x.data_ptr(), nw.data_ptr(), packed.data_ptr(),
+            scales.data_ptr(), work.data_ptr() + plan.offsets[0],
+            work.data_ptr() + plan.offsets[1], out.data_ptr(), T, D, N, 1e-5,
+            ctas, stages, smem, torch.cuda.current_stream().cuda_stream)
+
+    for bad in [(g.ctas, g.stages, g.smem + 16),
+                (g.ctas, g.stages + 1, g.smem),
+                (2 * g.ctas, g.stages, g.smem),
+                (0, g.stages, g.smem), (N // 8 + 1, g.stages, g.smem),
+                (g.ctas, 1, g.smem), (g.ctas, 7, g.smem),
+                (g.ctas, g.stages, 232448 + 1024)]:
+        assert call(*bad) != 0, bad
+    torch.cuda.synchronize()
+    assert not out.any()           # nothing ran
+    assert call(g.ctas, g.stages, g.smem) == 0
     _check(out, tw.w4_qkv_norm_reference(x, nw, packed, scales, 1e-5), 1e-2)
 
 
