@@ -34,7 +34,8 @@ exits non-zero and never prints the final line:
      same addresses, and 20 calls chained back to back without a sync,
      each matched to its plain version; w4_qkv_norm at [q|k|v], the head
      at 32 and 128 rows and a ragged width, and 20 chained calls of [32,
-     4096] x 4096 likewise.  w4_matmul, which no path
+     4096] x 4096 likewise; w4_matmul_res at [32, 4096] x 4096 and a
+     narrow width, and 20 chained calls, all exact.  w4_matmul, which no path
      launches, at [32, 4096] x 12288, [1056, 4096] x 12288 and [5, 4304] x
      1000, within one bf16 ulp of its plain version, beside
      torch._weight_int4pack_mm on the same codes.
@@ -49,10 +50,10 @@ exits non-zero and never prints the final line:
      requests with the same checks and, per request, 128 w8a8_matmul,
      528 w4_qkv_norm, 512 w4_matmul_res and 512 w4_ffn_fused launches;
      request walls, phase times, peak memory, weight bytes per tree and
-     the device-busy share of one profiled request, and w4_qkv_norm's and
-     w4_ffn_fused's device time in it split by their two and four kernels
-     (528 and 512 launches of each asserted); one decode layer at B = 1
-     timed through the fused plan.
+     the device-busy share of one profiled request, and w4_qkv_norm's,
+     w4_matmul_res's and w4_ffn_fused's device time in it split by their
+     two, two and four kernels (528, 512 and 512 launches of each
+     asserted); one decode layer at B = 1 timed through the fused plan.
   6. output checks on a small input: a tiny model in bf16 on the card
      against the same weights in f32 on the CPU (plain path), and a tiny
      mixed-layout model on the card against the same quantized weights on
@@ -596,6 +597,18 @@ def phase_quant_kernels(torch, device, res):
                     a, r, packed, scales), 5), None, 2 * T * K * N,
                 2 * T * K + _w4_bytes(K, N) + 4 * T * N, int8=True,
                 note=" (exact)")
+    # 20 calls back to back, each output the next one's `a` ([32, 4096] x
+    # 4096), no sync between them: each equal to its plain version
+    w = _w4_weights(torch, tq, randn, 4096, 4096)
+    r = randn(32, 4096).bfloat16()
+    chain = [randn(32, 4096).bfloat16()]
+    for _ in range(20):
+        chain.append(tw.w4_matmul_res(chain[-1], r, *w))
+    torch.cuda.synchronize()
+    if not all(torch.equal(out, tw.w4_matmul_res_reference(a, r, *w))
+               for a, out in zip(chain[:-1], chain[1:])):
+        raise AssertionError("w4_matmul_res back to back differs")
+    print("[kernels] w4_matmul_res 20 chained calls without a sync: exact")
 
     # w4_ffn_fused: the decode FFN at 8 / 16 / 24 / 32 rows (32 on the
     # main path, once per layer per step), 40 (two 32-row slices) and a
@@ -962,9 +975,10 @@ def _decode_layer_ms(torch, llada, P: int = 1088):
     return event_ms, device_ms, launches
 
 
-# the kernels of w4_qkv_norm and w4_ffn_fused (csrc/w4_fused.cu), one
-# launch each per call of 32 rows
+# the kernels of w4_qkv_norm, w4_matmul_res and w4_ffn_fused
+# (csrc/w4_fused.cu), one launch each per call of 32 rows
 SPLIT_KERNELS = {"w4_qkv_norm": ("qkv_norm_kernel", "qkv_kernel"),
+                 "w4_matmul_res": ("res_quant_kernel", "res_kernel"),
                  "w4_ffn_fused": ("ffn_norm_kernel", "ffn_up_kernel",
                                   "ffn_quant_kernel", "ffn_down_kernel")}
 
@@ -1053,7 +1067,7 @@ def phase_mixed_path(torch, model, requests, card):
         torch, lambda: model.generate_fused(first[0], [first[1]], [first[2]],
                                             gen))
     _print_profile("mixed", prof, "request 0", card)
-    # #5's and #7's device time, split by their own kernels
+    # #5's, #6's and #7's device time, split by their own kernels
     for op, names in SPLIT_KERNELS.items() if prof is not None else ():
         parts = {k: [0.0, 0.0, 0] for k in names}
         for key, (added, ms, n) in prof[4].items():

@@ -11,28 +11,17 @@
 // + the 259 MB head): 1.2 ms at 3.35 TB/s, against 0.26 ms of int8
 // tensor-core work.
 //
-// #6, w4_matmul_res: a plain GEMM kernel.  A CTA of 4 warps owns 32 output
-// columns (one mma n8 tile per warp) and up to 32 rows (blockIdx.y takes
-// more).  The weights are in the fragment layout of ops/quant.py, so each
-// lane's B operands for one 128-group are one coalesced 16-byte load, and
-// the nibbles become int8 in two instructions: (w << 4) & 0xF0F0F0F0 and
-// w & 0xF0F0F0F0 give 16 x the signed codes, which the exact int32 group
-// sum divides back out with a shift.  A 1024-column slice of the
-// activation codes (32 rows) is staged in shared memory, rows padded by 16
-// bytes so the fragment loads are conflict-free; the slice's eight groups
-// of weights are all loaded before the slice is staged.  Each group's
-// int32 dot (`mma.sync.m16n8k32.s8`) is flushed into the f32 accumulator
-// as acc + d_g * s_g with IEEE multiply and add, group by group in order:
-// the TPU kernel's `_group_dot_acc`, bit for bit.  The activation
-// quantization runs as a pre-pass kernel per row (a CTA per row).
-//
-// #5 and #7 run on the weight-streaming core of w4_stream.cuh: persistent
+// All three run on the weight-streaming core of w4_stream.cuh: persistent
 // CTAs, one producer warp keeping a ring of 1D bulk copies in flight, the
 // activation codes read once per pass in K-slices through the ring, the
-// group scales once per CTA, the same exact group flush.  Each GEMM is
-// launched with programmatic dependent launch, so it fills its weight
-// ring and reads its scales while the row pass before it runs.
-//
+// group scales once per CTA, each group's exact int32 dot flushed into the
+// f32 accumulator as acc + d_g * s_g with IEEE multiply and add, group by
+// group in order: the TPU kernel's `_group_dot_acc`, bit for bit.  A row
+// pass before each GEMM quantizes its rows into the GEMM's slice layout,
+// one CTA per row; each GEMM is launched with programmatic dependent
+// launch, so it fills its weight ring and reads its scales while the row
+// pass before it runs.
+
 // #5, w4_qkv_norm: 26.7 MB of int4 weights and scales per call at [32,
 // 4096] x 12288 ([q|k|v], 8.0 us at 3.35 TB/s), 275 MB at the head's
 // 126464 columns.  Two launches per 32 rows: the norm pass (RMSNorm + A8
@@ -40,6 +29,14 @@
 // sx) epilogue.  Its stages are 4 groups of 12 tiles, so that at [q|k|v]
 // a CTA's 11-12 tiles take one pass and the codes cross L2 once per CTA.
 //
+// #6, w4_matmul_res: 8.9 MB of int4 weights and scales per call at [32,
+// 4096] x 4096 (the attention output projection, 2.7 us at 3.35 TB/s).
+// Two launches per 32 rows: the quant pass (A8 of `a` into the slice
+// layout) and the GEMM with a bf16(acc * sa + res) epilogue.  Its stages
+// are 8 groups of 4 tiles and a CTA owns whole passes (res_plan): at 4096
+// columns 128 CTAs of 4 tiles, whose weights all fit in the ring and are
+// in flight before the quant pass ends.
+
 // #7, w4_ffn_fused: 80.7 MB to read per call at [32, 4096], H 12288 (24.1
 // us at 3.35 TB/s) against 9.7 GOP of int8 work (4.9 us).  Four launches
 // per 32 rows: the norm pass (which also zeroes the intermediate's amax),
@@ -59,23 +56,7 @@
 namespace {
 
 constexpr int kGroup = 128;
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kCtaCols = kWarps * 8;        // 32 output columns per CTA
-constexpr int kRows = 32;                   // rows per CTA: two m16 tiles
-constexpr int kChunkGroups = 8;             // groups staged per slice
-constexpr int kRowBytes = kChunkGroups * kGroup + 16;   // padded smem row
 constexpr int kQuantThreads = 256;
-
-struct Gemm {
-  const int8_t* a8;             // [T, K] activation codes
-  const float* row_scale;       // [T] their per-row scale
-  const uint8_t* packed;        // [N/8, K/128, 512] fragment layout
-  const float* scales;          // [K/128, N]
-  const __nv_bfloat16* res;     // [T, N] residual
-  __nv_bfloat16* out;           // [T, N]
-  int T, K, N;
-};
 
 __device__ __forceinline__ float bf(__nv_bfloat16 v) { return __bfloat162float(v); }
 
@@ -86,18 +67,6 @@ __device__ __forceinline__ float round_bf16(float v) {
 __device__ __forceinline__ int8_t quant(float v, float s) {
   const float q = fminf(fmaxf(rintf(v / s), -127.0f), 127.0f);   // IEEE /, ties to even
   return static_cast<int8_t>(q);
-}
-
-__device__ __forceinline__ int lds32(const int8_t* p) {
-  return *reinterpret_cast<const int*>(p);
-}
-
-__device__ __forceinline__ void mma_s8(int* c, const int* a, const int* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 template <bool kMax>
@@ -118,7 +87,8 @@ __device__ float block_reduce(float v) {
 
 // Per-token int8 codes of one row per CTA.
 //   kind 0: sx = max(amax / 127, 1e-8)      (pallas_w8.py:45, the prefill)
-//   kind 1: sx = max(amax, 1e-8) / 127      (w4_fused.py:276, w4_matmul_res)
+//   kind 1: sx = max(amax, 1e-8) / 127      (w4_fused.py:276, the A8 of
+//           w4_matmul_res, which its quant pass computes as well)
 //   kind 2: sx = max(amax, 1e-8) * f32(1/127)  (pallas_w4.py:172 as XLA
 //           compiles it: a division by a constant becomes a multiplication
 //           by its reciprocal; the grouped W4A8 matmul of w4_grouped.cu)
@@ -138,132 +108,33 @@ row_quant_kernel(const __nv_bfloat16* __restrict__ x, int8_t* __restrict__ q,
   if (threadIdx.x == 0) s[row] = sc;
 }
 
-// out = bf16(a8 @ W4 * row_scale + res)
-__global__ void __launch_bounds__(kThreads) w4_gemm_kernel(Gemm p) {
-  __shared__ __align__(16) int8_t sA[kRows * kRowBytes];
-  __shared__ float sRow[kRows];
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int r0 = blockIdx.y * kRows;
-  const int rows = min(kRows, p.T - r0);
-  const int G = p.K / kGroup;
-  const int tile = blockIdx.x * kWarps + warp;
-
-  if (threadIdx.x < kRows)
-    sRow[threadIdx.x] = static_cast<int>(threadIdx.x) < rows ? p.row_scale[r0 + threadIdx.x] : 0.0f;
-
-  float accf[2][4];
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) accf[m][e] = 0.0f;
-
-  for (int g0 = 0; g0 < G; g0 += kChunkGroups) {
-    const int ng = min(kChunkGroups, G - g0);
-    uint4 w[kChunkGroups];
-#pragma unroll
-    for (int gi = 0; gi < kChunkGroups; ++gi)
-      if (gi < ng)
-        w[gi] = __ldg(reinterpret_cast<const uint4*>(
-                          p.packed + (static_cast<long>(tile) * G + g0 + gi) * 512) +
-                      lane);
-    __syncthreads();   // the previous slice is consumed (and sRow is written)
-    const int kb = g0 * kGroup, cb = ng * kGroup;
-    for (int c = threadIdx.x; c < kRows * (cb / 16); c += kThreads) {
-      const int r = c / (cb / 16), kc = (c % (cb / 16)) * 16;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (r < rows)
-        v = *reinterpret_cast<const uint4*>(p.a8 + static_cast<long>(r0 + r) * p.K + kb + kc);
-      *reinterpret_cast<uint4*>(sA + r * kRowBytes + kc) = v;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int gi = 0; gi < kChunkGroups; ++gi) {
-      if (gi < ng) {
-        int acci[2][4];
-#pragma unroll
-        for (int m = 0; m < 2; ++m)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acci[m][e] = 0;
-#pragma unroll
-        for (int s = 0; s < 4; ++s) {
-          int a[2][4];
-#pragma unroll
-          for (int m = 0; m < 2; ++m) {
-            const int8_t* q = sA + (m * 16 + gid) * kRowBytes + gi * kGroup + s * 32 + tig * 4;
-            a[m][0] = lds32(q);
-            a[m][1] = lds32(q + 8 * kRowBytes);
-            a[m][2] = lds32(q + 16);
-            a[m][3] = lds32(q + 8 * kRowBytes + 16);
-          }
-          const uint32_t word = s == 0 ? w[gi].x : s == 1 ? w[gi].y
-                              : s == 2 ? w[gi].z : w[gi].w;
-          const int b[2] = {static_cast<int>((word << 4) & 0xF0F0F0F0u),
-                            static_cast<int>(word & 0xF0F0F0F0u)};
-#pragma unroll
-          for (int m = 0; m < 2; ++m) mma_s8(acci[m], a[m], b);
-        }
-        const int g = g0 + gi;
-        const float2 sc = *reinterpret_cast<const float2*>(
-            p.scales + static_cast<long>(g) * p.N + tile * 8 + tig * 2);
-#pragma unroll
-        for (int m = 0; m < 2; ++m)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            accf[m][e] = __fadd_rn(accf[m][e],
-                                   __fmul_rn(__int2float_rn(acci[m][e] >> 4),
-                                             (e & 1) ? sc.y : sc.x));
-      }
-    }
-  }
-
-  // epilogue: C fragment element e of m-tile m is row m*16 + gid (+8 for
-  // e >= 2), column tile*8 + tig*2 + (e & 1)
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = m * 16 + gid + half * 8;
-      const bool ok = r < rows;
-      const long row = r0 + r;
-      const float rs = sRow[r];
-      if (!ok) continue;
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const long o = row * p.N + tile * 8 + tig * 2 + c;
-        p.out[o] =
-            __float2bfloat16_rn(__fadd_rn(__fmul_rn(accf[m][half * 2 + c], rs), bf(p.res[o])));
-      }
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// w4_qkv_norm and w4_ffn_fused: launches chained by programmatic dependent
-// launch
+// w4_qkv_norm, w4_matmul_res and w4_ffn_fused: launches chained by
+// programmatic dependent launch
 // ---------------------------------------------------------------------------
-// #5's GEMM and #7's down GEMM stream single tiles, #7's up|gate GEMM pairs
-// of matching up and gate tiles, each with the codes' K-slices through the
-// ring.  The plans (CTAs, stages, shared bytes) come from
-// ops/w4_fused.py::qkv_plan and ::ffn_plan and are checked against these
-// constants.
+// #5's and #6's GEMMs and #7's down GEMM stream single tiles, #7's up|gate
+// GEMM pairs of matching up and gate tiles, each with the codes' K-slices
+// through the ring.  The plans (CTAs, stages, shared bytes) come from
+// ops/w4_fused.py::qkv_plan, ::res_plan and ::ffn_plan and are checked
+// against these constants.
 constexpr int kQkvSG = 4, kQkvPU = 12;   // groups per stage, units per pass
+constexpr int kResSG = 8, kResPU = 4;
 constexpr int kUpSG = 8, kUpPU = 4;
 constexpr int kDnSG = 8, kDnPU = 4;
 constexpr int kSmemLimit = 232448;
 constexpr int kQuantCols = 4 * kQuantThreads;   // columns per CTA of the quant pass
 
-// The norm pass: RMSNorm + A8 of row blockIdx.x (f32 statistics, x *
-// rsqrt(var + eps) rounded to bf16, times the bf16 weight rounded to bf16,
-// then sx = max(amax, 1e-8) / 127: w4_fused.py:65-75; the row read as
-// 16-byte chunks of 8 values) into the next GEMM's slice layout of `sg`
-// groups; rows past T get zero codes and scale 0.
-__device__ __forceinline__ void norm_pass(const __nv_bfloat16* __restrict__ x,
-                                          const __nv_bfloat16* __restrict__ norm_w,
-                                          int8_t* __restrict__ x8, float* __restrict__ sx, int T,
-                                          int D, int sg, float eps) {
+// The row pass of row blockIdx.x into the next GEMM's slice layout of
+// `sg` groups: with kNorm, RMSNorm + A8 (f32 statistics, x * rsqrt(var +
+// eps) rounded to bf16, times the bf16 weight rounded to bf16, then sx =
+// max(amax, 1e-8) / 127: w4_fused.py:65-75); without, the A8 of the row as
+// it is (sx the same; norm_w and eps unused).  The row is read as 16-byte
+// chunks of 8 values; rows past T get zero codes and scale 0.
+template <bool kNorm>
+__device__ __forceinline__ void row_pass(const __nv_bfloat16* __restrict__ x,
+                                         const __nv_bfloat16* __restrict__ norm_w,
+                                         int8_t* __restrict__ x8, float* __restrict__ sx, int T,
+                                         int D, int sg, float eps) {
   const int row = blockIdx.x, G = D / kGroup, chunks = D / 8;
   auto store = [&](int c, uint2 codes) {
     *reinterpret_cast<uint2*>(x8 + w4s::slice_offset(row, c * 8, sg, G)) = codes;
@@ -285,20 +156,27 @@ __device__ __forceinline__ void norm_pass(const __nv_bfloat16* __restrict__ x,
     }
   };
   float ss = 0.0f;
-  for (int c = threadIdx.x; c < chunks; c += kQuantThreads) {
-    float f[8];
-    unpack(xr[c], f);
+  if constexpr (kNorm) {
+    for (int c = threadIdx.x; c < chunks; c += kQuantThreads) {
+      float f[8];
+      unpack(xr[c], f);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) ss = __fadd_rn(ss, __fmul_rn(f[i], f[i]));
+      for (int i = 0; i < 8; ++i) ss = __fadd_rn(ss, __fmul_rn(f[i], f[i]));
+    }
+    ss = block_reduce<false>(ss);
   }
-  ss = block_reduce<false>(ss);
-  const float inv = rsqrtf(ss / static_cast<float>(D) + eps);
+  const float inv = kNorm ? rsqrtf(ss / static_cast<float>(D) + eps) : 0.0f;
   auto values = [&](int c, float (&h)[8]) {
     float f[8], g[8];
     unpack(xr[c], f);
-    unpack(wr[c], g);
+    if constexpr (kNorm) {
+      unpack(wr[c], g);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) h[i] = round_bf16(__fmul_rn(round_bf16(__fmul_rn(f[i], inv)), g[i]));
+      for (int i = 0; i < 8; ++i) h[i] = round_bf16(__fmul_rn(round_bf16(__fmul_rn(f[i], inv)), g[i]));
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) h[i] = f[i];
+    }
   };
   float mx = 0.0f;
   for (int c = threadIdx.x; c < chunks; c += kQuantThreads) {
@@ -326,7 +204,7 @@ __global__ void __launch_bounds__(kQuantThreads)
 qkv_norm_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ norm_w,
                 int8_t* __restrict__ x8, float* __restrict__ sx, int T, int D, float eps) {
   hopper::griddep_launch_dependents();   // the GEMM starts streaming weights
-  norm_pass(x, norm_w, x8, sx, T, D, kQkvSG, eps);
+  row_pass<true>(x, norm_w, x8, sx, T, D, kQkvSG, eps);
 }
 
 // The [q|k|v] and head epilogue: bf16(acc * sx), a column pair per store.
@@ -366,7 +244,7 @@ ffn_norm_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __rest
                 int D, int sg, float eps) {
   hopper::griddep_launch_dependents();   // the up GEMM starts streaming weights
   if (threadIdx.x == 0) amax[blockIdx.x] = 0.0f;
-  norm_pass(x, norm_w, x8, sx, T, D, sg, eps);
+  row_pass<true>(x, norm_w, x8, sx, T, D, sg, eps);
 }
 
 // The up|gate epilogue: up and gate rounded to bf16 after * sx, SwiGLU in
@@ -415,7 +293,7 @@ struct UpGateEpi {
   }
 };
 
-// The down epilogue: bf16(acc * sa + x), the residual in f32.
+// #7's down epilogue and #6's: bf16(acc * sa + res), the residual in f32.
 struct ResEpi {
   const float* row_scale;
   const __nv_bfloat16* res;   // [T, N]
@@ -438,6 +316,23 @@ struct ResEpi {
   }
   __device__ void finish(int) {}
 };
+
+// #6's quant pass: the A8 of row blockIdx.x of `a` (w4_fused.py:275-278).
+__global__ void __launch_bounds__(kQuantThreads)
+res_quant_kernel(const __nv_bfloat16* __restrict__ a, int8_t* __restrict__ a8,
+                 float* __restrict__ sa, int T, int K) {
+  hopper::griddep_launch_dependents();   // the GEMM starts streaming weights
+  row_pass<false>(a, nullptr, a8, sa, T, K, kResSG, 0.0f);
+}
+
+__global__ void __launch_bounds__(w4s::kThreads, 1)
+res_kernel(w4s::Stream p, const float* __restrict__ sa, const __nv_bfloat16* __restrict__ res,
+           __nv_bfloat16* __restrict__ out, int T) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  hopper::griddep_launch_dependents();
+  ResEpi epi{sa, res, out, T, p.N};
+  w4s::stream_gemm<1, kResSG, kResPU>(p, smem, epi);
+}
 
 __global__ void __launch_bounds__(w4s::kThreads, 1)
 ffn_up_kernel(w4s::Stream p, const float* __restrict__ sx, __nv_bfloat16* __restrict__ inter,
@@ -575,25 +470,45 @@ extern "C" int lavida_w4_qkv_norm(const void* x, const void* norm_w, const void*
   return 0;
 }
 
-// out [T, N] = bf16(a @ W4 * sa + res); a [T, K] bf16, res [T, N] bf16;
-// a8 [T, K] and sa [T] are scratch.
+// out [T, N] = bf16(a @ W4 * sa + res); a [T, K] bf16, res [T, N] bf16,
+// packed [N/8, K/128, 512], scales [K/128, N] f32.  Scratch: a8, the codes
+// of [32, K] in the GEMM's slice layout, and sa [32] f32.  Rows go 32 at a
+// time, two launches each: the quant pass, then the GEMM with programmatic
+// dependent launch.  The plan (ops/w4_fused.py::res_plan): the GEMM's
+// CTAs, ring stages and dynamic shared bytes.
 extern "C" int lavida_w4_matmul_res(const void* a, const void* res, const void* packed,
                                     const void* scales, void* a8, void* sa, void* out, int T,
-                                    int K, int N, void* stream) {
-  if (T <= 0 || K <= 0 || K % kGroup || N <= 0 || N % kCtaCols) return kBad;
-  const auto st = static_cast<cudaStream_t>(stream);
-  int err = launch_quant(1, a, a8, sa, T, K, st);
+                                    int K, int N, int ctas, int stages, int smem,
+                                    void* stream) {
+  using L = w4s::Layout<1, kResSG, kResPU>;
+  const int G = K / kGroup;
+  if (T <= 0 || K <= 0 || K % kGroup || N <= 0 || N % 8 || ctas < 1 || ctas > N / 8 ||
+      stages < 2 || stages > w4s::kMaxStages)
+    return kBad;
+  const int max_units = (N / 8 + ctas - 1) / ctas;
+  if (smem > kSmemLimit || smem != L::smem(G, max_units, stages)) return kBad;
+  static int allowed = 0;
+  int err = allow_smem(res_kernel, smem, allowed);
   if (err) return err;
-  Gemm p{};
-  p.a8 = static_cast<const int8_t*>(a8);
-  p.row_scale = static_cast<const float*>(sa);
-  p.packed = static_cast<const uint8_t*>(packed);
-  p.scales = static_cast<const float*>(scales);
-  p.res = static_cast<const __nv_bfloat16*>(res);
-  p.out = static_cast<__nv_bfloat16*>(out);
-  p.T = T, p.K = K, p.N = N;
-  w4_gemm_kernel<<<dim3(N / kCtaCols, (T + kRows - 1) / kRows), kThreads, 0, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* ap = static_cast<const __nv_bfloat16*>(a);
+  const auto* rp = static_cast<const __nv_bfloat16*>(res);
+  auto* op = static_cast<__nv_bfloat16*>(out);
+  auto* a8p = static_cast<int8_t*>(a8);
+  auto* sap = static_cast<float*>(sa);
+  const w4s::Stream p{a8p, static_cast<const uint8_t*>(packed), static_cast<const float*>(scales),
+                      G, N, N / 8, 0, stages, max_units};
+  for (int r0 = 0; r0 < T; r0 += w4s::kRows) {
+    const int rows = min(w4s::kRows, T - r0);
+    res_quant_kernel<<<w4s::kRows, kQuantThreads, 0, st>>>(ap + static_cast<long>(r0) * K, a8p,
+                                                           sap, rows, K);
+    err = static_cast<int>(cudaGetLastError());
+    if (err) return err;
+    err = launch_dependent(res_kernel, dim3(ctas), dim3(w4s::kThreads), smem, st, p, sap,
+                           rp + static_cast<long>(r0) * N, op + static_cast<long>(r0) * N, rows);
+    if (err) return err;
+  }
+  return 0;
 }
 
 // out [T, D] = x + down(swiglu(rmsnorm(x) @ W_up|gate)); up [D -> 2H] (up

@@ -1,9 +1,10 @@
 // A weight-streaming grouped-int4 GEMM core for Hopper (sm_90a): 32 rows
 // of int8 activation codes against int4 weights in the fragment layout of
 // ops/quant.py ([N/8, K/128, 512]), exact int32 group dots flushed into f32
-// as acc + d_g * s_g, group by group in order.  Used by w4_qkv_norm's GEMM
-// and both GEMMs of w4_ffn_fused (w4_fused.cu), each with its own stage
-// shape (groups per stage SG, units per pass PU).
+// as acc + d_g * s_g, group by group in order.  Used by the GEMMs of
+// w4_qkv_norm and w4_matmul_res and both GEMMs of w4_ffn_fused
+// (w4_fused.cu), each with its own stage shape (groups per stage SG, units
+// per pass PU).
 //
 // What bounds it: the weight bytes.  At the decode shapes (32 rows) the
 // int8 work is a fifth of the time the weights take to stream, so the

@@ -23,9 +23,10 @@ four groups:
                    at one mixed request's shapes (32 rows; 512 calls of
                    each at the layers' shapes, 16 of #5 at the head's), no
                    library call; #5 also at the B = 4 batch's fused head
-                   (128 rows, outside the request's sums); #5 and #7 also
-                   split by their own kernels from the profiler
-                   (`kernel_split`).
+                   (128 rows, outside the request's sums); #6 also with
+                   its weights cold in L2 (cycled through 8 copies, 71
+                   MB; outside the sums); #5, #6 and #7 also split by
+                   their own kernels from the profiler (`kernel_split`).
 
 Each is timed three ways:
 
@@ -273,9 +274,9 @@ def kernel_split(torch, fn, calls: int = 20) -> dict:
 
 
 def time_w4_decode(torch, dev, gen, record) -> dict:
-    """#5, #6 and #7 at one mixed request's decode shapes (and #5 at the
-    B = 4 head); returns {call: device time per call split by kernel} of
-    each #5 shape and of #7."""
+    """#5, #6 and #7 at one mixed request's decode shapes (#5 also at the
+    B = 4 head, #6 also cold in L2); returns {call: device time per call
+    split by kernel} of each #5 and #6 call and of #7."""
     from lavida_mod_tpu_torch.ops import quant as tq
     from lavida_mod_tpu_torch.ops import w4_fused as tw
 
@@ -303,9 +304,19 @@ def time_w4_decode(torch, dev, gen, record) -> dict:
             record("w4_qkv_norm", shape, per, three_times(qkv), None)
             splits[f"w4_qkv_norm {shape}"] = kernel_split(torch, qkv)
         res = randn(T, D).bfloat16()
-        w = w4(D, D)
-        record("w4_matmul_res", f"[{T},{D}]x[{D},{D}]", 512,
-               three_times(lambda: tw.w4_matmul_res(x, res, *w)), None)
+        # one copy of the weights stays in L2 from call to call; eight
+        # (71 MB) do not, as a request's 32 layers do not
+        copies = [w4(D, D)]
+        copies += [tuple(t.clone() for t in copies[0]) for _ in range(7)]
+        for n, what, per in [(1, "", 512), (8, " cold (8 weight copies)", 0)]:
+            it = iter(range(1 << 62))
+
+            def mres(n=n, it=it):
+                return tw.w4_matmul_res(x, res, *copies[next(it) % n])
+
+            shape = f"[{T},{D}]x[{D},{D}]{what}"
+            record("w4_matmul_res", shape, per, three_times(mres), None)
+            splits[f"w4_matmul_res {shape}"] = kernel_split(torch, mres)
         w = w4(D, 2 * H) + w4(H, D)
 
         def ffn():

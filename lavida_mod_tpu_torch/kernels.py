@@ -148,7 +148,7 @@ def library() -> ctypes.CDLL:
     lib.lavida_w8a8_matmul.argtypes = [vp] * 5 + [ci, ci, ci, vp]
     lib.lavida_act_quant.argtypes = [vp, vp, vp, ci, ci, ci, vp]
     lib.lavida_w4_qkv_norm.argtypes = [vp] * 7 + [ci] * 3 + [cf] + [ci] * 3 + [vp]
-    lib.lavida_w4_matmul_res.argtypes = [vp] * 7 + [ci, ci, ci, vp]
+    lib.lavida_w4_matmul_res.argtypes = [vp] * 7 + [ci] * 6 + [vp]
     lib.lavida_w4_ffn_fused.argtypes = [vp] * 13 + [ci] * 4 + [cf] + [ci] * 6 + [vp]
     lib.lavida_w4_grouped.argtypes = [vp] * 5 + [ci] * 4 + [vp]
     lib.lavida_kv8_decode_attention.argtypes = [vp] * 7 + [ci] * 6 + [cf, vp]

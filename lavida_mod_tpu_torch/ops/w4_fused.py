@@ -15,12 +15,12 @@ versions, which port `_rms_quant` (w4_fused.py:65-75) and `_group_dot_acc`
 (:46-62) exactly: each 128-group's integer dot is exact, and the f32
 accumulator takes `acc + d_g * s_g` group by group, in order, as the
 kernels do.  Each op counts its calls on the card in `.launches`, one per
-call.  A call of `w4_matmul_res` is a row pre-pass and a GEMM launch.
-`w4_qkv_norm` and `w4_ffn_fused` run on the weight-streaming GEMM of
-csrc/w4_stream.cuh, 32 rows at a time, each GEMM chained to the row pass
-before it by programmatic dependent launch: two launches per 32 rows for
-`w4_qkv_norm` (the norm pass, the GEMM; laid out by `qkv_plan`), four for
-`w4_ffn_fused` (two row passes, two GEMMs; `ffn_plan`).
+call.  All three run on the weight-streaming GEMM of csrc/w4_stream.cuh,
+32 rows at a time, each GEMM chained to the row pass before it by
+programmatic dependent launch: two launches per 32 rows for `w4_qkv_norm`
+(the norm pass, the GEMM; laid out by `qkv_plan`) and `w4_matmul_res`
+(the quant pass, the GEMM; `res_plan`), four for `w4_ffn_fused` (two row
+passes, two GEMMs; `ffn_plan`).
 """
 
 from __future__ import annotations
@@ -97,8 +97,8 @@ def w4_ffn_fused_reference(x, norm_w, up_packed, up_scales, dn_packed,
 
 
 # ---------------------------------------------------------------------------
-# the plans of the weight-streaming GEMMs (csrc/w4_stream.cuh): w4_qkv_norm's
-# and w4_ffn_fused's two
+# the plans of the weight-streaming GEMMs (csrc/w4_stream.cuh): w4_qkv_norm's,
+# w4_matmul_res's and w4_ffn_fused's two
 # ---------------------------------------------------------------------------
 
 SMEM_LIMIT = 232448          # dynamic shared memory a block can use
@@ -112,8 +112,12 @@ IN_FLIGHT_MIN = 32 * 1024    # bytes the producer keeps in flight per SM
 # csrc/w4_fused.cu: up|gate units are (up, gate) tile pairs, the others'
 # single n8 tiles.  w4_qkv_norm's stage is 4 groups of 12 tiles: at [q|k|v]
 # (1536 tiles over 132 CTAs) a CTA's tiles take one pass, so the codes'
-# K-slices cross L2 once per CTA and not once per 4 tiles.
+# K-slices cross L2 once per CTA and not once per 4 tiles.  w4_matmul_res's
+# is 8 groups of 4 tiles: at [32, 4096] x 4096 a CTA's 4 tiles take one
+# pass and all their weights fit in the ring (PERF.md, the stage-shape
+# table of #6).
 QKV_SLICE_GROUPS, QKV_PASS_UNITS = 4, 12
+RES_SLICE_GROUPS, RES_PASS_UNITS = 8, 4
 UP_SLICE_GROUPS, UP_PASS_UNITS = 8, 4
 DN_SLICE_GROUPS, DN_PASS_UNITS = 8, 4
 
@@ -138,10 +142,12 @@ class GemmPlan(NamedTuple):
                      (c + 1) * self.units // self.ctas)
 
 
-class QkvPlan(NamedTuple):
+class PassPlan(NamedTuple):
+    """A row pass and a GEMM per 32 rows (w4_qkv_norm, w4_matmul_res)."""
     row_slices: int
     gemm: GemmPlan
-    # byte offsets of x8 and sx in one workspace of `work_bytes`
+    # byte offsets of the codes and their row scales in one workspace of
+    # `work_bytes`
     offsets: tuple
     work_bytes: int
 
@@ -187,7 +193,7 @@ def _workspace(sizes):
 
 
 @functools.lru_cache(maxsize=64)
-def qkv_plan(T: int, D: int, N: int, sms: int) -> QkvPlan:
+def qkv_plan(T: int, D: int, N: int, sms: int) -> PassPlan:
     """CTAs, ring stages and shared bytes of w4_qkv_norm's GEMM for x
     [T, D] and a weight [D -> N] on a card of `sms` SMs, and the scratch of
     its norm pass (the codes of 32 rows in the slice layout, sx)."""
@@ -196,7 +202,32 @@ def qkv_plan(T: int, D: int, N: int, sms: int) -> QkvPlan:
     _check_ring("w4_qkv_norm", g, f"D = {D}, N = {N}")
     offsets, work = _workspace([slice_bytes(g.slice_groups, D // GROUP),
                                 4 * ROWS])
-    return QkvPlan(-(-T // ROWS), g, offsets, work)
+    return PassPlan(-(-T // ROWS), g, offsets, work)
+
+
+def whole_pass_ctas(units: int, pu: int, sms: int) -> int:
+    """The fewest CTAs for `units` column units whose longest CTA takes no
+    more passes of `pu` units than with one CTA per SM (`sms`): at 512
+    units, 4 a pass and 132 SMs, 128 CTAs of 4."""
+    per = -(-(-(-units // sms)) // pu) * pu
+    return -(-units // per)
+
+
+@functools.lru_cache(maxsize=64)
+def res_plan(T: int, K: int, N: int, sms: int) -> PassPlan:
+    """CTAs, ring stages and shared bytes of w4_matmul_res's GEMM for a
+    [T, K] and a weight [K -> N] on a card of `sms` SMs, and the scratch of
+    its quant pass (the codes of 32 rows in the slice layout, sa).  The
+    CTAs are `whole_pass_ctas`: at 4096 columns 128 CTAs of 4 tiles, where
+    one per SM gives 132 CTAs of 3-4 tiles, the longest as long, and the
+    codes' K-slices cross L2 4 more times."""
+    units = N // 8
+    g = _gemm_plan(K // GROUP, units, 1, RES_SLICE_GROUPS, RES_PASS_UNITS,
+                   whole_pass_ctas(units, RES_PASS_UNITS, sms))
+    _check_ring("w4_matmul_res", g, f"K = {K}, N = {N}")
+    offsets, work = _workspace([slice_bytes(g.slice_groups, K // GROUP),
+                                4 * ROWS])
+    return PassPlan(-(-T // ROWS), g, offsets, work)
 
 
 @functools.lru_cache(maxsize=64)
@@ -283,20 +314,23 @@ def w4_qkv_norm(x, norm_w, packed, scales, eps: float = 1e-5):
 
 
 def w4_matmul_res(a, res, packed, scales):
-    """res + (a @ W4) -> [T, N] bf16, a [T, K] and res [T, N] bf16."""
+    """res + (a @ W4) -> [T, N] bf16, a [T, K] and res [T, N] bf16, with
+    the A8 quantization of `a` in a row pass before each 32 rows' GEMM."""
     if not a.is_cuda:
         return w4_matmul_res_reference(a, res, packed, scales)
     K = packed.shape[1] * GROUP
     T = _rows("w4_matmul_res", a, K)
     N = _weights("w4_matmul_res", packed, scales, K, a.device)
     _need("w4_matmul_res: res", res, torch.bfloat16, (T, N), a.device)
-    a8 = torch.empty(T, K, dtype=torch.int8, device=a.device)
-    sa = torch.empty(T, dtype=torch.float32, device=a.device)
+    plan = res_plan(T, K, N, _sms(a.device.index))
+    g = plan.gemm
+    work = torch.empty(plan.work_bytes, dtype=torch.uint8, device=a.device)
+    a8, sa = (work.data_ptr() + o for o in plan.offsets)
     out = torch.empty(T, N, dtype=torch.bfloat16, device=a.device)
     kernels.check(kernels.library().lavida_w4_matmul_res(
         a.data_ptr(), res.data_ptr(), packed.data_ptr(), scales.data_ptr(),
-        a8.data_ptr(), sa.data_ptr(), out.data_ptr(), T, K, N, _stream(a)),
-        "w4_matmul_res")
+        a8, sa, out.data_ptr(), T, K, N, g.ctas, g.stages, g.smem,
+        _stream(a)), "w4_matmul_res")
     w4_matmul_res.launches += 1
     return out
 

@@ -244,8 +244,51 @@ def test_qkv_plan_owns_every_tile_once_within_shared_memory(T, D, N):
             assert off % 128 == 0 and end - off >= n
 
 
+# the plan of w4_matmul_res's GEMM: the 8B's attention output projection,
+# the tiny mixed model's, Qwen2-7B's width (28 groups: a ragged last slice)
+# and a narrow case, at 1 to 128 rows
+RES_PLAN_CASES = [(T, K, N) for K, N in ((4096, 4096), (512, 512),
+                                         (3584, 3584), (384, 96))
+                  for T in (1, 8, 32, 40, 128)]
+
+
+@pytest.mark.parametrize("T,K,N", RES_PLAN_CASES)
+def test_res_plan_owns_every_tile_once_within_shared_memory(T, K, N):
+    G = K // 128
+    sg, pu = tw.RES_SLICE_GROUPS, tw.RES_PASS_UNITS
+    for sms in (132, 114, 78):
+        plan = tw.res_plan(T, K, N, sms)
+        g = plan.gemm
+        assert plan.row_slices == -(-T // 32)
+        owned = sorted(u for c in range(g.ctas) for u in g.owned(c))
+        assert owned == list(range(N // 8)), (sms, g)
+        assert g.tiles == 1 and 1 <= g.ctas <= min(g.units, sms)
+        # the longest CTA takes as many passes as with one CTA per SM, and
+        # one CTA fewer would take more
+        max_units = -(-g.units // g.ctas)
+        passes = -(-(-(-g.units // sms)) // pu)
+        assert -(-max_units // pu) == passes
+        assert g.ctas == 1 or -(-g.units // (g.ctas - 1)) > passes * pu
+        # what lavida_w4_matmul_res recomputes from its constants
+        stage = 32 * (sg * 128 + 16) + pu * sg * 512
+        assert (g.slice_groups, g.stage_bytes) == (sg, stage)
+        assert g.smem == 128 + G * max_units * 32 + g.stages * stage
+        assert g.smem <= tw.SMEM_LIMIT == 232448
+        assert tw.MIN_STAGES <= g.stages <= tw.MAX_STAGES
+        assert (g.stages - 1) * g.stage_bytes >= tw.IN_FLIGHT_MIN
+        # the codes of 32 rows in the slice layout, then sa [32]
+        sizes = [tw.slice_bytes(sg, G), 128]
+        ends = list(plan.offsets[1:]) + [plan.work_bytes]
+        for off, end, n in zip(plan.offsets, ends, sizes):
+            assert off % 128 == 0 and end - off >= n
+    # at the 8B's shape on an H100 SXM: 128 CTAs of 4 tiles, one pass each
+    assert tw.res_plan(32, 4096, 4096, 132).gemm.ctas == 128
+
+
 @pytest.mark.parametrize("name,sg,pu", [("Qkv", tw.QKV_SLICE_GROUPS,
                                          tw.QKV_PASS_UNITS),
+                                        ("Res", tw.RES_SLICE_GROUPS,
+                                         tw.RES_PASS_UNITS),
                                         ("Up", tw.UP_SLICE_GROUPS,
                                          tw.UP_PASS_UNITS),
                                         ("Dn", tw.DN_SLICE_GROUPS,
@@ -386,18 +429,85 @@ def test_qkv_norm_rejects_a_plan_that_does_not_match_on_cuda(cuda):
     _check(out, tw.w4_qkv_norm_reference(x, nw, packed, scales, 1e-5), 1e-2)
 
 
-@pytest.mark.parametrize("T,K,N", [(32, 4096, 4096), (5, 384, 64)])
+@pytest.mark.parametrize("T,K,N", [(32, 4096, 4096), (5, 384, 64),
+                                   (1, 4096, 4096), (8, 4096, 4096),
+                                   (40, 4096, 4096), (128, 4096, 4096),
+                                   # 28 groups: a ragged last K-slice
+                                   (32, 3584, 3584)])
 def test_matmul_res_kernel_matches_plain_on_cuda(cuda, T, K, N):
     g = torch.Generator(device=cuda).manual_seed(1)
     a = torch.randn(T, K, generator=g, device=cuda).bfloat16()
     res = torch.randn(T, N, generator=g, device=cuda).bfloat16()
     packed, scales = _card_weights(K, N, g, cuda)
     packed, scales = packed[:N // 8].contiguous(), scales[:, :N].contiguous()
+    before = tw.w4_matmul_res.launches
     out = tw.w4_matmul_res(a, res, packed, scales)
     ref = tw.w4_matmul_res_reference(a, res, packed, scales)
     torch.cuda.synchronize()
+    assert tw.w4_matmul_res.launches == before + 1
     # same quantization formula, exact group dots, same f32 order
     assert torch.equal(out, ref)
+
+
+def test_matmul_res_back_to_back_on_cuda(cuda):
+    """20 calls with no sync between them, each on the output of the one
+    before ([32, 4096] x 4096): a GEMM that read the codes before its quant
+    pass wrote them (a missing griddepcontrol.wait), or a quant pass that
+    overwrote them while the GEMM before read them, shows here.  Then the
+    chain again from new data at the same addresses."""
+    K = 4096
+    g = torch.Generator(device=cuda).manual_seed(6)
+    w = _card_weights(K, K, g, cuda)
+    a0 = torch.empty(32, K, dtype=torch.bfloat16, device=cuda)
+    res = torch.empty(32, K, dtype=torch.bfloat16, device=cuda)
+    for _ in range(2):
+        a0.copy_(torch.randn(32, K, generator=g, device=cuda))
+        res.copy_(torch.randn(32, K, generator=g, device=cuda))
+        outs = [a0]
+        for _ in range(20):
+            outs.append(tw.w4_matmul_res(outs[-1], res, *w))
+        torch.cuda.synchronize()
+        for a, out in zip(outs[:-1], outs[1:]):
+            assert torch.equal(out, tw.w4_matmul_res_reference(a, res, *w))
+
+
+def test_matmul_res_rejects_a_plan_that_does_not_match_on_cuda(cuda):
+    """lavida_w4_matmul_res recomputes the GEMM's shared bytes from its own
+    constants and refuses a plan that does not reproduce them, or whose
+    CTAs or stages it cannot run, before it launches anything."""
+    from lavida_mod_tpu_torch import kernels
+
+    T, K, N = 32, 4096, 4096
+    a = torch.randn(T, K, device=cuda).bfloat16()
+    res = torch.randn(T, N, device=cuda).bfloat16()
+    packed, scales = _card_weights(K, N, torch.Generator(
+        device=cuda).manual_seed(7), cuda)
+    packed, scales = packed[:N // 8].contiguous(), scales[:, :N].contiguous()
+    plan = tw.res_plan(T, K, N, tw._sms(cuda.index or 0))
+    work = torch.empty(plan.work_bytes, dtype=torch.uint8, device=cuda)
+    out = torch.zeros(T, N, dtype=torch.bfloat16, device=cuda)
+    g = plan.gemm
+
+    def call(ctas, stages, smem):
+        return kernels.library().lavida_w4_matmul_res(
+            a.data_ptr(), res.data_ptr(), packed.data_ptr(),
+            scales.data_ptr(), work.data_ptr() + plan.offsets[0],
+            work.data_ptr() + plan.offsets[1], out.data_ptr(), T, K, N,
+            ctas, stages, smem, torch.cuda.current_stream().cuda_stream)
+
+    for bad in [(g.ctas, g.stages, g.smem + 16),
+                (g.ctas, g.stages + 1, g.smem),
+                (g.ctas // 2, g.stages, g.smem),
+                (0, g.stages, g.smem), (N // 8 + 1, g.stages, g.smem),
+                (g.ctas, 1, g.smem), (g.ctas, 7, g.smem),
+                (g.ctas, g.stages, 232448 + 1024)]:
+        assert call(*bad) != 0, bad
+    torch.cuda.synchronize()
+    assert not out.any()           # nothing ran
+    assert call(g.ctas, g.stages, g.smem) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, tw.w4_matmul_res_reference(a, res, packed,
+                                                       scales))
 
 
 def _ffn_card_weights(D, H, Hd, gen, device):
