@@ -38,7 +38,10 @@ exits non-zero and never prints the final line:
      narrow width, and 20 chained calls, all exact.  w4_matmul, which no path
      launches, at [32, 4096] x 12288, [1056, 4096] x 12288 and [5, 4304] x
      1000, within one bf16 ulp of its plain version, beside
-     torch._weight_int4pack_mm on the same codes.
+     torch._weight_int4pack_mm on the same codes.  w4_matmul_grouped's two
+     kernels, each bit-exact: the decode kernel (T <= 256) at 32 x B rows
+     for B = 1, 2, 3, 4, 5, 7, 8 of the three LLaDA linears, the B = 8 head,
+     a tiny and a Dream width; the prefill kernel at 4608 and 2304 rows.
   4. the bf16 main path at full width: LaViDaConfig() (LLaDA-8B + SigLIP
      so400m) in bf16 with random weights made on the card from seed 0,
      three requests through LaViDa.generate_fused (gen 32, 16 steps, prefix
@@ -64,7 +67,8 @@ exits non-zero and never prints the final line:
      generate_batch on B = 4 requests of four image sizes with the int8 KV
      cache off and on, and on B = 8 requests through the chunked prefill:
      walls per batch and per image, stage walls, peak memory, launches per
-     kernel asserted per batch, the profiler's device-busy share of one
+     kernel asserted per batch (w4_matmul_grouped's decode and prefill
+     kernels apart), the profiler's device-busy share of one
      batch; one decode layer at B = 1 timed through the unfused layout.
   8. a tiny int4 + kv8 + fused-ViT-MLP model on the card against the same
      weights on the CPU.
@@ -752,24 +756,42 @@ def phase_batch_kernels(torch, device, res):
 
     # w4_matmul_grouped at B = 4: the prefill (T = 4 x 1152 rows, the
     # bench image's bucket) and the decode steps (T = 4 x 32); at B = 8 the
-    # chunk-2 prefill (2304 rows), the decode (256) and its unfused head
+    # chunk-2 prefill (2304 rows), the decode (256) and its unfused head;
+    # the decode kernel also at every other multiple of 32 rows it serves
+    # (B = 1, 2, 3, 5, 7), a tiny width (3 k-blocks of 2 groups) and a Dream
+    # width (K = 18944: 37 k-blocks of 4 groups, the codes without the K
+    # pad).  Summed per regime: T <= 256 rows the decode kernel, more the
+    # prefill kernel.
     lin = [(4096, 4096, 4), (4096, 12288, 2), (12288, 4096, 1)]
     cases = [(T, K, N, per * (1 if T > 256 else STEPS))
              for T in (4608, 128) for K, N, per in lin]
-    cases += [(T, K, N, 0) for T in (2304, 256) for K, N, _ in lin]
-    cases += [(256, 4096, 126464, 0), (77, 768, 576, 0)]
+    cases += [(T, K, N, 0) for T in (2304, 256, 32, 64, 96, 160, 224)
+              for K, N, _ in lin]
+    cases += [(256, 4096, 126464, 0), (77, 768, 576, 0), (64, 18944, 3584, 0)]
     weights = {}
     for T, K, N, per in cases:
         if (K, N) not in weights:
-            weights[(K, N)] = _w4_weights(torch, tq, randn, K, N)
+            if K % 4096 and K > 8192:     # no K pad: codes drawn directly
+                codes = torch.randint(-8, 8, (K, N), device=device,
+                                      generator=gen, dtype=torch.int8)
+                weights[(K, N)] = (tq.pack_w4_frag(codes), torch.rand(
+                    K // 128, N, device=device, generator=gen) * 0.01 + 1e-4)
+            else:
+                weights[(K, N)] = _w4_weights(torch, tq, randn, K, N)
         packed, scales = weights[(K, N)]
         x = randn(T, K).bfloat16()
+        regime = tg.regime(T)
+        before = getattr(tg.w4_matmul_grouped, f"{regime}_launches")
         out = tg.w4_matmul_grouped(x, packed, scales)
         torch.cuda.synchronize()
+        if getattr(tg.w4_matmul_grouped, f"{regime}_launches") != before + 1:
+            raise AssertionError(f"w4_matmul_grouped at {T} rows did not "
+                                 f"take the {regime} kernel")
         ref = tg.w4_matmul_grouped_reference(x, packed, scales)
         if not torch.equal(out, ref):
             raise AssertionError(f"w4_matmul_grouped differs at {(T, K, N)}")
-        res.add("w4_matmul_grouped", f"[{T},{K}]x[{K},{N}]", per * LLADA_LAYERS,
+        res.add(f"w4_matmul_grouped_{regime}", f"[{T},{K}]x[{K},{N}]",
+                per * LLADA_LAYERS,
                 0.0, lambda: tg.w4_matmul_grouped(x, packed, scales),
                 cuda_ms(lambda: tg.w4_matmul_grouped_reference(
                     x, packed, scales), 2 if T > 1000 else 3), None,
@@ -1134,6 +1156,22 @@ BATCH8_SIZES = BATCH_SIZES + [(1100, 380), (512, 1024), (384, 384),
                               (900, 700)]
 
 
+class _RegimeCount:
+    """The launches of one of w4_matmul_grouped's two kernels, read and
+    reset as `.launches` like a wrapper's count."""
+
+    def __init__(self, fn, regime):
+        self.fn, self.attr = fn, f"{regime}_launches"
+
+    @property
+    def launches(self):
+        return getattr(self.fn, self.attr)
+
+    @launches.setter
+    def launches(self, n):
+        setattr(self.fn, self.attr, n)
+
+
 def _batch_ops():
     from lavida_mod_tpu_torch.ops import kv8_attention as tk
     from lavida_mod_tpu_torch.ops import vit_mlp as tv
@@ -1148,6 +1186,10 @@ def _batch_ops():
             "w4_matmul_res": tw.w4_matmul_res,
             "w4_ffn_fused": tw.w4_ffn_fused,
             "w4_matmul_grouped": tg.w4_matmul_grouped,
+            "w4_matmul_grouped_decode": _RegimeCount(tg.w4_matmul_grouped,
+                                                     "decode"),
+            "w4_matmul_grouped_prefill": _RegimeCount(tg.w4_matmul_grouped,
+                                                      "prefill"),
             "kv8_decode_attention": tk.kv8_decode_attention,
             "fused_vit_mlp": tv.fused_vit_mlp}
 
@@ -1157,12 +1199,17 @@ def _want_batch(B, kv8, chunk):
     per decode step; the head fused into w4_qkv_norm up to 128 decode rows
     (B = 4), else one more grouped matmul per step; 26 SigLIP layers of
     attention and MLP per image; one prefill attention per layer and
-    chunk."""
+    chunk.  The grouped matmuls of the decode (32 B <= 256 rows) take its
+    decode kernel, the prefill's (over 1000 rows a chunk) its prefill
+    kernel."""
     calls = -(-B // chunk)
     head_fused = B * 32 <= 128
     want = {k: 0 for k in _batch_ops()}
-    want["w4_matmul_grouped"] = (LLADA_LINEARS * LLADA_LAYERS * (calls + STEPS)
-                                 + (0 if head_fused else STEPS))
+    want["w4_matmul_grouped_decode"] = (LLADA_LINEARS * LLADA_LAYERS * STEPS
+                                        + (0 if head_fused else STEPS))
+    want["w4_matmul_grouped_prefill"] = LLADA_LINEARS * LLADA_LAYERS * calls
+    want["w4_matmul_grouped"] = (want["w4_matmul_grouped_decode"]
+                                 + want["w4_matmul_grouped_prefill"])
     want["w4_qkv_norm"] = STEPS if head_fused else 0
     want["short_attention"] = SIGLIP_LAYERS * B + LLADA_LAYERS * calls
     want["fused_vit_mlp"] = SIGLIP_LAYERS * B
@@ -1816,9 +1863,12 @@ def main() -> None:
               mixed_counts["w4_matmul_res"]),
         entry("w4_ffn_fused", "w4_fused.cu", "w4_fused.py:322",
               mixed_counts["w4_ffn_fused"]),
-        entry("w4_matmul_grouped", "w4_grouped.cu", "pallas_w4.py:129",
-              b4["w4_matmul_grouped"],
-              launches_batch_b8=b8["w4_matmul_grouped"]),
+        entry("w4_matmul_grouped_decode", "w4_grouped.cu",
+              "pallas_w4.py:129", b4["w4_matmul_grouped_decode"],
+              launches_batch_b8=b8["w4_matmul_grouped_decode"]),
+        entry("w4_matmul_grouped_prefill", "w4_grouped.cu",
+              "pallas_w4.py:129", b4["w4_matmul_grouped_prefill"],
+              launches_batch_b8=b8["w4_matmul_grouped_prefill"]),
         entry("kv8_decode_attention", "kv8_attention.cu",
               "kv8_attention.py:98", b4k["kv8_decode_attention"]),
         entry("fused_vit_mlp", "vit_mlp.cu", "vit_mlp.py:63",
@@ -1842,7 +1892,8 @@ def main() -> None:
           "short_attention, 1 gather_rows per request; mixed path: 128 "
           "w8a8_matmul, 16 x 33 w4_qkv_norm, 16 x 32 w4_matmul_res and "
           "w4_ffn_fused per request; batched path, one B = 4 batch: 7 x 32 "
-          "x 17 w4_matmul_grouped, 32 x 16 kv8_decode_attention, 4 x 26 "
+          "x 16 w4_matmul_grouped decode (128 rows) and 7 x 32 prefill "
+          "(4608 rows), 32 x 16 kv8_decode_attention, 4 x 26 "
           "fused_vit_mlp; w4_matmul, which no path launches: one call at "
           "the decode and one at the prefill shape); launches: each path's "
           "run; request walls bf16 "

@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels
-// (short_attention.cu, w8a8_matmul.cu): shared-memory addresses, mbarriers,
-// TMA tile loads, the wgmma fence / commit / wait, and the host-side
-// encoding of TMA tensor maps, cached by their arguments.
+// (short_attention.cu, prefix_flash.cu, w8a8_matmul.cu, w4_fused.cu,
+// w4_grouped.cu): shared-memory addresses, mbarriers, TMA tile loads, the
+// wgmma fence / commit / wait and the swizzled K-major descriptor, launches
+// under programmatic dependent launch, and the host-side encoding of TMA
+// tensor maps, cached by their arguments.
 #pragma once
 
 #include <cuda.h>
@@ -80,6 +82,15 @@ __device__ __forceinline__ void griddep_wait() {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1, int c2, int c3) {
   asm volatile(
@@ -100,6 +111,14 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
+// Shared-memory matrix descriptor of a K-major operand in 128-byte-swizzled
+// rows: 8-row core groups 1024 bytes apart (the stride byte offset).  A
+// step of 32 bytes along K inside the swizzled row adds 2 to it.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
 // Registers that an asynchronous product writes (accumulators) or still
 // reads (A fragments): the compiler must neither move their uses across
 // the wait nor give their registers to other values until then.
@@ -112,6 +131,40 @@ template <int N>
 __device__ __forceinline__ void fence_acc(int (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_acc(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// Launch with programmatic stream serialization: the kernel may start
+// while the one before it runs, and waits for it with griddepcontrol.wait.
+template <typename... Params, typename... Args>
+int launch_dependent(void (*kernel)(Params...), dim3 grid, dim3 block, int smem,
+                     cudaStream_t st, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...));
+}
+
+// Raise the kernel's dynamic shared-memory cap to `smem` if it is lower.
+template <typename Kernel>
+int allow_smem(Kernel kernel, int smem, int& allowed) {
+  if (smem <= allowed) return 0;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  allowed = smem;
+  return 0;
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

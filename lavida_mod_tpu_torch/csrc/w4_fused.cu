@@ -92,19 +92,47 @@ __device__ float block_reduce(float v) {
 //   kind 2: sx = max(amax, 1e-8) * f32(1/127)  (pallas_w4.py:172 as XLA
 //           compiles it: a division by a constant becomes a multiplication
 //           by its reciprocal; the grouped W4A8 matmul of w4_grouped.cu)
+// The decode GEMM of w4_grouped.cu is launched after it with programmatic
+// dependent launch and streams its first weights while this pass runs.
 template <int kKind>
 __global__ void __launch_bounds__(kQuantThreads)
 row_quant_kernel(const __nv_bfloat16* __restrict__ x, int8_t* __restrict__ q,
                  float* __restrict__ s, int K) {
+  hopper::griddep_launch_dependents();
+  // 16-byte loads of 8 values (K a multiple of 8, rows 16-byte aligned),
+  // 8-byte stores of codes
   const long row = blockIdx.x;
-  const __nv_bfloat16* xr = x + row * K;
+  const uint4* xv = reinterpret_cast<const uint4*>(x + row * K);
+  auto unpack = [](uint4 v, float (&f)[8]) {
+    const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&u[i]);
+      f[2 * i] = __low2float(h);
+      f[2 * i + 1] = __high2float(h);
+    }
+  };
   float mx = 0.0f;
-  for (int k = threadIdx.x; k < K; k += kQuantThreads) mx = fmaxf(mx, fabsf(bf(xr[k])));
+  for (int c = threadIdx.x; c < K / 8; c += kQuantThreads) {
+    float f[8];
+    unpack(xv[c], f);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) mx = fmaxf(mx, fabsf(f[i]));
+  }
   mx = block_reduce<true>(mx);
   const float sc = kKind == 0   ? fmaxf(mx / 127.0f, 1e-8f)
                    : kKind == 2 ? __fmul_rn(fmaxf(mx, 1e-8f), 1.0f / 127.0f)
                                 : fmaxf(mx, 1e-8f) / 127.0f;
-  for (int k = threadIdx.x; k < K; k += kQuantThreads) q[row * K + k] = quant(bf(xr[k]), sc);
+  uint2* qv = reinterpret_cast<uint2*>(q + row * K);
+  for (int c = threadIdx.x; c < K / 8; c += kQuantThreads) {
+    float f[8];
+    unpack(xv[c], f);
+    uint32_t w[2] = {0u, 0u};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      w[i / 4] |= static_cast<uint32_t>(static_cast<uint8_t>(quant(f[i], sc))) << (8 * (i % 4));
+    qv[c] = make_uint2(w[0], w[1]);
+  }
   if (threadIdx.x == 0) s[row] = sc;
 }
 
@@ -377,42 +405,21 @@ ffn_down_kernel(w4s::Stream p, const float* __restrict__ sa,
   w4s::stream_gemm<1, kDnSG, kDnPU>(p, smem, epi);
 }
 
-// Launch with programmatic stream serialization: the kernel may start
-// while the one before it runs, and waits for it with griddepcontrol.wait.
-template <typename... Params, typename... Args>
-int launch_dependent(void (*kernel)(Params...), dim3 grid, dim3 block, int smem,
-                     cudaStream_t st, Args... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = block;
-  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...));
-}
-
-// Raise the kernel's dynamic shared-memory cap to `smem` if it is lower.
-template <typename Kernel>
-int allow_smem(Kernel kernel, int smem, int& allowed) {
-  if (smem <= allowed) return 0;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  allowed = smem;
-  return 0;
-}
-
 int launch_quant(int kind, const void* x, void* q, void* s, int T, int K, cudaStream_t st) {
   const auto* xp = static_cast<const __nv_bfloat16*>(x);
   auto* qp = static_cast<int8_t*>(q);
   auto* sp = static_cast<float*>(s);
   if (kind == 0) row_quant_kernel<0><<<T, kQuantThreads, 0, st>>>(xp, qp, sp, K);
   if (kind == 1) row_quant_kernel<1><<<T, kQuantThreads, 0, st>>>(xp, qp, sp, K);
-  if (kind == 2) row_quant_kernel<2><<<T, kQuantThreads, 0, st>>>(xp, qp, sp, K);
+  if (kind == 2) {
+    // all shared memory, as the decode GEMM of w4_grouped.cu that follows
+    // it wants: the SMs need not change their carveout between the two
+    static const cudaError_t carve =
+        cudaFuncSetAttribute(row_quant_kernel<2>, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+    if (carve != cudaSuccess) return static_cast<int>(carve);
+    row_quant_kernel<2><<<T, kQuantThreads, 0, st>>>(xp, qp, sp, K);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -422,10 +429,12 @@ constexpr int kBad = static_cast<int>(cudaErrorInvalidValue);
 
 // Per-token int8 codes x8 [T, K] and scales sx [T] of bf16 x [T, K]
 // (formula 0: the W8A8 prefill's, 1: the W4A8 one, 2: the W4A8 one with
-// the reciprocal).
+// the reciprocal); K a multiple of 8, x 16-byte and x8 8-byte aligned.
 extern "C" int lavida_act_quant(const void* x, void* x8, void* sx, int T, int K, int formula,
                                 void* stream) {
-  if (T <= 0 || K <= 0 || formula < 0 || formula > 2) return kBad;
+  if (T <= 0 || K <= 0 || K % 8 || formula < 0 || formula > 2 ||
+      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(x8) % 8)
+    return kBad;
   return launch_quant(formula, x, x8, sx, T, K, static_cast<cudaStream_t>(stream));
 }
 
@@ -447,7 +456,7 @@ extern "C" int lavida_w4_qkv_norm(const void* x, const void* norm_w, const void*
   const int max_units = (N / 8 + ctas - 1) / ctas;
   if (smem > kSmemLimit || smem != L::smem(G, max_units, stages)) return kBad;
   static int allowed = 0;
-  int err = allow_smem(qkv_kernel, smem, allowed);
+  int err = hopper::allow_smem(qkv_kernel, smem, allowed);
   if (err) return err;
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* xp = static_cast<const __nv_bfloat16*>(x);
@@ -463,8 +472,8 @@ extern "C" int lavida_w4_qkv_norm(const void* x, const void* norm_w, const void*
         D, eps);
     err = static_cast<int>(cudaGetLastError());
     if (err) return err;
-    err = launch_dependent(qkv_kernel, dim3(ctas), dim3(w4s::kThreads), smem, st, p, sxp,
-                           op + static_cast<long>(r0) * N, rows);
+    err = hopper::launch_dependent(qkv_kernel, dim3(ctas), dim3(w4s::kThreads), smem, st, p,
+                                   sxp, op + static_cast<long>(r0) * N, rows);
     if (err) return err;
   }
   return 0;
@@ -488,7 +497,7 @@ extern "C" int lavida_w4_matmul_res(const void* a, const void* res, const void* 
   const int max_units = (N / 8 + ctas - 1) / ctas;
   if (smem > kSmemLimit || smem != L::smem(G, max_units, stages)) return kBad;
   static int allowed = 0;
-  int err = allow_smem(res_kernel, smem, allowed);
+  int err = hopper::allow_smem(res_kernel, smem, allowed);
   if (err) return err;
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* ap = static_cast<const __nv_bfloat16*>(a);
@@ -504,8 +513,9 @@ extern "C" int lavida_w4_matmul_res(const void* a, const void* res, const void* 
                                                            sap, rows, K);
     err = static_cast<int>(cudaGetLastError());
     if (err) return err;
-    err = launch_dependent(res_kernel, dim3(ctas), dim3(w4s::kThreads), smem, st, p, sap,
-                           rp + static_cast<long>(r0) * N, op + static_cast<long>(r0) * N, rows);
+    err = hopper::launch_dependent(res_kernel, dim3(ctas), dim3(w4s::kThreads), smem, st, p,
+                                   sap, rp + static_cast<long>(r0) * N,
+                                   op + static_cast<long>(r0) * N, rows);
     if (err) return err;
   }
   return 0;
@@ -538,9 +548,9 @@ extern "C" int lavida_w4_ffn_fused(const void* x, const void* norm_w, const void
       dn_smem != Dn::smem(Gd, dn_max, dn_stages))
     return kBad;
   static int up_allowed = 0, dn_allowed = 0;
-  int err = allow_smem(ffn_up_kernel, up_smem, up_allowed);
+  int err = hopper::allow_smem(ffn_up_kernel, up_smem, up_allowed);
   if (err) return err;
-  err = allow_smem(ffn_down_kernel, dn_smem, dn_allowed);
+  err = hopper::allow_smem(ffn_down_kernel, dn_smem, dn_allowed);
   if (err) return err;
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* xp = static_cast<const __nv_bfloat16*>(x);
@@ -563,15 +573,15 @@ extern "C" int lavida_w4_ffn_fused(const void* x, const void* norm_w, const void
         xr, static_cast<const __nv_bfloat16*>(norm_w), x8p, sxp, amp, rows, D, kUpSG, eps);
     err = static_cast<int>(cudaGetLastError());
     if (err) return err;
-    err = launch_dependent(ffn_up_kernel, dim3(up_ctas), dim3(w4s::kThreads), up_smem, st, up,
-                           sxp, ip, amp, rows, H);
+    err = hopper::launch_dependent(ffn_up_kernel, dim3(up_ctas), dim3(w4s::kThreads), up_smem,
+                                   st, up, sxp, ip, amp, rows, H);
     if (err) return err;
-    err = launch_dependent(ffn_quant_kernel, dim3((Gd * kGroup + kQuantCols - 1) / kQuantCols,
-                                                  w4s::kRows),
-                           dim3(kQuantThreads), 0, st, ip, amp, a8p, sap, rows, H, Gd);
+    err = hopper::launch_dependent(ffn_quant_kernel,
+                                   dim3((Gd * kGroup + kQuantCols - 1) / kQuantCols, w4s::kRows),
+                                   dim3(kQuantThreads), 0, st, ip, amp, a8p, sap, rows, H, Gd);
     if (err) return err;
-    err = launch_dependent(ffn_down_kernel, dim3(dn_ctas), dim3(w4s::kThreads), dn_smem, st, dn,
-                           sap, xr, op + static_cast<long>(r0) * D, rows);
+    err = hopper::launch_dependent(ffn_down_kernel, dim3(dn_ctas), dim3(w4s::kThreads), dn_smem,
+                                   st, dn, sap, xr, op + static_cast<long>(r0) * D, rows);
     if (err) return err;
   }
   return 0;

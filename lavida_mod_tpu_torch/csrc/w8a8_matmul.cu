@@ -47,13 +47,6 @@ constexpr int kStageBytes = (kBM + kBN) * kBK;
 constexpr int kConsumers = 256;          // two warpgroups
 constexpr int kThreads = kConsumers + 32;  // + the producer warp
 
-// Shared-memory matrix descriptor of a K-major operand in 128-byte-swizzled
-// rows: 8-row core groups 1024 bytes apart (the stride byte offset).
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
-  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
 // D (64 x 128, s32) (+)= A (64 x 32 s8, K-major smem) * B (32 x 128 s8,
 // K-major smem); scale_d = 0 overwrites D.
 __device__ __forceinline__ void wgmma_ss_s8_n128(int (&d)[64], uint64_t desc_a, uint64_t desc_b,

@@ -2,12 +2,12 @@
 """Time kernel wrappers of a checkout on one CUDA card, beside the PyTorch
 call that computes the same function:
 
-    python3 lavida_mod_tpu_torch/kernel_times.py [CHECKOUT]
+    python3 lavida_mod_tpu_torch/kernel_times.py [CHECKOUT] [--only w4_grouped]
 
 CHECKOUT is the root of a tree whose `lavida_mod_tpu_torch` package is
 timed (default: the tree holding this file), so two versions of the
 kernels can be timed in turns on one card, one process each.  It times
-four groups:
+five groups (`--only w4_grouped` the last alone):
 
   short_attention  per shape of one mixed request (26 SigLIP + 32 prefill
                    launches), against SDPA with the same mask;
@@ -26,7 +26,18 @@ four groups:
                    (128 rows, outside the request's sums); #6 also with
                    its weights cold in L2 (cycled through 8 copies, 71
                    MB; outside the sums); #5, #6 and #7 also split by
-                   their own kernels from the profiler (`kernel_split`).
+                   their own kernels from the profiler (`kernel_split`);
+  w4_matmul_grouped  #4 at the batched int4 path's shapes: the decode of a
+                   B = 4 batch ([128, 4096] x 4096, x 12288 and [128,
+                   12288] x 4096: 4 / 2 / 1 calls per layer and step, x 32
+                   layers x 16 steps) and of a B = 8 batch (256 rows), the
+                   B = 8 head ([256, 4096] x 126464, 16 calls), each warm
+                   and cold in L2 (cycled through weight copies of more
+                   than 60 MB), and the B = 4 prefill ([4608, K] x N, 4 /
+                   2 / 1 calls per layer, 32 layers); sums per B = 4 and
+                   B = 8 batch with the decode cold, as a batch's 32
+                   layers find it; the decode and the prefill split by
+                   kernel (the row quantization and the GEMM).
 
 Each is timed three ways:
 
@@ -119,6 +130,13 @@ def stage1_attention_inputs(torch, dev, gen, B=8, T=1152, H=32, hd=128):
 
 def main(argv: list[str]) -> None:
     here = os.path.dirname(os.path.abspath(__file__))
+    only = None
+    if "--only" in argv:
+        i = argv.index("--only")
+        only = argv[i + 1]
+        argv = argv[:i] + argv[i + 2:]
+        if only != "w4_grouped":
+            raise ValueError(f"--only {only}: only w4_grouped is a group")
     tree = os.path.abspath(argv[0] if argv else os.path.dirname(here))
     # import the checkout's package, not a sibling of this file
     sys.path[:] = [tree] + [p for p in sys.path
@@ -158,6 +176,11 @@ def main(argv: list[str]) -> None:
               f"{mine['ms_back_to_back']:.4f} ms, host {mine['host_us']:.1f} "
               f"us; library {lib_text}")
 
+    if only == "w4_grouped":
+        out = time_w4_grouped(torch, dev, gen, record, name)
+        print(json.dumps({"tree": tree, "device": name, "shapes": rows,
+                          "w4_grouped": out}))
+        return
     with torch.no_grad():
         for shape, kv, valid, per in [((5, 729, 16, 72), (5, 729, 16, 72),
                                        None, 26),
@@ -220,7 +243,10 @@ def main(argv: list[str]) -> None:
                three_times(lambda: tpf.prefix_flash_dkv(*args)).values())},
            lib_bwd)
     splits = time_w4_decode(torch, dev, gen, record)
+    grouped = time_w4_grouped(torch, dev, gen, record, name)
     for kernel, s in sums.items():
+        if kernel.startswith("w4_matmul_grouped"):
+            continue              # summed per batch by time_w4_grouped
         a, b = s["kernel"], s["library"]
         what = ("stage-1 step" if kernel.startswith("prefix_flash")
                 else "mixed request")
@@ -233,7 +259,8 @@ def main(argv: list[str]) -> None:
               f"ms, host {a['host_us'] / 1e3:.4f} ms; library {lib_text} "
               f"({name})")
     print(json.dumps({"tree": tree, "device": name, "shapes": rows,
-                      "per_request": sums, "splits": splits}))
+                      "per_request": sums, "splits": splits,
+                      "w4_grouped": grouped}))
 
 
 def added_times(torch, prof) -> dict:
@@ -331,6 +358,95 @@ def time_w4_decode(torch, dev, gen, record) -> dict:
             print(f"[times] {call} split: adds {added:.4f} ms per call, "
                   f"runs {ms:.4f} ms from launch to end  {key[:100]}")
     return splits
+
+
+# #4's linears per layer: (K, N, calls per layer and forward)
+W4_LINEARS = [(4096, 4096, 4), (4096, 12288, 2), (12288, 4096, 1)]
+W4_LAYERS, W4_STEPS = 32, 16
+W4_COLD_BYTES = 60e6          # weight copies cycled past the 50 MB L2
+
+
+def time_w4_grouped(torch, dev, gen, record, card) -> dict:
+    """#4 at the batched int4 path's shapes (module note): device time per
+    call warm and cold, sums per B = 4 and B = 8 batch (decode cold), each
+    call's bound (the larger of its bytes over 3.35 TB/s and its int8
+    operations over 1,979 TOP/s), and the row quantization / GEMM split
+    of the B = 4 decode's first linear (cold) and of the prefill's."""
+    from lavida_mod_tpu_torch.ops import quant as tq
+    from lavida_mod_tpu_torch.ops import w4_grouped as tg
+
+    def bound_ms(T, K, N):
+        nbytes = 2 * T * K + K * N // 2 + K // 128 * N * 4 + 2 * T * N
+        return max(nbytes / 3.35e12, 2 * T * K * N / 1979e12) * 1e3
+
+    # (T, K, N, calls per B = 4 batch, per B = 8 batch, regime)
+    cases = []
+    for K, N, per in W4_LINEARS:
+        cases.append((128, K, N, per * W4_LAYERS * W4_STEPS, 0, "decode"))
+        cases.append((256, K, N, 0, per * W4_LAYERS * W4_STEPS, "decode"))
+    cases.append((256, 4096, 126464, 0, W4_STEPS, "decode"))   # B = 8 head
+    for K, N, per in W4_LINEARS:
+        cases.append((4608, K, N, per * W4_LAYERS, 0, "prefill"))
+    sums = {"b4": {"decode": 0.0, "prefill": 0.0, "bound_decode": 0.0,
+                   "bound_prefill": 0.0},
+            "b8_decode_and_head": {"decode": 0.0, "bound_decode": 0.0}}
+    weights, out = {}, {"calls": [], "splits": {}}
+    with torch.no_grad():
+        for T, K, N, per4, per8, kind in cases:
+            if (K, N) not in weights:
+                packed, scales, _ = tq.quantize_linear4(
+                    torch.randn(N, K, device=dev, generator=gen) * 0.02)
+                copies = 1 if kind == "prefill" else max(1, -(-int(
+                    W4_COLD_BYTES) // (packed.numel() + 4 * scales.numel())))
+                weights[(K, N)] = [(packed, scales)] + [
+                    (packed.clone(), scales.clone()) for _ in range(copies - 1)]
+            ws = weights[(K, N)]
+            x = torch.randn(T, K, device=dev, generator=gen).bfloat16()
+            shape = f"[{T},{K}]x[{K},{N}]"
+            times = {}
+            for temp, n in [("warm", 1), ("cold", len(ws))]:
+                if temp == "cold" and n == 1:   # the prefill; the head's
+                    continue                       # 275 MB never fit L2
+                it = iter(range(1 << 62))
+
+                def call(n=n, it=it):
+                    return tg.w4_matmul_grouped(x, *ws[next(it) % n])
+
+                t = three_times(call)
+                times[temp] = t
+                record(f"w4_matmul_grouped {kind}",
+                       f"{shape} {temp} ({n} weight copies)", 0, t, None)
+                if (T, K, N, temp) in [(128, 4096, 4096, "cold"),
+                                       (4608, 4096, 12288, "warm")]:
+                    out["splits"][f"{shape} {temp}"] = kernel_split(torch, call)
+            b = bound_ms(T, K, N)
+            ms = times.get("cold", times["warm"])["ms"]
+            print(f"[times] w4_matmul_grouped {kind} {shape}: device "
+                  f"{ms:.4f} ms per call ({'cold' if 'cold' in times else 'warm'}),"
+                  f" bound {b:.4f} ms ({100 * b / ms:.1f} % of it)")
+            out["calls"].append({"shape": [T, K, N], "regime": kind,
+                                 "per_b4": per4, "per_b8": per8,
+                                 "bound_ms": b, **{k: v for k, v in times.items()}})
+            sums["b4"][kind] += per4 * ms
+            sums["b4"][f"bound_{kind}"] += per4 * b
+            if per8:
+                sums["b8_decode_and_head"]["decode"] += per8 * ms
+                sums["b8_decode_and_head"]["bound_decode"] += per8 * b
+        del weights
+    for call, split in out["splits"].items():
+        for key, (added, ms) in sorted(split.items(), key=lambda kv: -kv[1][0]):
+            print(f"[times] w4_matmul_grouped {call} split: adds {added:.4f} "
+                  f"ms per call, runs {ms:.4f} ms from launch to end  "
+                  f"{key[:100]}")
+    s4, s8 = sums["b4"], sums["b8_decode_and_head"]
+    print(f"[times] w4_matmul_grouped per B = 4 batch: decode {s4['decode']:.2f}"
+          f" ms (bound {s4['bound_decode']:.2f}), prefill {s4['prefill']:.2f} "
+          f"ms (bound {s4['bound_prefill']:.2f}), sum "
+          f"{s4['decode'] + s4['prefill']:.2f} ms; per B = 8 batch, decode and"
+          f" head {s8['decode']:.2f} ms (bound {s8['bound_decode']:.2f}) "
+          f"({card})")
+    out["sums"] = sums
+    return out
 
 
 if __name__ == "__main__":

@@ -151,6 +151,7 @@ def library() -> ctypes.CDLL:
     lib.lavida_w4_matmul_res.argtypes = [vp] * 7 + [ci] * 6 + [vp]
     lib.lavida_w4_ffn_fused.argtypes = [vp] * 13 + [ci] * 4 + [cf] + [ci] * 6 + [vp]
     lib.lavida_w4_grouped.argtypes = [vp] * 5 + [ci] * 4 + [vp]
+    lib.lavida_w4_grouped_decode.argtypes = [vp] * 5 + [ci] * 9 + [vp]
     lib.lavida_kv8_decode_attention.argtypes = [vp] * 7 + [ci] * 6 + [cf, vp]
     lib.lavida_vit_mlp.argtypes = [vp] * 10 + [ci] * 3 + [cf, vp]
     lib.lavida_prefix_flash_fwd.argtypes = [vp] * 7 + [ci] * 6 + [cf, vp]
@@ -160,6 +161,7 @@ def library() -> ctypes.CDLL:
     for fn in (lib.lavida_w8a8_matmul, lib.lavida_act_quant,
                lib.lavida_w4_qkv_norm, lib.lavida_w4_matmul_res,
                lib.lavida_w4_ffn_fused, lib.lavida_w4_grouped,
+               lib.lavida_w4_grouped_decode,
                lib.lavida_kv8_decode_attention, lib.lavida_vit_mlp,
                lib.lavida_prefix_flash_fwd, lib.lavida_prefix_flash_dq,
                lib.lavida_prefix_flash_dkv, lib.lavida_w4_matmul):

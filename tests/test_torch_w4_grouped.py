@@ -16,10 +16,16 @@ interpret mode on the CPU.
   - The JAX model off the TPU runs `_linear_w4`'s einsum fallback, which
     the port's CPU model path keeps (`quant.linear_w4_reference`); the two
     plain forms agree within tests/test_pallas_w4.py's 2 % band.
-The CUDA kernel is held to the plain version, bit for bit, by the tests
-that need a card (skipped without):
+On the card the wrapper takes one of two kernels by the row count alone:
+T <= 256 the decode kernel (laid out by `decode_plan`, whose constants the
+CUDA source mirrors), more rows the prefill kernel.  The CPU tests pin the
+dispatch and the plan; both kernels are held to the plain version, bit
+for bit, by the tests that need a card (skipped without):
     python -m pytest --noconftest -k cuda tests/test_torch_w4_grouped.py
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -105,9 +111,108 @@ def test_plain_within_band_of_linear_w4_reference(i):
 
 
 def test_cpu_route_counts_no_launch():
-    before = tg.w4_matmul_grouped.launches
+    f = tg.w4_matmul_grouped
+    before = (f.launches, f.decode_launches, f.prefill_launches)
     _port(_inputs(0, *CASES[0]), CASES[0][3])
-    assert tg.w4_matmul_grouped.launches == before
+    for T in (256, 257):      # one row count of each regime
+        _port(_inputs(1, T, 256, 512, 512), 512)
+    assert (f.launches, f.decode_launches, f.prefill_launches) == before
+
+
+# ---------------------------------------------------------------------------
+# the dispatch and the decode kernel's plan
+# ---------------------------------------------------------------------------
+
+def test_regime_is_chosen_by_rows_alone():
+    """T <= 256 rows take the decode kernel, T >= 257 the prefill kernel
+    (pallas_w4.py:179-182 keeps block_t = T up to the same 256)."""
+    assert tg.DECODE_MAX_ROWS == 256
+    assert [tg.regime(T) for T in (1, 32, 128, 255, 256)] == ["decode"] * 5
+    assert [tg.regime(T) for T in (257, 1024, 2304, 4608)] == ["prefill"] * 4
+
+
+def test_decode_plan_constants_match_the_cuda_source():
+    """The plan's constants are the ones csrc/w4_grouped.cu checks a plan
+    against, and every rb the plan can choose has its wgmma instance."""
+    src = (Path(tg.__file__).parents[1] / "csrc" / "w4_grouped.cu").read_text()
+
+    def const(name):
+        m = re.search(rf"constexpr int {name} = (\d+);", src)
+        assert m, name
+        return int(m[1])
+
+    assert const("kDecMaxRows") == tg.DECODE_MAX_ROWS
+    assert const("kDecSG") == tg.DECODE_SLICE_GROUPS
+    assert const("kDecMaxStages") == tg.DECODE_MAX_STAGES
+    assert const("kDecCols") == tg.DECODE_COLS
+    assert const("kDecSBytes") == tg.DECODE_SCALE_BYTES
+    assert "constexpr int kDecThreads = 128 + 32;" in src   # one warpgroup
+    assert const("kSmemLimit") == tg.SMEM_LIMIT
+    for rb in tg.DECODE_RB:   # the warpgroup's wgmma N
+        assert f"wgmma.mma_async.sync.aligned.m64n{rb}k32.s32.s8.s8" in src
+        assert f"case {rb}:" in src or rb == tg.DECODE_RB[-1]
+
+
+# (T, K, N) -> (rb, row_blocks, ctas) on 132 SMs: the B = 4 decode's three
+# linears, the B = 8 decode, the B = 8 head, B = 1, a tiny and a Dream width
+PLANS = [((128, 4096, 4096), (64, 2, 128)), ((128, 4096, 12288), (64, 2, 132)),
+         ((128, 12288, 4096), (64, 2, 128)), ((256, 4096, 4096), (64, 4, 132)),
+         ((256, 4096, 12288), (64, 4, 132)), ((256, 12288, 4096), (64, 4, 132)),
+         ((256, 4096, 126464), (64, 4, 132)), ((32, 4096, 4096), (16, 2, 128)),
+         ((77, 768, 1024), (16, 5, 80)), ((64, 18944, 3584), (32, 2, 112)),
+         ((40, 4096, 576), (16, 3, 27))]
+
+
+@pytest.mark.parametrize("shape,want", PLANS)
+def test_decode_plan(shape, want):
+    T, K, N = shape
+    N = -(-N // 64) * 64
+    p = tg.decode_plan(T, N, 132)
+    assert (p.rb, p.row_blocks, p.ctas) == want
+    assert p.rb in tg.DECODE_RB
+    assert p.row_blocks * p.rb >= T > (p.row_blocks - 1) * p.rb   # none empty
+    assert p.units == N // tg.DECODE_COLS * p.row_blocks
+    owned = [p.owned(c) for c in range(p.ctas)]
+    assert [u for r in owned for u in r] == list(range(p.units))
+    assert max(map(len, owned)) == -(-p.units // p.ctas)
+    stage = tg.decode_stage_bytes(p.rb)
+    assert stage == tg.DECODE_SLICE_GROUPS * (8 * 512 + p.rb * 128) + 1024
+    assert stage % 1024 == 0                   # the swizzle's boundary
+    assert 2 <= p.stages <= tg.DECODE_MAX_STAGES
+    assert p.smem == 1024 + p.stages * stage <= tg.SMEM_LIMIT - 1024
+    assert (p.stages + 1) * stage + 1024 > tg.SMEM_LIMIT - 1024 \
+        or p.stages == tg.DECODE_MAX_STAGES
+
+
+def test_decode_variant_edits_apply_to_the_source():
+    """Each diagnostic edit of lavida_mod_tpu_torch/w4_decode_variants.py
+    finds its text exactly once in csrc/w4_grouped.cu, so the variants
+    build what they say."""
+    import importlib.util
+
+    root = Path(tg.__file__).parents[1]
+    spec = importlib.util.spec_from_file_location(
+        "w4_decode_variants", root / "w4_decode_variants.py")
+    variants = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(variants)
+    src = (root / "csrc" / "w4_grouped.cu").read_text()
+    for name, edits in variants.DIAGNOSTICS.items():
+        for old, _ in edits:
+            assert src.count(old) == 1, (name, old[:60])
+
+
+def test_decode_plan_row_blocks_share_their_weights():
+    """A CTA's run of units takes the row blocks of a column tile one after
+    the other (the later reads of its weights from L2), and at B = 4 and
+    8 a unit is 64 rows: 2 and 4 row blocks."""
+    for T in (128, 256):
+        p = tg.decode_plan(T, 4096, 132)
+        assert p.row_blocks == T // 64
+        for c in range(p.ctas):
+            tiles = [u // p.row_blocks for u in p.owned(c)]
+            assert tiles == sorted(tiles)
+    with pytest.raises(ValueError):
+        tg.decode_plan(257, 4096, 132)
 
 
 # ---------------------------------------------------------------------------
@@ -134,6 +239,105 @@ def test_kernel_bit_equal_to_plain_on_cuda(cuda, T, K, N):
     torch.cuda.synchronize()
     assert tg.w4_matmul_grouped.launches == before + 1
     assert torch.equal(out, tg.w4_matmul_grouped_reference(x, packed, scales))
+
+
+def _card_weights(K, N, g, dev):
+    """Random int4 codes in [-8, 7] (the whole nibble range) in the
+    fragment layout and positive group scales, at any K (no K pad)."""
+    codes = torch.randint(-8, 8, (K, N), generator=g, device=dev,
+                          dtype=torch.int8)
+    scales = torch.rand(K // tq.GROUP, N, generator=g, device=dev) * 0.01 \
+        + 1e-4
+    return tq.pack_w4_frag(codes), scales
+
+
+@pytest.mark.parametrize("K,N", [(4096, 4096), (4096, 12288), (12288, 4096)])
+@pytest.mark.parametrize("T", [32, 64, 96, 128, 160, 224, 256])
+def test_decode_kernel_bit_equal_to_plain_on_cuda(cuda, T, K, N):
+    g = torch.Generator(device=cuda).manual_seed(T + K + N)
+    packed, scales = _card_weights(K, N, g, cuda)
+    x = torch.randn(T, K, generator=g, device=cuda).bfloat16()
+    before = tg.w4_matmul_grouped.decode_launches
+    out = tg.w4_matmul_grouped(x, packed, scales)
+    torch.cuda.synchronize()
+    assert tg.w4_matmul_grouped.decode_launches == before + 1
+    assert torch.equal(out, tg.w4_matmul_grouped_reference(x, packed, scales))
+
+
+@pytest.mark.parametrize("T,K,N,gb", [
+    (256, 4096, 126464, 32),     # the B = 8 head
+    (77, 768, 576, 2),           # a tiny width, ragged: 3 k-blocks of 2
+    (64, 18944, 3584, 4),        # a Dream width: 37 k-blocks of 4 groups
+    (5, 384, 512, 1)])           # an odd group count: a half-empty stage
+def test_decode_kernel_odd_widths_on_cuda(cuda, T, K, N, gb):
+    assert tg.groups_per_kblock(K) == gb
+    g = torch.Generator(device=cuda).manual_seed(1)
+    packed, scales = _card_weights(K, -(-N // 64) * 64, g, cuda)
+    x = torch.randn(T, K, generator=g, device=cuda).bfloat16()
+    before = tg.w4_matmul_grouped.decode_launches
+    out = tg.w4_matmul_grouped(x, packed, scales)
+    torch.cuda.synchronize()
+    assert tg.w4_matmul_grouped.decode_launches == before + 1
+    assert torch.equal(out, tg.w4_matmul_grouped_reference(x, packed, scales))
+
+
+def test_decode_kernel_chained_calls_on_cuda(cuda):
+    """20 calls back to back without a sync, new data at the same input
+    address each time (the tensor maps are cached by address)."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    packed, scales = _card_weights(4096, 4096, g, cuda)
+    xs = [torch.randn(128, 4096, generator=g, device=cuda).bfloat16()
+          for _ in range(20)]
+    buf = torch.empty_like(xs[0])
+    outs = []
+    for x in xs:
+        buf.copy_(x)
+        outs.append(tg.w4_matmul_grouped(buf, packed, scales))
+    torch.cuda.synchronize()
+    for x, out in zip(xs, outs):
+        assert torch.equal(out, tg.w4_matmul_grouped_reference(
+            x, packed, scales))
+
+
+def test_regime_edge_on_cuda(cuda):
+    """256 rows take the decode kernel and 257 the prefill kernel; both
+    are exact."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    packed, scales = _card_weights(4096, 4096, g, cuda)
+    f = tg.w4_matmul_grouped
+    for T, kind in [(256, "decode"), (257, "prefill")]:
+        x = torch.randn(T, 4096, generator=g, device=cuda).bfloat16()
+        before = (f.decode_launches, f.prefill_launches)
+        out = f(x, packed, scales)
+        torch.cuda.synchronize()
+        after = (f.decode_launches, f.prefill_launches)
+        assert after == (before[0] + (kind == "decode"),
+                         before[1] + (kind == "prefill"))
+        assert torch.equal(out, tg.w4_matmul_grouped_reference(
+            x, packed, scales))
+
+
+def test_decode_rejects_a_plan_that_does_not_match_on_cuda(cuda):
+    from lavida_mod_tpu_torch import kernels
+
+    T, K, N = 128, 4096, 4096
+    x8 = torch.zeros(T, K, dtype=torch.int8, device=cuda)
+    sx = torch.ones(T, device=cuda)
+    packed = torch.zeros(N // 8, K // 128, 512, dtype=torch.uint8,
+                         device=cuda)
+    scales = torch.ones(K // 128, N, device=cuda)
+    out = torch.empty(T, N, dtype=torch.bfloat16, device=cuda)
+    p = tg.decode_plan(T, N, 132)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = (x8.data_ptr(), sx.data_ptr(), packed.data_ptr(),
+            scales.data_ptr(), out.data_ptr())
+    for bad in [(p.rb, p.row_blocks, p.ctas, p.stages, p.smem + 1024),
+                (24, p.row_blocks, p.ctas, p.stages, p.smem),
+                (p.rb, 1, p.ctas, p.stages, p.smem),
+                (p.rb, p.row_blocks, p.units + 1, p.stages, p.smem),
+                (p.rb, p.row_blocks, p.ctas, tg.DECODE_MAX_STAGES + 1, p.smem)]:
+        assert kernels.library().lavida_w4_grouped_decode(
+            *ptrs, T, K, N, 32, *bad, stream) != 0
 
 
 def test_kernel_rejects_bad_shapes_on_cuda(cuda):
