@@ -10,8 +10,9 @@ exits non-zero and never prints the final line:
      limit as nvidia-smi reports them; TF32 off for matmuls and cuDNN.
   2. build: nvcc compiles the port's CUDA kernels from csrc/, one compiler
      per source, in parallel (timed); ptxas's registers and spills per
-     kernel, and the register count short_attention's setmaxnreg needs
-     held in every instance (kernels.check_registers).
+     kernel, and the register count that the setmaxnreg of
+     short_attention, prefix_flash and w4_matmul_grouped's prefill kernel
+     needs held in every instance (kernels.check_registers).
   3. kernels vs their plain PyTorch versions on the card, at the main
      paths' shapes plus a ragged/odd case each: max error and time of each
      (on the device alone, and back to back as the host issues the calls)
@@ -41,7 +42,9 @@ exits non-zero and never prints the final line:
      torch._weight_int4pack_mm on the same codes.  w4_matmul_grouped's two
      kernels, each bit-exact: the decode kernel (T <= 256) at 32 x B rows
      for B = 1, 2, 3, 4, 5, 7, 8 of the three LLaDA linears, the B = 8 head,
-     a tiny and a Dream width; the prefill kernel at 4608 and 2304 rows.
+     a tiny and a Dream width; the prefill kernel (T > 256) at 4608 and
+     2304 rows of the three, a ragged 1153 rows of [K 12288] x 4096 and a
+     Dream width at 300 rows ([300, 18944] x 3584).
   4. the bf16 main path at full width: LaViDaConfig() (LLaDA-8B + SigLIP
      so400m) in bf16 with random weights made on the card from seed 0,
      three requests through LaViDa.generate_fused (gen 32, 16 steps, prefix
@@ -760,14 +763,16 @@ def phase_batch_kernels(torch, device, res):
     # the decode kernel also at every other multiple of 32 rows it serves
     # (B = 1, 2, 3, 5, 7), a tiny width (3 k-blocks of 2 groups) and a Dream
     # width (K = 18944: 37 k-blocks of 4 groups, the codes without the K
-    # pad).  Summed per regime: T <= 256 rows the decode kernel, more the
-    # prefill kernel.
+    # pad); the prefill kernel also at a ragged 1153 rows of the down
+    # projection and at the Dream width (300 rows).  Summed per regime:
+    # T <= 256 rows the decode kernel, more the prefill kernel.
     lin = [(4096, 4096, 4), (4096, 12288, 2), (12288, 4096, 1)]
     cases = [(T, K, N, per * (1 if T > 256 else STEPS))
              for T in (4608, 128) for K, N, per in lin]
     cases += [(T, K, N, 0) for T in (2304, 256, 32, 64, 96, 160, 224)
               for K, N, _ in lin]
-    cases += [(256, 4096, 126464, 0), (77, 768, 576, 0), (64, 18944, 3584, 0)]
+    cases += [(256, 4096, 126464, 0), (77, 768, 576, 0), (64, 18944, 3584, 0),
+              (1153, 12288, 4096, 0), (300, 18944, 3584, 0)]
     weights = {}
     for T, K, N, per in cases:
         if (K, N) not in weights:

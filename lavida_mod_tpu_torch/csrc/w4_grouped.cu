@@ -37,8 +37,8 @@
 //     fragment of a k-step is laid out as mma.m16n8k32's (rows gid and gid
 //     + 8 of its 16, k tig * 4 and 16 + tig * 4; CUTLASS's ALayout_64x32),
 //     so the B fragments of two n8 tiles of the fragment layout
-//     (ops/quant.py) are one A fragment after the same widening as the
-//     prefill's ((w << 4) & 0xF0F0F0F0, w & 0xF0F0F0F0: 16 x the codes).
+//     (ops/quant.py) are one A fragment after a widening in registers
+//     ((w << 4) & 0xF0F0F0F0, w & 0xF0F0F0F0: 16 x the codes).
 //     A warpgroup covers 64 columns.
 //   - The activation codes are the B operand, K-major in shared memory with
 //     the 128-byte swizzle: one 128-byte row per token and group, brought
@@ -64,22 +64,40 @@
 //     exactly), added to `part`.  `total` and `part` stay in registers
 //     (RB / 2 each a thread), the unit's row scales too.
 //
-// The prefill kernel (`w4_grouped_kernel`, the first design, simple
-// first): `mma.sync.m16n8k32.s8` on 64 x 64 output tiles.  A CTA of 4
-// warps owns 64 rows and 64 columns; each warp owns two n8 column tiles
-// and all four m16 row tiles, so every A fragment it loads from shared
-// memory feeds two MMAs.  The weights are in the
-// fragment layout of ops/quant.py: one coalesced 16-byte load per lane is
-// the B operand of a whole 128-group, and (w << 4) & 0xF0F0F0F0 and
-// w & 0xF0F0F0F0 give 16 x the int8 codes (the exact group sum is shifted
-// back by 4).  K is walked in slices of 4 groups: the slice's weights are
-// loaded to registers first, then the 64-row activation slice is staged in
-// shared memory (rows padded by 16 bytes, so the fragment loads are free of
-// bank conflicts).  (Loading the next slice's weights one slice ahead, a
-// register double buffer, was measured on the H100 at 10-25 % slower on the
-// prefill shapes and mixed on the decode ones: it is not kept.)  Ragged T
-// is zero-filled and masked at the store; N is a multiple of 64 (the int4
-// layout pads N to 512).
+// The prefill kernel (`w4_prefill_kernel`): the same swap-AB product and
+// flush on #3's shape (w8a8_matmul.cu), a persistent wgmma GEMM.
+//   - A unit is 128 columns by 128 rows: two consumer warpgroups of 64
+//     columns each (wgmma.m64n128k32 with A from registers, as above), one
+//     CTA per SM with a producer warpgroup.  Per group a unit reads 8 KB of
+//     weights and 16 KB of codes through L2 for 4.2 M int8 ops, about 170
+//     ops a byte (the first design's 64 x 64 mma.sync tile: 85).  Its
+//     accumulator, `part` and `total` are 64 registers each a thread: the
+//     producer warpgroup gives its registers to the consumers (setmaxnreg
+//     24 / 240).
+//   - The producer's one thread keeps a ring of two stages of kPreSG (4)
+//     groups filled by TMA, as the decode kernel's: the 16 tiles' weights
+//     in one 3D box, their scales in one 2D box, the codes of each group in
+//     a 2D box of 128 rows (zero-filled past T); the first stages' weights
+//     and scales are issued before `griddepcontrol.wait`.
+//   - Each warpgroup issues a group's four products, waits for them and
+//     flushes them; the two warpgroups share the tensor cores.  A group's
+//     flush is 192 instructions a thread (convert, multiply, add for 64
+//     outputs) against its products' 256 tensor-core cycles per
+//     warpgroup, so at the bound the SM's instruction issue would be
+//     nearly as busy as its tensor cores.  What holds it is the consumers:
+//     their products and their flush take about as long each and add up
+//     rather than overlap; the ring alone takes about half the kernel's
+//     time and is hidden behind them.  A second group or half group in
+//     flight per warpgroup spills registers, and turns between the
+//     warpgroups through named barriers moved it by no more than 3 %
+//     (PERF.md §6, #4's prefill).
+//   - The pipeline is the same in every iteration: a stage's every group
+//     is issued, and those past the last group are not flushed.
+//   - The CTAs walk the units with the column tiles inner, so the units in
+//     flight share their row blocks' codes and every column tile's weights
+//     in L2; each warpgroup keeps its unit's row scales in shared memory
+//     for the epilogue.  The plan (column tiles, row blocks, CTAs, stages)
+//     is ops/w4_grouped.py::prefill_plan.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -91,149 +109,6 @@
 namespace {
 
 constexpr int kGroup = 128;
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kWarpTiles = 2;                          // n8 tiles per warp
-constexpr int kCtaCols = kWarps * kWarpTiles * 8;      // 64
-constexpr int kMTiles = 4;                             // m16 tiles
-constexpr int kCtaRows = kMTiles * 16;                 // 64
-constexpr int kChunk = 4;                              // groups per slice
-constexpr int kRowBytes = kChunk * kGroup + 16;        // padded smem row
-
-__device__ __forceinline__ int lds32(const int8_t* p) {
-  return *reinterpret_cast<const int*>(p);
-}
-
-__device__ __forceinline__ void mma_s8(int* c, const int* a, const int* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__global__ void __launch_bounds__(kThreads)
-w4_grouped_kernel(const int8_t* __restrict__ a8, const float* __restrict__ sx,
-                  const uint8_t* __restrict__ packed, const float* __restrict__ scales,
-                  __nv_bfloat16* __restrict__ out, int T, int K, int N, int gb) {
-  __shared__ __align__(16) int8_t sA[kCtaRows * kRowBytes];
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int r0 = blockIdx.y * kCtaRows;
-  const int rows = min(kCtaRows, T - r0);
-  const int G = K / kGroup;
-  const int tile0 = blockIdx.x * (kWarps * kWarpTiles) + warp * kWarpTiles;
-
-  float total[kWarpTiles][kMTiles][4], part[kWarpTiles][kMTiles][4];
-#pragma unroll
-  for (int t = 0; t < kWarpTiles; ++t)
-#pragma unroll
-    for (int m = 0; m < kMTiles; ++m)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) total[t][m][e] = part[t][m][e] = 0.0f;
-
-  for (int g0 = 0; g0 < G; g0 += kChunk) {
-    const int ng = min(kChunk, G - g0);
-    uint4 w[kWarpTiles][kChunk];
-#pragma unroll
-    for (int t = 0; t < kWarpTiles; ++t)
-#pragma unroll
-      for (int gi = 0; gi < kChunk; ++gi)
-        if (gi < ng)
-          w[t][gi] = __ldg(reinterpret_cast<const uint4*>(
-                               packed + (static_cast<long>(tile0 + t) * G + g0 + gi) * 512) +
-                           lane);
-    __syncthreads();   // the previous slice is consumed
-    const int per_row = ng * kGroup / 16;
-    const long kb = static_cast<long>(g0) * kGroup;
-    for (int c = threadIdx.x; c < kCtaRows * per_row; c += kThreads) {
-      const int r = c / per_row, kc = (c % per_row) * 16;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (r < rows)
-        v = *reinterpret_cast<const uint4*>(a8 + static_cast<long>(r0 + r) * K + kb + kc);
-      *reinterpret_cast<uint4*>(sA + r * kRowBytes + kc) = v;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int gi = 0; gi < kChunk; ++gi) {
-      if (gi < ng) {
-        int acci[kWarpTiles][kMTiles][4];
-#pragma unroll
-        for (int t = 0; t < kWarpTiles; ++t)
-#pragma unroll
-          for (int m = 0; m < kMTiles; ++m)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acci[t][m][e] = 0;
-#pragma unroll
-        for (int s = 0; s < 4; ++s) {
-          int a[kMTiles][4];
-#pragma unroll
-          for (int m = 0; m < kMTiles; ++m) {
-            const int8_t* q = sA + (m * 16 + gid) * kRowBytes + gi * kGroup + s * 32 + tig * 4;
-            a[m][0] = lds32(q);
-            a[m][1] = lds32(q + 8 * kRowBytes);
-            a[m][2] = lds32(q + 16);
-            a[m][3] = lds32(q + 8 * kRowBytes + 16);
-          }
-#pragma unroll
-          for (int t = 0; t < kWarpTiles; ++t) {
-            const uint32_t word = s == 0 ? w[t][gi].x : s == 1 ? w[t][gi].y
-                                : s == 2 ? w[t][gi].z : w[t][gi].w;
-            const int b[2] = {static_cast<int>((word << 4) & 0xF0F0F0F0u),
-                              static_cast<int>(word & 0xF0F0F0F0u)};
-#pragma unroll
-            for (int m = 0; m < kMTiles; ++m) mma_s8(acci[t][m], a[m], b);
-          }
-        }
-        const int g = g0 + gi;
-#pragma unroll
-        for (int t = 0; t < kWarpTiles; ++t) {
-          const float2 sc = *reinterpret_cast<const float2*>(
-              scales + static_cast<long>(g) * N + (tile0 + t) * 8 + tig * 2);
-#pragma unroll
-          for (int m = 0; m < kMTiles; ++m)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              part[t][m][e] = __fadd_rn(part[t][m][e],
-                                        __fmul_rn(__int2float_rn(acci[t][m][e] >> 4),
-                                                  (e & 1) ? sc.y : sc.x));
-        }
-        if ((g + 1) % gb == 0) {   // a k-block is complete: flush its partial
-#pragma unroll
-          for (int t = 0; t < kWarpTiles; ++t)
-#pragma unroll
-            for (int m = 0; m < kMTiles; ++m)
-#pragma unroll
-              for (int e = 0; e < 4; ++e) {
-                total[t][m][e] = __fadd_rn(total[t][m][e], part[t][m][e]);
-                part[t][m][e] = 0.0f;
-              }
-        }
-      }
-    }
-  }
-
-  // C fragment element e of m-tile m: row m*16 + gid (+8 for e >= 2),
-  // column tile*8 + tig*2 + (e & 1)
-#pragma unroll
-  for (int m = 0; m < kMTiles; ++m) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = m * 16 + gid + half * 8;
-      if (r >= rows) continue;
-      const long row = r0 + r;
-      const float rs = sx[row];
-#pragma unroll
-      for (int t = 0; t < kWarpTiles; ++t)
-#pragma unroll
-        for (int c = 0; c < 2; ++c)
-          out[row * N + (tile0 + t) * 8 + tig * 2 + c] =
-              __float2bfloat16_rn(__fmul_rn(total[t][m][half * 2 + c], rs));
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // the decode regime: T <= kDecMaxRows
@@ -315,6 +190,31 @@ __device__ __forceinline__ void wgmma_rs(int (&d)[32], const uint32_t (&a)[4], u
         "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]),
         "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
         "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// The prefill's product: D (64 x 128 s32) (+)= A (64 x 32 s8, registers) *
+// B (32 x 128 s8, K-major shared memory, 128-byte swizzle).
+__device__ __forceinline__ void wgmma_rs(int (&d)[64], const uint32_t (&a)[4], uint64_t desc,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]),
+        "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]),
+        "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]),
+        "+r"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
@@ -572,25 +472,270 @@ int launch_decode(const CUtensorMap& tm_x, const CUtensorMap& tm_w, const CUtens
                                   tm_x, tm_w, tm_s, sx, out, T, G, N, gb, row_blocks, stages);
 }
 
+// ---------------------------------------------------------------------------
+// the prefill regime: T > kDecMaxRows
+// ---------------------------------------------------------------------------
+// The plan's constants, mirrored by ops/w4_grouped.py (PREFILL_*; a CPU test
+// reads them here).
+constexpr int kPreRows = 128;         // rows per unit: the wgmma N
+constexpr int kPreCols = 128;         // columns per unit: two warpgroups' wgmma M
+constexpr int kPreSG = 4;             // groups per stage
+constexpr int kPreMaxStages = 8;
+constexpr int kPreConsumers = 256;    // two consumer warpgroups
+constexpr int kPreThreads = kPreConsumers + 128;   // and the producer warpgroup
+constexpr int kPreWBytes = 16 * kPreSG * 512;      // a stage's weights: 16 n8 tiles
+constexpr int kPreXBytes = kPreSG * kPreRows * kGroup;   // its codes
+constexpr int kPreSBytes = 2048;      // its scales (kPreSG x 128 f32)
+constexpr int kPreStage = kPreWBytes + kPreXBytes + kPreSBytes;
+static_assert(kPreSG * kPreCols * 4 <= kPreSBytes && kPreStage % 1024 == 0,
+              "a stage's scales fit their region and stages stay on the swizzle's boundary");
+
+// the ring on a 1024-byte boundary in dynamic shared memory
+__host__ __device__ constexpr int pre_smem(int stages) { return 1024 + stages * kPreStage; }
+
+// One CTA: two consumer warpgroups and a producer warpgroup, which gives its
+// registers to the consumers (setmaxnreg 24 / 240; ptxas must give the
+// kernel 168 at entry, kernels.REGISTERS_AT_ENTRY).  Warpgroup wg takes the
+// unit's columns 64 wg .. 64 wg + 63; its warp w the columns 16 w + gid and
+// 16 w + gid + 8 of them (its fragment rows), and its lane's accumulator
+// element 4 j + e the token 8 j + 2 tig + (e & 1) of the unit's 128 rows and
+// the column of row gid + 8 (e >> 1).  A stage holds [the 16 tiles' weights
+// | the codes, group by group | the scales].  Each warpgroup issues a
+// group's four products, waits for them and flushes them.  CTA c owns the units c, c + ctas, ...; unit u is the row
+// block u / col_tiles and the column tile u % col_tiles, so the CTAs in
+// flight cover a few row blocks across all column tiles.
+__global__ void __launch_bounds__(kPreThreads, 1)
+w4_prefill_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
+                  const __grid_constant__ CUtensorMap tm_s, const float* __restrict__ sx,
+                  __nv_bfloat16* __restrict__ out, int T, int G, int N, int gb, int col_tiles,
+                  int units, int stages) {
+  constexpr int kCodes = kPreWBytes;   // offsets inside a stage
+  constexpr int kScales = kPreWBytes + kPreXBytes;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kPreMaxStages], empty[kPreMaxStages];
+  __shared__ float row_scales[2][kPreRows];   // each warpgroup's unit's sx
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+
+  const int ctas = static_cast<int>(gridDim.x);
+  const int nslices = (G + kPreSG - 1) / kPreSG;
+  const int total = ((units - 1 - static_cast<int>(blockIdx.x)) / ctas + 1) * nslices;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kPreConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kPreConsumers) {   // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == kPreConsumers) {
+      // a stage's position: its slot and pass through the ring, its unit
+      // and its slice of groups
+      struct Pos {
+        int slot, pass, u, j;
+      };
+      auto advance = [&](Pos& q) {
+        if (++q.slot == stages) q.slot = 0, ++q.pass;
+        if (++q.j == nslices) q.j = 0, q.u += ctas;
+      };
+      // the weights and scales are independent of the kernel before
+      auto weights = [&](const Pos& q) {
+        const int ng = min(kPreSG, G - q.j * kPreSG);
+        const int tile = q.u % col_tiles;
+        uint64_t* bar = &full[q.slot];
+        unsigned char* dst = ring + q.slot * kPreStage;
+        hopper::mbar_expect_tx(bar, kPreWBytes + kPreSG * kPreCols * 4 + ng * kPreRows * kGroup);
+        hopper::tma_load_3d(dst, &tm_w, bar, 0, 2 * q.j * kPreSG, tile * 16);
+        hopper::tma_load_2d(dst + kScales, &tm_s, bar, tile * kPreCols, q.j * kPreSG);
+      };
+      auto codes = [&](const Pos& q) {
+        const int ng = min(kPreSG, G - q.j * kPreSG);
+        unsigned char* dst = ring + q.slot * kPreStage + kCodes;
+        const int r0 = q.u / col_tiles * kPreRows;
+        for (int g = 0; g < ng; ++g)
+          hopper::tma_load_2d(dst + g * kPreRows * kGroup, &tm_x, &full[q.slot],
+                              (q.j * kPreSG + g) * kGroup, r0);
+      };
+      const Pos start{0, 0, static_cast<int>(blockIdx.x), 0};
+      const int pro = min(stages, total);
+      Pos q = start;
+      for (int k = 0; k < pro; ++k, advance(q)) weights(q);
+      hopper::griddep_wait();
+      Pos c = start;
+      for (int k = 0; k < pro; ++k, advance(c)) codes(c);
+      for (int k = pro; k < total; ++k, advance(q)) {
+        w4s::bar_wait(&empty[q.slot], (q.pass - 1) & 1);
+        weights(q);
+        codes(q);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const uint32_t ring_s = hopper::smem_u32(ring);
+  // this lane's A fragments in a stage (n8 tiles 8 wg + 2 warp and the next),
+  // its two scales, and the descriptor of the codes of a stage's first group
+  // in slot 0
+  const uint32_t w_off = (8 * wg + 2 * warp) * kPreSG * 512 + lane * 16;
+  const uint32_t s_off = kScales + (64 * wg + 16 * warp + gid) * 4;
+  const uint64_t desc0 = hopper::sw128_desc(ring + kCodes);
+  hopper::griddep_wait();   // the row scales come from the pass before
+
+  int acc[64];
+  uint32_t a[4][4];
+  float part[64], tot[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) part[i] = tot[i] = 0.0f;
+  // stage k: ring slot and pass, slice j of unit u, groups left in the
+  // k-block
+  int slot = 0, pass = 0, j = 0, u = static_cast<int>(blockIdx.x), kleft = gb;
+  for (int k = 0; k < total; ++k) {
+    // at a unit's first stage each thread of the warpgroup fetches one of
+    // its row scales, stored once the stage's products are done
+    float rs = 0.0f;
+    if (j == 0) {
+      const int t = u / col_tiles * kPreRows + (threadIdx.x & 127);
+      if (t < T) rs = sx[t];
+    }
+    const int ng = min(kPreSG, G - j * kPreSG);
+    w4s::bar_wait(&full[slot], pass & 1);
+    const uint32_t st = ring_s + slot * kPreStage;
+#pragma unroll
+    for (int gi = 0; gi < kPreSG; ++gi) {
+      // group gi, widened (16 x the codes), its four products issued and
+      // waited for; every group of the stage is issued, so the products'
+      // pipeline does not depend on data, and those past the last group
+      // (stale codes) are not flushed
+      const uint4 v0 = lds128(st + w_off + gi * 512);
+      const uint4 v1 = lds128(st + w_off + (kPreSG + gi) * 512);
+      const float s0 = lds_f32(st + s_off + gi * kPreCols * 4) * 0.0625f;
+      const float s1 = lds_f32(st + s_off + gi * kPreCols * 4 + 32) * 0.0625f;
+      const uint32_t w0[4] = {v0.x, v0.y, v0.z, v0.w};
+      const uint32_t w1[4] = {v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        a[s][0] = (w0[s] << 4) & 0xF0F0F0F0u;
+        a[s][1] = (w1[s] << 4) & 0xF0F0F0F0u;
+        a[s][2] = w0[s] & 0xF0F0F0F0u;
+        a[s][3] = w1[s] & 0xF0F0F0F0u;
+      }
+      const uint64_t db = desc0 + ((slot * kPreStage + gi * kPreRows * kGroup) >> 4);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < 4; ++s) wgmma_rs(acc, a[s], db + 2 * s, s);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_acc(acc);
+#pragma unroll
+      for (int s = 0; s < 4; ++s) hopper::fence_acc(a[s]);
+      // the flush: part + d * s / 16 per output (d exact: |d| < 2^22);
+      // a k-block's last group adds its partial to the total
+      if (gi < ng) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i)
+          part[i] = __fadd_rn(part[i], __fmul_rn(__int2float_rn(acc[i]), (i & 2) ? s1 : s0));
+        if (--kleft == 0) {
+#pragma unroll
+          for (int i = 0; i < 64; ++i) {
+            tot[i] = __fadd_rn(tot[i], part[i]);
+            part[i] = 0.0f;
+          }
+          kleft = gb;
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[slot]);
+    if (++slot == stages) slot = 0, ++pass;
+    if (j == 0) row_scales[wg][threadIdx.x & 127] = rs;
+    if (++j == nslices) {   // the unit is done: out = bf16(total * sx)
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+      const int rblk = u / col_tiles;
+      const int n = (u - rblk * col_tiles) * kPreCols + 64 * wg + 16 * warp + gid;
+      if (n < N) {   // N % 128 = 64: the last tile's second warpgroup has no columns
+#pragma unroll
+        for (int jj = 0; jj < kPreRows / 8; ++jj)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int r = 8 * jj + 2 * tig + c, t = rblk * kPreRows + r;
+            if (t < T) {
+              const float f = row_scales[wg][r];
+              __nv_bfloat16* o = out + static_cast<long>(t) * N + n;
+              o[0] = __float2bfloat16_rn(__fmul_rn(tot[4 * jj + c], f));
+              o[8] = __float2bfloat16_rn(__fmul_rn(tot[4 * jj + 2 + c], f));
+            }
+          }
+      }
+      // the next unit's row scales overwrite these
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+#pragma unroll
+      for (int i = 0; i < 64; ++i) tot[i] = 0.0f;
+      j = 0;
+      u += ctas;
+    }
+  }
+}
+
 }  // namespace
 
-// out [T, N] bf16 = bf16(acc * sx) of a8 [T, K] int8 codes with row scales
-// sx [T] f32 against the fragment-layout weights packed [N/8, K/128, 512]
-// and scales [K/128, N] f32; gb = groups per k-block (the TPU kernel's
-// block_k / 64), dividing K/128.  N a multiple of 64.  Returns a
-// cudaError_t.
-extern "C" int lavida_w4_grouped(const void* a8, const void* sx, const void* packed,
+// The prefill regime (T > 256): out [T, N] bf16 = bf16(acc * sx) of the
+// codes x8 [T, K] int8 with row scales sx [T] f32 (the row quantization
+// launched just before, which this launch overlaps under programmatic
+// dependent launch) against the fragment-layout weights packed [N/8, K/128,
+// 512] and scales [K/128, N] f32; gb = groups per k-block (the TPU kernel's
+// block_k / 64), dividing K/128; N a multiple of 64.  The plan
+// (ops/w4_grouped.py::prefill_plan): the column tiles of 128 and row blocks
+// of 128, the persistent CTAs, ring stages and dynamic shared bytes; a plan
+// that does not match these constants is refused.  Returns a cudaError_t.
+extern "C" int lavida_w4_grouped(const void* x8, const void* sx, const void* packed,
                                  const void* scales, void* out, int T, int K, int N, int gb,
+                                 int col_tiles, int row_blocks, int ctas, int stages, int smem,
                                  void* stream) {
-  if (T <= 0 || K <= 0 || K % kGroup || N <= 0 || N % kCtaCols || gb <= 0 ||
-      (K / kGroup) % gb)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(N / kCtaCols, (T + kCtaRows - 1) / kCtaRows);
-  w4_grouped_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(a8), static_cast<const float*>(sx),
-      static_cast<const uint8_t*>(packed), static_cast<const float*>(scales),
-      static_cast<__nv_bfloat16*>(out), T, K, N, gb);
-  return static_cast<int>(cudaGetLastError());
+  constexpr int kBad = static_cast<int>(cudaErrorInvalidValue);
+  const int G = K / kGroup;
+  if (T <= kDecMaxRows || K <= 0 || K % kGroup || N <= 0 || N % 64 || gb <= 0 || G % gb ||
+      col_tiles != (N + kPreCols - 1) / kPreCols || row_blocks != (T + kPreRows - 1) / kPreRows ||
+      ctas < 1 || ctas > col_tiles * row_blocks || stages < 2 || stages > kPreMaxStages ||
+      smem != pre_smem(stages) || smem > kSmemLimit - 1024)
+    return kBad;
+  for (const void* p : {x8, packed, scales})
+    if (reinterpret_cast<uintptr_t>(p) % 16) return kBad;
+  // the codes: K-major rows, 128-byte boxes of a unit's 128 rows, swizzled
+  CUtensorMap tm_x, tm_w, tm_s;
+  const cuuint64_t xd[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(T)};
+  const cuuint64_t xs[1] = {static_cast<cuuint64_t>(K)};
+  const cuuint32_t xb[2] = {kGroup, kPreRows};
+  // the weights as [N/8 tiles][2G half groups][256 bytes]: one box is a
+  // stage's 16 tiles x kPreSG groups
+  const cuuint64_t wd[3] = {256, static_cast<cuuint64_t>(2 * G), static_cast<cuuint64_t>(N / 8)};
+  const cuuint64_t ws[2] = {256, static_cast<cuuint64_t>(G) * 512};
+  const cuuint32_t wb[3] = {256, 2 * kPreSG, 16};
+  // the scales [G, N] f32: one box is a stage's kPreSG groups of 128 columns
+  const cuuint64_t sd[2] = {static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(G)};
+  const cuuint64_t ss[1] = {static_cast<cuuint64_t>(N) * 4};
+  const cuuint32_t sb[2] = {kPreCols, kPreSG};
+  if (!hopper::encode_map(&tm_x, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, x8, xd, xs, xb,
+                          CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !hopper::encode_map(&tm_w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, packed, wd, ws, wb,
+                          CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !hopper::encode_map(&tm_s, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, scales, sd, ss, sb,
+                          CU_TENSOR_MAP_SWIZZLE_NONE))
+    return kBad;
+  const auto st = static_cast<cudaStream_t>(stream);
+  static int allowed = 0;
+  const int err = hopper::allow_smem(w4_prefill_kernel, smem, allowed);
+  if (err) return err;
+  return hopper::launch_dependent(w4_prefill_kernel, dim3(ctas), dim3(kPreThreads), smem, st,
+                                  tm_x, tm_w, tm_s, static_cast<const float*>(sx),
+                                  static_cast<__nv_bfloat16*>(out), T, G, N, gb, col_tiles,
+                                  col_tiles * row_blocks, stages);
 }
 
 // The decode regime (T <= 256): out [T, N] bf16 of the codes x8 [T, K]

@@ -37,15 +37,16 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 # Kernels whose design needs ptxas to give each thread exactly this many
-# registers at launch: the producer warpgroup of short_attention and of the
-# three prefix_flash kernels drops to 24 (`setmaxnreg.dec`) and their two
-# consumer warpgroups rise to 240 (`setmaxnreg.inc`), and 128 x 24 + 256 x
-# 240 = 384 x 168.  With fewer at entry the pool is short and
-# `setmaxnreg.inc` waits for ever.
+# registers at launch: the producer warpgroup of short_attention, of the
+# three prefix_flash kernels and of w4_matmul_grouped's prefill kernel drops
+# to 24 (`setmaxnreg.dec`) and their two consumer warpgroups rise to 240
+# (`setmaxnreg.inc`), and 128 x 24 + 256 x 240 = 384 x 168.  With fewer at
+# entry the pool is short and `setmaxnreg.inc` waits for ever.
 REGISTERS_AT_ENTRY = {"short_attention_kernel": 168,
                       "prefix_flash_fwd_kernel": 168,
                       "prefix_flash_dq_kernel": 168,
-                      "prefix_flash_dkv_kernel": 168}
+                      "prefix_flash_dkv_kernel": 168,
+                      "w4_prefill_kernel": 168}
 
 
 def _sources() -> list[Path]:
@@ -150,7 +151,7 @@ def library() -> ctypes.CDLL:
     lib.lavida_w4_qkv_norm.argtypes = [vp] * 7 + [ci] * 3 + [cf] + [ci] * 3 + [vp]
     lib.lavida_w4_matmul_res.argtypes = [vp] * 7 + [ci] * 6 + [vp]
     lib.lavida_w4_ffn_fused.argtypes = [vp] * 13 + [ci] * 4 + [cf] + [ci] * 6 + [vp]
-    lib.lavida_w4_grouped.argtypes = [vp] * 5 + [ci] * 4 + [vp]
+    lib.lavida_w4_grouped.argtypes = [vp] * 5 + [ci] * 9 + [vp]
     lib.lavida_w4_grouped_decode.argtypes = [vp] * 5 + [ci] * 9 + [vp]
     lib.lavida_kv8_decode_attention.argtypes = [vp] * 7 + [ci] * 6 + [cf, vp]
     lib.lavida_vit_mlp.argtypes = [vp] * 10 + [ci] * 3 + [cf, vp]

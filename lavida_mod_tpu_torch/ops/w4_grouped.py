@@ -9,16 +9,20 @@ compiles into `max(amax, 1e-8) * f32(1/127)`, so the port computes that:
 multiplied with the grouped int4 weights (fragment layout of ops/quant.py,
 scales [K/128, N] f32) and the result is bf16 [T, N].  CUDA tensors run the
 row quantization kernel of csrc/w4_fused.cu and a GEMM of
-csrc/w4_grouped.cu, chosen by the row count alone (`regime`): T <= 256
+csrc/w4_grouped.cu, chosen by the row count alone (`regime`), each a
+wgmma GEMM with the int4 weights widened in registers as the A operand,
+launched under programmatic dependent launch after the row pass: T <= 256
 rows (`DECODE_MAX_ROWS`, the decode steps and the unfused head) take the
-decode kernel, a weight-streaming wgmma GEMM laid out by `decode_plan`
-and launched under programmatic dependent launch after the row pass; more
-rows (the prefill) take the prefill kernel.  Neither falls back to the
-other or to the plain version: a failed build or launch raises.  CPU
-tensors run `w4_matmul_grouped_reference`, which follows the TPU kernel's
-f32 order: inside each k-block of `gb` groups a partial sum starts at 0
-and takes `part + d_g * s_g` group by group, the partial is added to the
-accumulator, and the epilogue is bf16(acc * sx) (pallas_w4.py:212-235).
+decode kernel, which streams the weights past units of 64 columns and up
+to 64 rows (`decode_plan`); more rows (the prefill) take the prefill
+kernel, one persistent CTA per SM on units of 128 x 128 rows and
+columns, two consumer warpgroups of 64 columns each (`prefill_plan`).
+Neither falls back to the other or to the plain version: a failed build or
+launch raises.  CPU tensors run `w4_matmul_grouped_reference`, which
+follows the TPU kernel's f32 order: inside each k-block of `gb` groups a
+partial sum starts at 0 and takes `part + d_g * s_g` group by group, the
+partial is added to the accumulator, and the epilogue is bf16(acc * sx)
+(pallas_w4.py:212-235).
 Both kernels are bit-equal to it; the plain version is bit-equal to the
 Pallas kernel in interpret mode too (tests/test_torch_w4_grouped.py).
 
@@ -146,6 +150,56 @@ def decode_plan(T: int, N: int, sms: int) -> DecodePlan:
     return decode_layout(T, N, sms, best[1])
 
 
+# The prefill kernel's plan (csrc/w4_grouped.cu mirrors each constant and
+# refuses a plan that does not match): a unit is 128 rows (the wgmma N) by
+# 128 columns (two consumer warpgroups of one wgmma M each); a ring stage
+# holds PREFILL_SLICE_GROUPS groups of the unit's 16 n8 tiles of weights,
+# of its rows of codes and of its scales.
+PREFILL_ROWS = 128
+PREFILL_COLS = 128
+PREFILL_SLICE_GROUPS = 4
+PREFILL_MAX_STAGES = 8
+PREFILL_SCALE_BYTES = 2048   # a stage's scales: 4 groups x 128 f32
+
+
+class PrefillPlan(NamedTuple):
+    col_tiles: int    # units along N (the last half empty if N % 128 = 64)
+    row_blocks: int   # units along T (the last ragged)
+    units: int        # col_tiles x row_blocks; unit u is the row block
+    #                   u // col_tiles and the column tile u % col_tiles
+    ctas: int         # persistent CTAs; CTA c owns units c, c + ctas, ...
+    stages: int       # ring stages
+    smem: int         # dynamic shared bytes (ring + 1024 alignment slack)
+
+    def owned(self, c: int) -> range:
+        return range(c, self.units, self.ctas)
+
+
+def prefill_stage_bytes() -> int:
+    """A ring stage: the unit's 16 n8 tiles and its 128 rows of codes for
+    PREFILL_SLICE_GROUPS groups, then their scales (2048 bytes, so the next
+    stage stays on the swizzle's 1024-byte boundary)."""
+    return ((16 * 512 + PREFILL_ROWS * GROUP) * PREFILL_SLICE_GROUPS
+            + PREFILL_SCALE_BYTES)
+
+
+@functools.lru_cache(maxsize=64)
+def prefill_plan(T: int, N: int, sms: int) -> PrefillPlan:
+    """The prefill kernel's layout for T > DECODE_MAX_ROWS rows and a
+    weight of N columns on a card of `sms` SMs (K does not enter it): one
+    CTA per SM, or one per unit if there are fewer; as many ring stages as
+    shared memory holds."""
+    if T <= DECODE_MAX_ROWS or N <= 0 or N % DECODE_COLS:
+        raise ValueError(f"prefill_plan: T = {T}, N = {N}")
+    col_tiles = -(-N // PREFILL_COLS)
+    row_blocks = -(-T // PREFILL_ROWS)
+    units = col_tiles * row_blocks
+    stage = prefill_stage_bytes()
+    stages = min(PREFILL_MAX_STAGES, (SMEM_LIMIT - 2048) // stage)
+    return PrefillPlan(col_tiles, row_blocks, units, min(units, sms), stages,
+                       1024 + stages * stage)
+
+
 @functools.cache
 def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -189,10 +243,12 @@ def w4_matmul_grouped(x: torch.Tensor, packed: torch.Tensor,
             "w4_matmul_grouped (decode)")
         w4_matmul_grouped.decode_launches += 1
     else:
+        p = prefill_plan(T, N, _sms(x.device.index))
         kernels.check(kernels.library().lavida_w4_grouped(
             x8.data_ptr(), sx.data_ptr(), packed.data_ptr(),
             scales.data_ptr(), out.data_ptr(), T, K, N, groups_per_kblock(K),
-            stream), "w4_matmul_grouped (prefill)")
+            p.col_tiles, p.row_blocks, p.ctas, p.stages, p.smem, stream),
+            "w4_matmul_grouped (prefill)")
         w4_matmul_grouped.prefill_launches += 1
     w4_matmul_grouped.launches += 1
     return out

@@ -129,10 +129,11 @@ def test_no_grad_call_skips_the_autograd_function():
     assert out.grad_fn is not None and torch.equal(out.detach(), ref)
 
 
-def _ptxas_log(regs, prefix_regs=(168, 168, 168)):
+def _ptxas_log(regs, prefix_regs=(168, 168, 168), prefill_regs=(168,)):
     """A build log in ptxas -v's format: one short_attention instance per
     register count in `regs`, between two other kernels, then one instance
-    of each prefix_flash kernel (fwd, dq, dkv) with `prefix_regs`."""
+    of each prefix_flash kernel (fwd, dq, dkv) with `prefix_regs`, then one
+    w4_matmul_grouped prefill kernel per count in `prefill_regs`."""
     lines = ["== short_attention.cu",
              "ptxas info    : Compiling entry function '_Z5otherv' for "
              "'sm_90a'", "ptxas info    : Used 96 registers, used 1 "
@@ -155,6 +156,9 @@ def _ptxas_log(regs, prefix_regs=(168, 168, 168)):
     for kind, n in zip(("fwd", "dq", "dkv"), prefix_regs):
         name = f"prefix_flash_{kind}_kernel"
         lines += instance(f"_ZN12_GLOBAL__N_1{len(name)}{name}ILi128EEEv", n)
+    lines.append("== w4_grouped.cu")
+    for n in prefill_regs:
+        lines += instance("_ZN12_GLOBAL__N_117w4_prefill_kernelE14CUtensorMap_st", n)
     return "\n".join(lines)
 
 
@@ -184,6 +188,17 @@ def test_register_check_covers_prefix_flash_kernels(prefix_regs, name):
 
     with pytest.raises(RuntimeError, match=name):
         kernels.check_registers(_ptxas_log((168, 168, 168), prefix_regs))
+
+
+@pytest.mark.parametrize("prefill_regs", [(160,), ()])
+def test_register_check_covers_the_w4_prefill_kernel(prefill_regs):
+    """w4_matmul_grouped's prefill kernel hands its producer's registers
+    over with setmaxnreg as well: it must be in the log, at 168."""
+    from lavida_mod_tpu_torch import kernels
+
+    with pytest.raises(RuntimeError, match="w4_prefill_kernel"):
+        kernels.check_registers(_ptxas_log((168, 168, 168),
+                                           prefill_regs=prefill_regs))
 
 
 @pytest.fixture

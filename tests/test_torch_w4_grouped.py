@@ -17,10 +17,11 @@ interpret mode on the CPU.
     the port's CPU model path keeps (`quant.linear_w4_reference`); the two
     plain forms agree within tests/test_pallas_w4.py's 2 % band.
 On the card the wrapper takes one of two kernels by the row count alone:
-T <= 256 the decode kernel (laid out by `decode_plan`, whose constants the
-CUDA source mirrors), more rows the prefill kernel.  The CPU tests pin the
-dispatch and the plan; both kernels are held to the plain version, bit
-for bit, by the tests that need a card (skipped without):
+T <= 256 the decode kernel (laid out by `decode_plan`), more rows the
+prefill kernel (laid out by `prefill_plan`); the CUDA source mirrors both
+plans' constants.  The CPU tests pin the dispatch and the plans; both
+kernels are held to the plain version, bit for bit, by the tests that need
+a card (skipped without):
     python -m pytest --noconftest -k cuda tests/test_torch_w4_grouped.py
 """
 
@@ -184,21 +185,39 @@ def test_decode_plan(shape, want):
         or p.stages == tg.DECODE_MAX_STAGES
 
 
-def test_decode_variant_edits_apply_to_the_source():
-    """Each diagnostic edit of lavida_mod_tpu_torch/w4_decode_variants.py
-    finds its text exactly once in csrc/w4_grouped.cu, so the variants
-    build what they say."""
+def _variants():
     import importlib.util
 
     root = Path(tg.__file__).parents[1]
     spec = importlib.util.spec_from_file_location(
-        "w4_decode_variants", root / "w4_decode_variants.py")
+        "w4_grouped_variants", root / "w4_grouped_variants.py")
     variants = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(variants)
-    src = (root / "csrc" / "w4_grouped.cu").read_text()
+    return variants, (root / "csrc" / "w4_grouped.cu").read_text()
+
+
+def test_decode_variant_edits_apply_to_the_source():
+    """Each diagnostic edit of the decode kernel in
+    lavida_mod_tpu_torch/w4_grouped_variants.py finds its text exactly once
+    in csrc/w4_grouped.cu, so the variants build what they say."""
+    variants, src = _variants()
     for name, edits in variants.DIAGNOSTICS.items():
         for old, _ in edits:
             assert src.count(old) == 1, (name, old[:60])
+
+
+def test_prefill_variant_edits_apply_to_the_source():
+    """The same for the prefill kernel's diagnostic edits, each inside
+    `w4_prefill_kernel`."""
+    variants, src = _variants()
+    body = src[src.index("w4_prefill_kernel("):]
+    assert variants.REGIMES["prefill"]["entry"] == "lavida_w4_grouped"
+    for name, edits in variants.PREFILL_DIAGNOSTICS.items():
+        for edit in edits:     # (text, new) or (first, last, new)
+            for old in edit[:-1]:
+                assert src.count(old) == 1, (name, old[:60])
+                assert old in body or old.startswith("#include") \
+                    or old.startswith("constexpr int kPre"), (name, old[:60])
 
 
 def test_decode_plan_row_blocks_share_their_weights():
@@ -213,6 +232,63 @@ def test_decode_plan_row_blocks_share_their_weights():
             assert tiles == sorted(tiles)
     with pytest.raises(ValueError):
         tg.decode_plan(257, 4096, 132)
+
+
+def _cuda_const(name):
+    src = (Path(tg.__file__).parents[1] / "csrc" / "w4_grouped.cu").read_text()
+    m = re.search(rf"constexpr int {name} = (\d+);", src)
+    assert m, name
+    return int(m[1])
+
+
+def test_prefill_plan_constants_match_the_cuda_source():
+    """The prefill plan's constants are the ones csrc/w4_grouped.cu checks
+    a plan against; its two consumer warpgroups of one wgmma M each make
+    the unit's columns, the wgmma N its rows."""
+    src = (Path(tg.__file__).parents[1] / "csrc" / "w4_grouped.cu").read_text()
+    assert _cuda_const("kPreRows") == tg.PREFILL_ROWS
+    assert _cuda_const("kPreCols") == tg.PREFILL_COLS == 2 * 64
+    assert _cuda_const("kPreSG") == tg.PREFILL_SLICE_GROUPS
+    assert _cuda_const("kPreMaxStages") == tg.PREFILL_MAX_STAGES
+    assert _cuda_const("kPreSBytes") == tg.PREFILL_SCALE_BYTES
+    assert _cuda_const("kPreConsumers") == 256           # two warpgroups
+    assert "constexpr int kPreThreads = kPreConsumers + 128;" in src
+    assert _cuda_const("kSmemLimit") == tg.SMEM_LIMIT
+    assert (f"wgmma.mma_async.sync.aligned.m64n{tg.PREFILL_ROWS}k32.s32.s8.s8"
+            in src)
+    # the producer warpgroup hands its registers over: 128 x 24 + 256 x
+    # 240 = 384 x 168, the count the build is held to
+    from lavida_mod_tpu_torch import kernels
+    assert kernels.REGISTERS_AT_ENTRY["w4_prefill_kernel"] == 168
+    assert "setmaxnreg.dec.sync.aligned.u32 24;" in src
+    assert "setmaxnreg.inc.sync.aligned.u32 240;" in src
+    with pytest.raises(ValueError):
+        tg.prefill_plan(256, 4096, 132)
+    with pytest.raises(ValueError):
+        tg.prefill_plan(4608, 4000, 132)
+
+
+@pytest.mark.parametrize("N", [4096, 12288, 126464, 576])
+@pytest.mark.parametrize("T", [257, 2304, 4608])
+def test_prefill_plan(T, N):
+    """The units cover T and N once each (the last row block ragged, the
+    last column tile half empty at N % 128 = 64), each CTA owns every
+    ctas-th unit, and the ring is as deep as shared memory allows."""
+    p = tg.prefill_plan(T, N, 132)
+    assert p.row_blocks * tg.PREFILL_ROWS >= T > (p.row_blocks - 1) * tg.PREFILL_ROWS
+    assert p.col_tiles * tg.PREFILL_COLS >= N > (p.col_tiles - 1) * tg.PREFILL_COLS
+    assert p.units == p.col_tiles * p.row_blocks
+    assert p.ctas == min(p.units, 132)
+    owned = sorted(u for c in range(p.ctas) for u in p.owned(c))
+    assert owned == list(range(p.units))
+    assert max(len(p.owned(c)) for c in range(p.ctas)) == -(-p.units // p.ctas)
+    stage = tg.prefill_stage_bytes()
+    assert stage == tg.PREFILL_SLICE_GROUPS * (16 * 512 + 128 * 128 + 512)
+    assert stage % 1024 == 0                   # the swizzle's boundary
+    assert 2 <= p.stages <= tg.PREFILL_MAX_STAGES
+    assert p.smem == 1024 + p.stages * stage <= tg.SMEM_LIMIT - 1024
+    assert (p.stages + 1) * stage + 1024 > tg.SMEM_LIMIT - 1024 \
+        or p.stages == tg.PREFILL_MAX_STAGES
 
 
 # ---------------------------------------------------------------------------
@@ -315,6 +391,74 @@ def test_regime_edge_on_cuda(cuda):
                          before[1] + (kind == "prefill"))
         assert torch.equal(out, tg.w4_matmul_grouped_reference(
             x, packed, scales))
+
+
+@pytest.mark.parametrize("T,K,N,gb", [
+    (257, 4096, 4096, 32),       # one row past the decode regime
+    (1153, 4096, 12288, 32),     # ragged: 9 row blocks and one row
+    (4608 + 17, 4096, 4096, 32),  # the B = 4 prefill and a ragged block
+    (1153, 12288, 4096, 32),     # three k-blocks
+    (300, 18944, 3584, 4),       # a Dream width: 37 k-blocks of 4 groups
+    (1153, 4096, 576, 32),       # N % 128 = 64: a half-empty column tile
+    (513, 768, 576, 2)])         # 3 k-blocks of 2 groups, three slices
+def test_prefill_kernel_bit_equal_to_plain_on_cuda(cuda, T, K, N, gb):
+    assert tg.groups_per_kblock(K) == gb and tg.regime(T) == "prefill"
+    g = torch.Generator(device=cuda).manual_seed(T + K + N)
+    packed, scales = _card_weights(K, N, g, cuda)
+    x = torch.randn(T, K, generator=g, device=cuda).bfloat16()
+    before = tg.w4_matmul_grouped.prefill_launches
+    out = tg.w4_matmul_grouped(x, packed, scales)
+    torch.cuda.synchronize()
+    assert tg.w4_matmul_grouped.prefill_launches == before + 1
+    assert torch.equal(out, tg.w4_matmul_grouped_reference(x, packed, scales))
+
+
+def test_prefill_kernel_chained_calls_on_cuda(cuda):
+    """10 calls back to back without a sync, each after its row pass (the
+    launch overlaps it), new data at the same input address each time and
+    two weights in turns (the tensor maps are cached by address)."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    ws = [_card_weights(4096, 4096, g, cuda) for _ in range(2)]
+    xs = [torch.randn(1153, 4096, generator=g, device=cuda).bfloat16()
+          for _ in range(10)]
+    buf = torch.empty_like(xs[0])
+    outs = []
+    for i, x in enumerate(xs):
+        buf.copy_(x)
+        outs.append(tg.w4_matmul_grouped(buf, *ws[i % 2]))
+    torch.cuda.synchronize()
+    for i, (x, out) in enumerate(zip(xs, outs)):
+        assert torch.equal(out, tg.w4_matmul_grouped_reference(x, *ws[i % 2]))
+
+
+def test_prefill_rejects_a_plan_that_does_not_match_on_cuda(cuda):
+    from lavida_mod_tpu_torch import kernels
+
+    T, K, N = 1024, 4096, 4096
+    x8 = torch.zeros(T, K, dtype=torch.int8, device=cuda)
+    sx = torch.ones(T, device=cuda)
+    packed = torch.zeros(N // 8, K // 128, 512, dtype=torch.uint8,
+                         device=cuda)
+    scales = torch.ones(K // 128, N, device=cuda)
+    out = torch.empty(T, N, dtype=torch.bfloat16, device=cuda)
+    p = tg.prefill_plan(T, N, 132)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = (x8.data_ptr(), sx.data_ptr(), packed.data_ptr(),
+            scales.data_ptr(), out.data_ptr())
+    lib = kernels.library()
+    good = (p.col_tiles, p.row_blocks, p.ctas, p.stages, p.smem)
+    assert lib.lavida_w4_grouped(*ptrs, T, K, N, 32, *good, stream) == 0
+    for bad in [(p.col_tiles, p.row_blocks, p.ctas, p.stages, p.smem + 1024),
+                (p.col_tiles + 1, p.row_blocks, p.ctas, p.stages, p.smem),
+                (p.col_tiles, p.row_blocks - 1, p.ctas, p.stages, p.smem),
+                (p.col_tiles, p.row_blocks, p.units + 1, p.stages, p.smem),
+                (p.col_tiles, p.row_blocks, p.ctas,
+                 tg.PREFILL_MAX_STAGES + 1, p.smem)]:
+        assert lib.lavida_w4_grouped(*ptrs, T, K, N, 32, *bad, stream) != 0
+    # the decode regime's rows are not the prefill kernel's
+    assert lib.lavida_w4_grouped(*ptrs, 256, K, N, 32, p.col_tiles, 2,
+                                 p.ctas, p.stages, p.smem, stream) != 0
+    torch.cuda.synchronize()
 
 
 def test_decode_rejects_a_plan_that_does_not_match_on_cuda(cuda):
