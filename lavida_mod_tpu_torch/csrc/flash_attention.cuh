@@ -48,10 +48,13 @@
 //     to the last, or to plen when every row lies inside the prefix).  A
 //     skipped tile only adds exp2(-1e30 - m) = 0 terms to a row that sees a
 //     key, so skipping changes no bit of it; a CTA holding a row that sees
-//     no key visits every tile, and that row averages v over all S keys (the
-//     TPU's -1e30 behaviour).  The CTA also stores lse = m + log(max(l,
+//     no key visits every tile.  The CTA also stores lse = m + log(max(l,
 //     1e-30)) in natural log, o = acc / max(l, 1e-30), and rescales with the
 //     guard alpha = exp2(min(m_prev - m_new, 0)).
+// A row that sees no key (either mask) sums v over the S keys, each at p =
+// exp2(0) = 1, and divides by the key count the TPU wrapper pads S to
+// (`padded_keys`): its zero pad keys score -1e30 too and add one each to
+// the row sum (the TPU's -1e30 behaviour).
 #pragma once
 
 #include <cuda.h>
@@ -524,6 +527,17 @@ __device__ __forceinline__ void load_tile(unsigned char* dst, const CUtensorMap*
   if (L::kTailCols) tma_load_4d(dst + L::kMain * L::kBox, tail, bar, L::kMain * 64, head, row, b);
 }
 
+// The key count the TPU wrapper pads S to: 128 (short_attention.py:192-205)
+// or, for the prefix-LM kernel, its key block min(512, S rounded up to 128)
+// (prefix_flash.py:349-360).
+template <bool kPrefix>
+__device__ __forceinline__ int padded_keys(int S) {
+  const int s128 = (S + 127) / 128 * 128;
+  if constexpr (!kPrefix) return s128;
+  const int bk = s128 < 512 ? s128 : 512;
+  return (S + bk - 1) / bk * bk;
+}
+
 // The forward kernel's body (the header comment); a __global__ kernel of
 // kThreads threads with one block per SM calls it with its six tensor maps
 // (q, k, v as 64-column boxes of 128 rows, then their tail boxes).  Kernel
@@ -719,6 +733,11 @@ __device__ __forceinline__ void flash_fwd(const CUtensorMap* tm_q, const CUtenso
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  // a row that saw no key (its max still the mask value) has l = S; the TPU
+  // wrapper's zero pad keys add one each, so it divides by the padded count
+  const float pad_keys = static_cast<float>(padded_keys<kPrefix>(S) - S);
+  if (r.m0 <= kMaskValue) l0 += pad_keys;
+  if (r.m1 <= kMaskValue) l1 += pad_keys;
   if constexpr (kPrefix) {
     l0 = fmaxf(l0, 1e-30f);
     l1 = fmaxf(l1, 1e-30f);

@@ -2,12 +2,13 @@
 """Time kernel wrappers of a checkout on one CUDA card, beside the PyTorch
 call that computes the same function:
 
-    python3 lavida_mod_tpu_torch/kernel_times.py [CHECKOUT] [--only w4_grouped]
+    python3 lavida_mod_tpu_torch/kernel_times.py [CHECKOUT] [--only w4_grouped|kv8]
 
 CHECKOUT is the root of a tree whose `lavida_mod_tpu_torch` package is
 timed (default: the tree holding this file), so two versions of the
 kernels can be timed in turns on one card, one process each.  It times
-five groups (`--only w4_grouped` the last alone):
+five groups (`--only w4_grouped` the last alone), and with `--only kv8`
+a sixth alone:
 
   short_attention  per shape of one mixed request (26 SigLIP + 32 prefill
                    launches), against SDPA with the same mask;
@@ -38,6 +39,18 @@ five groups (`--only w4_grouped` the last alone):
                    B = 8 batch with the decode cold, as a batch's 32
                    layers find it; the decode and the prefill split by
                    kernel (the row quantization and the GEMM).
+  kv8_decode_attention  #8 at the kv8 batches' shapes (q [B, 32, 32, 128]
+                   over S = 1184 keys, each batch row front-padded as
+                   generate_batch pads, B = 4 and 8; 512 launches per
+                   batch), cold in L2 (cycled through 4 caches, as a
+                   batch's 32 layers each read their own) and warm, each
+                   with its bound; beside it, as a yardstick of the same
+                   shape and not the same function, the bf16-cache
+                   `dense_attention` that the path without kv8 runs (twice
+                   the cache bytes), also cold; and #8 at Dream-7B's GQA
+                   (28 / 4 heads, B = 4), outside the sums; first, the
+                   largest error against the plain version at each of
+                   chip_smoke.py's #8 cases (KV8_CASES).
 
 Each is timed three ways:
 
@@ -135,8 +148,9 @@ def main(argv: list[str]) -> None:
         i = argv.index("--only")
         only = argv[i + 1]
         argv = argv[:i] + argv[i + 2:]
-        if only != "w4_grouped":
-            raise ValueError(f"--only {only}: only w4_grouped is a group")
+        if only not in ("w4_grouped", "kv8"):
+            raise ValueError(f"--only {only}: the groups are w4_grouped "
+                             f"and kv8")
     tree = os.path.abspath(argv[0] if argv else os.path.dirname(here))
     # import the checkout's package, not a sibling of this file
     sys.path[:] = [tree] + [p for p in sys.path
@@ -180,6 +194,11 @@ def main(argv: list[str]) -> None:
         out = time_w4_grouped(torch, dev, gen, record, name)
         print(json.dumps({"tree": tree, "device": name, "shapes": rows,
                           "w4_grouped": out}))
+        return
+    if only == "kv8":
+        out = time_kv8(torch, dev, gen, record, name)
+        print(json.dumps({"tree": tree, "device": name, "shapes": rows,
+                          "kv8": out}))
         return
     with torch.no_grad():
         for shape, kv, valid, per in [((5, 729, 16, 72), (5, 729, 16, 72),
@@ -446,6 +465,116 @@ def time_w4_grouped(torch, dev, gen, record, card) -> dict:
           f" head {s8['decode']:.2f} ms (bound {s8['bound_decode']:.2f}) "
           f"({card})")
     out["sums"] = sums
+    return out
+
+
+
+KV8_CACHES = 4     # caches cycled for a cold read: 4 x 40 MB at B = 4
+KV8_LAUNCHES = 32 * 16   # per batch: 32 layers x 16 decode steps
+# chip_smoke.py's #8 cases, (B, T, H, Hkv, hd, S, pad0): the B = 4 and B = 8
+# kv8 batches, a ragged GQA case, G = 16, a long cache (many key chunks),
+# Dream-7B's GQA and a batch row with every key masked; batch row b > 0 is
+# front-padded by (37 b) % (S / 4) keys, row 0 by pad0 (-1: all of them)
+KV8_CASES = [(4, 32, 32, 32, 128, 1184, None), (8, 32, 32, 32, 128, 1184, None),
+             (1, 13, 8, 2, 64, 77, None), (2, 32, 16, 1, 128, 300, None),
+             (2, 32, 8, 8, 128, 16384, 700), (4, 32, 28, 4, 128, 1184, None),
+             (2, 32, 32, 32, 128, 1184, -1)]
+
+
+def kv8_case_inputs(torch, randn, B, T, H, Hkv, hd, S, pad0):
+    """q, k8, ks, v8, vs and the [B, S] bool mask of a KV8_CASES case, drawn
+    with `randn(*shape)` (a tensor on the card)."""
+    from lavida_mod_tpu_torch.ops import kv8_attention as tk
+
+    q = randn(B, T, H, hd).bfloat16()
+    k8, ks = tk.quantize_kv(randn(B, S, Hkv, hd).bfloat16())
+    v8, vs = tk.quantize_kv(randn(B, S, Hkv, hd).bfloat16())
+    valid = torch.ones(B, S, dtype=torch.bool, device=q.device)
+    for b in range(B):
+        valid[b, :(37 * b) % (S // 4)] = False
+    if pad0 is not None:
+        valid[0, :S if pad0 < 0 else pad0] = False
+    return q, k8, ks, v8, vs, valid
+
+
+def time_kv8(torch, dev, gen, record, card) -> dict:
+    """#8 at the kv8 batches' shapes (module note): device time per call
+    cold and warm, per batch (512 launches) cold, each call's bound (its
+    cache, scales, mask, q and out bytes over 3.35 TB/s), and the bf16-cache
+    dense_attention of the same shape beside it."""
+    from lavida_mod_tpu_torch.ops import kv8_attention as tk
+    from lavida_mod_tpu_torch.ops.attention import dense_attention, make_bias
+
+    out = {"calls": [], "per_batch": {}, "errors": []}
+    # the largest error against the plain version at chip_smoke's cases
+    # (a tree whose wrapper refuses a case says so)
+    for case in KV8_CASES:
+        args = kv8_case_inputs(torch, lambda *shape: torch.randn(
+            *shape, device=dev, generator=gen), *case)
+        try:
+            got = tk.kv8_decode_attention(*args)
+        except ValueError as e:
+            print(f"[times] kv8_decode_attention case {case}: refused ({e})")
+            out["errors"].append({"case": case, "refused": str(e)})
+            continue
+        err = (got.float() - tk.kv8_decode_attention_reference(*args)
+               .float()).abs().max().item()
+        print(f"[times] kv8_decode_attention case {case}: max error {err:.3e} "
+              f"against the plain version (limit 6e-3)")
+        out["errors"].append({"case": case, "max_abs_err": err})
+        del args, got
+    T, hd, S = 32, 128, 1184
+    with torch.no_grad():
+        for B, H, Hkv, summed in [(4, 32, 32, True), (8, 32, 32, True),
+                                  (4, 28, 4, False)]:
+            q = torch.randn(B, T, H, hd, device=dev, generator=gen).bfloat16()
+            valid = torch.ones(B, S, dtype=torch.bool, device=dev)
+            for b in range(B):   # front padding, as generate_batch's
+                valid[b, :(37 * b) % (S // 4)] = False
+            kv = [(torch.randn(B, S, Hkv, hd, device=dev, generator=gen)
+                   .bfloat16(), torch.randn(B, S, Hkv, hd, device=dev,
+                                            generator=gen).bfloat16())
+                  for _ in range(KV8_CACHES)]
+            caches = [(*tk.quantize_kv(k), *tk.quantize_kv(v))
+                      for k, v in kv]
+            bias = make_bias(kv_valid=valid)
+            nbytes = 2 * B * Hkv * S * (hd + 4) + 4 * q.numel() + B * S
+            bound = nbytes / 3.35e12 * 1e3
+            shape = f"q[{B},{T},{H},{hd}] Hkv {Hkv} S {S}"
+            times = {}
+            for temp, n in [("cold", KV8_CACHES), ("warm", 1)]:
+                it = iter(range(1 << 62))
+
+                def call(n=n, it=it):
+                    k8, ks, v8, vs = caches[next(it) % n]
+                    return tk.kv8_decode_attention(q, k8, ks, v8, vs, valid)
+
+                def dense(n=n, it=iter(range(1 << 62))):
+                    k, v = kv[next(it) % n]
+                    return dense_attention(q, k, v, bias=bias)
+
+                times[temp] = three_times(call)
+                times[f"dense_{temp}"] = three_times(dense)
+                record("kv8_decode_attention", f"{shape} {temp} ({n} caches)",
+                       0, times[temp], times[f"dense_{temp}"])
+            ms = times["cold"]["ms"]
+            print(f"[times] kv8_decode_attention {shape}: device {ms:.4f} ms "
+                  f"per call cold, {times['warm']['ms']:.4f} warm, bound "
+                  f"{bound:.4f} ms ({100 * bound / ms:.1f} % of it cold); "
+                  f"bf16 dense_attention {times['dense_cold']['ms']:.4f} ms "
+                  f"cold ({card})")
+            out["calls"].append({"shape": [B, T, H, Hkv, hd, S],
+                                 "bound_ms": bound, **times})
+            if summed:
+                per = {k: KV8_LAUNCHES * t["ms"] for k, t in times.items()}
+                per["bound"] = KV8_LAUNCHES * bound
+                out["per_batch"][f"b{B}"] = per
+                print(f"[times] kv8_decode_attention per B = {B} kv8 batch "
+                      f"({KV8_LAUNCHES} launches): cold {per['cold']:.2f} ms,"
+                      f" warm {per['warm']:.2f} ms, bound {per['bound']:.2f} "
+                      f"ms; bf16 dense_attention cold {per['dense_cold']:.2f}"
+                      f" ms ({card})")
+            del kv, caches
     return out
 
 

@@ -153,7 +153,7 @@ def library() -> ctypes.CDLL:
     lib.lavida_w4_ffn_fused.argtypes = [vp] * 13 + [ci] * 4 + [cf] + [ci] * 6 + [vp]
     lib.lavida_w4_grouped.argtypes = [vp] * 5 + [ci] * 9 + [vp]
     lib.lavida_w4_grouped_decode.argtypes = [vp] * 5 + [ci] * 9 + [vp]
-    lib.lavida_kv8_decode_attention.argtypes = [vp] * 7 + [ci] * 6 + [cf, vp]
+    lib.lavida_kv8_decode_attention.argtypes = [vp] * 8 + [ci] * 6 + [cf] + [ci] * 6 + [vp]
     lib.lavida_vit_mlp.argtypes = [vp] * 10 + [ci] * 3 + [cf, vp]
     lib.lavida_prefix_flash_fwd.argtypes = [vp] * 7 + [ci] * 6 + [cf, vp]
     lib.lavida_prefix_flash_dq.argtypes = [vp] * 9 + [ci] * 6 + [cf, vp]

@@ -27,9 +27,11 @@ lse), 0), ds = p * (dp - delta), dq = scale * bf16(ds) @ k, dv = bf16(p)^T
 all keys where the kernels stream tiles (the TPU 512-row blocks, the CUDA
 128-key ones): the same function up to rounding.  The TPU wrapper pads T
 and S to its block (at T = 1152 to 1536) and masks the pad keys; the CUDA
-kernels mask the ragged edges in place, which only differs for a row that
-sees no key at all (it averages v over the S real keys here), a row no
-training batch builds.
+kernels mask the ragged edges in place.  A row that sees no key at all sums
+v over the S real keys and, as the TPU kernel does, divides by the padded
+key count (`padded_keys`): the TPU's zero pad keys score -1e30 too and add
+one each to its row sum.  No training batch builds such a row; its lse is
+-1e30 either way, so the backward is unchanged.
 """
 
 from __future__ import annotations
@@ -72,6 +74,13 @@ def _scores(q, k, scale):
                         k.float()) * scale
 
 
+def padded_keys(S: int) -> int:
+    """The key count the TPU wrapper pads S to: a multiple of its key block
+    min(512, S rounded up to 128) (prefix_flash.py:349-360)."""
+    bk = min(512, -(-S // 128) * 128)
+    return -(-S // bk) * bk
+
+
 def prefix_flash_fwd_reference(q, k, v, plen, kv_valid=None, scale=None):
     """Plain version of the forward: (o [B, T, Hq, hd] in q's dtype, lse
     [B, Hq, T] f32)."""
@@ -82,7 +91,8 @@ def prefix_flash_fwd_reference(q, k, v, plen, kv_valid=None, scale=None):
                     NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
+    l = p.sum(dim=-1, keepdim=True)
+    l = torch.where(m <= NEG_INF, l + (padded_keys(S) - S), l).clamp(min=1e-30)
     o = torch.einsum("bhgts,bshd->bhgtd", p.to(v.dtype).float(), v.float()) / l
     lse = (m + torch.log(l))[..., 0].reshape(B, Hq, T)
     return o.permute(0, 3, 1, 2, 4).reshape(B, T, Hq, hd).to(q.dtype), lse

@@ -13,9 +13,11 @@ scores and softmax are f32; the unnormalized p = exp(s - max) is cast to
 v's dtype before the PV product, which accumulates in f32 and is divided
 by the row sum; the output has q's dtype.  The TPU wrapper pads
 T and S to 128 with pad segments -1/-2; here the ragged edges are masked
-in the kernel instead, so a query row that matches no key of its segment
-averages v over the S real keys (the TPU kernel also counts its zero pad
-keys in that average).  The main path never builds such a row.
+in the kernel instead.  A query row that matches no key of its segment
+sums v over the S real keys and, as the TPU kernel does, divides by the
+padded key count ceil(S / 128) * 128: the TPU's zero pad keys score -1e30
+too and add one each to its row sum.  The main path never builds such a
+row.
 
 Differentiable (`_ShortAttention`, an autograd Function, the counterpart of
 the TPU kernel's custom VJP): the backward recomputes through
@@ -59,9 +61,14 @@ def short_attention_reference(
         s = torch.where(ok, s, torch.full_like(s, NEG_INF))
     # the TPU kernel's order: unnormalized p rounded to v's dtype for the
     # PV product, the row sum applied after it
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
     o = torch.einsum("bhgts,bshd->bhgtd", p.to(v.dtype).float(), v.float())
-    o = o / p.sum(dim=-1, keepdim=True)
+    l = p.sum(dim=-1, keepdim=True)
+    if segment_ids_q is not None:   # a row that sees no key: + the pad keys
+        S = k.shape[1]
+        l = torch.where(m <= NEG_INF, l + (-(-S // 128) * 128 - S), l)
+    o = o / l
     return o.permute(0, 3, 1, 2, 4).reshape(B, T, Hq, hd).to(q.dtype)
 
 

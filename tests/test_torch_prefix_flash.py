@@ -32,7 +32,13 @@ CASES = {
     "gqa_plen_past_T": (2, 256, 4, 2, 64, [37, 300], [256, 230], False),
     "gqa_first_block_masked": (2, 160, 4, 2, 32, [0, 140], [160, 150], False),
     "gqa_bf16": (2, 200, 4, 2, 64, [50, 0], [200, 170], True),
+    # batch row 1 sees no key: its rows divide by the padded key count
+    "blind_row": (2, 200, 4, 2, 64, [0, 50], [200, 0], False),
+    "blind_row_long": (2, 600, 2, 1, 32, [100, 30], [550, 0], False),
 }
+# cases the JAX side runs at its default 512-row blocks (S > 512 pads to a
+# multiple of 512, not of 128); the others at 128
+DEFAULT_BLOCKS = ("blind_row_long",)
 
 
 def _inputs(name):
@@ -56,21 +62,22 @@ _JAX = """
 import jax, jax.numpy as jnp
 from lavida_mod_tpu.ops import prefix_flash as pf
 pf._INTERPRET[0] = True
-for name, bf16 in NAMES:
+for name, bf16, blk in NAMES:
     dt = jnp.bfloat16 if bf16 else jnp.float32
     q, k, v, do = (jnp.asarray(IN[name + n], dt) for n in ("q", "k", "v", "do"))
     plen, valid = jnp.asarray(IN[name + "plen"]), jnp.asarray(IN[name + "valid"])
     f = lambda q, k, v: pf.prefix_flash_attention(
-        q, k, v, plen, valid, block_q=128, block_k=128)
+        q, k, v, plen, valid, block_q=blk, block_k=blk)
     o, vjp = jax.vjp(f, q, k, v)
     dq, dk, dv = vjp(do)
     B, T, Hq, hd = q.shape
-    Tp = -(-T // 128) * 128
+    bq = min(blk, -(-T // 128) * 128)
+    Tp = -(-T // bq) * bq
     pad = lambda a: jnp.pad(a, ((0, 0), (0, Tp - T)) + ((0, 0),) * (a.ndim - 2))
     _, lse = pf._fwd(pad(q).transpose(0, 2, 1, 3), pad(k).transpose(0, 2, 1, 3),
                      pad(v).transpose(0, 2, 1, 3), plen,
                      pad(valid).astype(jnp.int32)[:, None, :],
-                     scale=hd ** -0.5, bq=128, bk=128)
+                     scale=hd ** -0.5, bq=bq, bk=bq)
     for n, a in (("o", o), ("dq", dq), ("dk", dk), ("dv", dv),
                  ("lse", lse[:, :, 0, :T])):
         OUT[name + n] = np.asarray(a.astype(jnp.float32))
@@ -81,7 +88,8 @@ for name, bf16 in NAMES:
 def jax_ref(tmp_path_factory):
     inputs = {name + n: a for name in CASES
               for n, a in _inputs(name).items()}
-    names = [(name, CASES[name][-1]) for name in CASES]
+    names = [(name, CASES[name][-1], 512 if name in DEFAULT_BLOCKS else 128)
+             for name in CASES]
     return strict_jax(f"NAMES = {names!r}\n" + _JAX,
                       tmp_path_factory.mktemp("prefix_flash"), inputs)
 
@@ -128,7 +136,8 @@ def test_bf16_within_band_of_jax_kernels(jax_ref):
 def test_plain_matches_dense_masked_softmax():
     """The plain forward is masked softmax attention: against the port's
     dense_attention with make_bias's prefix mask, and a row whose keys are
-    all hidden gets the average of v."""
+    all hidden gets the sum of v over the padded key count (T = 70 pads to
+    128, as the TPU wrapper's zero pad keys do)."""
     from lavida_mod_tpu_torch.ops.attention import dense_attention, make_bias
 
     g = torch.Generator().manual_seed(0)
@@ -144,8 +153,9 @@ def test_plain_matches_dense_masked_softmax():
                                atol=2e-6, rtol=2e-6)
     assert lse.shape == (B, Hq, T)
     o, _ = tpf.prefix_flash_fwd(q, k, v, plen, torch.zeros(B, T, dtype=bool))
+    assert tpf.padded_keys(T) == 128
     torch.testing.assert_close(
-        o, v.mean(1, keepdim=True).repeat_interleave(Hq // Hkv, 2)
+        o, (v.sum(1, keepdim=True) / 128).repeat_interleave(Hq // Hkv, 2)
         .expand(B, T, Hq, hd), atol=2e-6, rtol=2e-6)
 
 
@@ -185,6 +195,8 @@ CUDA_CASES = [
     (1, 333, 190, 14, 2, 40, [100], [185], 0),            # T > S, hd 40, G 7
     (1, 130, 130, 2, 2, 32, [50], [0], 0),                # no row sees a key
     (1, 256, 256, 4, 4, 96, [64], [256], 0),              # hd 96
+    # batch row 1 sees no key: divided by the padded count 1024 (S > 512)
+    (2, 600, 600, 4, 2, 64, [100, 30], [590, 0], 0),
 ]
 
 

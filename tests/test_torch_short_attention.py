@@ -35,6 +35,8 @@ def _inputs(seed, B, T, S, Hq, Hkv, hd, masked):
         kv_seg = rng.integers(0, 2, (B, S)).astype(np.int32)
         # every query keeps a key of its own segment (no all-masked row)
         kv_seg[:, 0], kv_seg[:, 1] = 1, 0
+        if masked == "blind":   # but every 7th, whose segment no key carries
+            q_seg[:, ::7] = 2
     return q, k, v, q_seg, kv_seg
 
 
@@ -63,6 +65,25 @@ def test_plain_matches_jax_kernel(B, T, S, Hq, Hkv, hd, masked):
     np.testing.assert_allclose(out_t, out_j, atol=2e-5, rtol=2e-5)
 
 
+@pytest.mark.parametrize("B,T,S,Hq,Hkv,hd", [
+    (1, 100, 150, 4, 2, 64),            # S padded to 256 by the TPU wrapper
+    (2, 60, 128, 4, 4, 72),             # S a multiple of 128: no pad keys
+    (1, 130, 300, 2, 1, 128),           # T and S padded, G = 2
+])
+def test_row_that_sees_no_key_matches_jax_kernel(B, T, S, Hq, Hkv, hd):
+    """A query whose segment no key carries: every key scores -1e30, so
+    the row sums v over the S keys and divides by the padded key count
+    (the TPU wrapper's zero pad keys add one each to the row sum)."""
+    q, k, v, q_seg, kv_seg = _inputs(6, B, T, S, Hq, Hkv, hd, "blind")
+    out_t, out_j = _both(q, k, v, q_seg, kv_seg)
+    np.testing.assert_allclose(out_t, out_j, atol=2e-5, rtol=2e-5)
+    Sp = -(-S // 128) * 128
+    blind = out_t[:, ::7]                              # [B, rows, Hq, hd]
+    want = np.repeat(v.sum(1) / Sp, Hq // Hkv, axis=1)[:, None]
+    np.testing.assert_allclose(blind, np.broadcast_to(want, blind.shape),
+                               atol=2e-6, rtol=2e-6)
+
+
 def test_padding_mask_like_prefill():
     """The prefill's masks: every query valid, keys valid up to P of a
     [P + G] buffer (the filled-rows mask)."""
@@ -87,6 +108,7 @@ def test_cpu_routes_do_not_launch_the_kernel():
 @pytest.mark.parametrize("B,T,S,Hq,Hkv,hd,masked", [
     (1, 100, 150, 4, 2, 64, True),      # ragged + GQA + segment ids
     (2, 60, 60, 4, 4, 72, False),       # SigLIP so400m head dim
+    (1, 100, 150, 4, 2, 64, "blind"),   # rows that see no key
 ])
 def test_vjp_matches_jax_custom_vjp(B, T, S, Hq, Hkv, hd, masked):
     """The autograd Function's backward against jax.vjp of the TPU op,
@@ -223,6 +245,29 @@ def _segments(kind, B, T, S, device):
         kv_seg = (torch.arange(S, device=device) >= 260).int()
         q_seg[:, ::5] = 0
     return q_seg, kv_seg[None].expand(B, -1).contiguous()
+
+
+def test_row_that_sees_no_key_on_cuda(cuda):
+    """Rows whose segment no key carries: the kernel sums v over the S
+    keys and divides by the padded count ceil(S / 128) * 128, as the plain
+    version (and the TPU kernel) does; the other rows are unchanged."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    B, T, S, Hq, Hkv, hd = 2, 150, 300, 8, 2, 128
+    q = torch.randn(B, T, Hq, hd, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(B, S, Hkv, hd, generator=g, device=cuda).bfloat16()
+            for _ in range(2))
+    q_seg = torch.ones(B, T, dtype=torch.int32, device=cuda)
+    q_seg[:, ::7] = 2
+    kv_seg = torch.ones(B, S, dtype=torch.int32, device=cuda)
+    out = short_attention(q, k, v, q_seg, kv_seg)
+    ref = short_attention_reference(q, k, v, q_seg, kv_seg)
+    torch.testing.assert_close(out.float(), ref.float(), atol=8e-3,
+                               rtol=8e-3)
+    want = (v.float().sum(1) / 384).repeat_interleave(Hq // Hkv, 1)
+    torch.testing.assert_close(out[:, ::7].float(),
+                               want[:, None].expand(B, len(range(0, T, 7)),
+                                                    Hq, hd),
+                               atol=8e-3, rtol=8e-3)
 
 
 @pytest.mark.parametrize("B,T,S,Hq,Hkv,hd,kind", [
