@@ -11,8 +11,9 @@ exits non-zero and never prints the final line:
   2. build: nvcc compiles the port's CUDA kernels from csrc/, one compiler
      per source, in parallel (timed); ptxas's registers and spills per
      kernel, and the register count that the setmaxnreg of
-     short_attention, prefix_flash and w4_matmul_grouped's prefill kernel
-     needs held in every instance (kernels.check_registers).
+     short_attention, prefix_flash, w4_matmul_grouped's prefill kernel and
+     fused_vit_mlp's GEMM needs held in every instance
+     (kernels.check_registers).
   3. kernels vs their plain PyTorch versions on the card, at the main
      paths' shapes plus a ragged/odd case each: max error and time of each
      (on the device alone, and back to back as the host issues the calls)
@@ -48,6 +49,11 @@ exits non-zero and never prints the final line:
      within 6e-3 of its plain version at the B = 4 and B = 8 kv8 batches'
      shapes, a ragged GQA case, G = 16, S = 16384 (many key chunks),
      Dream-7B's G = 7 and a batch row with every key masked.
+     fused_vit_mlp within 5e-2 of its plain version at one image (M =
+     3645), 20 views (M = 14580) and a ragged M 77 / D 256 / F 520, its
+     error printed beside its first design's, the port's unfused chain
+     timed beside it as a yardstick, and at one image the time each of
+     its three launches (LN, fc1, fc2) adds.
   4. the bf16 main path at full width: LaViDaConfig() (LLaDA-8B + SigLIP
      so400m) in bf16 with random weights made on the card from seed 0,
      three requests through LaViDa.generate_fused (gen 32, 16 steps, prefix
@@ -128,12 +134,17 @@ import time
 import numpy as np
 
 from lavida_mod_tpu_torch.kernel_times import (KV8_CASES, added_times, cuda_ms,
-                                                host_us, kv8_case_inputs)
+                                                host_us, kernel_split,
+                                                kv8_case_inputs)
 from lavida_mod_tpu_torch.step_times import print_by_kind
 
 SIGLIP_LAYERS = 26   # so400m's 27 layers less the dropped last one
 LLADA_LAYERS = 32
 LLADA_LINEARS = 7    # q, k, v, attn_out, ff_proj, up_proj, ff_out
+# fused_vit_mlp's largest error against its plain version at phase 3's
+# cases (by M), as its first design (mma.sync on a cp.async ring) read it
+# on an NVIDIA H100 80GB HBM3
+VIT_FIRST_DESIGN_ERR = {3645: 3.125e-2, 14580: 3.125e-2, 77: 3.906e-3}
 # H100 SXM published peaks (dense): HBM bytes/s, bf16 flop/s, int8 op/s
 HBM_BPS, BF16_FLOPS, INT8_OPS = 3.35e12, 989e12, 1979e12
 
@@ -836,7 +847,14 @@ def phase_batch_kernels(torch, device, res):
 
     # fused_vit_mlp: one image (5 views x 729 tokens) per call in the
     # adapter path, 26 layers x 4 images per batch; 20 views at once is
-    # bench's batched encode; a ragged case
+    # bench's batched encode; a ragged case.  Beside each: its error next to
+    # the first (mma.sync) design's on the same inputs, and the port's
+    # unfused chain as a yardstick that the path never calls; at one image
+    # the time each of the three launches adds
+    import torch.nn.functional as tF
+    from lavida_mod_tpu_torch.ops.activations import gelu_tanh
+    from lavida_mod_tpu_torch.ops.norms import layer_norm
+
     D, F = 1152, 4304
     w = [randn(F, D, scale=0.03).bfloat16(), randn(F, scale=0.1).bfloat16(),
          randn(D, F, scale=0.03).bfloat16(), randn(D, scale=0.1).bfloat16()]
@@ -862,6 +880,20 @@ def phase_batch_kernels(torch, device, res):
                 cuda_ms(lambda: tv.fused_vit_mlp_reference(*args), 3), None,
                 4 * M * Dm * Fm, 4 * M * Dm + 4 * Dm * Fm + 2 * (Fm + 3 * Dm),
                 note=" (limit 5e-2)")
+        xa, g, b, w1, b1, w2, b2 = args
+        chain_ms = cuda_ms(lambda: xa + tF.linear(gelu_tanh(tF.linear(
+            layer_norm(xa, g, b, 1e-6), w1, b1)), w2, b2))
+        print(f"[kernels] fused_vit_mlp M {M} D {Dm} F {Fm}: max error "
+              f"{err:.3e} against the plain version, the first (mma.sync) "
+              f"design's {VIT_FIRST_DESIGN_ERR[M]:.3e} on these inputs; "
+              f"yardstick, never called by the path: the unfused chain "
+              f"(cuBLAS GEMMs, eager elementwise) {chain_ms:.4f} ms")
+        if per:
+            for name, (added, ms) in sorted(
+                    kernel_split(torch, lambda: tv.fused_vit_mlp(*args)).items(),
+                    key=lambda kv: -kv[1][0]):
+                print(f"[kernels] fused_vit_mlp M {M} split by launch: adds "
+                      f"{added:.4f} ms, runs {ms:.4f} ms  {name[:90]}")
 
 
 def _tree_bytes(modules) -> int:

@@ -2,13 +2,13 @@
 """Time kernel wrappers of a checkout on one CUDA card, beside the PyTorch
 call that computes the same function:
 
-    python3 lavida_mod_tpu_torch/kernel_times.py [CHECKOUT] [--only w4_grouped|kv8]
+    python3 lavida_mod_tpu_torch/kernel_times.py [CHECKOUT] [--only w4_grouped|kv8|vit_mlp]
 
 CHECKOUT is the root of a tree whose `lavida_mod_tpu_torch` package is
 timed (default: the tree holding this file), so two versions of the
 kernels can be timed in turns on one card, one process each.  It times
 five groups (`--only w4_grouped` the last alone), and with `--only kv8`
-a sixth alone:
+or `--only vit_mlp` a sixth or a seventh alone:
 
   short_attention  per shape of one mixed request (26 SigLIP + 32 prefill
                    launches), against SDPA with the same mask;
@@ -51,6 +51,20 @@ a sixth alone:
                    (28 / 4 heads, B = 4), outside the sums; first, the
                    largest error against the plain version at each of
                    chip_smoke.py's #8 cases (KV8_CASES).
+  fused_vit_mlp    #9 at the batched path's call (one image: M = 3645 =
+                   5 views x 729 rows, D = 1152, F = 4304; 104 launches
+                   per B = 4 batch), at 20 views at once (M = 14580) and
+                   at a ragged M 77 / D 256 / F 520, each with its weights
+                   cold in L2 (cycled through 3 copies, 59 MB, as a
+                   batch's 26 layers each read their own) and warm, with
+                   its bound (4 M D F operations at 989 TFLOP/s) and its
+                   largest error against the plain version; split by its
+                   three launches (LN, fc1, fc2: the time each adds under
+                   PDL, `kernel_split`); beside it, as yardsticks that
+                   the path never calls, the port's unfused chain (x +
+                   fc2(gelu_tanh(fc1(layer_norm(x)))): cuBLAS GEMMs and
+                   eager elementwise kernels, models/siglip.py) and its
+                   two F.linear products alone.
 
 Each is timed three ways:
 
@@ -148,9 +162,9 @@ def main(argv: list[str]) -> None:
         i = argv.index("--only")
         only = argv[i + 1]
         argv = argv[:i] + argv[i + 2:]
-        if only not in ("w4_grouped", "kv8"):
-            raise ValueError(f"--only {only}: the groups are w4_grouped "
-                             f"and kv8")
+        if only not in ("w4_grouped", "kv8", "vit_mlp"):
+            raise ValueError(f"--only {only}: the groups are w4_grouped, "
+                             f"kv8 and vit_mlp")
     tree = os.path.abspath(argv[0] if argv else os.path.dirname(here))
     # import the checkout's package, not a sibling of this file
     sys.path[:] = [tree] + [p for p in sys.path
@@ -199,6 +213,11 @@ def main(argv: list[str]) -> None:
         out = time_kv8(torch, dev, gen, record, name)
         print(json.dumps({"tree": tree, "device": name, "shapes": rows,
                           "kv8": out}))
+        return
+    if only == "vit_mlp":
+        out = time_vit_mlp(torch, dev, gen, record, name)
+        print(json.dumps({"tree": tree, "device": name, "shapes": rows,
+                          "vit_mlp": out}))
         return
     with torch.no_grad():
         for shape, kv, valid, per in [((5, 729, 16, 72), (5, 729, 16, 72),
@@ -575,6 +594,103 @@ def time_kv8(torch, dev, gen, record, card) -> dict:
                       f"ms; bf16 dense_attention cold {per['dense_cold']:.2f}"
                       f" ms ({card})")
             del kv, caches
+    return out
+
+
+VIT_LAUNCHES = 4 * 26   # per B = 4 batch: 26 SigLIP layers x 4 images
+VIT_COPIES = 3          # weight copies cycled for a cold read: 3 x 19.8 MB
+# (M, D, F, launches per B = 4 batch): one image, 20 views, a ragged case
+VIT_CASES = [(3645, 1152, 4304, VIT_LAUNCHES), (14580, 1152, 4304, 0),
+             (77, 256, 520, 0)]
+
+
+def vit_mlp_bound_ms(M, D, F):
+    """The least time of one #9 call: its 4 M D F operations at 989 TFLOP/s
+    or its bytes (x and out, the weights, the biases and LN's affine) at
+    3.35 TB/s, whichever is longer."""
+    nbytes = 4 * M * D + 4 * D * F + 2 * (F + 3 * D)
+    return max(4 * M * D * F / 989e12, nbytes / 3.35e12) * 1e3
+
+
+def time_vit_mlp(torch, dev, gen, record, card) -> dict:
+    """#9 at the batched path's shapes (module note): device time per call
+    cold and warm, per B = 4 batch, the bound, the split by launch, the
+    unfused chain and the two F.linear products beside it."""
+    import torch.nn.functional as F
+    from lavida_mod_tpu_torch.ops import vit_mlp as tv
+    from lavida_mod_tpu_torch.ops.activations import gelu_tanh
+    from lavida_mod_tpu_torch.ops.norms import layer_norm
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, device=dev, generator=gen)
+                * scale).bfloat16()
+
+    out = {"calls": [], "splits": {}, "per_batch": {}}
+    with torch.no_grad():
+        for M, D, Fd, per in VIT_CASES:
+            x = randn(M, D)
+            ws = [((1 + randn(D, scale=0.1)).bfloat16(), randn(D, scale=0.1),
+                   randn(Fd, D, scale=0.03), randn(Fd, scale=0.1),
+                   randn(D, Fd, scale=0.03), randn(D, scale=0.1))
+                  for _ in range(VIT_COPIES)]
+            err = (tv.fused_vit_mlp(x, *ws[0]).float()
+                   - tv.fused_vit_mlp_reference(x, *ws[0]).float()
+                   ).abs().max().item()
+            h = randn(M, Fd)      # fc2's input for the products alone
+            shape = f"M {M} D {D} F {Fd}"
+            times = {}
+            for temp, n in [("cold", VIT_COPIES), ("warm", 1)]:
+                def cycle(n=n, it=iter(range(1 << 62))):
+                    return ws[next(it) % n]
+
+                def call():
+                    return tv.fused_vit_mlp(x, *cycle())
+
+                def chain():
+                    g, b, w1, b1, w2, b2 = cycle()
+                    return x + F.linear(gelu_tanh(F.linear(
+                        layer_norm(x, g, b, 1e-6), w1, b1)), w2, b2)
+
+                def linears():
+                    _, _, w1, b1, w2, b2 = cycle()
+                    return F.linear(x, w1, b1), F.linear(h, w2, b2)
+
+                times[temp] = three_times(call)
+                times[f"chain_{temp}"] = three_times(chain)
+                times[f"linears_{temp}"] = three_times(linears)
+                record("fused_vit_mlp", f"{shape} {temp} ({n} weight copies)",
+                       0, times[temp], None)
+                if M == 3645 or temp == "warm":
+                    out["splits"][f"{shape} {temp}"] = kernel_split(torch, call)
+            b = vit_mlp_bound_ms(M, D, Fd)
+            ms = times["cold"]["ms"]
+            print(f"[times] fused_vit_mlp {shape}: device {ms:.4f} ms per "
+                  f"call cold, {times['warm']['ms']:.4f} warm, bound {b:.4f} "
+                  f"ms ({100 * b / ms:.1f} % of it cold); max error "
+                  f"{err:.3e} against the plain version (limit 5e-2); "
+                  f"yardsticks the path never calls: the unfused chain "
+                  f"{times['chain_cold']['ms']:.4f} ms cold, "
+                  f"{times['chain_warm']['ms']:.4f} warm, its two F.linear "
+                  f"products {times['linears_cold']['ms']:.4f} cold, "
+                  f"{times['linears_warm']['ms']:.4f} warm ({card})")
+            out["calls"].append({"shape": [M, D, Fd], "bound_ms": b,
+                                 "max_abs_err": err, **times})
+            if per:
+                sums = {k: per * t["ms"] for k, t in times.items()}
+                sums["bound"] = per * b
+                out["per_batch"]["b4"] = sums
+                print(f"[times] fused_vit_mlp per B = 4 batch ({per} "
+                      f"launches): cold {sums['cold']:.2f} ms, warm "
+                      f"{sums['warm']:.2f} ms, bound {sums['bound']:.2f} ms; "
+                      f"unfused chain cold {sums['chain_cold']:.2f} ms, "
+                      f"F.linear products cold {sums['linears_cold']:.2f} ms "
+                      f"({card})")
+            del ws, x, h
+    for call, split in out["splits"].items():
+        for key, (added, ms) in sorted(split.items(), key=lambda kv: -kv[1][0]):
+            print(f"[times] fused_vit_mlp {call} split: adds {added:.4f} ms "
+                  f"per call, runs {ms:.4f} ms from launch to end  "
+                  f"{key[:100]}")
     return out
 
 

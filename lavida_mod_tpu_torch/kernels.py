@@ -38,15 +38,17 @@ NVCC_FLAGS = (
 )
 # Kernels whose design needs ptxas to give each thread exactly this many
 # registers at launch: the producer warpgroup of short_attention, of the
-# three prefix_flash kernels and of w4_matmul_grouped's prefill kernel drops
-# to 24 (`setmaxnreg.dec`) and their two consumer warpgroups rise to 240
-# (`setmaxnreg.inc`), and 128 x 24 + 256 x 240 = 384 x 168.  With fewer at
-# entry the pool is short and `setmaxnreg.inc` waits for ever.
+# three prefix_flash kernels, of w4_matmul_grouped's prefill kernel and of
+# fused_vit_mlp's GEMM drops to 24 (`setmaxnreg.dec`) and their two consumer
+# warpgroups rise to 240 (`setmaxnreg.inc`), and 128 x 24 + 256 x 240 =
+# 384 x 168.  With fewer at entry the pool is short and `setmaxnreg.inc`
+# waits for ever.
 REGISTERS_AT_ENTRY = {"short_attention_kernel": 168,
                       "prefix_flash_fwd_kernel": 168,
                       "prefix_flash_dq_kernel": 168,
                       "prefix_flash_dkv_kernel": 168,
-                      "w4_prefill_kernel": 168}
+                      "w4_prefill_kernel": 168,
+                      "mlp_gemm_kernel": 168}
 
 
 def _sources() -> list[Path]:

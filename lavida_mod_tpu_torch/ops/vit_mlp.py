@@ -3,13 +3,15 @@
 
 The weights come in the nn.Linear layouts: w1 [F, D] (fc1.weight), w2
 [D, F] (fc2.weight).  CUDA tensors launch the three kernels of
-csrc/vit_mlp.cu (bf16 throughout); CPU tensors run the plain version, which
-follows the TPU kernel's f32 order (vit_mlp.py:37-59): LN in f32 rounded to
-x's dtype; per 512-wide F tile, fc1 in f32, + b1 and the tanh GELU in f32,
-rounded to x's dtype, its fc2 product in f32 added to the accumulator tile
-by tile in order; the epilogue x + acc + b2 in f32, then x's dtype.  The
-zero-padded F and M edges of the TPU kernel are exact, so both versions
-simply stop at F and M.
+csrc/vit_mlp.cu (bf16 throughout: a LayerNorm pass and one wgmma GEMM
+with an fc1 and an fc2 epilogue, under programmatic dependent launch);
+CPU tensors run the plain version, which follows the TPU kernel's f32
+order (vit_mlp.py:37-59): LN in f32 rounded to x's dtype; per 512-wide F
+tile, fc1 in f32, + b1 and the tanh GELU in f32, rounded to x's dtype, its
+fc2 product in f32 added to the accumulator tile by tile in order; the
+epilogue x + acc + b2 in f32, then x's dtype.  The zero-padded F and M
+edges of the TPU kernel are exact, so both versions simply stop at F and
+M.
 """
 
 from __future__ import annotations
@@ -57,13 +59,17 @@ def fused_vit_mlp(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-6):
             "b1": (b1, (F,)), "w2": (w2, (D, F)), "b2": (b2, (D,))}
     for name, (t, shape) in want.items():
         if t.dtype != torch.bfloat16 or tuple(t.shape) != shape \
-                or not t.is_contiguous() or t.device != x.device:
+                or not t.is_contiguous() or t.device != x.device \
+                or t.data_ptr() % 16:
             raise ValueError(f"fused_vit_mlp: {name} must be contiguous bf16 "
-                             f"{shape}; got {t.dtype} {tuple(t.shape)}")
+                             f"{shape} at a 16-byte aligned address; got "
+                             f"{t.dtype} {tuple(t.shape)}")
     if x.dtype != torch.bfloat16 or D % 8 or F % 8:
         raise ValueError(f"fused_vit_mlp: x {x.dtype} {tuple(x.shape)}, "
                          f"F = {F}: bf16 with D and F multiples of 8")
     x2 = x.reshape(-1, D).contiguous()
+    if x2.data_ptr() % 16:      # the kernels read rows in 16-byte pieces
+        x2 = x2.clone()
     M = x2.shape[0]
     ln = torch.empty_like(x2)
     h = torch.empty(M, F, dtype=torch.bfloat16, device=x.device)

@@ -151,11 +151,13 @@ def test_no_grad_call_skips_the_autograd_function():
     assert out.grad_fn is not None and torch.equal(out.detach(), ref)
 
 
-def _ptxas_log(regs, prefix_regs=(168, 168, 168), prefill_regs=(168,)):
+def _ptxas_log(regs, prefix_regs=(168, 168, 168), prefill_regs=(168,),
+               mlp_regs=(168, 168)):
     """A build log in ptxas -v's format: one short_attention instance per
     register count in `regs`, between two other kernels, then one instance
-    of each prefix_flash kernel (fwd, dq, dkv) with `prefix_regs`, then one
-    w4_matmul_grouped prefill kernel per count in `prefill_regs`."""
+    of each prefix_flash kernel (fwd, dq, dkv) with `prefix_regs`, one
+    w4_matmul_grouped prefill kernel per count in `prefill_regs` and one
+    fused_vit_mlp GEMM instance (fc1, fc2) per count in `mlp_regs`."""
     lines = ["== short_attention.cu",
              "ptxas info    : Compiling entry function '_Z5otherv' for "
              "'sm_90a'", "ptxas info    : Used 96 registers, used 1 "
@@ -181,6 +183,10 @@ def _ptxas_log(regs, prefix_regs=(168, 168, 168), prefill_regs=(168,)):
     lines.append("== w4_grouped.cu")
     for n in prefill_regs:
         lines += instance("_ZN12_GLOBAL__N_117w4_prefill_kernelE14CUtensorMap_st", n)
+    lines.append("== vit_mlp.cu")
+    for epi, n in enumerate(mlp_regs):
+        lines += instance(f"_ZN12_GLOBAL__N_115mlp_gemm_kernelILi{epi}EEEv14"
+                          f"CUtensorMap_stS1_PK13__nv_bfloat16S4_PS2_iii", n)
     return "\n".join(lines)
 
 
@@ -221,6 +227,17 @@ def test_register_check_covers_the_w4_prefill_kernel(prefill_regs):
     with pytest.raises(RuntimeError, match="w4_prefill_kernel"):
         kernels.check_registers(_ptxas_log((168, 168, 168),
                                            prefill_regs=prefill_regs))
+
+
+@pytest.mark.parametrize("mlp_regs", [(168, 160), (160, 168), ()])
+def test_register_check_covers_the_vit_mlp_gemm(mlp_regs):
+    """fused_vit_mlp's GEMM (its fc1 and fc2 instances) hands its
+    producer's registers over with setmaxnreg too: it must be in the log,
+    at 168 in every instance."""
+    from lavida_mod_tpu_torch import kernels
+
+    with pytest.raises(RuntimeError, match="mlp_gemm_kernel"):
+        kernels.check_registers(_ptxas_log((168, 168, 168), mlp_regs=mlp_regs))
 
 
 @pytest.fixture
