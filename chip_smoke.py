@@ -73,7 +73,23 @@ exits non-zero and never prints the final line:
      against the same weights in f32 on the CPU (plain path), and a tiny
      mixed-layout model on the card against the same quantized weights on
      the CPU (plain versions of the fused w4 kernels).
-  7. the batched int4 main path (the serve worker's --int4 --decode-batch
+  7. the checkpoint and text path at full width
+     (lavida_mod_tpu_torch/rehearse_8b_load.py): a reference-layout
+     LaViDa-LLaDA-8B checkpoint (32 LLaDA layers, SigLIP's 27, the
+     projector and the newline, 16.9 GB of bf16 drawn on the card from seed
+     0) written to disk in safetensors shards by the port's own writer with
+     a config.json and a BPE tokenizer, after a check of the free disk;
+     LaViDa.load with the geometry sniffed (equal to LaViDaConfig() field by
+     field) and every loaded tensor bit-equal to the written one (checksums
+     of its bits on the card, SigLIP's last layer dropped);
+     to_serving_layout("mixed", fuse=True); the llada template and the
+     tokenizer (48 text tokens and the image marker, the rendered prompt
+     round-tripping); one HD request served twice through generate_fused
+     and decode_output, ids below the vocab and the text cut at the stop
+     id; the six kernels' launches counted over the two requests (twice a
+     mixed request's); the stage walls, bytes on disk, host RSS after each
+     stage and peak device memory.  The checkpoint is deleted afterwards.
+  8. the batched int4 main path (the serve worker's --int4 --decode-batch
      N, bench.py --batch): a new LaViDaConfig() model from seed 0 through
      to_serving_layout("int4", fuse=False), then eval.adapter.
      generate_batch on B = 4 requests of four image sizes with the int8 KV
@@ -82,9 +98,9 @@ exits non-zero and never prints the final line:
      kernel asserted per batch (w4_matmul_grouped's decode and prefill
      kernels apart), the profiler's device-busy share of one
      batch; one decode layer at B = 1 timed through the unfused layout.
-  8. a tiny int4 + kv8 + fused-ViT-MLP model on the card against the same
+  9. a tiny int4 + kv8 + fused-ViT-MLP model on the card against the same
      weights on the CPU.
-  9. the training attention kernels (prefix_flash_fwd, prefix_flash_dq,
+ 10. the training attention kernels (prefix_flash_fwd, prefix_flash_dq,
      prefix_flash_dkv) against their plain versions on the card at the
      stage-1 shape (8 doubled rows x 1152 tokens, 32 heads, hd 128, prefix
      lengths near 1010, a kv_valid tail) and a ragged GQA case (28 / 4
@@ -95,7 +111,7 @@ exits non-zero and never prints the final line:
      then at the stage-1 shape the forward against SDPA's forward and dq +
      dkv against SDPA's whole backward, per launch and per step, each with
      its share of the bound and its ratio to the library call.
- 10. stage-1 pretraining at full LaViDa-LLaDA-8B (LaViDaConfig(), 32 LLaDA
+ 11. stage-1 pretraining at full LaViDa-LLaDA-8B (LaViDaConfig(), 32 LLaDA
      and 26 SigLIP layers, random bf16 weights from seed 0 on the card):
      make_freeze_optimizer("mm_mlp_adapter", lr 1e-3, pretrain_stage1.sh's
      warmup ratio 0.03 over 100 steps), the mixed-precision step with
@@ -112,12 +128,12 @@ exits non-zero and never prints the final line:
      share of one step, device time by kernel and by kernel kind
      (lavida_mod_tpu_torch/step_times.py, which times the stage-1 step of
      any checkout the same way) and #10's device time.
- 11. stage-2 finetuning at full width with the LLaDA depth cut to 4 layers
+ 12. stage-2 finetuning at full width with the LLaDA depth cut to 4 layers
      (the only cut; SigLIP keeps 26): every part tunable, lr 2e-5, tower lr
      2e-6, grad_accum 2 (finetune_stage2.sh), B = 2, two microsteps make one
      update: every group moved after the update and not before, the
      short-attention VJP ran, nothing is NaN.
- 12. a tiny LaViDa trained one stage-2 microstep on the card (bf16 compute,
+ 13. a tiny LaViDa trained one stage-2 microstep on the card (bf16 compute,
      kernels) and on the CPU (plain versions) from the same f32 masters
      with the same injected mask: loss, trainable gradients and updated
      masters within stated bands.
@@ -1189,6 +1205,52 @@ def phase_small_mixed(torch, device):
         raise AssertionError(f"tiny mixed-model logits differ: {rel}")
 
 
+def phase_checkpoint(torch, device, card):
+    """The checkpoint and text path at full width (rehearse_8b_load): a
+    reference-layout LaViDa-LLaDA-8B checkpoint written to disk and loaded
+    back, the mixed layout, the llada template and the BPE tokenizer, one
+    request served twice and decoded.  The counts are set to 0 before and
+    read after; writing, loading and quantizing launch none of the six
+    kernels, so each must have launched exactly twice a mixed request's
+    count."""
+    from lavida_mod_tpu_torch import rehearse_8b_load
+    from lavida_mod_tpu_torch.ops import w4_fused as tw
+    from lavida_mod_tpu_torch.ops import w8a8 as t8
+    from lavida_mod_tpu_torch.ops.gather import gather_rows
+    from lavida_mod_tpu_torch.ops.short_attention import short_attention
+
+    ops = {"short_attention": short_attention, "gather_rows": gather_rows,
+           "w8a8_matmul": t8.w8a8_matmul, "w4_qkv_norm": tw.w4_qkv_norm,
+           "w4_matmul_res": tw.w4_matmul_res,
+           "w4_ffn_fused": tw.w4_ffn_fused}
+    want = {"short_attention": SIGLIP_LAYERS + LLADA_LAYERS,
+            "gather_rows": 1, "w8a8_matmul": 4 * LLADA_LAYERS,
+            "w4_qkv_norm": (LLADA_LAYERS + 1) * STEPS,
+            "w4_matmul_res": LLADA_LAYERS * STEPS,
+            "w4_ffn_fused": LLADA_LAYERS * STEPS}
+    for op in ops.values():
+        op.launches = 0
+    out = rehearse_8b_load.rehearse(torch, device)
+    counts = {k: op.launches for k, op in ops.items()}
+    if counts != {k: 2 * n for k, n in want.items()}:
+        raise AssertionError(f"checkpoint path launches {counts}, want twice"
+                             f" {want}")
+    print(f"[ckpt] LLaDA layers written and loaded: {out['layers']} (of "
+          f"32; {out['disk_free_gb']:.1f} GB free before writing); walls: "
+          f"write {out['write_s']:.2f} s, load {out['load_s']:.2f} s, "
+          f"mixed layout {out['layout_s']:.2f} s, first request "
+          f"{out['first_request_s'] * 1e3:.1f} ms, warm request "
+          f"{out['warm_request_s'] * 1e3:.1f} ms; {out['bytes_on_disk'] / 1e9:.3f}"
+          f" GB on disk; host RSS (now, the process's peak ru_maxrss) GiB at the start "
+          f"and after each stage: "
+          + ", ".join(f"{k} {v[0]:.2f} / {v[1]:.2f}"
+                      for k, v in out["rss_gib"].items()) + "; "
+          f"peak device memory {out['peak_device_gib_load']:.2f} GiB to "
+          f"the load, {out['peak_device_gib']:.2f} GiB in all; launches "
+          f"over the two requests {counts} ({card})")
+    return counts, out
+
+
 # the batched path: image sizes of B = 4 and of B = 8
 BATCH_SIZES = [(640, 640), (800, 600), (1024, 512), (448, 896)]
 BATCH8_SIZES = BATCH_SIZES + [(1100, 380), (512, 1024), (384, 384),
@@ -1865,6 +1927,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_small_reference(torch, device)
     phase_small_mixed(torch, device)
+    torch.cuda.empty_cache()
+    ckpt_counts, ckpt = phase_checkpoint(torch, device, card)
+    torch.cuda.empty_cache()
     model, batch_counts, batch_walls, share, unfused_layer_ms = \
         phase_batched_path(torch, device, card)
     del model
@@ -1889,19 +1954,25 @@ def main() -> None:
         entry("short_attention", "short_attention.cu",
               "short_attention.py:78", counts["short_attention"],
               launches_mixed_path=mixed_counts["short_attention"],
-              launches_batch_b4=b4["short_attention"]),
+              launches_batch_b4=b4["short_attention"],
+              launches_checkpoint_path=ckpt_counts["short_attention"]),
         entry("gather_rows", "gather_rows.cu", "pallas_gather.py:26",
               counts["gather_rows"],
-              launches_mixed_path=mixed_counts["gather_rows"]),
+              launches_mixed_path=mixed_counts["gather_rows"],
+              launches_checkpoint_path=ckpt_counts["gather_rows"]),
         entry("w8a8_matmul", "w8a8_matmul.cu", "pallas_w8.py:53",
-              mixed_counts["w8a8_matmul"]),
+              mixed_counts["w8a8_matmul"],
+              launches_checkpoint_path=ckpt_counts["w8a8_matmul"]),
         entry("w4_qkv_norm", "w4_fused.cu", "w4_fused.py:80",
               mixed_counts["w4_qkv_norm"],
-              launches_batch_b4=b4["w4_qkv_norm"]),
+              launches_batch_b4=b4["w4_qkv_norm"],
+              launches_checkpoint_path=ckpt_counts["w4_qkv_norm"]),
         entry("w4_matmul_res", "w4_fused.cu", "w4_fused.py:250",
-              mixed_counts["w4_matmul_res"]),
+              mixed_counts["w4_matmul_res"],
+              launches_checkpoint_path=ckpt_counts["w4_matmul_res"]),
         entry("w4_ffn_fused", "w4_fused.cu", "w4_fused.py:322",
-              mixed_counts["w4_ffn_fused"]),
+              mixed_counts["w4_ffn_fused"],
+              launches_checkpoint_path=ckpt_counts["w4_ffn_fused"]),
         entry("w4_matmul_grouped_decode", "w4_grouped.cu",
               "pallas_w4.py:129", b4["w4_matmul_grouped_decode"],
               launches_batch_b8=b8["w4_matmul_grouped_decode"]),
@@ -1946,7 +2017,12 @@ def main() -> None:
           f"{stage1['wall_ms']:.1f} ms, {stage1['tokens_per_s']:.0f} data "
           f"tokens/s, peak {stage1['peak_gib']:.2f} GiB, device busy "
           f"{busy1}, #10 device time {attn1}; stage-2 (4 LLaDA layers) peak "
-          f"{stage2_peak:.2f} GiB; "
+          f"{stage2_peak:.2f} GiB; checkpoint path (8B written, loaded, "
+          f"mixed, one request twice in text): write {ckpt['write_s']:.2f} "
+          f"s, load {ckpt['load_s']:.2f} s, layout {ckpt['layout_s']:.2f} s, "
+          f"requests {ckpt['first_request_s'] * 1e3:.1f} / "
+          f"{ckpt['warm_request_s'] * 1e3:.1f} ms, peak device "
+          f"{ckpt['peak_device_gib']:.2f} GiB; "
           f"whole script {time.perf_counter() - t_start:.1f} s on {card}")
     print(card)
     print(json.dumps({"kernels": entries}))

@@ -6,7 +6,9 @@ Layer map (mirrors lavida_mod_tpu):
   config.py    the model and generation configs (a copy; `as_port_config`
                takes the JAX package's dataclasses by field name)
   constants.py, data/   token constants, anyres geometry and image
-               preprocessing (copies)
+               preprocessing, the BPE tokenizer, the conversation
+               templates, prompt tokenization and the infill corruption
+               (copies)
   ops/         plain tensor functions (norms, rope, attention, pooling,
                sampling, schedules, activations, quantizers and quantized
                linears, the int8 KV cache) and the wrappers of the
@@ -21,15 +23,21 @@ Layer map (mirrors lavida_mod_tpu):
                (chip_smoke.py's timers)
   models/      nn.Modules: SigLIP, projector, LLaDA (bf16, the mixed
                int8/int4 and the int4 serving layouts), the composed
-               LaViDa, and the host-side multimodal splice planner
+               LaViDa with its checkpoint loader (and llada_loader, the
+               reference names of the LM), and the host-side multimodal
+               splice planner
   generation/  the prefix-cached masked-diffusion denoise loop, plain and
                with chunked batch prefill
-  eval/        the batched generation adapter
+  eval/        the eval adapter: text in and out, and batched generation
   train/       the masked-diffusion loss, the optax-equivalent optimizer
                and the multimodal train step (stage-1 / stage-2 training)
   convert.py   JAX params (numpy pytree) -> this package's state dict, or
                f32 training masters
-  predict.py   prediction CLI (one request or a batch)
+  tools/       the safetensors reader and writer, the weight-delta tools
+  predict.py   prediction CLI (one request or a batch, from a checkpoint
+               directory or seeded weights)
+  rehearse_8b_load.py  writes a full-size reference-layout checkpoint,
+               loads it and answers one request in text
 
 This package imports torch and never jax, and nothing of lavida_mod_tpu
 (tests/test_torch_config.py checks both).

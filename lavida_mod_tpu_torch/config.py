@@ -5,6 +5,12 @@ default anyres pinpoints), so the port imports nothing of the JAX package.
 tests/test_torch_config.py holds every default equal to the original, field
 for field.
 
+`config_from_checkpoint(path)` sniffs (LaViDaConfig, lm_family) from a
+checkpoint directory's config.json (config.py:208-320): the flat OLMo-style
+LLaDA fields, Qwen2-style Dream fields over `dream_7b_config` (the Dream
+geometry of models/dream.py:32, a config only: the Dream model is not in
+the port) and the LLaVA composition fields.
+
 `as_port_config` turns an instance of the JAX package's dataclass of the
 same name (anything with the same fields) into the port's, recursively and
 by field name, without importing it: the port's entry points accept either.
@@ -12,7 +18,10 @@ by field name, without importing it: the port's entry points accept either.
 
 from __future__ import annotations
 
+import ast
 import dataclasses
+import json
+import os
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -181,6 +190,120 @@ class GenerationConfig:
 
     def replace(self, **kw) -> "GenerationConfig":
         return dataclasses.replace(self, **kw)
+
+
+def dream_7b_config(**kw) -> LLaDAConfig:
+    """Dream-v0-7B (Qwen2.5-7B geometry; token ids of
+    configuration_dream.py:49-50)."""
+    base = dict(
+        d_model=3584, n_heads=28, n_kv_heads=4, n_layers=28,
+        mlp_hidden_size=18944, block_type="llama", activation="silu",
+        rope=True, rope_theta=1000000.0, layer_norm_type="rms",
+        rms_norm_eps=1e-6, include_qkv_bias=True, vocab_size=151936,
+        embedding_size=151936, weight_tying=False, max_sequence_length=4096,
+        mask_token_id=151666, eos_token_id=151643, pad_token_id=151643)
+    base.update(kw)
+    return LLaDAConfig(**base)
+
+
+def _sniff_llada(cj: dict) -> LLaDAConfig:
+    """Flat OLMo-style fields (configuration_llada.py:130-384 ModelConfig,
+    serialized flat by the HF LLaDAConfig wrapper :398-414)."""
+    kw = {}
+    for f in (
+        "d_model", "n_heads", "n_kv_heads", "n_layers", "mlp_hidden_size",
+        "mlp_ratio", "rope", "rope_theta", "rope_full_precision",
+        "rms_norm_eps", "attention_layer_norm", "layer_norm_with_affine",
+        "attention_layer_norm_with_affine", "include_bias",
+        "include_qkv_bias", "input_emb_norm", "scale_logits", "vocab_size",
+        "embedding_size", "weight_tying", "max_sequence_length",
+        "mask_token_id", "eos_token_id", "pad_token_id",
+    ):
+        if cj.get(f) is not None:
+            kw[f] = cj[f]
+    if cj.get("activation_type") in ("gelu", "relu", "silu", "swiglu"):
+        kw["activation"] = cj["activation_type"]
+    if cj.get("block_type") in ("llama", "sequential"):
+        kw["block_type"] = cj["block_type"]
+    lnt = cj.get("layer_norm_type")
+    if isinstance(lnt, str):
+        kw["layer_norm_type"] = ("gemma_rms" if "gemma" in lnt
+                                 else "rms" if "rms" in lnt else "default")
+    return LLaDAConfig(**kw)
+
+
+def _sniff_dream(cj: dict) -> LLaDAConfig:
+    """Qwen2-style fields (dream/configuration_dream.py:28-86)."""
+    kw = {}
+    for src, dst in (
+        ("hidden_size", "d_model"), ("num_attention_heads", "n_heads"),
+        ("num_key_value_heads", "n_kv_heads"),
+        ("num_hidden_layers", "n_layers"),
+        ("intermediate_size", "mlp_hidden_size"),
+        ("rope_theta", "rope_theta"), ("rms_norm_eps", "rms_norm_eps"),
+        ("vocab_size", "vocab_size"),
+        ("max_position_embeddings", "max_sequence_length"),
+        ("tie_word_embeddings", "weight_tying"),
+        ("mask_token_id", "mask_token_id"),
+        ("eos_token_id", "eos_token_id"), ("pad_token_id", "pad_token_id"),
+    ):
+        if cj.get(src) is not None:
+            kw[dst] = cj[src]
+    if "vocab_size" in kw:
+        kw.setdefault("embedding_size", kw["vocab_size"])
+    return dream_7b_config(**kw)
+
+
+def _sniff_vision(cj: dict) -> VisionConfig:
+    """LLaVA composition fields the trainer writes onto the composed HF
+    config (llava_arch.py:42-110; train.py's mm_spatial_pool_* and
+    image_grid_pinpoints); a nested vision_tower_config dict gives the
+    tower's geometry."""
+    kw = {}
+    for src, dst in (
+        ("mm_projector_type", "projector_type"),
+        ("mm_hidden_size", "mm_hidden_size"),
+        ("mm_spatial_pool_mode", "spatial_pool_mode"),
+        ("mm_spatial_pool_stride", "spatial_pool_stride"),
+        ("image_aspect_ratio", "image_aspect_ratio"),
+        ("mm_patch_merge_type", "mm_patch_merge_type"),
+        ("mm_newline_position", "mm_newline_position"),
+    ):
+        if cj.get(src) is not None:
+            kw[dst] = cj[src]
+    gp = cj.get("image_grid_pinpoints")
+    if isinstance(gp, str):  # mm_utils.py accepts the stringified form
+        gp = ast.literal_eval(gp)
+    if gp:
+        kw["grid_pinpoints"] = tuple(tuple(int(v) for v in p) for p in gp)
+    vt = cj.get("vision_tower_config")
+    if isinstance(vt, dict):
+        names = {f.name for f in dataclasses.fields(SigLIPConfig)}
+        kw["siglip"] = SigLIPConfig(**{
+            k: (tuple(v) if isinstance(v, list) else v)
+            for k, v in vt.items() if k in names})
+    return VisionConfig(**kw)
+
+
+def config_from_checkpoint(path: str):
+    """(LaViDaConfig, lm_family) sniffed from `path`/config.json, the
+    reference builder's AutoConfig.from_pretrained step (builder.py:
+    128-146); (None, None) when the directory has no config.json."""
+    cfile = os.path.join(path, "config.json")
+    if not os.path.exists(cfile):
+        return None, None
+    with open(cfile) as f:
+        cj = json.load(f)
+    mt = str(cj.get("model_type", "")).lower()
+    if "dream" in mt or ("hidden_size" in cj and "d_model" not in cj
+                         and "num_attention_heads" in cj):
+        lm_family, lm = "dream", _sniff_dream(cj)
+    else:
+        lm_family, lm = "llada", _sniff_llada(cj)
+    cfg = LaViDaConfig(
+        llada=lm, vision=_sniff_vision(cj),
+        tokenizer_model_max_length=cj.get("tokenizer_model_max_length"))
+    return cfg, lm_family
 
 
 _CLASSES = {c.__name__: c for c in (LLaDAConfig, SigLIPConfig, VisionConfig,

@@ -1,12 +1,25 @@
-"""Batched generation: the port of the body of
-lavida_mod_tpu/eval/adapter.py::LavidaEvalModel.generate_until_batch
-(adapter.py:245-318), the path of the serve worker's `--decode-batch N`
-and of bench.py's throughput mode.
+"""The eval-model adapter of lavida_mod_tpu/eval/adapter.py, its
+generation half: `gen_kwargs_to_config`, `LavidaEvalModel` and the
+batched `generate_batch`.
 
-`generate_batch` takes requests already tokenized (ids with -200 image
-markers) and preprocessed (one [V, C, S, S] view stack per image); the
-conversation template, tokenizer and `decode_output` of the JAX adapter
-stay out of the port.  Per request it runs `LaViDa.encode_prompt` (one
+`LavidaEvalModel` (adapter.py:63) builds each request's prompt from the
+conversation template and the tokenizer (`_build_inputs`: "<image>\n"
+per image, the template's own chat template where the tokenizer has one,
+`tokenizer_image_token`; several images switch the model's view to the
+"pad" aspect mode, adapter.py:102-129), preprocesses the PIL images, and
+answers in text: `generate_until` through `LaViDa.generate_fused` (the
+prefix-cache mode) or `LaViDa.generate`, `generate_until_batch` through
+`generate_batch`, each cut and decoded by `decode_output`, the
+latency of each request kept for `avg_latency`.  Not ported yet:
+`loglikelihood` (the MC estimator, ROADMAP.md Queue 1 item 7), video
+requests (data/video.py and the video encode, Queue 1 item 9) and the
+Dream sampler's configs (Queue 1 item 6): each raises.
+
+`generate_batch` (adapter.py:245-318) is the path of the serve worker's
+`--decode-batch N` and of bench.py's throughput mode.  It takes requests
+already tokenized (ids with -200 image markers) and preprocessed (one
+[V, C, S, S] view stack per image).  Per request it runs
+`LaViDa.encode_prompt` (one
 vision encode per image, the fused ViT-MLP kernel by the model's policy);
 the prefixes are front-padded to a common multiple of the bucket with a
 `valid` mask, then one generation serves the batch:
@@ -19,6 +32,7 @@ adapter's use_flash_prefill on the TPU).
 
 from __future__ import annotations
 
+import copy
 import time
 from typing import Optional, Sequence
 
@@ -26,7 +40,36 @@ import numpy as np
 import torch
 
 from ..config import GenerationConfig, as_port_config
+from ..data import SigLIPImageProcessor, process_images
+from ..data.conversation import get_conv_template
+from ..data.prompts import tokenizer_image_token
 from ..generation import diffusion
+
+
+def gen_kwargs_to_config(gen_kwargs: dict,
+                         lm_family: str = "llada") -> GenerationConfig:
+    """lmms-eval gen_kwargs -> GenerationConfig (adapter.py:26): the
+    `schedule__*` keys become schedule kwargs (llava_llada.py:598-604)
+    and block_length defaults to min(128, max_new_tokens) (:606)."""
+    if lm_family == "dream":
+        raise NotImplementedError("the Dream sampler is not in the port "
+                                  "yet (ROADMAP.md Queue 1 item 6)")
+    kw = dict(gen_kwargs)
+    schedule_kwargs = {k[len("schedule__"):]: kw.pop(k)
+                       for k in list(kw) if k.startswith("schedule__")}
+    max_new = int(kw.pop("max_new_tokens", 32))
+    return GenerationConfig(
+        max_new_tokens=max_new,
+        schedule=kw.pop("schedule", None),
+        schedule_shift=float(schedule_kwargs.get("shift", 3.0)),
+        step_ratio=kw.pop("step_ratio", None),
+        prefix_lm=bool(kw.pop("prefix_lm", True)),
+        temperature=float(kw.pop("temperature", 0.0) or 0.0),
+        block_length=int(kw.pop("block_length", min(128, max_new))),
+        steps=kw.pop("steps", None),
+        step_per_block=kw.pop("step_per_block", None),
+        remasking=kw.pop("remasking", "low_confidence"),
+    )
 
 
 def _sync(device: torch.device) -> None:
@@ -45,13 +88,15 @@ def generate_batch(
     generator: Optional[torch.Generator] = None,
 ) -> tuple[np.ndarray, dict]:
     """requests: (input_ids, [views per image], [(width, height) per
-    image]) each.  Returns (ids [B, G], walls {"encode": s, "generate":
-    s}); the walls end in a device synchronize."""
+    image]) each, and optionally a fourth item, the view of `model` that
+    encodes the request (`LavidaEvalModel`'s "pad" mode for several
+    images).  Returns (ids [B, G], walls {"encode": s, "generate": s});
+    the walls end in a device synchronize."""
     gen = as_port_config(gen) or GenerationConfig()
     device = model.device
     t0 = time.perf_counter()
-    prefixes = [model.encode_prompt(ids, views, sizes)[0]
-                for ids, views, sizes in requests]
+    prefixes = [(r[3] if len(r) > 3 else model).encode_prompt(*r[:3])[0]
+                for r in requests]
     _sync(device)
     t_enc = time.perf_counter()
     bucket = prefix_bucket or 128
@@ -73,3 +118,88 @@ def generate_batch(
     out = out.cpu().numpy()
     t_gen = time.perf_counter()
     return out, {"encode": t_enc - t0, "generate": t_gen - t_enc}
+
+
+class LavidaEvalModel:
+    """generate_until over (text, images) requests, in text."""
+
+    def __init__(self, model, tokenizer, conv_template: str = "llada",
+                 prefix_bucket: Optional[int] = 128, kv8: bool = False):
+        self.model = model
+        self.tokenizer = tokenizer
+        self.conv_template = conv_template
+        # pad prompt lengths to buckets (the JAX adapter's compile reuse;
+        # the port's tokens do not depend on it)
+        self.prefix_bucket = prefix_bucket
+        self.kv8 = kv8
+        self.processor = SigLIPImageProcessor(
+            size=model.cfg.vision.siglip.image_size)
+        self.latencies: list[float] = []
+
+    def _build_inputs(self, text: str, images: Sequence):
+        conv = get_conv_template(self.conv_template)
+        if getattr(self.tokenizer, "chat_template", None):
+            conv.tokenizer = self.tokenizer
+        msg = ("<image>\n" * len(images)) + text if images else text
+        conv.append_message(conv.roles[0], msg)
+        input_ids = tokenizer_image_token(conv.get_prompt(), self.tokenizer)
+        model = self.model
+        if len(images) > 1:
+            # several images use the "pad" aspect mode (llava_llada.py,
+            # llava_dream.py:289): a view of the same weights under that
+            # config, for the preprocessing and the encode alike
+            model = copy.copy(self.model)
+            model.cfg = model.cfg.replace(vision=model.cfg.vision.replace(
+                image_aspect_ratio="pad"))
+        views = process_images(list(images), self.processor,
+                               model.cfg.vision)
+        return input_ids, views, [im.size for im in images], model
+
+    def _stop_ids(self):
+        return get_conv_template(self.conv_template).stop_token_ids
+
+    def generate_until(self, text: str, images: Sequence,
+                       gen_kwargs: Optional[dict] = None,
+                       video: bool = False) -> str:
+        if video and images:
+            raise NotImplementedError("video requests are not in the port "
+                                      "yet (ROADMAP.md Queue 1 item 9)")
+        gen = gen_kwargs_to_config(gen_kwargs or {})
+        input_ids, views, sizes, model = self._build_inputs(text, images)
+        t0 = time.perf_counter()
+        if gen.prefix_lm:
+            out = model.generate_fused(input_ids, views, sizes, gen,
+                                       prefix_bucket=self.prefix_bucket,
+                                       kv8=self.kv8)
+        else:
+            out = model.generate(input_ids, views, sizes, gen,
+                                 prefix_bucket=self.prefix_bucket)
+        self.latencies.append(time.perf_counter() - t0)
+        return model.decode_output(out, self.tokenizer, self._stop_ids())
+
+    def loglikelihood(self, text: str, images: Sequence,
+                      continuation: str) -> float:
+        raise NotImplementedError("the MC log-likelihood is not in the "
+                                  "port yet (ROADMAP.md Queue 1 item 7)")
+
+    def generate_until_batch(self, texts: Sequence[str],
+                             images_list: Sequence[Sequence],
+                             gen_kwargs: Optional[dict] = None) -> list[str]:
+        """The requests in one batch (`generate_batch`), each answer
+        decoded; every request is charged the batch's wall / B."""
+        gen = gen_kwargs_to_config(gen_kwargs or {})
+        t0 = time.perf_counter()
+        requests = []
+        for text, images in zip(texts, images_list):
+            requests.append(self._build_inputs(text, images))
+        out, _ = generate_batch(self.model, requests, gen,
+                                prefix_bucket=self.prefix_bucket,
+                                kv8=self.kv8)
+        res = [self.model.decode_output(row, self.tokenizer) for row in out]
+        dt = time.perf_counter() - t0
+        self.latencies.extend([dt / len(res)] * len(res))
+        return res
+
+    @property
+    def avg_latency(self) -> float:
+        return float(np.mean(self.latencies)) if self.latencies else 0.0

@@ -3,6 +3,8 @@ lavida_mod_tpu/models/lavida.py for the single-image serving slice.
 
 An nn.Module holding the LLaDA LM, the SigLIP tower, the projector and the
 image-newline vector, with the entry points:
+  - `load(path, cfg=None, dtype, base=None, device)`: a reference-layout
+    checkpoint directory (lavida.py:229-297), below;
   - `random_init(cfg, seed, dtype, device)`: seeded random weights made on
     the device itself (16 GB of LLaDA-8B never pass through the host);
   - `from_jax(cfg, params, device, prefill_params=None)`: weights carried
@@ -19,6 +21,30 @@ image-newline vector, with the entry points:
     (lavida.py:430-531) the batched adapter runs, one image encode per
     image and the splice by concatenation, then `diffusion.generate`
     with optional front-padding to a bucket and the int8 KV cache.
+`decode_output(ids, tokenizer, stop_ids)` cuts a generation at EOS or the
+conversation's stop ids and decodes it (lavida.py:603).
+
+Checkpoints.  The published weights' names (LLaDAModelLM.base_model_prefix
+"model", LlavaMetaModel's attributes):
+  model.transformer.{wte,ln_f,ff_out,blocks.N.*}      -> llada
+  model.vision_tower.vision_tower.vision_model.*      -> siglip
+  model.mm_projector.{0,2}.{weight,bias}              -> projector
+  model.image_newline                                 -> image_newline
+map onto the state dict by name (`checkpoint_plan`; llada_loader,
+siglip.port_name, projector.port_name), every name with or without the
+"model." prefix; a key that maps nowhere raises, and a missing newline
+is zero (lavida.py:80-84).  `load_state_shards` maps the shards (the
+port's own safetensors reader, tools/safetensors_io.py, or torch.load
+with mmap for pytorch_model*.bin, whose floating tensors read as float32,
+as the JAX package reads them) and returns lazy references, not arrays:
+`fill_module` streams each tensor from its mapping into its parameter
+on the device, in file order, and drops it, so host memory stays near
+one tensor (the JAX package builds an f32 dict
+of the whole checkpoint, 32 GB at 8B).  The projector overlay and the
+peft adapter (non_lora_trainables overlaid, then `merge_lora_state`:
+W + scale * (B @ A) in numpy f32, cast to W's dtype, as lavida.py:
+121-153 does it) are the two delta modes of `base`.
+
 `use_vision_fused_mlp` (lavida.py:219-226, 421-428): None (auto) runs the
 SigLIP MLP halves through the fused kernel #9 in `encode_prompt` when the
 tower is plain bf16 and leaves it off in `generate_fused`; True / False
@@ -27,20 +53,245 @@ force both.
 
 from __future__ import annotations
 
+import glob
+import json
+import os
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..config import GenerationConfig, LaViDaConfig, as_port_config
+from ..config import (GenerationConfig, LaViDaConfig, as_port_config,
+                      config_from_checkpoint)
 
 from ..generation import diffusion
 from ..generation.diffusion import build_control_table, generate_cached_fused
-from . import multimodal
+from . import llada_loader, multimodal, projector, siglip
 from .llada import LLaDA, RMSNorm
 from .projector import Projector
 from .siglip import LayerNorm, SigLIP
+
+SIGLIP_PREFIX = "vision_tower.vision_tower.vision_model."
+
+
+class _BinFile:
+    """A pytorch_model*.bin shard mapped by torch.load(mmap=True); its
+    floating tensors read as float32 (lavida.py:51, `v.float()`)."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self.tensors = torch.load(path, map_location="cpu",
+                                  weights_only=True, mmap=True)
+
+    def keys(self):
+        return self.tensors.keys()
+
+    def get(self, key: str) -> torch.Tensor:
+        t = self.tensors[key]
+        return t.float() if t.is_floating_point() else t
+
+    def close(self) -> None:
+        self.tensors = {}
+
+
+class TensorRef:
+    """One tensor of a checkpoint file, read when `load()` is called."""
+
+    __slots__ = ("file", "key")
+
+    def __init__(self, file, key: str):
+        self.file, self.key = file, key
+
+    def load(self) -> torch.Tensor:
+        return self.file.get(self.key)
+
+
+class LoraMerged:
+    """A base weight with a LoRA pair merged in when it is loaded:
+    W + scale * (B @ A) in numpy float32, cast back to W's dtype
+    (lavida.py:150-152)."""
+
+    __slots__ = ("base", "a", "b", "scale")
+
+    def __init__(self, base, a: torch.Tensor, b: torch.Tensor, scale: float):
+        self.base, self.a, self.b, self.scale = base, a, b, scale
+
+    def load(self) -> torch.Tensor:
+        w = _read(self.base)
+        delta = self.b.float().numpy() @ self.a.float().numpy()
+        merged = w.float().numpy() + self.scale * delta
+        return torch.from_numpy(merged).to(w.dtype)
+
+
+def _read(v) -> torch.Tensor:
+    return v if isinstance(v, torch.Tensor) else v.load()
+
+
+def close_checkpoint(state: dict) -> None:
+    """Close every file the references of `state` read from; tensors
+    already taken stay valid."""
+    for v in state.values():
+        while isinstance(v, LoraMerged):
+            v = v.base
+        if isinstance(v, TensorRef):
+            v.file.close()
+
+
+def _file_refs(f) -> dict:
+    return {k: TensorRef(f, k) for k in f.keys()}
+
+
+def load_state_shards(path: str) -> dict:
+    """{name: TensorRef} over every safetensors shard of `path`, else every
+    pytorch_model*.bin shard (lavida.py:38)."""
+    from ..tools.safetensors_io import SafetensorsFile
+
+    st_files = sorted(glob.glob(os.path.join(path, "*.safetensors")))
+    files = ([SafetensorsFile(f) for f in st_files] if st_files else
+             [_BinFile(f) for f in sorted(glob.glob(
+                 os.path.join(path, "pytorch_model*.bin")))])
+    if not files:
+        raise FileNotFoundError(f"no checkpoint shards under {path}")
+    state: dict = {}
+    for f in files:
+        state.update(_file_refs(f))
+    return state
+
+
+def _load_torch_bin(path: str) -> dict:
+    return _file_refs(_BinFile(path))
+
+
+def _strip_peft_prefixes(state: dict) -> dict:
+    """non_lora_trainables key normalization (builder.py:106-108): drop
+    'base_model.' then a further 'model.' when keys start 'model.model.'."""
+    state = {(k[len("base_model."):] if k.startswith("base_model.") else k): v
+             for k, v in state.items()}
+    if any(k.startswith("model.model.") for k in state):
+        state = {(k[len("model."):] if k.startswith("model.") else k): v
+                 for k, v in state.items()}
+    return state
+
+
+def load_lora_adapter(path: str) -> tuple[dict, float]:
+    """A peft adapter directory -> ({name: tensor}, lora_alpha / r)."""
+    from ..tools.safetensors_io import load_file
+
+    with open(os.path.join(path, "adapter_config.json")) as f:
+        acfg = json.load(f)
+    scale = acfg["lora_alpha"] / acfg["r"]
+    st = os.path.join(path, "adapter_model.safetensors")
+    if os.path.exists(st):
+        return load_file(st), scale
+    refs = _load_torch_bin(os.path.join(path, "adapter_model.bin"))
+    return {k: r.load() for k, r in refs.items()}, scale
+
+
+def merge_lora_state(state: dict, adapter: dict, scale: float) -> dict:
+    """peft LoRA pairs merged into the state (the merge_and_unload step of
+    builder.py:117-121): `<module>.weight` becomes a `LoraMerged` for each
+    `<module>.lora_{A,B}[.default].weight` pair; peft's
+    `base_model.model.` / `base_model.` prefixes are resolved against the
+    state's names.  The merge runs when the weight is loaded."""
+    out = dict(state)
+    for k, a in adapter.items():
+        if ".lora_A." not in k:
+            continue
+        b_key = k.replace(".lora_A.", ".lora_B.")
+        if b_key not in adapter:
+            raise KeyError(f"unpaired LoRA weight: {k}")
+        mod = k.split(".lora_A.")[0]
+        for pref in ("base_model.model.", "base_model.", ""):
+            if mod.startswith(pref) and mod[len(pref):] + ".weight" in out:
+                w_key = mod[len(pref):] + ".weight"
+                break
+        else:
+            raise KeyError(f"no base weight for LoRA module {mod}")
+        out[w_key] = LoraMerged(out[w_key], a, adapter[b_key], scale)
+    return out
+
+
+def open_checkpoint(path: str, base: Optional[str] = None) -> dict:
+    """The state of one of the reference's three load modes (builder.py:
+    62-170): `path` alone; `base` overlaid with `path`/mm_projector.bin;
+    `base` with `path`'s non_lora_trainables.bin overlaid and its peft
+    adapter merged."""
+    if base is None:
+        return load_state_shards(path)
+    state = load_state_shards(base)
+    if os.path.exists(os.path.join(path, "adapter_config.json")):
+        nlt = os.path.join(path, "non_lora_trainables.bin")
+        if os.path.exists(nlt):
+            state.update(_strip_peft_prefixes(_load_torch_bin(nlt)))
+        adapter, scale = load_lora_adapter(path)
+        return merge_lora_state(state, adapter, scale)
+    proj_bin = os.path.join(path, "mm_projector.bin")
+    if os.path.exists(proj_bin):
+        state.update(_load_torch_bin(proj_bin))
+        return state
+    raise FileNotFoundError(
+        f"{path}: expected mm_projector.bin or a peft adapter when base= "
+        f"is given (builder.py:62-170 load modes)")
+
+
+def checkpoint_plan(state, cfg: LaViDaConfig) -> dict:
+    """{LaViDa state-dict name: checkpoint key} for the names of `state`;
+    the keys of SigLIP's dropped layers and unused parts are left out, any
+    other key that maps nowhere raises."""
+    plan = llada_loader.lm_plan(state, cfg.llada, "llada.")
+    for key in state:
+        k = key[len("model."):] if key.startswith("model.") else key
+        if k.startswith("transformer."):
+            continue
+        if k == "image_newline":
+            llada_loader.plan_put(plan, "image_newline", key)
+        elif k.startswith(SIGLIP_PREFIX):
+            name = siglip.port_name(k[len(SIGLIP_PREFIX):], cfg.vision.siglip)
+            if name is not None:
+                llada_loader.plan_put(plan, "siglip." + name, key)
+        elif k.startswith("mm_projector."):
+            llada_loader.plan_put(plan, "projector." + projector.port_name(
+                k[len("mm_projector."):], cfg.vision.projector_type), key)
+        else:
+            raise ValueError(f"checkpoint key {key!r} maps to nothing in "
+                             f"the port's LaViDa")
+    return plan
+
+
+@torch.no_grad()
+def fill_module(module: nn.Module, state: dict, plan: dict,
+                optional: Sequence[str] = ()) -> None:
+    """Copy `state[plan[name]]` into each parameter `name` of `module`
+    (cast to its dtype, on its device), one tensor at a time in the order
+    of `state`, each dropped (and unmapped) once copied.  A parameter in `optional`
+    that the plan lacks is zeroed; any other missing one raises before
+    anything is read.  A weight of another shape raises, except the
+    SigLIP patch conv [D, C, p, p], which is flattened to [D, C*p*p]."""
+    params = dict(module.named_parameters())
+    unknown = set(plan) - set(params)
+    if unknown:
+        raise ValueError(f"no parameter {sorted(unknown)[:4]} in the model")
+    missing = sorted(set(params) - set(plan) - set(optional))
+    if missing:
+        raise KeyError(f"the checkpoint has no weight for {len(missing)} "
+                       f"parameters, e.g. {missing[:4]}")
+    for name in set(optional) - set(plan):
+        params[name].zero_()
+    by_key = {key: name for name, key in plan.items()}
+    for key, ref in state.items():
+        name = by_key.get(key)
+        if name is None:
+            continue
+        p, t = params[name], _read(ref)
+        if t.shape != p.shape and key.endswith(siglip.PATCH_CONV) \
+                and t.dim() == 4:
+            t = t.reshape(t.shape[0], -1)
+        if t.shape != p.shape:
+            raise ValueError(f"{key}: shape {tuple(t.shape)}, the port's "
+                             f"{name} is {tuple(p.shape)}")
+        p.copy_(t)
+        del t           # unmaps the tensor's bytes
 
 
 class LaViDa(nn.Module):
@@ -120,6 +371,40 @@ class LaViDa(nn.Module):
         if dtype is not None:
             for p in model.parameters():
                 p.data = p.data.to(dtype)
+        return model.eval()
+
+    @classmethod
+    @torch.no_grad()
+    def load(cls, path: str, cfg: Optional[LaViDaConfig] = None,
+             dtype: torch.dtype = torch.bfloat16,
+             lm_family: Optional[str] = None, base: Optional[str] = None,
+             device="cuda") -> "LaViDa":
+        """A checkpoint directory in one of the reference's three load
+        modes (builder.py:62-170, `open_checkpoint`): base=None, the
+        full checkpoint under `path`; `base` + `path`/mm_projector.bin,
+        the projector overlay; `base` + a peft adapter under `path`,
+        non_lora_trainables overlaid and the LoRA pairs merged.  The
+        geometry and LM family are sniffed from `path`/config.json when
+        not given (the composed config lives with the delta).  Every
+        weight streams from the mapped files straight into the model's
+        parameters in `dtype` on `device`: on the card the bf16 8B goes
+        there directly and `to_serving_layout` quantizes it there."""
+        if cfg is None or lm_family is None:
+            scfg, sfam = config_from_checkpoint(path)
+            cfg = cfg if cfg is not None else scfg
+            lm_family = lm_family or sfam or "llada"
+        if lm_family == "dream":
+            raise NotImplementedError(
+                "the Dream LM is not in the port yet (ROADMAP.md Queue 1 "
+                "item 6)")
+        cfg = as_port_config(cfg) or LaViDaConfig()
+        state = open_checkpoint(path, base)
+        try:
+            model = cls(cfg, "meta", dtype).to_empty(device=device)
+            fill_module(model, state, checkpoint_plan(state, cfg),
+                        optional=("image_newline",))
+        finally:
+            close_checkpoint(state)
         return model.eval()
 
     @torch.no_grad()
@@ -274,3 +559,14 @@ class LaViDa(nn.Module):
             generator, gen.temperature, gen.remasking,
             act_int8_prefill=self.mixed, kv8=kv8)
         return out[0].cpu().numpy()
+
+    def decode_output(self, ids, tokenizer,
+                      stop_ids: Optional[Sequence[int]] = None) -> str:
+        """Cut at EOS or the conversation's stop ids (e.g. 126348 for
+        llada) and decode without the special tokens (lavida.py:603)."""
+        ids = [int(i) for i in np.asarray(ids)]
+        cut = len(ids)
+        for s in {self.cfg.llada.eos_token_id, *(stop_ids or ())}:
+            if s in ids:
+                cut = min(cut, ids.index(s))
+        return tokenizer.decode(ids[:cut], skip_special_tokens=True).strip()

@@ -2,7 +2,11 @@
 (the reference's mm_projector factory, multimodal_projector :44-50):
 "mlp{N}x_gelu", N Linears with an EXACT (erf) GELU between them, torch
 nn.GELU's default.  LaViDa uses mlp2x_gelu (1152 -> 4096 -> 4096).  The
-other projector kinds of the JAX package raise NotImplementedError."""
+other projector kinds of the JAX package raise NotImplementedError.
+
+`port_name` maps the reference's Sequential names (mm_projector.0.weight,
+.2.weight, ...: a Linear at every even index, the GELUs between them,
+projector.py:139-147) onto `layers.{index // 2}`."""
 
 from __future__ import annotations
 
@@ -39,3 +43,14 @@ class Projector(nn.Module):
                 x = gelu_erf(x)
             x = layer(x)
         return x
+
+
+def port_name(name: str, projector_type: str) -> str:
+    """`name` after "mm_projector." -> the Projector's state-dict name."""
+    idx, _, leaf = name.partition(".")
+    depth = mlp_depth(projector_type)
+    if idx.isdigit() and int(idx) % 2 == 0 and int(idx) // 2 < depth \
+            and leaf in ("weight", "bias"):
+        return f"layers.{int(idx) // 2}.{leaf}"
+    raise ValueError(f"mm_projector.{name}: no weight of the {depth}-layer "
+                     f"{projector_type} projector has this name")

@@ -20,9 +20,20 @@ and `remat` checkpoints each layer while autograd records (siglip.py:214-215).
 Not ported: bicubic interpolation of the position table for other
 resolutions (a token count that differs from the table raises), int8
 towers and LoRA.
+
+`port_name` maps the reference checkpoint's tower names (siglip_base.py:
+576-627, below "vision_model.") onto this module's, as
+`convert_siglip_state_dict` (siglip.py:228) reads them: the patch conv
+[D, C, p, p] becomes `patch_embed.weight` [D, C*p*p] (`PATCH_CONV`), and
+the layers past `n_layers_used` (the last one, which the tower deletes,
+siglip_encoder.py:240), the post-layernorm and the pooling head, which
+the LaViDa tower never runs, map to None: they are dropped.
 """
 
 from __future__ import annotations
+
+import re
+from typing import Optional
 
 import torch
 from torch import nn
@@ -134,3 +145,36 @@ class SigLIP(nn.Module):
             else:
                 x = layer(x, fused_mlp)
         return x
+
+
+PATCH_CONV = "embeddings.patch_embedding.weight"
+_LAYER = re.compile(r"encoder\.layers\.(\d+)\.(.+)")
+_LAYER_NAMES = {
+    "layer_norm1": "ln1", "layer_norm2": "ln2",
+    "self_attn.q_proj": "q_proj", "self_attn.k_proj": "k_proj",
+    "self_attn.v_proj": "v_proj", "self_attn.out_proj": "out_proj",
+    "mlp.fc1": "fc1", "mlp.fc2": "fc2",
+}
+_UNUSED = ("post_layernorm.", "head.")
+
+
+def port_name(name: str, cfg: SigLIPConfig) -> Optional[str]:
+    """`name` after "vision_model." -> the SigLIP module's state-dict name,
+    or None for a weight the tower drops; raises for any other name."""
+    top = {PATCH_CONV: "patch_embed.weight",
+           "embeddings.patch_embedding.bias": "patch_embed.bias",
+           "embeddings.position_embedding.weight": "pos_embed"}
+    if name in top:
+        return top[name]
+    if name.startswith(_UNUSED):
+        return None
+    m = _LAYER.fullmatch(name)
+    if m is not None:
+        i, rest = int(m.group(1)), m.group(2)
+        mod, _, leaf = rest.rpartition(".")
+        if mod in _LAYER_NAMES and leaf in ("weight", "bias"):
+            if i >= cfg.n_layers_used:
+                return None
+            return f"layers.{i}.{_LAYER_NAMES[mod]}.{leaf}"
+    raise ValueError(f"vision_model.{name}: no SigLIP weight of the port "
+                     f"has this name")

@@ -1,27 +1,35 @@
 """Single-image prediction CLI of the port: the counterpart of the repo's
-predict.py, reduced to the slice (random weights; no checkpoint loading or
-tokenizer yet, so the prompt is synthetic ids and the output is ids).
+predict.py.
 
 Usage:
-  python -m lavida_mod_tpu_torch.predict [--tiny] [--mixed | --int4]
-      [--kv8] [--batch N] [--image PATH] [--max-new-tokens 32]
-      [--step-per-block 16] [--seed 0] [--device cuda]
+  python -m lavida_mod_tpu_torch.predict [--model-path DIR] [--tiny]
+      [--prompt TEXT] [--conv-template llada] [--dtype bfloat16]
+      [--mixed | --int4] [--kv8] [--batch N] [--image PATH]
+      [--max-new-tokens 32] [--step-per-block 16] [--seed 0]
+      [--device cuda]
 
-Without --tiny the full LaViDaConfig() geometry (LLaDA-8B + SigLIP so400m)
-is initialised on the device from --seed, in bf16.  --mixed then quantizes
-the LM there into the mixed serving layout (int8 prefill tree + fused int4
-decode tree, bench.py's default; the repo's predict.py --mixed); --int4
-into the single grouped-int4 tree, fused for one request of 32 or fewer
-tokens and unfused for a batch (the serve worker's --int4 [--decode-batch
-N]).  With --tiny the LM is a 512-wide toy whose widths engage the fused
-plan.  --kv8 decodes over the int8 KV cache.  --batch N serves N requests
-of different image sizes in one batch (eval.adapter.generate_batch, the
-worker's --decode-batch N path) instead of one request through
+With --model-path the model is `LaViDa.load` of that checkpoint directory
+(its geometry from its config.json, or the toy geometry with --tiny) in
+--dtype, straight onto the device, and its tokenizer is read from the
+same directory (`load_hf_or_offline`): the prompt goes through the
+conversation template (--conv-template) and `tokenizer_image_token`, and
+the answer is printed as text, cut at EOS or the template's stop ids.
+Without it, the full LaViDaConfig() geometry (LLaDA-8B + SigLIP so400m;
+the 2-layer toy with --tiny) is initialised on the device from --seed,
+the prompt is synthetic ids and the output is ids.  --mixed quantizes the
+LM there into the mixed serving layout (int8 prefill tree + int4 decode
+tree, bench.py's default; the repo's predict.py --mixed); --int4 into the
+single grouped-int4 tree.  The decode tree takes the fused layout for
+one request of 32 or fewer tokens (predict.py:177's gate), else it stays
+unfused (the serve worker's --int4 --decode-batch N).  --kv8 decodes over
+the int8 KV cache.  --batch N serves N requests of different image sizes
+in one batch (eval.adapter.generate_batch) instead of one request through
 generate_fused.  --image goes through the anyres preprocessing of
 lavida_mod_tpu_torch.data (needs PIL) for every request; without it the
 views are seeded numpy pixels (a 640x640 image, 100x60 with --tiny, and
-other sizes for the rest of a batch).  Prints the generated token ids and
-the latency, timed after a warm-up run.
+other sizes for the rest of a batch).  The repo's --shirg, --kv4, --tp
+and --no-prefix-cache are not in the port: each exits with an error.
+Prints the answers and the latency, timed after a warm-up run.
 """
 
 from __future__ import annotations
@@ -79,8 +87,22 @@ def _views(args, cfg, rng, i=0):
     return views, size
 
 
+# the repo's predict.py flags that the port does not have yet
+NOT_PORTED = {"--shirg": "SHIRG (ROADMAP.md Queue 1 item 11)",
+              "--kv4": "the int4 KV cache (Queue 1 item 5)",
+              "--tp": "tensor-parallel serving (Queue 1 item 9)",
+              "--no-prefix-cache": "generation without the prefix cache "
+                                   "(Queue 1 item 4)"}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--model-path", default=None,
+                    help="a reference-layout checkpoint directory")
+    ap.add_argument("--prompt", default="Describe the image in detail.")
+    ap.add_argument("--conv-template", default="llada")
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=["bfloat16", "float32"])
     ap.add_argument("--tiny", action="store_true",
                     help="2-layer toy geometry instead of LaViDaConfig()")
     layout = ap.add_mutually_exclusive_group()
@@ -98,37 +120,61 @@ def main(argv=None) -> None:
     ap.add_argument("--step-per-block", type=int, default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    for flag in NOT_PORTED:
+        ap.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    for flag, what in NOT_PORTED.items():
+        if getattr(args, flag[2:].replace("-", "_")):
+            ap.error(f"{flag}: {what} is not in the port yet")
 
     import torch
 
     from .config import GenerationConfig, LaViDaConfig
+    from .data.conversation import get_conv_template
+    from .data.prompts import tokenizer_image_token
+    from .data.tokenizer import load_hf_or_offline
+    from .eval.adapter import generate_batch
     from .models.lavida import LaViDa
 
-    from .eval.adapter import generate_batch
-
     device = torch.device(args.device)
-    if args.tiny:
-        cfg = (tiny_mixed_config() if args.mixed or args.int4
-               else tiny_config())
+    dtype = getattr(torch, args.dtype)
+    tokenizer = None
+    if args.model_path:
+        model = LaViDa.load(args.model_path,
+                            tiny_config() if args.tiny else None, dtype,
+                            device=device)
+        tokenizer = load_hf_or_offline(args.model_path)
     else:
         cfg = LaViDaConfig()
-    model = LaViDa.random_init(cfg, args.seed, torch.bfloat16, device)
-    layout = "mixed" if args.mixed else "int4" if args.int4 else "bf16"
-    if args.mixed:
-        model.to_serving_layout("mixed", fuse=True)
-    elif args.int4:
-        # the fused decode plan takes <= 32 rows (predict.py and the
-        # worker gate it the same way)
-        fuse = args.batch == 1 and args.max_new_tokens <= 32
-        model.to_serving_layout("int4", fuse=fuse)
+        if args.tiny:
+            cfg = (tiny_mixed_config() if args.mixed or args.int4
+                   else tiny_config())
+        model = LaViDa.random_init(cfg, args.seed, dtype, device)
+    cfg = model.cfg
+    layout = ("mixed" if args.mixed else "int4" if args.int4
+              else args.dtype)
+    if args.mixed or args.int4:
+        # the fused decode plan takes <= 32 rows: predict.py:177 fuses for
+        # 32 tokens or fewer, the worker's --int4 for one request only
+        fuse = args.max_new_tokens <= 32 and (args.mixed or args.batch == 1)
+        model.to_serving_layout("mixed" if args.mixed else "int4", fuse=fuse)
         layout += " (fused)" if fuse else " (unfused)"
+    conv = get_conv_template(args.conv_template)
+    if tokenizer is not None:
+        if getattr(tokenizer, "chat_template", None):
+            conv.tokenizer = tokenizer
+        conv.append_message(conv.roles[0], "<image>\n" + args.prompt)
+        prompt_ids = tokenizer_image_token(conv.get_prompt(), tokenizer)
     rng = np.random.default_rng(args.seed)
     requests = []
     for i in range(args.batch):
         views, size = _views(args, cfg, rng, i)
-        text = rng.integers(3, min(cfg.llada.vocab_size, 30000), size=24)
-        ids = np.concatenate([text[:4], [-200], text[4:]])
+        if tokenizer is not None:
+            ids = prompt_ids
+        else:
+            text = rng.integers(3, min(cfg.llada.vocab_size, 30000),
+                                size=24)
+            ids = np.concatenate([text[:4], [-200], text[4:]])
         requests.append((ids, [views], [size]))
     gen = GenerationConfig(
         max_new_tokens=args.max_new_tokens,
@@ -154,8 +200,12 @@ def main(argv=None) -> None:
              else "cpu")
     print(f"[predict] layout: {layout}{', kv8' if args.kv8 else ''}")
     for i, row in enumerate(out):
-        print(f"[predict] output ids{'' if args.batch == 1 else f' {i}'}:",
-              row.tolist())
+        tag = "" if args.batch == 1 else f" {i}"
+        if tokenizer is not None:
+            print(f"[predict] answer{tag}:", model.decode_output(
+                row, tokenizer, conv.stop_token_ids))
+        else:
+            print(f"[predict] output ids{tag}:", row.tolist())
     images = ", ".join(f"{r[2][0]} {r[1][0].shape[0]} views"
                        for r in requests)
     print(f"[predict] latency: {dt:.3f}s on {where} for {args.batch} "

@@ -113,11 +113,19 @@ def test_anyres_geometry_equals_jax():
                 assert tanyres.unpad_slice(s, hw) == janyres.unpad_slice(s, hw)
 
 
+# packages the port imports only inside the functions that use them: no
+# module of the port, nor chip_smoke, needs one to import
+OPTIONAL = ("safetensors", "tokenizers", "transformers", "jinja2", "PIL",
+            "ml_dtypes", "regex")
+
+
 def test_port_imports_without_jax_or_the_jax_package():
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['lavida_mod_tpu'] = None\n"
+        f"for m in {OPTIONAL!r}:\n"
+        "    sys.modules[m] = None\n"
         "import importlib, pkgutil, lavida_mod_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "'lavida_mod_tpu_torch.')]\n"
@@ -165,3 +173,52 @@ def test_import_scans_cover_the_training_slice():
         p.__path__, "lavida_mod_tpu_torch.")}
     assert {"lavida_mod_tpu_torch.train.loss",
             "lavida_mod_tpu_torch.train.step"} <= names
+
+
+CHECKPOINT_AND_TEXT = (
+    "tools/__init__.py", "tools/safetensors_io.py", "tools/weights.py",
+    "models/llada_loader.py", "data/tokenizer.py", "data/conversation.py",
+    "data/prompts.py", "data/infill.py", "rehearse_8b_load.py")
+
+
+def test_import_scans_cover_the_checkpoint_and_text_slice():
+    """The scans above walk the checkpoint and text slice's modules too."""
+    files = {f.relative_to(REPO / "lavida_mod_tpu_torch").as_posix()
+             for f in (REPO / "lavida_mod_tpu_torch").rglob("*.py")}
+    assert set(CHECKPOINT_AND_TEXT) <= files
+    import pkgutil
+
+    import lavida_mod_tpu_torch as p
+    names = {m.name for m in pkgutil.walk_packages(
+        p.__path__, "lavida_mod_tpu_torch.")}
+    assert {"lavida_mod_tpu_torch." + f[:-3].replace("/", ".")
+            for f in CHECKPOINT_AND_TEXT
+            if not f.endswith("__init__.py")} <= names
+
+
+def test_checkpoint_and_text_path_runs_without_the_optional_packages(
+        tmp_path):
+    """Write a small reference-layout checkpoint and its tokenizer with
+    the port's own code, load it, tokenize, generate and decode, with
+    every optional package and jax blocked: the path chip_smoke drives
+    needs none of them."""
+    code = (
+        "import sys\n"
+        f"for m in {OPTIONAL + ('jax', 'lavida_mod_tpu')!r}:\n"
+        "    sys.modules[m] = None\n"
+        "import torch\n"
+        "from lavida_mod_tpu_torch.config import tiny_llada_config\n"
+        "from lavida_mod_tpu_torch.predict import tiny_config\n"
+        "from lavida_mod_tpu_torch import rehearse_8b_load as r\n"
+        "cfg = tiny_config().replace(llada=tiny_llada_config(\n"
+        "    vocab_size=126464, embedding_size=126464,\n"
+        "    mask_token_id=126336, eos_token_id=126081,\n"
+        "    pad_token_id=126081))\n"
+        f"out = r.rehearse(torch, 'cpu', {str(tmp_path / 'ckpt')!r},\n"
+        "                  log=lambda s: None, cfg=cfg)\n"
+        "print(out['prompt_ids'], len(out['tokens']))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split() == ["49", "32"]
+    assert not (tmp_path / "ckpt").exists()
