@@ -137,8 +137,37 @@ exits non-zero and never prints the final line:
      kernels) and on the CPU (plain versions) from the same f32 masters
      with the same injected mask: loss, trainable gradients and updated
      masters within stated bands.
-Then the card's name and power limit, one JSON line of per-kernel results,
-and as the last line {"ok": true, "device": {...}}.
+ 14. the kernels of the LaViDa-Dream path against their plain versions at
+     Dream-7B's shapes (P the bench request's prefix): short_attention at
+     the GQA prefill (28 query / 4 KV heads) and SigLIP's, gather_rows at
+     width 3584, w8a8_matmul at the prefill's four linears with the QKV
+     bias in the epilogue of [q|k|v] (bit-exact), w4_qkv_norm with the
+     bias at [32, 3584] x 4608 and at the head padded to 152064 columns,
+     w4_matmul_res at [32, 3584] x 3584 (exact), w4_ffn_fused at D 3584, H
+     18944 over 20480 padded down rows, and fused_vit_mlp at one image;
+     each with its plain, library and bound times, summed over one Dream
+     request's launches.
+ 15. LaViDa-Dream at full Dream-7B width and depth (LaViDaConfig(llada=
+     dream_7b_config()): 28 layers, d 3584, H 18944, vocab 151936, the QKV
+     bias; SigLIP's 26 layers), random bf16 weights from seed 0 on the
+     card: one bf16 request through LaViDa.generate with a
+     DreamGenerationConfig (gen 32, 16 steps, topk_margin, prefix_lm), then
+     to_serving_layout("mixed", fuse=True) and the three bench-protocol
+     requests as bench.py --dream serves them (multimodal_embeds, then
+     dream_generate with the flash prefill through the int8 tree and its
+     int8 head, the fused int4 decode with the bias in w4_qkv_norm): walls,
+     peak memory, every kernel's launches per request asserted (bf16: 26
+     short_attention and 26 fused_vit_mlp; mixed: 26 + 28 short_attention,
+     1 gather_rows, 112 w8a8_matmul, 16 x 29 w4_qkv_norm, 16 x 28
+     w4_matmul_res and w4_ffn_fused), the device-busy share of one mixed
+     request.
+ 16. a tiny mixed LaViDa-Dream (widths multiples of 512: the fused plan
+     with the bias, a 1000-row head padded to 1024) on the card against the
+     same weights on the CPU: decode logits and the tokens.
+Then the card's name and power limit, one JSON line of per-kernel results
+(each entry with `launches_dream_path`, and `dream_path`, its sums at the
+Dream shapes, where phase 14 measured it), and as the last line
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1882,6 +1911,395 @@ def phase_small_train(torch, device):
         raise AssertionError("the tiny training step differs on the card")
 
 
+# ---------------------------------------------------------------------------
+# LaViDa-Dream at full Dream-7B width
+# ---------------------------------------------------------------------------
+
+DREAM_LAYERS = 28
+DREAM_GEN = dict(max_new_tokens=32, steps=16, alg="topk_margin",
+                 prefix_lm=True)       # run_dream.sh:13, bench.py:367-371
+DREAM_STEPS = DREAM_GEN["steps"]
+
+
+def dream_serve(model, ids, views, size, gen):
+    """bench.py --dream's serving composition (bench.py:359-376): the
+    one-gather splice (`multimodal_embeds`), then `dream_generate` with
+    the prefill through the short-attention kernel and, in the mixed
+    layout, the int8 prefill tree.  Returns the [G] ids."""
+    import torch
+
+    from lavida_mod_tpu_torch.generation.dream_sampler import dream_generate
+    from lavida_mod_tpu_torch.models.multimodal import (build_gather_plan,
+                                                        multimodal_embeds)
+
+    idx, text_ids, _, _ = build_gather_plan(model.cfg, [ids],
+                                            [[views.shape[0]]], [[size]])
+    with torch.no_grad():
+        prefix = multimodal_embeds(
+            model, torch.as_tensor(views, device=model.device), text_ids,
+            idx)
+        out = dream_generate(model.llada, prefix, gen, use_flash_prefill=True,
+                             act_int8_prefill=model.mixed)
+    return out[0].cpu().numpy()
+
+
+def phase_dream_kernels(torch, device, dres, P):
+    """The kernels of the Dream path against their plain versions at
+    Dream-7B's shapes (P the bench request's prefix): #1 at the GQA
+    prefill, #3 with the QKV bias in its epilogue at the four prefill
+    linears, #5 with the bias at [q|k|v] and at the head padded to 152064
+    columns, #6 and #7 at D 3584 (28 groups; #7's down GEMM over 20480
+    padded rows), SigLIP's #1, the splice gather and one image's #9 as on
+    the LLaDA path.  Summed over one Dream request's launches (the mixed
+    path's, and the bf16 path's #9)."""
+    import torch.nn.functional as F
+
+    from lavida_mod_tpu_torch.ops import quant as tq
+    from lavida_mod_tpu_torch.ops import vit_mlp as tv
+    from lavida_mod_tpu_torch.ops import w4_fused as tw
+    from lavida_mod_tpu_torch.ops import w8a8 as t8
+    from lavida_mod_tpu_torch.ops.gather import (gather_rows,
+                                                 gather_rows_reference)
+    from lavida_mod_tpu_torch.ops.short_attention import (
+        short_attention, short_attention_reference)
+
+    gen = torch.Generator(device=device).manual_seed(16)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, device=device, generator=gen) * scale
+
+    D, H, Hd, V, G = 3584, 18944, 20480, 152064, 32
+    for name, qs, ks, per in [
+            ("siglip", (5, 729, 16, 72), (5, 729, 16, 72), SIGLIP_LAYERS),
+            ("dream_prefill", (1, P, 28, 128), (1, P + G, 4, 128),
+             DREAM_LAYERS)]:
+        q, k, v = (randn(*s).bfloat16() for s in (qs, ks, ks))
+        sq = skv = None
+        if name == "dream_prefill":    # the G unwritten rows masked
+            sq = torch.ones(1, P, dtype=torch.int32, device=device)
+            skv = (torch.arange(P + G, device=device) < P).to(
+                torch.int32)[None].contiguous()
+        out = short_attention(q, k, v, sq, skv)
+        torch.cuda.synchronize()
+        ref = short_attention_reference(q, k, v, sq, skv)
+        torch.testing.assert_close(out.float(), ref.float(), atol=8e-3,
+                                   rtol=8e-3)
+        mask = None if sq is None else (sq[:, None, :, None]
+                                        == skv[:, None, None, :])
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        rep = qs[2] // ks[2]
+        kt, vt = kt.repeat_interleave(rep, 1), vt.repeat_interleave(rep, 1)
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask))
+        keys = ks[1] if skv is None else P
+        dres.add("short_attention", f"{name} q{qs} kv{ks}", per,
+                 (out.float() - ref.float()).abs().max().item(),
+                 lambda: short_attention(q, k, v, sq, skv),
+                 cuda_ms(lambda: short_attention_reference(q, k, v, sq, skv)),
+                 lib, 4 * qs[0] * qs[2] * qs[1] * keys * qs[3],
+                 2 * (2 * q.numel() + k.numel() + v.numel()),
+                 note=" (limit 8e-3 + 8e-3 |o|; library: SDPA over the "
+                      "repeated KV heads)")
+
+    table = randn(5 * 196 + 1 + 50 + 1, D).bfloat16()
+    idx = torch.randint(0, table.shape[0], (P,), generator=gen,
+                        device=device)
+    out = gather_rows(table, idx.cpu().numpy())
+    if not torch.equal(out, gather_rows_reference(table, idx)):
+        raise AssertionError("gather_rows differs at Dream's width")
+    dres.add("gather_rows", f"splice table{tuple(table.shape)} idx[{P}]", 1,
+             0.0, lambda: gather_rows(table, idx.cpu().numpy()),
+             cuda_ms(lambda: gather_rows_reference(table, idx)),
+             cuda_ms(lambda: torch.index_select(table, 0, idx)), 0,
+             2 * P * D * 2 + 8 * P, note=" (exact)")
+
+    # #3: [q|k|v] with the bias, o, up|gate, down (K 18944) at the prefill
+    for K, N, bias in [(D, D + 2 * 512, True), (D, D, False),
+                       (D, 2 * H, False), (H, D, False)]:
+        x = randn(P, K).bfloat16()
+        q, sc = tq.quantize_linear(randn(N, K, scale=0.02))
+        b = randn(N).bfloat16() if bias else None
+        x8, sx = t8.act_quant(x, t8.ACT_FORMULA_W8)
+        out = t8.w8a8_matmul(x8, sx, q, sc, b)
+        torch.cuda.synchronize()
+        if not torch.equal(out, t8.w8a8_matmul_reference(x8, sx, q, sc, b)):
+            raise AssertionError(f"w8a8_matmul differs at {(P, K, N)}")
+        qt = q.t()
+        try:
+            torch._int_mm(x8, qt)
+        except RuntimeError:
+            qt = qt.contiguous()
+
+        def library(x8=x8, qt=qt, sx=sx, sc=sc, b=b):
+            y = torch._int_mm(x8, qt).float() * sx * sc
+            return (y if b is None else y + b.float()).bfloat16()
+
+        dres.add("w8a8_matmul", f"[{P},{K}]x[{K},{N}]" + (" + bias" if bias
+                                                           else ""),
+                 DREAM_LAYERS, 0.0,
+                 lambda: t8.w8a8_matmul(x8, sx, q, sc, b),
+                 cuda_ms(lambda: t8.w8a8_matmul_reference(x8, sx, q, sc, b),
+                         3), cuda_ms(library), 2 * P * K * N,
+                 P * K + N * K + 4 * (P + N) + 2 * P * N + 2 * N * bias,
+                 int8=True, note=" (exact)")
+
+    # #5 with the bias at [q|k|v] per layer per step; the head, per step
+    for N, bias, per in [(D + 2 * 512, True, DREAM_LAYERS * DREAM_STEPS),
+                         (V, False, DREAM_STEPS)]:
+        x = randn(G, D).bfloat16()
+        nw = (1 + randn(D, scale=0.1)).bfloat16()
+        packed, scales = _w4_weights(torch, tq, randn, D, N)
+        b = randn(N).bfloat16() if bias else None
+        out = tw.w4_qkv_norm(x, nw, packed, scales, 1e-6, b)
+        torch.cuda.synchronize()
+        err = _rel(out, tw.w4_qkv_norm_reference(x, nw, packed, scales, 1e-6,
+                                                 b))
+        if not err < 1e-2:
+            raise AssertionError(f"w4_qkv_norm {(G, D, N, bias)}: {err}")
+        dres.add("w4_qkv_norm", f"[{G},{D}]x[{D},{N}]" + (" + bias" if bias
+                                                           else ""),
+                 per, err, lambda: tw.w4_qkv_norm(x, nw, packed, scales, 1e-6,
+                                                  b),
+                 cuda_ms(lambda: tw.w4_qkv_norm_reference(
+                     x, nw, packed, scales, 1e-6, b), 3), None,
+                 2 * G * D * N,
+                 2 * G * D + 2 * D + _w4_bytes(D, N) + 2 * G * N
+                 + 2 * N * bias, int8=True, note=" (relative, limit 1e-2)")
+
+    a, r = randn(G, D).bfloat16(), randn(G, D).bfloat16()
+    w = _w4_weights(torch, tq, randn, D, D)
+    out = tw.w4_matmul_res(a, r, *w)
+    torch.cuda.synchronize()
+    if not torch.equal(out, tw.w4_matmul_res_reference(a, r, *w)):
+        raise AssertionError("w4_matmul_res differs at Dream's width")
+    dres.add("w4_matmul_res", f"[{G},{D}]x[{D},{D}]",
+             DREAM_LAYERS * DREAM_STEPS, 0.0,
+             lambda: tw.w4_matmul_res(a, r, *w),
+             cuda_ms(lambda: tw.w4_matmul_res_reference(a, r, *w), 5), None,
+             2 * G * D * D, 2 * G * D + _w4_bytes(D, D) + 4 * G * D,
+             int8=True, note=" (exact)")
+
+    up = _w4_weights(torch, tq, randn, D, 2 * H)
+    dn_p, dn_s, _ = tq.quantize_linear4(F.pad(randn(D, H, scale=0.02),
+                                              (0, Hd - H)))
+    fw = ((1 + randn(D, scale=0.1)).bfloat16(), *up,
+          dn_p[:D // 8].contiguous(), dn_s[:, :D].contiguous())
+    x = torch.empty(G, D, dtype=torch.bfloat16, device=device)
+    err = 0.0
+    for _ in range(2):              # new data at the same addresses
+        x.copy_(randn(G, D))
+        out = tw.w4_ffn_fused(x, *fw, 1e-6)
+        torch.cuda.synchronize()
+        err = max(err, _rel(out, tw.w4_ffn_fused_reference(x, *fw, 1e-6)))
+    if not err < 2e-2:
+        raise AssertionError(f"w4_ffn_fused at Dream's width: {err}")
+    dres.add("w4_ffn_fused", f"[{G},{D}] H {H} Hd {Hd}",
+             DREAM_LAYERS * DREAM_STEPS, err,
+             lambda: tw.w4_ffn_fused(x, *fw, 1e-6),
+             cuda_ms(lambda: tw.w4_ffn_fused_reference(x, *fw, 1e-6), 3),
+             None, 2 * G * D * 2 * H + 2 * G * Hd * D,
+             4 * G * D + 2 * D + _w4_bytes(D, 2 * H) + _w4_bytes(Hd, D),
+             int8=True, note=" (relative, limit 2e-2)")
+
+    Dv, Fv, M = 1152, 4304, 3645
+    vw = tuple(t.bfloat16() for t in (
+        randn(M, Dv), 1 + randn(Dv, scale=0.1), randn(Dv, scale=0.1),
+        randn(Fv, Dv, scale=0.03), randn(Fv, scale=0.1),
+        randn(Dv, Fv, scale=0.03), randn(Dv, scale=0.1)))
+    out = tv.fused_vit_mlp(*vw)
+    torch.cuda.synchronize()
+    ref = tv.fused_vit_mlp_reference(*vw)
+    torch.testing.assert_close(out.float(), ref.float(), atol=5e-2,
+                               rtol=5e-2)
+    dres.add("fused_vit_mlp", f"M {M} D {Dv} F {Fv}", SIGLIP_LAYERS,
+             (out.float() - ref.float()).abs().max().item(),
+             lambda: tv.fused_vit_mlp(*vw),
+             cuda_ms(lambda: tv.fused_vit_mlp_reference(*vw), 3), None,
+             4 * M * Dv * Fv, 4 * M * Dv + 4 * Dv * Fv + 2 * (Fv + 3 * Dv),
+             note=" (limit 5e-2; the bf16 request's encode)")
+
+
+def _dream_ops():
+    from lavida_mod_tpu_torch.ops import vit_mlp as tv
+    from lavida_mod_tpu_torch.ops import w4_fused as tw
+    from lavida_mod_tpu_torch.ops import w8a8 as t8
+    from lavida_mod_tpu_torch.ops.gather import gather_rows
+    from lavida_mod_tpu_torch.ops.short_attention import short_attention
+
+    return {"short_attention": short_attention, "gather_rows": gather_rows,
+            "fused_vit_mlp": tv.fused_vit_mlp,
+            "w8a8_matmul": t8.w8a8_matmul, "w4_qkv_norm": tw.w4_qkv_norm,
+            "w4_matmul_res": tw.w4_matmul_res,
+            "w4_ffn_fused": tw.w4_ffn_fused}
+
+
+def phase_dream_path(torch, device, card):
+    """LaViDa-Dream at full Dream-7B width and depth (28 layers, d 3584,
+    28 query / 4 KV heads, H 18944, vocab 151936, the QKV bias) with
+    SigLIP's 26 layers, random bf16 weights from seed 0 on the card: one
+    bf16 request through LaViDa.generate (the Dream sampler, dense
+    attention, the tower's MLP through #9), then to_serving_layout("mixed",
+    fuse=True) and three bench-protocol requests (bench.py --dream:
+    the one-gather splice, flash prefill through the int8 tree with its
+    head, the fused int4 decode with the bias in #5's epilogue), every
+    kernel's launches counted per request and asserted."""
+    from lavida_mod_tpu_torch.config import (DreamGenerationConfig,
+                                             LaViDaConfig, dream_7b_config)
+    from lavida_mod_tpu_torch.models.lavida import LaViDa
+    from lavida_mod_tpu_torch.models.multimodal import build_gather_plan
+
+    cfg = LaViDaConfig(llada=dream_7b_config())
+    lc = cfg.llada
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LaViDa.random_init(cfg, 0, torch.bfloat16, device,
+                               lm_family="dream")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[dream] LaViDaConfig(llada=dream_7b_config()) bf16 random init "
+          f"on {card}: {n_params / 1e9:.3f} B params in "
+          f"{time.perf_counter() - t0:.2f} s")
+    gen = DreamGenerationConfig(**DREAM_GEN)
+    requests = bench_requests(np.random.default_rng(0))
+    ops = _dream_ops()
+
+    def run(i, req, serve, want, tag):
+        ids, views, size = req
+        before = {k: op.launches for k, op in ops.items()}
+        idx, _, _, _ = build_gather_plan(cfg, [ids], [[views.shape[0]]],
+                                         [[size]])
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = serve(ids, views, size)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        got = {k: op.launches - before[k] for k, op in ops.items()}
+        print(f"[dream] {tag} request {i}: image {size} -> {views.shape[0]} "
+              f"views, P={idx.shape[1]}, G=32, {DREAM_STEPS} steps "
+              f"topk_margin: wall {wall * 1e3:.1f} ms, peak {peak:.2f} GiB, "
+              f"launches {got} ({card}); tokens {out.tolist()}")
+        if out.shape != (32,) or (out >= lc.vocab_size).any() \
+                or (out < 0).any():
+            raise AssertionError(f"Dream output {out}")
+        if (out == lc.mask_token_id).any():
+            raise AssertionError("mask tokens left in the Dream output")
+        if got != want:
+            raise AssertionError(f"Dream {tag} launches {got}, want {want}")
+        return wall, peak, idx.shape[1]
+
+    def bf16_serve(ids, views, size):
+        return model.generate(ids, [views], [size], gen)
+
+    first = requests[0]
+    bf16_serve(*first)                                       # warm-up
+    want = {k: 0 for k in ops}
+    want.update(short_attention=SIGLIP_LAYERS, fused_vit_mlp=SIGLIP_LAYERS)
+    for op in ops.values():
+        op.launches = 0
+    bf16_wall, bf16_peak, P = run(0, first, bf16_serve, want, "bf16")
+    bf16_counts = {k: op.launches for k, op in ops.items()}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model.to_serving_layout("mixed", fuse=True)
+    torch.cuda.synchronize()
+    llada = model.llada
+    prefill_gb = _tree_bytes([b.prefill for b in llada.blocks]) / 1e9
+    head_gb = _tree_bytes([llada.prefill_head]) / 1e9
+    decode_gb = _tree_bytes([getattr(b, n) for b in llada.blocks
+                             for n in b.linear_names] + [llada.ff_out]) / 1e9
+    print(f"[dream] to_serving_layout('mixed', fuse=True) in "
+          f"{time.perf_counter() - t0:.2f} s (peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB); int8 "
+          f"prefill tree {prefill_gb:.3f} GB + its head {head_gb:.3f} GB, "
+          f"int4 decode tree {decode_gb:.3f} GB ({card})")
+    if not all(b.fused_plan(32, False) and b.att_proj.bias is not None
+               for b in llada.blocks) or not llada.head_fusable(32) \
+            or llada.ff_out.out_features != lc.vocab_size:
+        raise AssertionError("Dream's fused decode plan does not engage")
+
+    def mixed_serve(ids, views, size):
+        return dream_serve(model, ids, views, size, gen)
+
+    mixed_serve(*first)                                      # warm-up
+    want = {"short_attention": SIGLIP_LAYERS + DREAM_LAYERS,
+            "gather_rows": 1, "fused_vit_mlp": 0,
+            "w8a8_matmul": 4 * DREAM_LAYERS,
+            "w4_qkv_norm": (DREAM_LAYERS + 1) * DREAM_STEPS,
+            "w4_matmul_res": DREAM_LAYERS * DREAM_STEPS,
+            "w4_ffn_fused": DREAM_LAYERS * DREAM_STEPS}
+    for op in ops.values():
+        op.launches = 0
+    walls, peaks = [], []
+    for i, req in enumerate(requests):
+        wall, peak, _ = run(i, req, mixed_serve, want, "mixed")
+        walls.append(wall)
+        peaks.append(peak)
+    mixed_counts = {k: op.launches for k, op in ops.items()}
+    prof = _profile_busy(torch, lambda: mixed_serve(*first))
+    _print_profile("dream", prof, "mixed request 0", card)
+    del model, llada
+    counts = {k: bf16_counts[k] + mixed_counts[k] for k in ops}
+    return counts, dict(bf16_wall=bf16_wall, bf16_peak=bf16_peak,
+                        walls=walls, peaks=peaks, P=P)
+
+
+def phase_small_dream(torch, device):
+    """A tiny LaViDa-Dream in the mixed layout (every width a multiple of
+    512, so the fused plan with the QKV bias in #5 and the padded head
+    engage) on the card against the same weights on the CPU (the plain
+    versions): decode logits and the bench composition's tokens."""
+    import copy
+
+    from lavida_mod_tpu_torch.config import DreamGenerationConfig
+    from lavida_mod_tpu_torch.models.dream import tiny_dream_config
+    from lavida_mod_tpu_torch.models.lavida import LaViDa
+    from lavida_mod_tpu_torch.predict import tiny_config
+
+    cfg = tiny_config().replace(llada=tiny_dream_config(
+        d_model=512, n_heads=4, n_kv_heads=2, mlp_hidden_size=1536,
+        vocab_size=1000, embedding_size=1000, mask_token_id=990,
+        eos_token_id=991, pad_token_id=991))
+    cpu = LaViDa.random_init(cfg, 0, torch.bfloat16, "cpu",
+                             lm_family="dream")
+    gen_rng = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in cpu.llada.named_parameters():
+            if p.dim() >= 2:
+                p.mul_(4.0)        # diverse tokens, as in the tests
+            elif name.endswith(".bias"):
+                p.copy_(torch.randn(p.shape, generator=gen_rng) * 0.5)
+    cpu.to_serving_layout("mixed", fuse=True)
+    if not cpu.llada.blocks[0].fused_plan(32, False):
+        raise AssertionError("tiny Dream: no fused plan")
+    gpu = copy.deepcopy(cpu).to(device)
+    x = torch.full((1, 32), cfg.llada.mask_token_id, dtype=torch.long)
+    x[0, ::3] = torch.arange(11) + 5
+    with torch.no_grad():
+        outs = [m.llada(m.llada.embed_tokens(x.to(m.device)))[0].float().cpu()
+                for m in (cpu, gpu)]
+    rel = ((outs[1] - outs[0]).abs().max() / outs[0].abs().max()).item()
+    rng = np.random.default_rng(3)
+    views = rng.standard_normal((5, 3, 56, 56)).astype(np.float32)
+    ids = np.array([5, 6, -200, 7, 8, 9])
+    gen = DreamGenerationConfig(**DREAM_GEN)
+    a = dream_serve(cpu, ids, views, (100, 60), gen)
+    b = dream_serve(gpu, ids, views, (100, 60), gen)
+    agree = float((a == b).mean())
+    print(f"[check] tiny mixed LaViDa-Dream (fused plan, QKV bias in #5), "
+          f"kernels on the card vs plain versions on the CPU: decode logits "
+          f"max|diff|/max|ref| {rel:.3e} (limit 5e-2), generated tokens "
+          f"agree {agree:.2f}")
+    if not np.isfinite(rel) or rel > 5e-2:
+        raise AssertionError(f"tiny Dream logits differ: {rel}")
+    # (the tiny vocabulary's mask id is a token the sampler may predict)
+    if b.shape != (32,) or (b < 0).any() or (b >= 1000).any():
+        raise AssertionError(f"tiny Dream output {b}")
+
+
 def main() -> None:
     import torch
 
@@ -1938,6 +2356,24 @@ def main() -> None:
     train_counts, stage1 = phase_stage1(torch, device, card)
     stage2_peak = phase_stage2(torch, device, card)
     phase_small_train(torch, device)
+    torch.cuda.empty_cache()
+    from lavida_mod_tpu_torch.config import LaViDaConfig, dream_7b_config
+    from lavida_mod_tpu_torch.models.multimodal import build_gather_plan
+
+    ids, views, size = bench_requests(np.random.default_rng(0))[0]
+    P_dream = build_gather_plan(
+        LaViDaConfig(llada=dream_7b_config()), [ids], [[views.shape[0]]],
+        [[size]])[0].shape[1]
+    dres = Results()
+    with torch.no_grad():
+        phase_dream_kernels(torch, device, dres, P_dream)
+    for name in dres.k:
+        dres.summary(name, "one LaViDa-Dream request (Dream-7B shapes)",
+                     card)
+    torch.cuda.empty_cache()
+    dream_counts, dream = phase_dream_path(torch, device, card)
+    torch.cuda.empty_cache()
+    phase_small_dream(torch, device)
     print(f"[batch] #4 design point, one decode layer at B = 1, device "
           f"time: fused plan {fused_layer_ms[1]:.4f} ms vs unfused grouped "
           f"int4 {unfused_layer_ms[1]:.4f} ms; back to back "
@@ -1991,6 +2427,10 @@ def main() -> None:
               train_counts["prefix_flash_dkv"]),
         entry("w4_matmul", "w4_matmul.cu", "pallas_w4.py:49", 0),
     ]
+    for e in entries:
+        e["launches_dream_path"] = dream_counts.get(e["name"], 0)
+        if e["name"] in dres.k:
+            e["dream_path"] = dres.get(e["name"])
     bw = {k: (round(w * 1e3, 1), round(w * 1e3 / B, 1), round(p, 2))
           for k, (w, B, p) in batch_walls.items()}
     busy1 = ("not measured" if stage1["busy"] is None
@@ -2022,7 +2462,13 @@ def main() -> None:
           f"s, load {ckpt['load_s']:.2f} s, layout {ckpt['layout_s']:.2f} s, "
           f"requests {ckpt['first_request_s'] * 1e3:.1f} / "
           f"{ckpt['warm_request_s'] * 1e3:.1f} ms, peak device "
-          f"{ckpt['peak_device_gib']:.2f} GiB; "
+          f"{ckpt['peak_device_gib']:.2f} GiB; LaViDa-Dream (Dream-7B, "
+          f"P={dream['P']}, G=32, 16 steps): bf16 request "
+          f"{dream['bf16_wall'] * 1e3:.1f} ms (peak {dream['bf16_peak']:.2f} "
+          f"GiB), mixed requests "
+          f"{[round(w * 1e3, 1) for w in dream['walls']]} ms (peak "
+          f"{[round(p, 2) for p in dream['peaks']]} GiB), launches on the "
+          f"Dream path (bf16 request + three mixed) {dream_counts}; "
           f"whole script {time.perf_counter() - t_start:.1f} s on {card}")
     print(card)
     print(json.dumps({"kernels": entries}))

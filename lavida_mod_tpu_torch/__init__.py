@@ -22,12 +22,13 @@ Layer map (mirrors lavida_mod_tpu):
                short_attention and w8a8_matmul wrappers of any checkout
                (chip_smoke.py's timers)
   models/      nn.Modules: SigLIP, projector, LLaDA (bf16, the mixed
-               int8/int4 and the int4 serving layouts), the composed
-               LaViDa with its checkpoint loader (and llada_loader, the
-               reference names of the LM), and the host-side multimodal
-               splice planner
+               int8/int4 and the int4 serving layouts; with Qwen2's QKV
+               bias it is the Dream LM), the composed LaViDa with its
+               checkpoint loader (llada_loader and dream, the reference
+               names of the two LMs), and the host-side multimodal splice
+               planner
   generation/  the prefix-cached masked-diffusion denoise loop, plain and
-               with chunked batch prefill
+               with chunked batch prefill, and the Dream sampler
   eval/        the eval adapter: text in and out, and batched generation
   train/       the masked-diffusion loss, the optax-equivalent optimizer
                and the multimodal train step (stage-1 / stage-2 training)

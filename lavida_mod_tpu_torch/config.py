@@ -1,15 +1,15 @@
 """Typed configuration tree of the port: a copy of the model and generation
 configs of lavida_mod_tpu/config.py (LLaDAConfig, SigLIPConfig,
-VisionConfig, LaViDaConfig, GenerationConfig, the tiny fixtures and the
-default anyres pinpoints), so the port imports nothing of the JAX package.
+VisionConfig, LaViDaConfig, GenerationConfig, DreamGenerationConfig, the
+tiny fixtures and the default anyres pinpoints), so the port imports
+nothing of the JAX package.
 tests/test_torch_config.py holds every default equal to the original, field
 for field.
 
 `config_from_checkpoint(path)` sniffs (LaViDaConfig, lm_family) from a
 checkpoint directory's config.json (config.py:208-320): the flat OLMo-style
 LLaDA fields, Qwen2-style Dream fields over `dream_7b_config` (the Dream
-geometry of models/dream.py:32, a config only: the Dream model is not in
-the port) and the LLaVA composition fields.
+geometry of models/dream.py:32) and the LLaVA composition fields.
 
 `as_port_config` turns an instance of the JAX package's dataclass of the
 same name (anything with the same fields) into the port's, recursively and
@@ -192,6 +192,27 @@ class GenerationConfig:
         return dataclasses.replace(self, **kw)
 
 
+@dataclass(frozen=True)
+class DreamGenerationConfig:
+    """Dream sampler knobs (dream/generation_utils.py:99-147)."""
+
+    max_new_tokens: int = 128
+    steps: int = 512                    # clamped to max_new_tokens
+    eps: float = 1e-3
+    alg: str = "origin"                 # origin|maskgit_plus|topk_margin|entropy
+    alg_temp: Optional[float] = None
+    temperature: float = 0.0
+    top_p: Optional[float] = None
+    top_k: Optional[int] = None
+    schedule: Optional[str] = None
+    schedule_shift: float = 3.0
+    step_ratio: Optional[float] = None
+    prefix_lm: bool = True
+
+    def replace(self, **kw) -> "DreamGenerationConfig":
+        return dataclasses.replace(self, **kw)
+
+
 def dream_7b_config(**kw) -> LLaDAConfig:
     """Dream-v0-7B (Qwen2.5-7B geometry; token ids of
     configuration_dream.py:49-50)."""
@@ -307,7 +328,8 @@ def config_from_checkpoint(path: str):
 
 
 _CLASSES = {c.__name__: c for c in (LLaDAConfig, SigLIPConfig, VisionConfig,
-                                    LaViDaConfig, GenerationConfig)}
+                                    LaViDaConfig, GenerationConfig,
+                                    DreamGenerationConfig)}
 
 
 def as_port_config(cfg):

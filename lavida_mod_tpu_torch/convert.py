@@ -17,9 +17,13 @@ The LM's linears may be quantized (`quantize_params`, llada.py:807-866):
     the JAX nibble order) and `.scales` as they are; `__trim_N__` becomes
     a `.__trim__` entry that `LaViDa.from_jax` checks against the config.
 `prefill_state_from_jax` maps the mixed layout's int8 prefill tree onto
-`blocks.i.prefill.*`; its embedding, ln_f and norms must be the decode
-tree's (they are shared), and its int8 head is not kept (the prefill
-returns no logits).
+`blocks.i.prefill.*` and its int8 head onto `prefill_head.*` (the Dream
+sampler takes its first token from the prefill's logits); its embedding,
+ln_f and norms must be the decode tree's (they are shared).  A linear's
+bias (Qwen2's QKV bias: q/k/v in the llama layout, att_proj in the fused
+one) maps to `.bias` in every tree.  LaViDa-Dream's LM is a tree of the
+same names (`convert_dream_state_dict`, models/dream.py), so it converts
+as LLaDA's does.
 
 Every other leaf is mapped or the conversion raises: a quantized leaf
 outside the LM, a LoRA factor or any unknown name is an error, never
@@ -186,15 +190,17 @@ def masters_from_jax(params: dict, device="cuda") -> dict[str, torch.Tensor]:
 def prefill_state_from_jax(prefill: dict, llada: dict) -> dict:
     """The mixed layout's int8 prefill tree (`LaViDa.prefill_params`, an
     unstacked LLaDA params dict, numpy leaves) -> `llada.blocks.i.prefill.*`
-    entries.  Its shared leaves must equal the decode tree `llada`'s."""
+    and `llada.prefill_head.*` entries.  Its shared leaves must equal the
+    decode tree `llada`'s."""
     _check_linear_kinds(prefill)
     dec = dict(_flatten(llada))
     out: dict[str, torch.Tensor] = {}
     for path, arr in _flatten(prefill):
         n = len(path)
-        if path[0] == "ff_out":
-            continue                          # the prefill returns no logits
-        if path in (("wte",), ("ln_f", "weight")) or (
+        if n == 2 and path[0] == "ff_out" and path[1] in ("kernel_q",
+                                                          "scale"):
+            _linear_leaf("llada.prefill_head", path[1], arr, path, out, True)
+        elif path in (("wte",), ("ln_f", "weight")) or (
                 n == 4 and path[0] == "blocks" and path[2] in _LLADA_NORMS):
             if path not in dec or not np.array_equal(
                     np.asarray(dec[path]), np.asarray(arr)):
@@ -203,7 +209,7 @@ def prefill_state_from_jax(prefill: dict, llada: dict) -> dict:
                                  f"port shares it")
         elif n == 4 and path[0] == "blocks" and isinstance(path[1], int) \
                 and path[2] in _LLADA_LINEARS \
-                and path[3] in ("kernel_q", "scale"):
+                and path[3] in ("kernel_q", "scale", "bias"):
             _linear_leaf(f"llada.blocks.{path[1]}.prefill.{path[2]}",
                          path[3], arr, path, out, True)
         else:

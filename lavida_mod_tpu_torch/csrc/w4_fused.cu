@@ -26,8 +26,10 @@
 // 4096] x 12288 ([q|k|v], 8.0 us at 3.35 TB/s), 275 MB at the head's
 // 126464 columns.  Two launches per 32 rows: the norm pass (RMSNorm + A8
 // into the slice layout, one CTA per row) and the GEMM with a bf16(acc *
-// sx) epilogue.  Its stages are 4 groups of 12 tiles, so that at [q|k|v]
-// a CTA's 11-12 tiles take one pass and the codes cross L2 once per CTA.
+// sx) epilogue, or bf16(acc * sx + bias) with Qwen2's QKV bias (Dream-7B:
+// [32, 3584] x 4608, 8.8 MB, and its 152064-column head, 290 MB).  Its
+// stages are 4 groups of 12 tiles, so that at [q|k|v] a CTA's 11-12 tiles
+// take one pass and the codes cross L2 once per CTA.
 //
 // #6, w4_matmul_res: 8.9 MB of int4 weights and scales per call at [32,
 // 4096] x 4096 (the attention output projection, 2.7 us at 3.35 TB/s).
@@ -235,32 +237,47 @@ qkv_norm_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __rest
   row_pass<true>(x, norm_w, x8, sx, T, D, kQkvSG, eps);
 }
 
-// The [q|k|v] and head epilogue: bf16(acc * sx), a column pair per store.
+// The [q|k|v] and head epilogue: bf16(acc * sx), or with a bias (Qwen2's
+// QKV bias, w4_fused.py:195-197) bf16(acc * sx + f32(bias[n])), the sum in
+// f32 before the one rounding; a column pair per store.
 struct QkvEpi {
   const float* row_scale;
-  __nv_bfloat16* out;   // [T, N]
+  const __nv_bfloat16* bias;   // [N] or null
+  __nv_bfloat16* out;          // [T, N]
   int T, N;
 
   __device__ void unit(int u, int m, const float (&acc)[1][4]) {
     const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+    const int col = u * 8 + tig * 2;
+    float b0 = 0.0f, b1 = 0.0f;
+    if (bias != nullptr) {
+      const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(bias + col);
+      b0 = __low2float(b);
+      b1 = __high2float(b);
+    }
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int r = m * 16 + gid + half * 8;
       if (r >= T) continue;
       const float rs = row_scale[r];
-      *reinterpret_cast<__nv_bfloat162*>(out + static_cast<long>(r) * N + u * 8 + tig * 2) =
-          __floats2bfloat162_rn(__fmul_rn(acc[0][half * 2], rs),
-                                __fmul_rn(acc[0][half * 2 + 1], rs));
+      float v0 = __fmul_rn(acc[0][half * 2], rs), v1 = __fmul_rn(acc[0][half * 2 + 1], rs);
+      if (bias != nullptr) {
+        v0 = __fadd_rn(v0, b0);
+        v1 = __fadd_rn(v1, b1);
+      }
+      *reinterpret_cast<__nv_bfloat162*>(out + static_cast<long>(r) * N + col) =
+          __floats2bfloat162_rn(v0, v1);
     }
   }
   __device__ void finish(int) {}
 };
 
 __global__ void __launch_bounds__(w4s::kThreads, 1)
-qkv_kernel(w4s::Stream p, const float* __restrict__ sx, __nv_bfloat16* __restrict__ out, int T) {
+qkv_kernel(w4s::Stream p, const float* __restrict__ sx, const __nv_bfloat16* __restrict__ bias,
+           __nv_bfloat16* __restrict__ out, int T) {
   extern __shared__ __align__(128) uint8_t smem[];
   hopper::griddep_launch_dependents();
-  QkvEpi epi{sx, out, T, p.N};
+  QkvEpi epi{sx, bias, out, T, p.N};
   w4s::stream_gemm<1, kQkvSG, kQkvPU>(p, smem, epi);
 }
 
@@ -438,16 +455,17 @@ extern "C" int lavida_act_quant(const void* x, void* x8, void* sx, int T, int K,
   return launch_quant(formula, x, x8, sx, T, K, static_cast<cudaStream_t>(stream));
 }
 
-// out [T, N] = bf16(rmsnorm(x) @ W4 * sx); x [T, D] bf16, norm_w [D] bf16,
-// packed [N/8, D/128, 512], scales [D/128, N] f32.  Scratch: x8, the codes
-// of [32, D] in the GEMM's slice layout, and sx [32] f32.  Rows go 32 at a
-// time, two launches each: the norm pass, then the GEMM with programmatic
-// dependent launch.  The plan (ops/w4_fused.py::qkv_plan): the GEMM's
-// CTAs, ring stages and dynamic shared bytes.
-extern "C" int lavida_w4_qkv_norm(const void* x, const void* norm_w, const void* packed,
-                                  const void* scales, void* x8, void* sx, void* out, int T,
-                                  int D, int N, float eps, int ctas, int stages, int smem,
-                                  void* stream) {
+// out [T, N] = bf16(rmsnorm(x) @ W4 * sx + bias); x [T, D] bf16, norm_w [D]
+// bf16, packed [N/8, D/128, 512], scales [D/128, N] f32, bias [N] bf16 or
+// null (no bias: bf16(... * sx)).  Scratch: x8, the codes of [32, D] in the
+// GEMM's slice layout, and sx [32] f32.  Rows go 32 at a time, two launches
+// each: the norm pass, then the GEMM with programmatic dependent launch.
+// The plan (ops/w4_fused.py::qkv_plan): the GEMM's CTAs, ring stages and
+// dynamic shared bytes.
+extern "C" int lavida_w4_qkv_norm_bias(const void* x, const void* norm_w, const void* packed,
+                                       const void* scales, const void* bias, void* x8, void* sx,
+                                       void* out, int T, int D, int N, float eps, int ctas,
+                                       int stages, int smem, void* stream) {
   using L = w4s::Layout<1, kQkvSG, kQkvPU>;
   const int G = D / kGroup;
   if (T <= 0 || D <= 0 || D % kGroup || N <= 0 || N % 8 || ctas < 1 || ctas > N / 8 ||
@@ -473,10 +491,20 @@ extern "C" int lavida_w4_qkv_norm(const void* x, const void* norm_w, const void*
     err = static_cast<int>(cudaGetLastError());
     if (err) return err;
     err = hopper::launch_dependent(qkv_kernel, dim3(ctas), dim3(w4s::kThreads), smem, st, p,
-                                   sxp, op + static_cast<long>(r0) * N, rows);
+                                   sxp, static_cast<const __nv_bfloat16*>(bias),
+                                   op + static_cast<long>(r0) * N, rows);
     if (err) return err;
   }
   return 0;
+}
+
+// lavida_w4_qkv_norm_bias without a bias.
+extern "C" int lavida_w4_qkv_norm(const void* x, const void* norm_w, const void* packed,
+                                  const void* scales, void* x8, void* sx, void* out, int T,
+                                  int D, int N, float eps, int ctas, int stages, int smem,
+                                  void* stream) {
+  return lavida_w4_qkv_norm_bias(x, norm_w, packed, scales, nullptr, x8, sx, out, T, D, N, eps,
+                                 ctas, stages, smem, stream);
 }
 
 // out [T, N] = bf16(a @ W4 * sa + res); a [T, K] bf16, res [T, N] bf16,

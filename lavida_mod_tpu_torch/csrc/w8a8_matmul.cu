@@ -22,7 +22,9 @@
 // swizzled slices; while they finish one tile's epilogue the producer
 // already loads the next tile's slices.  The int32 accumulator never leaves
 // the registers: the epilogue applies `(float(acc) * sx[t]) * scale[n]`
-// with IEEE multiplies (no contraction) and stores bf16 pairs.  int32
+// with IEEE multiplies (no contraction), adds an optional bf16 bias in f32
+// (Qwen2's QKV bias on the prefill's [q|k|v], `linear_act_int8`'s order,
+// quant.py:226-230) and stores bf16 pairs.  int32
 // cannot overflow: 127^2 * 12288 < 2^31.  The two tensor maps are encoded
 // on the host (hopper.cuh: `cuTensorMapEncodeTiled` through the runtime's
 // driver entry point, so nothing links against libcuda), once per buffer
@@ -75,7 +77,8 @@ __device__ __forceinline__ void wgmma_ss_s8_n128(int (&d)[64], uint64_t desc_a, 
 __global__ void __launch_bounds__(kThreads, 1)
 w8a8_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
             const float* __restrict__ sx, const float* __restrict__ scale,
-            __nv_bfloat16* __restrict__ out, int T, int K, int N) {
+            const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ out, int T,
+            int K, int N) {
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
   // 128-byte swizzled slices sit on 1024-byte boundaries
@@ -159,22 +162,22 @@ w8a8_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CU
       const int row = m0 + r_in + half * 8;
       if (row >= T) continue;
       const float rs = sx[row];
+      auto value = [&](int a, int c) {   // (a * sx) * scale (+ bias), in f32
+        const float v = __fmul_rn(__fmul_rn(__int2float_rn(a), rs), scale[c]);
+        return bias == nullptr ? v : __fadd_rn(v, __bfloat162float(bias[c]));
+      };
       __nv_bfloat16* orow = out + static_cast<long>(row) * N;
 #pragma unroll
       for (int j = 0; j < kBN / 8; ++j) {
         const int col = n0 + j * 8 + c_in;
         if (col >= N) continue;
-        const float v0 = __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * half]), rs), scale[col]);
+        const float v0 = value(acc[4 * j + 2 * half], col);
         if (pairs) {  // N even: col + 1 < N, and the pair is 4-byte aligned
-          const float v1 =
-              __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * half + 1]), rs), scale[col + 1]);
+          const float v1 = value(acc[4 * j + 2 * half + 1], col + 1);
           *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(v0, v1);
         } else {
           orow[col] = __float2bfloat16_rn(v0);
-          if (col + 1 < N) {
-            orow[col + 1] = __float2bfloat16_rn(
-                __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * half + 1]), rs), scale[col + 1]));
-          }
+          if (col + 1 < N) orow[col + 1] = __float2bfloat16_rn(value(acc[4 * j + 2 * half + 1], col + 1));
         }
       }
     }
@@ -193,12 +196,12 @@ bool encode_kmajor(CUtensorMap* map, const void* base, int rows, int K) {
 
 }  // namespace
 
-// x8 [T, K] int8, sx [T] f32, w8 [N, K] int8, scale [N] f32, out [T, N]
-// bf16; all contiguous, x8 and w8 16-byte aligned, K a multiple of 16.
-// Returns a cudaError_t.
+// x8 [T, K] int8, sx [T] f32, w8 [N, K] int8, scale [N] f32, bias [N] bf16
+// or null, out [T, N] bf16; all contiguous, x8 and w8 16-byte aligned, K a
+// multiple of 16.  Returns a cudaError_t.
 extern "C" int lavida_w8a8_matmul(const void* x8, const void* sx, const void* w8,
-                                  const void* scale, void* out, int T, int K, int N,
-                                  void* stream) {
+                                  const void* scale, const void* bias, void* out, int T, int K,
+                                  int N, void* stream) {
   if (T <= 0 || N <= 0 || K <= 0 || K % 16) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tm_x, tm_w;
   if (!encode_kmajor(&tm_x, x8, T, K) || !encode_kmajor(&tm_w, w8, N, K)) {
@@ -221,6 +224,6 @@ extern "C" int lavida_w8a8_matmul(const void* x8, const void* sx, const void* w8
   const int tiles = ((T + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
   w8a8_kernel<<<tiles < sms ? tiles : sms, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       tm_x, tm_w, static_cast<const float*>(sx), static_cast<const float*>(scale),
-      static_cast<__nv_bfloat16*>(out), T, K, N);
+      static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(out), T, K, N);
   return static_cast<int>(cudaGetLastError());
 }

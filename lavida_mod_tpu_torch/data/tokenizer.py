@@ -17,17 +17,19 @@ Both return objects with the HF surface the port uses:
 `apply_chat_template` (rendered with jinja2, imported there).
 
 Differences from the JAX package's module:
-  - the pre-tokenization runs on the standard library's `re`, not on the
-    `regex` package: `\\p{L}` and `\\p{N}` become explicit classes of the
-    code points whose Unicode category is a letter or a number (from
+  - the pre-tokenization runs on the `regex` package when it imports, as
+    the JAX package's does; without it, on the standard library's `re`
+    (`compile_pattern`): `\\p{L}` and `\\p{N}` become explicit classes of
+    the code points whose Unicode category is a letter or a number (from
     `unicodedata`, built once per process), and `\\s` / `\\S` the Unicode
     White_Space set, as `regex` and the `tokenizers` runtime read them
-    (`re`'s own `\\s` also takes U+001C..U+001F).  Characters assigned
-    after the interpreter's Unicode version are not letters here;
+    (`re`'s own `\\s` also takes U+001C..U+001F).  On that fallback the
+    characters assigned after the interpreter's Unicode version are not
+    letters (Python 3.12's `unicodedata` is Unicode 15.0);
   - the merge loop is the pure-Python one only; the C++ merge engine of
     the JAX package (csrc/bpe.cpp through data/native.py) is not ported.
-`tokenizers`, `transformers` and `jinja2` are imported only inside the
-functions that use them.
+`regex`, `tokenizers`, `transformers` and `jinja2` are imported only
+inside the functions that use them.
 """
 
 from __future__ import annotations
@@ -89,6 +91,16 @@ def _category_classes() -> dict[str, str]:
         if c in cats:
             cats[c].append(cp)
     return {k: _ranges(v) for k, v in cats.items()}
+
+
+def pretokenizer(pattern: str):
+    """`pattern` compiled by the `regex` package when it imports (its own
+    Unicode tables), else by `compile_pattern`."""
+    try:
+        import regex
+    except ImportError:
+        return compile_pattern(pattern)
+    return regex.compile(pattern)
 
 
 @functools.lru_cache()
@@ -168,7 +180,7 @@ class ByteLevelBPE:
         for t, i in self.special.items():
             self.vocab.setdefault(t, i)
             self.id2tok.setdefault(i, t)
-        self.pat = compile_pattern(pattern)
+        self.pat = pretokenizer(pattern)
         self.b2u = bytes_to_unicode()
         self.u2b = {u: b for b, u in self.b2u.items()}
         self.chat_template = chat_template

@@ -8,12 +8,16 @@ per image, the template's own chat template where the tokenizer has one,
 `tokenizer_image_token`; several images switch the model's view to the
 "pad" aspect mode, adapter.py:102-129), preprocesses the PIL images, and
 answers in text: `generate_until` through `LaViDa.generate_fused` (the
-prefix-cache mode) or `LaViDa.generate`, `generate_until_batch` through
-`generate_batch`, each cut and decoded by `decode_output`, the
-latency of each request kept for `avg_latency`.  Not ported yet:
-`loglikelihood` (the MC estimator, ROADMAP.md Queue 1 item 7), video
-requests (data/video.py and the video encode, Queue 1 item 9) and the
-Dream sampler's configs (Queue 1 item 6): each raises.
+prefix-cache mode) or `LaViDa.generate` (a LaViDa-Dream model's
+requests: `gen_kwargs_to_config(.., "dream")` gives a
+`DreamGenerationConfig`, which `generate` runs through the Dream sampler,
+adapter.py:141-158), `generate_until_batch` through `generate_batch`
+(the LLaDA sampler only), each cut and decoded by `decode_output`, the
+latency of each request kept for `avg_latency`.  `loglikelihood` raises
+for Dream as the JAX adapter does (its AR-shifted head has no MC
+estimator, adapter.py:204-209).  Not ported yet: `loglikelihood` for
+LLaDA (the MC estimator, ROADMAP.md Queue 1 item 7) and video requests
+(data/video.py and the video encode, Queue 1 item 9): each raises.
 
 `generate_batch` (adapter.py:245-318) is the path of the serve worker's
 `--decode-batch N` and of bench.py's throughput mode.  It takes requests
@@ -39,37 +43,44 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..config import GenerationConfig, as_port_config
+from ..config import DreamGenerationConfig, GenerationConfig, as_port_config
 from ..data import SigLIPImageProcessor, process_images
 from ..data.conversation import get_conv_template
 from ..data.prompts import tokenizer_image_token
 from ..generation import diffusion
 
 
-def gen_kwargs_to_config(gen_kwargs: dict,
-                         lm_family: str = "llada") -> GenerationConfig:
-    """lmms-eval gen_kwargs -> GenerationConfig (adapter.py:26): the
-    `schedule__*` keys become schedule kwargs (llava_llada.py:598-604)
-    and block_length defaults to min(128, max_new_tokens) (:606)."""
-    if lm_family == "dream":
-        raise NotImplementedError("the Dream sampler is not in the port "
-                                  "yet (ROADMAP.md Queue 1 item 6)")
+def gen_kwargs_to_config(gen_kwargs: dict, lm_family: str = "llada"):
+    """lmms-eval gen_kwargs -> GenerationConfig, or DreamGenerationConfig
+    for lm_family "dream" (adapter.py:26-61): the `schedule__*` keys
+    become schedule kwargs (llava_llada.py:598-604); block_length
+    defaults to min(128, max_new_tokens) (:606); Dream's steps default
+    to 512 and its alg to topk_margin."""
     kw = dict(gen_kwargs)
     schedule_kwargs = {k[len("schedule__"):]: kw.pop(k)
                        for k in list(kw) if k.startswith("schedule__")}
     max_new = int(kw.pop("max_new_tokens", 32))
-    return GenerationConfig(
+    common = dict(
         max_new_tokens=max_new,
         schedule=kw.pop("schedule", None),
         schedule_shift=float(schedule_kwargs.get("shift", 3.0)),
         step_ratio=kw.pop("step_ratio", None),
         prefix_lm=bool(kw.pop("prefix_lm", True)),
-        temperature=float(kw.pop("temperature", 0.0) or 0.0),
+        temperature=float(kw.pop("temperature", 0.0) or 0.0))
+    if lm_family == "dream":
+        return DreamGenerationConfig(
+            steps=int(kw.pop("steps", 512)),
+            alg=kw.pop("alg", "topk_margin"),
+            alg_temp=kw.pop("alg_temp", None),
+            top_p=kw.pop("top_p", None),
+            top_k=kw.pop("top_k", None),
+            **common)
+    return GenerationConfig(
         block_length=int(kw.pop("block_length", min(128, max_new))),
         steps=kw.pop("steps", None),
         step_per_block=kw.pop("step_per_block", None),
         remasking=kw.pop("remasking", "low_confidence"),
-    )
+        **common)
 
 
 def _sync(device: torch.device) -> None:
@@ -164,21 +175,29 @@ class LavidaEvalModel:
         if video and images:
             raise NotImplementedError("video requests are not in the port "
                                       "yet (ROADMAP.md Queue 1 item 9)")
-        gen = gen_kwargs_to_config(gen_kwargs or {})
+        gen = gen_kwargs_to_config(gen_kwargs or {}, self.model.lm_family)
+        dream = isinstance(gen, DreamGenerationConfig)
         input_ids, views, sizes, model = self._build_inputs(text, images)
         t0 = time.perf_counter()
-        if gen.prefix_lm:
+        if not dream and gen.prefix_lm:
             out = model.generate_fused(input_ids, views, sizes, gen,
                                        prefix_bucket=self.prefix_bucket,
                                        kv8=self.kv8)
         else:
-            out = model.generate(input_ids, views, sizes, gen,
-                                 prefix_bucket=self.prefix_bucket)
+            # the Dream sampler takes no prefix bucket (lavida.py:500-503)
+            out = model.generate(
+                input_ids, views, sizes, gen,
+                prefix_bucket=None if dream else self.prefix_bucket)
         self.latencies.append(time.perf_counter() - t0)
         return model.decode_output(out, self.tokenizer, self._stop_ids())
 
     def loglikelihood(self, text: str, images: Sequence,
                       continuation: str) -> float:
+        if self.model.lm_family == "dream":
+            # Dream's AR-shifted head has no MC estimator (llava_dream.py:
+            # 366-376 raises); the LLaDA one would mis-score its logits
+            raise NotImplementedError(
+                "loglikelihood is not supported for the Dream backbone")
         raise NotImplementedError("the MC log-likelihood is not in the "
                                   "port yet (ROADMAP.md Queue 1 item 7)")
 
@@ -187,7 +206,10 @@ class LavidaEvalModel:
                              gen_kwargs: Optional[dict] = None) -> list[str]:
         """The requests in one batch (`generate_batch`), each answer
         decoded; every request is charged the batch's wall / B."""
-        gen = gen_kwargs_to_config(gen_kwargs or {})
+        gen = gen_kwargs_to_config(gen_kwargs or {}, self.model.lm_family)
+        if isinstance(gen, DreamGenerationConfig):
+            raise NotImplementedError("the batched path implements the "
+                                      "LLaDA sampler (adapter.py:242)")
         t0 = time.perf_counter()
         requests = []
         for text, images in zip(texts, images_list):

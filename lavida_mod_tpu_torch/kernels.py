@@ -148,9 +148,10 @@ def library() -> ctypes.CDLL:
     lib.lavida_short_attention_bf16.restype = ci
     lib.lavida_gather_rows.argtypes = [vp, vp, ci, vp, cl, cl, vp]
     lib.lavida_gather_rows.restype = ci
-    lib.lavida_w8a8_matmul.argtypes = [vp] * 5 + [ci, ci, ci, vp]
+    lib.lavida_w8a8_matmul.argtypes = [vp] * 6 + [ci, ci, ci, vp]
     lib.lavida_act_quant.argtypes = [vp, vp, vp, ci, ci, ci, vp]
     lib.lavida_w4_qkv_norm.argtypes = [vp] * 7 + [ci] * 3 + [cf] + [ci] * 3 + [vp]
+    lib.lavida_w4_qkv_norm_bias.argtypes = [vp] * 8 + [ci] * 3 + [cf] + [ci] * 3 + [vp]
     lib.lavida_w4_matmul_res.argtypes = [vp] * 7 + [ci] * 6 + [vp]
     lib.lavida_w4_ffn_fused.argtypes = [vp] * 13 + [ci] * 4 + [cf] + [ci] * 6 + [vp]
     lib.lavida_w4_grouped.argtypes = [vp] * 5 + [ci] * 9 + [vp]
@@ -162,7 +163,8 @@ def library() -> ctypes.CDLL:
     lib.lavida_prefix_flash_dkv.argtypes = [vp] * 10 + [ci] * 6 + [cf, vp]
     lib.lavida_w4_matmul.argtypes = [vp] * 4 + [ci] * 3 + [vp]
     for fn in (lib.lavida_w8a8_matmul, lib.lavida_act_quant,
-               lib.lavida_w4_qkv_norm, lib.lavida_w4_matmul_res,
+               lib.lavida_w4_qkv_norm, lib.lavida_w4_qkv_norm_bias,
+               lib.lavida_w4_matmul_res,
                lib.lavida_w4_ffn_fused, lib.lavida_w4_grouped,
                lib.lavida_w4_grouped_decode,
                lib.lavida_kv8_decode_attention, lib.lavida_vit_mlp,

@@ -20,7 +20,12 @@ image-newline vector, with the entry points:
   - `encode_prompt(...)` and `generate(...)`: the multi-dispatch path
     (lavida.py:430-531) the batched adapter runs, one image encode per
     image and the splice by concatenation, then `diffusion.generate`
-    with optional front-padding to a bucket and the int8 KV cache.
+    with optional front-padding to a bucket and the int8 KV cache, or,
+    with a `DreamGenerationConfig`, the Dream sampler
+    (`dream_sampler.dream_generate`, lavida.py:500-512) with its hooks.
+`lm_family` is "llada" or "dream" (LaViDa-Dream: the Dream-7B LM, the
+LLaDA core with Qwen2's QKV bias, models/dream.py); it picks the
+checkpoint names and the eval adapter's sampler.
 `decode_output(ids, tokenizer, stop_ids)` cuts a generation at EOS or the
 conversation's stop ids and decodes it (lavida.py:603).
 
@@ -30,7 +35,9 @@ Checkpoints.  The published weights' names (LLaDAModelLM.base_model_prefix
   model.vision_tower.vision_tower.vision_model.*      -> siglip
   model.mm_projector.{0,2}.{weight,bias}              -> projector
   model.image_newline                                 -> image_newline
-map onto the state dict by name (`checkpoint_plan`; llada_loader,
+map onto the state dict by name (`checkpoint_plan`; llada_loader, or
+models/dream.py's map of the HF Dream names (model.layers.N.*,
+model.embed_tokens, model.norm, lm_head) for LaViDa-Dream,
 siglip.port_name, projector.port_name), every name with or without the
 "model." prefix; a key that maps nowhere raises, and a missing newline
 is zero (lavida.py:80-84).  `load_state_shards` maps the shards (the
@@ -62,12 +69,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..config import (GenerationConfig, LaViDaConfig, as_port_config,
-                      config_from_checkpoint)
+from ..config import (DreamGenerationConfig, GenerationConfig, LaViDaConfig,
+                      as_port_config, config_from_checkpoint)
 
 from ..generation import diffusion
 from ..generation.diffusion import build_control_table, generate_cached_fused
-from . import llada_loader, multimodal, projector, siglip
+from ..generation.dream_sampler import dream_generate
+from . import dream, llada_loader, multimodal, projector, siglip
 from .llada import LLaDA, RMSNorm
 from .projector import Projector
 from .siglip import LayerNorm, SigLIP
@@ -235,14 +243,21 @@ def open_checkpoint(path: str, base: Optional[str] = None) -> dict:
         f"is given (builder.py:62-170 load modes)")
 
 
-def checkpoint_plan(state, cfg: LaViDaConfig) -> dict:
+def checkpoint_plan(state, cfg: LaViDaConfig, lm_family: str = "llada"
+                    ) -> dict:
     """{LaViDa state-dict name: checkpoint key} for the names of `state`;
     the keys of SigLIP's dropped layers and unused parts are left out, any
-    other key that maps nowhere raises."""
-    plan = llada_loader.lm_plan(state, cfg.llada, "llada.")
+    other key that maps nowhere raises.  lm_family "dream": the LM under
+    the HF Dream names (models/dream.py)."""
+    if lm_family == "dream":
+        plan = dream.lm_plan(state, cfg.llada, "llada.")
+        lm_keys = set(plan.values())
+    else:
+        plan = llada_loader.lm_plan(state, cfg.llada, "llada.")
+        lm_keys = set()
     for key in state:
         k = key[len("model."):] if key.startswith("model.") else key
-        if k.startswith("transformer."):
+        if k.startswith("transformer.") or key in lm_keys:
             continue
         if k == "image_newline":
             llada_loader.plan_put(plan, "image_newline", key)
@@ -295,10 +310,14 @@ def fill_module(module: nn.Module, state: dict, plan: dict,
 
 
 class LaViDa(nn.Module):
-    def __init__(self, cfg: LaViDaConfig, device, dtype=None):
+    def __init__(self, cfg: LaViDaConfig, device, dtype=None,
+                 lm_family: str = "llada"):
         super().__init__()
+        if lm_family not in ("llada", "dream"):
+            raise ValueError(f"lm_family {lm_family!r}")
         cfg = as_port_config(cfg)
         self.cfg = cfg
+        self.lm_family = lm_family
         kw = dict(device=device, dtype=dtype)
         self.llada = LLaDA(cfg.llada, **kw)
         self.siglip = SigLIP(cfg.vision.siglip, **kw)
@@ -316,12 +335,12 @@ class LaViDa(nn.Module):
     @classmethod
     @torch.no_grad()
     def random_init(cls, cfg: LaViDaConfig, seed: int, dtype: torch.dtype,
-                    device) -> "LaViDa":
+                    device, lm_family: str = "llada") -> "LaViDa":
         """Seeded random weights drawn on `device` by a generator there:
         every linear, embedding and position table ~ N(0, 0.02) with zero
         biases, norms at one, the newline ~ N(0, 1/D), as the JAX
         `init_params` draws them (llada.py:47-105)."""
-        model = cls(cfg, "meta", dtype).to_empty(device=device)
+        model = cls(cfg, "meta", dtype, lm_family).to_empty(device=device)
         gen = torch.Generator(device=device).manual_seed(seed)
         for m in model.modules():
             if isinstance(m, (RMSNorm, LayerNorm)):
@@ -340,7 +359,8 @@ class LaViDa(nn.Module):
     @classmethod
     def from_jax(cls, cfg: LaViDaConfig, params: dict, device,
                  dtype: Optional[torch.dtype] = None,
-                 prefill_params: Optional[dict] = None) -> "LaViDa":
+                 prefill_params: Optional[dict] = None,
+                 lm_family: str = "llada") -> "LaViDa":
         """The model with the JAX package's params (a pytree of numpy
         arrays, LLaDA blocks stacked or unstacked, linears plain, int8 or
         int4) on `device`, its float parameters in the params' dtype unless
@@ -358,7 +378,7 @@ class LaViDa(nn.Module):
                                                 params["llada"]))
         trims = {k[:-len(".__trim__")]: int(state.pop(k))
                  for k in [k for k in state if k.endswith(".__trim__")]}
-        model = cls(cfg, "meta")
+        model = cls(cfg, "meta", lm_family=lm_family)
         model.llada.adopt_layout({k[len("llada."):]: v
                                   for k, v in state.items()
                                   if k.startswith("llada.")})
@@ -388,20 +408,19 @@ class LaViDa(nn.Module):
         not given (the composed config lives with the delta).  Every
         weight streams from the mapped files straight into the model's
         parameters in `dtype` on `device`: on the card the bf16 8B goes
-        there directly and `to_serving_layout` quantizes it there."""
+        there directly and `to_serving_layout` quantizes it there.
+        lm_family "dream" (lavida.py:63-66): the LM under the HF Dream
+        names (models/dream.py)."""
         if cfg is None or lm_family is None:
             scfg, sfam = config_from_checkpoint(path)
             cfg = cfg if cfg is not None else scfg
             lm_family = lm_family or sfam or "llada"
-        if lm_family == "dream":
-            raise NotImplementedError(
-                "the Dream LM is not in the port yet (ROADMAP.md Queue 1 "
-                "item 6)")
         cfg = as_port_config(cfg) or LaViDaConfig()
         state = open_checkpoint(path, base)
         try:
-            model = cls(cfg, "meta", dtype).to_empty(device=device)
-            fill_module(model, state, checkpoint_plan(state, cfg),
+            model = cls(cfg, "meta", dtype, lm_family).to_empty(
+                device=device)
+            fill_module(model, state, checkpoint_plan(state, cfg, lm_family),
                         optional=("image_newline",))
         finally:
             close_checkpoint(state)
@@ -478,11 +497,19 @@ class LaViDa(nn.Module):
         prefix_bucket: Optional[int] = None,
         kv8: bool = False,
         generator: Optional[torch.Generator] = None,
+        tokens_hook=None,
+        logits_hook=None,
     ) -> np.ndarray:
         """One sample through `encode_prompt` and `diffusion.generate`
         (lavida.py:454-531, the LLaDA sampler): the prefix front-padded to
         a multiple of prefix_bucket with the pad rows masked; in the mixed
-        layout the int8 tree prefills.  Returns the [G] generated ids."""
+        layout the int8 tree prefills.  Returns the [G] generated ids.
+
+        With a `DreamGenerationConfig`, the Dream sampler instead
+        (lavida.py:500-512): no prefix bucket, dense attention, the hooks
+        (generation_utils.py:308-309) forwarded, and in the mixed layout
+        the int8 tree prefills unless a hook is given (the hooked loop
+        prefills with the decode linears)."""
         gen = as_port_config(gen) or GenerationConfig()
         prefix = self.encode_prompt(input_ids, images, image_sizes)
         prefix_valid = None
@@ -495,6 +522,21 @@ class LaViDa(nn.Module):
                                     prefix], dim=1)
                 prefix_valid = torch.arange(Pb, device=self.device)[None] \
                     >= Pb - P
+        if isinstance(gen, DreamGenerationConfig):
+            if prefix_valid is not None:
+                raise NotImplementedError(
+                    "prefix bucketing for the Dream sampler is not wired "
+                    "(as in the JAX package)")
+            mixed = self.mixed and tokens_hook is None \
+                and logits_hook is None
+            out = dream_generate(
+                self.llada, prefix, gen, generator=generator,
+                tokens_hook=tokens_hook, logits_hook=logits_hook,
+                act_int8_prefill=mixed)
+            return out[0].cpu().numpy()
+        if tokens_hook is not None or logits_hook is not None:
+            raise ValueError("generation hooks are a Dream-sampler surface "
+                             "(generation_utils.py:308-309)")
         out = diffusion.generate(
             self.llada, prefix, gen, prefix_valid=prefix_valid,
             generator=generator, act_int8_prefill=self.mixed, kv8=kv8)

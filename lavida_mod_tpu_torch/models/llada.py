@@ -2,11 +2,13 @@
 from lavida_mod_tpu/models/llada.py for the serving and training slices.
 
 Covered: the "llama" block (separate q/k/v projections, SwiGLU as
-silu(ff_proj) * up_proj, RMSNorm, RoPE) that LLaDA-8B uses, and the fused
-"sequential" block `to_fused_layout` makes of it (att_proj = [q|k|v],
-ff_proj = [up|gate] chunked by the swiglu activation, llada.py:111-124,
-719-752), with the layers in a list (the JAX package's unrolled inference
-layout, `unstack_blocks`), and the forward paths the slices run:
+silu(ff_proj) * up_proj, RMSNorm, RoPE) that LLaDA-8B uses, with Qwen2's
+bias on q/k/v where `include_qkv_bias` is set (Dream-7B, models/dream.py),
+and the fused "sequential" block `to_fused_layout` makes of it (att_proj =
+[q|k|v] with the concatenated bias, ff_proj = [up|gate] chunked by the
+swiglu activation, llada.py:111-124, 719-752), with the layers in a list
+(the JAX package's unrolled inference layout, `unstack_blocks`), and the
+forward paths the slices run:
   - a full forward over the input, optionally returning each layer's
     rotated K and V;
   - prefill with kv_write_index=0 into preallocated [B, P+G] buffers, the
@@ -20,12 +22,14 @@ The cache holds keys rotated once at write time, as in the JAX package.
 Quantized serving (`quantize`, `add_prefill_tree`; llada.py:807-866): a
 linear may be an `Int8Linear` or an `Int4Linear` (ops/quant.py).  With
 `act_int8` the blocks run their int8 prefill tree, when one is attached,
-through the W8A8 kernel.  A block whose four linears are unpadded int4 in
-the sequential/swiglu layout runs decode-sized rows (<= 32, a multiple of
-8) through the three fused W4A8 kernels (`fused_plan`, llada.py:142-197),
-and an int4 head through `w4_qkv_norm` on ln_f, its logits rounded to
-bf16 and then cast to f32 as in the JAX package (`head_fusable`,
-llada.py:200-216, 684-699).  Unlike the JAX package the plans engage on
+through the W8A8 kernel, and the logits come from its int8 head.  A
+block whose four linears are unpadded int4 in the sequential/swiglu
+layout, with a bias on att_proj only, runs decode-sized rows (<= 32, a
+multiple of 8) through the three fused W4A8 kernels (`fused_plan`,
+llada.py:142-197; the bias in w4_qkv_norm's epilogue), and an int4 head
+through `w4_qkv_norm` on ln_f, its logits rounded to bf16 and then cast
+to f32 as in the JAX package (`head_fusable`, llada.py:200-216,
+684-699).  Unlike the JAX package the plans engage on
 the CPU too, where the ops run their plain versions.
 
 With an int8 KV cache (a per-layer 4-tuple (k8, ks, v8, vs) in the
@@ -80,7 +84,6 @@ def check_supported(cfg: LLaDAConfig) -> None:
         "layer_norm_type": cfg.layer_norm_type != "rms",
         "rope": not cfg.rope,
         "attention_layer_norm": cfg.attention_layer_norm,
-        "include_qkv_bias": cfg.include_qkv_bias,
         "input_emb_norm": cfg.input_emb_norm,
         "scale_logits": cfg.scale_logits,
         "weight_tying": cfg.weight_tying,
@@ -89,7 +92,8 @@ def check_supported(cfg: LLaDAConfig) -> None:
     if bad:
         raise NotImplementedError(
             f"LLaDA port covers the llama/silu and sequential/swiglu rms "
-            f"blocks with untied head and rope only; unsupported: {bad}")
+            f"blocks (optionally with Qwen2's QKV bias) with untied head and "
+            f"rope only; unsupported: {bad}")
 
 
 def remat_layers(remat) -> bool:
@@ -113,9 +117,12 @@ def _block_n(*ns: int) -> Optional[int]:
 
 def _run_linear(m: nn.Module, x: torch.Tensor, act_int8: bool = False,
                 preferred=None) -> torch.Tensor:
-    """`linear` / `linear_act_int8` (quant.py:170-230) on any linear kind."""
+    """`linear` / `linear_act_int8` (quant.py:170-230) on any linear kind.
+    A float linear's bias is added to the rounded product, in its dtype
+    (quant.py:185-186), never fused into the product's accumulation."""
     if isinstance(m, nn.Linear):
-        return m(x)
+        y = torch.nn.functional.linear(x, m.weight)
+        return y if m.bias is None else y + m.bias
     return m(x, act_int8=act_int8, preferred=preferred)
 
 
@@ -141,19 +148,22 @@ class LLaDABlock(nn.Module):
         D, H = cfg.d_model, cfg.hidden_size
         kvD = cfg.effective_n_kv_heads * cfg.head_dim
         lin = dict(bias=False, device=device, dtype=dtype)
+        # Qwen2's attention bias on q/k/v (llada.py:76-90), concatenated on
+        # att_proj in the fused layout
+        qkv = dict(lin, bias=cfg.include_qkv_bias)
         self.cfg = cfg
         self.attn_norm = RMSNorm(D, cfg.rms_norm_eps, device, dtype)
         self.ff_norm = RMSNorm(D, cfg.rms_norm_eps, device, dtype)
         self.attn_out = nn.Linear(D, D, **lin)
         if cfg.block_type == "llama":
-            self.q_proj = nn.Linear(D, D, **lin)
-            self.k_proj = nn.Linear(D, kvD, **lin)
-            self.v_proj = nn.Linear(D, kvD, **lin)
+            self.q_proj = nn.Linear(D, D, **qkv)
+            self.k_proj = nn.Linear(D, kvD, **qkv)
+            self.v_proj = nn.Linear(D, kvD, **qkv)
             self.ff_proj = nn.Linear(D, H, **lin)
             self.up_proj = nn.Linear(D, H, **lin)
             self.ff_out = nn.Linear(H, D, **lin)
         else:
-            self.att_proj = nn.Linear(D, D + 2 * kvD, **lin)
+            self.att_proj = nn.Linear(D, D + 2 * kvD, **qkv)
             self.ff_proj = nn.Linear(D, H, **lin)         # [up | gate]
             self.ff_out = nn.Linear(H // 2, D, **lin)
         self.prefill: Optional[nn.ModuleDict] = None
@@ -170,7 +180,8 @@ class LLaDABlock(nn.Module):
     def fused_plan(self, rows: int, act_int8: bool) -> bool:
         """`_w4_fused_plan` (llada.py:142-197) as a geometry gate: the
         sequential/swiglu layout, decode-sized rows, four unpadded int4
-        linears whose widths the TPU kernels' blocks divide."""
+        linears whose widths the TPU kernels' blocks divide, a bias on
+        att_proj only (w4_qkv_norm adds it in its epilogue)."""
         cfg = self.cfg
         if act_int8 or cfg.block_type != "sequential":
             return False
@@ -178,6 +189,8 @@ class LLaDABlock(nn.Module):
             return False
         lins = [getattr(self, n) for n in self.linear_names]
         if not all(isinstance(m, Int4Linear) and not m.padded for m in lins):
+            return False
+        if any(m.bias is not None for m in lins if m is not self.att_proj):
             return False
         D = self.att_proj.scales.shape[0] * 128
         Nqkv = self.att_proj.scales.shape[1]
@@ -207,7 +220,7 @@ class LLaDABlock(nn.Module):
         if fused:
             qkv = w4_qkv_norm(x.reshape(B * T, D), self.attn_norm.weight,
                               self.att_proj.packed, self.att_proj.scales,
-                              eps).view(B, T, -1)
+                              eps, self.att_proj.bias).view(B, T, -1)
             q, k, v = qkv.split([D, Hkv * hd, Hkv * hd], dim=-1)
         elif cfg.block_type == "llama":
             h = self.attn_norm(x)
@@ -279,6 +292,8 @@ class LLaDA(nn.Module):
         self.ln_f = RMSNorm(D, cfg.rms_norm_eps, device, dtype)
         self.ff_out = nn.Linear(D, E, bias=False, device=device,
                                 dtype=dtype)
+        # the mixed layout's int8 head, the prefill tree's (add_prefill_tree)
+        self.prefill_head: Optional[nn.Module] = None
         self._rope_key = None
         self._rope = None
 
@@ -299,12 +314,16 @@ class LLaDA(nn.Module):
         """`_w4_head_fusable` (llada.py:200-216): an int4 head over d_model
         <= 4096 and decode-sized rows."""
         head, D = self.ff_out, self.cfg.d_model
-        return (isinstance(head, Int4Linear) and rows <= 128
+        return (isinstance(head, Int4Linear) and head.bias is None
+                and rows <= 128
                 and rows % 8 == 0 and head.scales.shape[0] * 128 == D
                 and D <= 4096 and head.scales.shape[1] % 512 == 0)
 
-    def logits(self, x: torch.Tensor) -> torch.Tensor:
-        """ln_f, then the head, f32 logits [B, T, V].
+    def logits(self, x: torch.Tensor, act_int8: bool = False
+               ) -> torch.Tensor:
+        """ln_f, then the head, f32 logits [B, T, V].  With `act_int8` and
+        the mixed layout's prefill head, that int8 head (weight-only, the
+        JAX prefill tree's `linear(.., preferred=f32)`, llada.py:707-708).
 
         bf16 head: an f32 result from the model-dtype weight (XLA's
         preferred_element_type=f32): on CUDA the bf16 tensor cores
@@ -315,6 +334,9 @@ class LLaDA(nn.Module):
         an f32 result."""
         B, T, D = x.shape
         head = self.ff_out
+        if act_int8 and self.prefill_head is not None:
+            return _run_linear(self.prefill_head, self.ln_f(x),
+                               preferred=torch.float32)
         if self.head_fusable(B * T):
             lg = w4_qkv_norm(x.reshape(B * T, D), self.ln_f.weight,
                              head.packed, head.scales, self.cfg.rms_norm_eps)
@@ -336,6 +358,7 @@ class LLaDA(nn.Module):
         kv_write_index: Optional[int] = None,
         use_cache: bool = False,
         return_logits: bool = True,
+        last_logits_only: bool = False,
         use_flash: bool = False,
         act_int8: bool = False,
         prefix_lengths: Optional[torch.Tensor] = None,
@@ -352,10 +375,13 @@ class LLaDA(nn.Module):
           written in place; keys at or past kv_write_index + T are masked.
         kv_valid: [B, S] bool over the buffer rows; self_valid: [B, T]
           bool over this call's rows.
+        last_logits_only: the logits of the last row only [B, 1, V]
+          (modeling_llada.py:1426).
         use_flash: attention through the short-attention kernel, masked by
           segment ids; otherwise dense attention with an additive bias.
         act_int8: per-token int8 activations on int8 linears, through the
-          blocks' prefill tree when they have one (linear_act_int8).
+          blocks' prefill tree when they have one (linear_act_int8), and
+          the prefill tree's int8 head.
         prefix_lengths: [B] the prefix-LM block mask for training
           (modeling_llada.py:1351-1368): key kv is visible from query q when
           kv < prefix_length or q >= prefix_length, over sequence indices.
@@ -448,7 +474,9 @@ class LLaDA(nn.Module):
         new_cache = presents if use_cache else None
         if not return_logits:
             return self.ln_f(x), new_cache
-        return self.logits(x), new_cache
+        if last_logits_only:
+            x = x[:, -1:]
+        return self.logits(x, act_int8), new_cache
 
     # ------------------------------------------------------------------
     # serving layouts
@@ -472,13 +500,18 @@ class LLaDA(nn.Module):
                 raise ValueError("fuse before quantization")
             qkv = [b.q_proj.weight, b.k_proj.weight, b.v_proj.weight]
             upgate = [b.up_proj.weight, b.ff_proj.weight]
+            qkv_bias = (None if b.q_proj.bias is None else torch.cat(
+                [b.q_proj.bias, b.k_proj.bias, b.v_proj.bias]))
             del b.q_proj, b.k_proj, b.v_proj, b.up_proj, b.ff_proj
-            for name, parts in (("att_proj", qkv), ("ff_proj", upgate)):
+            for name, parts, bias in (("att_proj", qkv, qkv_bias),
+                                      ("ff_proj", upgate, None)):
                 w = torch.cat(parts)
                 m = nn.Linear(D, w.shape[0], bias=False, device="meta")
                 m.weight = nn.Parameter(w)
+                if bias is not None:      # llada.py:739-742
+                    m.bias = nn.Parameter(bias)
                 setattr(b, name, m)
-            del qkv, upgate, parts, w
+            del qkv, upgate, parts, w, qkv_bias, bias
             b.cfg = new_cfg
         self.cfg = new_cfg
         return new_cfg
@@ -486,13 +519,15 @@ class LLaDA(nn.Module):
     @torch.no_grad()
     def add_prefill_tree(self) -> None:
         """The mixed layout's int8 prefill tree (lavida.py:327-328): each
-        block's linears quantized to int8 (`quantize_linear`) beside the
-        ones it has, sharing its norms; `act_int8` forwards run them.  The
-        head is left out: the prefill returns no logits."""
+        block's linears and the head quantized to int8 (`quantize_linear`,
+        biases kept) beside the ones it has, sharing the norms, ln_f and
+        the embedding; `act_int8` forwards run them (the head gives the
+        Dream sampler its first token from the prefill)."""
         for b in self.blocks:
             b.prefill = nn.ModuleDict({
                 n: Int8Linear.from_linear(getattr(b, n))
                 for n in b.linear_names})
+        self.prefill_head = Int8Linear.from_linear(self.ff_out)
 
     @torch.no_grad()
     def quantize(self, bits: int) -> None:
@@ -511,20 +546,23 @@ class LLaDA(nn.Module):
         state dict: `.weight_q` int8, `.packed` int4, `blocks.i.prefill.*`
         an int8 prefill tree), as meta modules for load_state_dict(assign=
         True); the true widths come from this model's config."""
-        def kind(prefix, lin):
-            if prefix + "packed" in state:
-                return Int4Linear(lin.in_features, lin.out_features, "meta")
-            if prefix + "weight_q" in state:
-                return Int8Linear(lin.in_features, lin.out_features, "meta")
-            return lin
+        def kind(prefix, lin, cls=None):
+            cls = cls or (Int4Linear if prefix + "packed" in state else
+                          Int8Linear if prefix + "weight_q" in state else
+                          None)
+            if cls is None:
+                return lin
+            return cls(lin.in_features, lin.out_features, "meta",
+                       bias=prefix + "bias" in state)
 
         for i, b in enumerate(self.blocks):
             pre = f"blocks.{i}."
-            for n in b.linear_names:
-                setattr(b, n, kind(f"{pre}{n}.", getattr(b, n)))
             if any(k.startswith(pre + "prefill.") for k in state):
                 b.prefill = nn.ModuleDict({
-                    n: Int8Linear(getattr(b, n).in_features,
-                                  getattr(b, n).out_features, "meta")
+                    n: kind(f"{pre}prefill.{n}.", getattr(b, n), Int8Linear)
                     for n in b.linear_names})
+            for n in b.linear_names:
+                setattr(b, n, kind(f"{pre}{n}.", getattr(b, n)))
+        if "prefill_head.weight_q" in state:
+            self.prefill_head = kind("prefill_head.", self.ff_out, Int8Linear)
         self.ff_out = kind("ff_out.", self.ff_out)

@@ -13,10 +13,11 @@ the HF wrapper's "model." prefix:
 
 The port's linears are [out, in] like the reference's, so every name maps
 without a transpose: transformer.blocks.3.q_proj.weight ->
-blocks.3.q_proj.weight.  A name that maps to nothing raises.  The port's
-LLaDA has no linear or norm biases (include_bias, include_qkv_bias and
-the "default" LayerNorm are not ported, llada.check_supported), so a bias
-in the checkpoint raises too.
+blocks.3.q_proj.weight.  A name that maps to nothing raises.  LLaDA
+checkpoints carry no linear or norm biases (include_bias and the
+"default" LayerNorm are not ported, llada.check_supported), so a bias in
+one raises too; Qwen2's QKV bias comes with the Dream names
+(models/dream.py).
 
 `load_torch_checkpoint(path, cfg)` is the LM-only entry: the shards of
 `path` straight into an `LLaDA` on the card (or where `device` says).

@@ -243,24 +243,39 @@ def linear_w4_reference(x: torch.Tensor, packed: torch.Tensor,
 # modules
 # ---------------------------------------------------------------------------
 
+def _bias_param(out_features: int, bias: bool, device, dtype):
+    if not bias:
+        return None
+    return nn.Parameter(torch.empty(out_features, device=device, dtype=dtype),
+                        requires_grad=False)
+
+
+def _take_bias(m: nn.Module, lin: nn.Linear) -> None:
+    """The float linear's bias, unquantized (quantize_linear keeps it)."""
+    m.bias = (None if lin.bias is None else
+              nn.Parameter(lin.bias.detach(), requires_grad=False))
+
+
 class Int8Linear(nn.Module):
     """A linear with int8 per-channel weights: `weight_q` [N, K] int8 and
-    `scale` [N] f32 (JAX `kernel_q` [K, N] transposed, `scale`)."""
+    `scale` [N] f32 (JAX `kernel_q` [K, N] transposed, `scale`), and an
+    optional float `bias` [N] (Qwen2's QKV bias), kept as it was."""
 
-    def __init__(self, in_features: int, out_features: int, device=None):
+    def __init__(self, in_features: int, out_features: int, device=None,
+                 bias: bool = False, dtype=None):
         super().__init__()
         self.in_features, self.out_features = in_features, out_features
         self.register_buffer("weight_q", torch.empty(
             out_features, in_features, dtype=torch.int8, device=device))
         self.register_buffer("scale", torch.empty(
             out_features, dtype=torch.float32, device=device))
+        self.bias = _bias_param(out_features, bias, device, dtype)
 
     @classmethod
     def from_linear(cls, lin: nn.Linear) -> "Int8Linear":
-        if lin.bias is not None:
-            raise NotImplementedError("quantized linears with a bias")
         m = cls(lin.in_features, lin.out_features, device="meta")
         m.weight_q, m.scale = quantize_linear(lin.weight)
+        _take_bias(m, lin)
         return m
 
     def forward(self, x: torch.Tensor, act_int8: bool = False,
@@ -268,21 +283,26 @@ class Int8Linear(nn.Module):
         if act_int8:
             from .w8a8 import linear_w8a8
 
-            return linear_w8a8(x, self.weight_q, self.scale, preferred)
+            return linear_w8a8(x, self.weight_q, self.scale, preferred,
+                               self.bias)
         # quant.py:176-179: the codes cast to x's dtype, the product in
         # `preferred` (exact upcasts), then the scale -- a plain matmul in
-        # the JAX package too (XLA's), so torch.matmul on every device
+        # the JAX package too (XLA's), so torch.matmul on every device;
+        # the bias is added in the result's dtype (quant.py:185-186)
         dt = preferred or x.dtype
         y = x.to(dt) @ self.weight_q.to(dt).t()
-        return y * self.scale.to(dt)
+        y = y * self.scale.to(dt)
+        return y if self.bias is None else y + self.bias.to(dt)
 
 
 class Int4Linear(nn.Module):
     """A linear with grouped int4 weights in the fragment layout: `packed`
     [Np/8, Kp/128, 512] uint8 and `scales` [Kp/128, Np] f32, the true
-    `out_features` N <= Np (the JAX `__trim_N__`)."""
+    `out_features` N <= Np (the JAX `__trim_N__`), and an optional float
+    `bias` [N]."""
 
-    def __init__(self, in_features: int, out_features: int, device=None):
+    def __init__(self, in_features: int, out_features: int, device=None,
+                 bias: bool = False, dtype=None):
         super().__init__()
         self.in_features, self.out_features = in_features, out_features
         Kp = padded_in_dim(in_features)
@@ -291,13 +311,13 @@ class Int4Linear(nn.Module):
             Np // 8, Kp // GROUP, 512, dtype=torch.uint8, device=device))
         self.register_buffer("scales", torch.empty(
             Kp // GROUP, Np, dtype=torch.float32, device=device))
+        self.bias = _bias_param(out_features, bias, device, dtype)
 
     @classmethod
     def from_linear(cls, lin: nn.Linear) -> "Int4Linear":
-        if lin.bias is not None:
-            raise NotImplementedError("quantized linears with a bias")
         m = cls(lin.in_features, lin.out_features, device="meta")
         m.packed, m.scales, _ = quantize_linear4(lin.weight)
+        _take_bias(m, lin)
         return m
 
     @property
@@ -309,20 +329,23 @@ class Int4Linear(nn.Module):
         """`_linear_w4` (quant.py:120-167): on the card the grouped W4A8
         kernel (pallas_w4.py:129, ops/w4_grouped.py) on bf16 rows, K
         zero-padded, the padded N trimmed; on the CPU the JAX package's
-        own CPU math (`linear_w4_reference`)."""
+        own CPU math (`linear_w4_reference`).  A bias is added to that
+        result in its dtype (quant.py:185-186)."""
         if not x.is_cuda:
-            return linear_w4_reference(x, self.packed, self.scales,
-                                       self.out_features, preferred)
-        from .w4_grouped import w4_matmul_grouped
+            y = linear_w4_reference(x, self.packed, self.scales,
+                                    self.out_features, preferred)
+        else:
+            from .w4_grouped import w4_matmul_grouped
 
-        K = self.packed.shape[1] * GROUP
-        lead = x.shape[:-1]
-        x2d = x.reshape(-1, x.shape[-1]).to(torch.bfloat16)
-        if x2d.shape[-1] != K:
-            x2d = torch.nn.functional.pad(x2d, (0, K - x2d.shape[-1]))
-        y = w4_matmul_grouped(x2d.contiguous(), self.packed, self.scales)
-        y = y[:, :self.out_features].to(preferred or x.dtype)
-        return y.reshape(*lead, self.out_features)
+            K = self.packed.shape[1] * GROUP
+            lead = x.shape[:-1]
+            x2d = x.reshape(-1, x.shape[-1]).to(torch.bfloat16)
+            if x2d.shape[-1] != K:
+                x2d = torch.nn.functional.pad(x2d, (0, K - x2d.shape[-1]))
+            y = w4_matmul_grouped(x2d.contiguous(), self.packed, self.scales)
+            y = y[:, :self.out_features].to(preferred or x.dtype)
+            y = y.reshape(*lead, self.out_features)
+        return y if self.bias is None else y + self.bias.to(y.dtype)
 
 
 def quantize_module(lin: nn.Linear, bits: int) -> nn.Module:

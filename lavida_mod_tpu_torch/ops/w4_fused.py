@@ -2,7 +2,8 @@
 (kernels #5 `w4_qkv_norm`, #6 `w4_matmul_res`, #7 `w4_ffn_fused`).
 
   w4_qkv_norm   RMSNorm -> per-token int8 -> grouped-int4 dot -> * sx
-                (the fused [q|k|v] projection, and the logits head on ln_f)
+                (+ bias) (the fused [q|k|v] projection, with Qwen2's QKV
+                bias for Dream, and the logits head on ln_f)
   w4_matmul_res A8 quantization of `a`, grouped-int4 dot, * sa + res
                 (the attention output projection and its residual)
   w4_ffn_fused  RMSNorm -> A8 -> [up|gate] int4 -> bf16 -> SwiGLU (f32 math,
@@ -62,9 +63,14 @@ def group_dot_acc(x8: torch.Tensor, packed: torch.Tensor,
     return acc
 
 
-def w4_qkv_norm_reference(x, norm_w, packed, scales, eps):
+def w4_qkv_norm_reference(x, norm_w, packed, scales, eps, bias=None):
+    """The optional bias [N] is added in f32 before the one bf16 rounding
+    (w4_fused.py:138-140, 195-197)."""
     x8, sx = rms_quant(x, norm_w, eps)
-    return (group_dot_acc(x8, packed, scales) * sx).to(torch.bfloat16)
+    acc = group_dot_acc(x8, packed, scales) * sx
+    if bias is not None:
+        acc = acc + bias.float()
+    return acc.to(torch.bfloat16)
 
 
 def w4_matmul_res_reference(a, res, packed, scales):
@@ -290,25 +296,29 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def w4_qkv_norm(x, norm_w, packed, scales, eps: float = 1e-5):
-    """rmsnorm(x) @ W4 -> [T, N] bf16, with the norm and A8 quantization
-    in a row pass before each 32 rows' GEMM.  x [T, D] bf16, norm_w [D]
-    bf16."""
+def w4_qkv_norm(x, norm_w, packed, scales, eps: float = 1e-5, bias=None):
+    """rmsnorm(x) @ W4 (+ bias) -> [T, N] bf16, with the norm and A8
+    quantization in a row pass before each 32 rows' GEMM.  x [T, D] bf16,
+    norm_w [D] bf16, bias [N] bf16 or None (Qwen2's QKV bias, added in f32
+    before the bf16 rounding)."""
     if not x.is_cuda:
-        return w4_qkv_norm_reference(x, norm_w, packed, scales, eps)
+        return w4_qkv_norm_reference(x, norm_w, packed, scales, eps, bias)
     D = packed.shape[1] * GROUP
     T = _rows("w4_qkv_norm", x, D)
     N = _weights("w4_qkv_norm", packed, scales, D, x.device)
     _need("w4_qkv_norm: norm_w", norm_w, torch.bfloat16, (D,), x.device)
+    if bias is not None:
+        _need("w4_qkv_norm: bias", bias, torch.bfloat16, (N,), x.device)
     plan = qkv_plan(T, D, N, _sms(x.device.index))
     g = plan.gemm
     work = torch.empty(plan.work_bytes, dtype=torch.uint8, device=x.device)
     x8, sx = (work.data_ptr() + o for o in plan.offsets)
     out = torch.empty(T, N, dtype=torch.bfloat16, device=x.device)
-    kernels.check(kernels.library().lavida_w4_qkv_norm(
+    kernels.check(kernels.library().lavida_w4_qkv_norm_bias(
         x.data_ptr(), norm_w.data_ptr(), packed.data_ptr(),
-        scales.data_ptr(), x8, sx, out.data_ptr(), T, D, N, eps, g.ctas,
-        g.stages, g.smem, _stream(x)), "w4_qkv_norm")
+        scales.data_ptr(), None if bias is None else bias.data_ptr(), x8,
+        sx, out.data_ptr(), T, D, N, eps, g.ctas, g.stages, g.smem,
+        _stream(x)), "w4_qkv_norm")
     w4_qkv_norm.launches += 1
     return out
 

@@ -30,11 +30,14 @@ ACT_FORMULA_W4_RECIP = 2
 
 
 def w8a8_matmul_reference(x8: torch.Tensor, sx: torch.Tensor,
-                          w8: torch.Tensor, scale: torch.Tensor
-                          ) -> torch.Tensor:
-    """Plain version: exact integer product, then the epilogue."""
-    acc = int_matmul(x8, w8).float()
-    return (acc * sx.float() * scale.float()).to(torch.bfloat16)
+                          w8: torch.Tensor, scale: torch.Tensor,
+                          bias=None) -> torch.Tensor:
+    """Plain version: exact integer product, then the epilogue (the bias
+    added in f32 before the bf16 rounding)."""
+    y = int_matmul(x8, w8).float() * sx.float() * scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(torch.bfloat16)
 
 
 def _check(x8, sx, w8, scale):
@@ -55,17 +58,25 @@ def _check(x8, sx, w8, scale):
 
 
 def w8a8_matmul(x8: torch.Tensor, sx: torch.Tensor, w8: torch.Tensor,
-                scale: torch.Tensor) -> torch.Tensor:
-    """(x8 @ w8^T) * sx * scale -> [T, N] bf16 (see the module note)."""
+                scale: torch.Tensor, bias=None) -> torch.Tensor:
+    """(x8 @ w8^T) * sx * scale (+ bias) -> [T, N] bf16 (see the module
+    note); bias [N] bf16 or None."""
     if not x8.is_cuda:
-        return w8a8_matmul_reference(x8, sx, w8, scale)
+        return w8a8_matmul_reference(x8, sx, w8, scale, bias)
     _check(x8, sx, w8, scale)
     T, K = x8.shape
     N = w8.shape[0]
+    if bias is not None and (bias.device != x8.device
+                             or bias.dtype != torch.bfloat16
+                             or tuple(bias.shape) != (N,)
+                             or not bias.is_contiguous()):
+        raise ValueError(f"w8a8_matmul: bias must be contiguous bf16 "
+                         f"({N},) on {x8.device}; got {bias.dtype} "
+                         f"{tuple(bias.shape)} on {bias.device}")
     out = torch.empty(T, N, dtype=torch.bfloat16, device=x8.device)
     kernels.check(kernels.library().lavida_w8a8_matmul(
         x8.data_ptr(), sx.data_ptr(), w8.data_ptr(), scale.data_ptr(),
-        out.data_ptr(), T, K, N,
+        None if bias is None else bias.data_ptr(), out.data_ptr(), T, K, N,
         torch.cuda.current_stream(x8.device).cuda_stream), "w8a8_matmul")
     w8a8_matmul.launches += 1
     return out
@@ -95,16 +106,18 @@ def act_quant(x: torch.Tensor, formula: int):
 
 
 def linear_w8a8(x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor,
-                preferred=None) -> torch.Tensor:
+                preferred=None, bias=None) -> torch.Tensor:
     """`linear_act_int8` on an int8 linear (pallas_w8.py:216-237 /
     quant.py:195-230): per-token A8 codes, the W8A8 matmul, the result in
     `preferred` or x's dtype.  On the CPU the bf16 rounding of the kernel's
     epilogue is kept, so a bf16 model computes what the TPU kernel and
-    the JAX CPU fallback both compute."""
+    the JAX CPU fallback both compute.  A bias is added in f32 before that
+    one rounding, in the epilogue, as the JAX CPU fallback adds it
+    (quant.py:226-230; the TPU wrapper adds it to the bf16 result)."""
     lead = x.shape[:-1]
     x2d = x.reshape(-1, x.shape[-1])
     if x.is_cuda:
         x2d = x2d.contiguous()
     x8, sx = act_quant(x2d, ACT_FORMULA_W8)
-    y = w8a8_matmul(x8, sx, w8, scale)
+    y = w8a8_matmul(x8, sx, w8, scale, bias)
     return y.reshape(*lead, y.shape[-1]).to(preferred or x.dtype)

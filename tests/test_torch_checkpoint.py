@@ -35,6 +35,7 @@ import jax.numpy as jnp
 from lavida_mod_tpu.config import (LaViDaConfig, VisionConfig,
                                    tiny_llada_config, tiny_siglip_config)
 from lavida_mod_tpu.models import multimodal as jmm
+from lavida_mod_tpu.models.dream import tiny_dream_config
 from lavida_mod_tpu.models.lavida import LaViDa as JLaViDa
 from lavida_mod_tpu.models.lavida import convert_lavida_state_dict
 from lavida_mod_tpu_torch.models import llada_loader
@@ -101,6 +102,35 @@ def reference_state(params, cfg) -> dict:
         st[f"model.mm_projector.{2 * j}.weight"] = layer["kernel"].T
         st[f"model.mm_projector.{2 * j}.bias"] = layer["bias"]
     st["model.image_newline"] = params["image_newline"]
+    return {k: np.ascontiguousarray(v, np.float32) for k, v in st.items()}
+
+
+# LaViDa-Dream: the tiny Dream LM (GQA, the QKV bias) with CFG's tower
+DREAM = CFG.replace(llada=tiny_dream_config())
+# the JAX Dream converter's names, inverted (models/dream.py:72-86)
+DREAM_LINEARS = {"q_proj": "self_attn.q_proj", "k_proj": "self_attn.k_proj",
+                 "v_proj": "self_attn.v_proj", "attn_out": "self_attn.o_proj",
+                 "ff_proj": "mlp.gate_proj", "up_proj": "mlp.up_proj",
+                 "ff_out": "mlp.down_proj", "attn_norm": "input_layernorm",
+                 "ff_norm": "post_attention_layernorm"}
+
+
+def dream_reference_state(params, cfg) -> dict:
+    """A LaViDa-Dream checkpoint's HF names (modeling_dream.py: model.
+    layers.N.*, model.embed_tokens, model.norm, lm_head) for the LM, the
+    reference names of `reference_state` for the rest."""
+    st = {k: v for k, v in reference_state(params, cfg).items()
+          if not k.startswith(LM)}
+    lp = params["llada"]
+    st["model.embed_tokens.weight"] = lp["wte"]
+    st["model.norm.weight"] = lp["ln_f"]["weight"]
+    st["lm_head.weight"] = lp["ff_out"]["kernel"].T
+    for mod, leaves in lp["blocks"].items():
+        for i in range(cfg.llada.n_layers):
+            pre = f"model.layers.{i}.{DREAM_LINEARS[mod]}"
+            for leaf, a in leaves.items():
+                name = "weight" if leaf in ("kernel", "weight") else leaf
+                st[f"{pre}.{name}"] = a[i].T if leaf == "kernel" else a[i]
     return {k: np.ascontiguousarray(v, np.float32) for k, v in st.items()}
 
 
@@ -255,6 +285,17 @@ def test_helper_inverts_the_jax_converters(params, state):
         np.testing.assert_array_equal(np.asarray(a), flat_want[path])
 
 
+def test_dream_helper_inverts_the_jax_converter():
+    p = _params(DREAM)
+    got = convert_lavida_state_dict(dream_reference_state(p, DREAM), DREAM,
+                                    jnp.float32, "dream")
+    flat_got = jax.tree_util.tree_leaves_with_path(got)
+    flat_want = dict(jax.tree_util.tree_leaves_with_path(p))
+    assert len(flat_got) == len(flat_want)
+    for path, a in flat_got:
+        np.testing.assert_array_equal(np.asarray(a), flat_want[path])
+
+
 CASES = ["safetensors", "bin", "projector", "lora_safetensors", "lora_bin",
          "sniffed", "siglip_extra_layer", "no_newline"]
 
@@ -295,16 +336,40 @@ def test_sniffed_config_equals_jax(state, tmp_path):
     jcfg, jfam = jsniff(path)
     assert (cfg, fam) == (as_port_config(jcfg), jfam)
     assert cfg == as_port_config(CFG)
-    dream = {"model_type": "dream", "hidden_size": 64,
-             "num_attention_heads": 4, "num_key_value_heads": 2,
-             "num_hidden_layers": 2, "vocab_size": 512}
-    with open(os.path.join(path, "config.json"), "w") as f:
+    # LaViDa-Dream: a checkpoint in the HF Dream names, its geometry
+    # sniffed as JAX sniffs it, loaded bit-equal to from_jax of JAX's load
+    dpath = str(tmp_path / "dream")
+    _save_shards(dream_reference_state(_params(DREAM), DREAM), dpath)
+    lm = DREAM.llada
+    dream = {"model_type": "dream", "hidden_size": lm.d_model,
+             "num_attention_heads": lm.n_heads,
+             "num_key_value_heads": lm.n_kv_heads,
+             "num_hidden_layers": lm.n_layers,
+             "intermediate_size": lm.mlp_hidden_size,
+             "rope_theta": lm.rope_theta, "rms_norm_eps": lm.rms_norm_eps,
+             "vocab_size": lm.vocab_size,
+             "max_position_embeddings": lm.max_sequence_length,
+             "tie_word_embeddings": False,
+             "mask_token_id": lm.mask_token_id,
+             "eos_token_id": lm.eos_token_id, "pad_token_id": lm.pad_token_id}
+    with open(os.path.join(dpath, "config.json"), "w") as f:
         json.dump(dream, f)
-    cfg, fam = config_from_checkpoint(path)
-    jcfg, jfam = jsniff(path)
+    cfg, fam = config_from_checkpoint(dpath)
+    jcfg, jfam = jsniff(dpath)
     assert (cfg, fam) == (as_port_config(jcfg), "dream")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        LaViDa.load(path, device="cpu")
+    assert cfg.llada.include_qkv_bias and cfg.llada.n_kv_heads == 2
+    for dtype, jdtype in ((torch.float32, jnp.float32),
+                          (torch.bfloat16, jnp.bfloat16)):
+        jm = JLaViDa.load(dpath, DREAM, jdtype, lm_family="dream")
+        tm = LaViDa.load(dpath, DREAM, dtype, lm_family="dream",
+                         device="cpu")
+        assert tm.lm_family == jm.lm_family == "dream"
+        _equal_state_dicts(tm.state_dict(), LaViDa.from_jax(
+            DREAM, jax.tree.map(np.asarray, jm.params), "cpu",
+            lm_family="dream").state_dict())
+    assert tm.llada.blocks[1].k_proj.bias.abs().max() > 0
+    # the family sniffed from config.json when not given
+    assert LaViDa.load(dpath, DREAM, device="cpu").lm_family == "dream"
 
 
 @pytest.mark.parametrize("key,why", [

@@ -30,7 +30,7 @@ from lavida_mod_tpu_torch.data import anyres as tanyres
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 CLASSES = ["LLaDAConfig", "SigLIPConfig", "VisionConfig", "LaViDaConfig",
-           "GenerationConfig"]
+           "GenerationConfig", "DreamGenerationConfig"]
 
 
 def _fields(obj):
@@ -87,8 +87,14 @@ def test_as_port_config_maps_jax_configs():
     assert tc.as_port_config(t) is t and tc.as_port_config(None) is None
     g = tc.as_port_config(jc.GenerationConfig(max_new_tokens=7))
     assert type(g) is tc.GenerationConfig and g.max_new_tokens == 7
+    d = tc.as_port_config(jc.DreamGenerationConfig(alg="topk_margin",
+                                                   top_k=5))
+    assert type(d) is tc.DreamGenerationConfig
+    assert _flat(d) == _flat(jc.DreamGenerationConfig(alg="topk_margin",
+                                                      top_k=5))
+    unknown = dataclasses.make_dataclass("TrainConfig", [("lr", float)])
     with pytest.raises(TypeError):
-        tc.as_port_config(jc.DreamGenerationConfig())
+        tc.as_port_config(unknown(1e-3))
 
 
 def test_constants_equal_jax():

@@ -384,8 +384,12 @@ def test_convert_maps_quantized_leaves_exactly(models):
         np.asarray(p0["kernel_q"]).T)
     np.testing.assert_array_equal(pre["llada.blocks.0.prefill.ff_out.scale"],
                                   np.asarray(p0["scale"]))
-    assert not any("prefill" in k and "ff_out" in k and "blocks" not in k
-                   for k in pre)
+    # the prefill tree's int8 head (the Dream sampler's first token)
+    head = jm.prefill_params["ff_out"]
+    np.testing.assert_array_equal(pre["llada.prefill_head.weight_q"].numpy(),
+                                  np.asarray(head["kernel_q"]).T)
+    np.testing.assert_array_equal(pre["llada.prefill_head.scale"],
+                                  np.asarray(head["scale"]))
 
 
 def test_convert_trim_key_checked():

@@ -161,5 +161,10 @@ def test_quantize_module_falls_back_to_int8_on_ragged_k():
     assert isinstance(m, tq.Int4Linear) and m.out_features == 40
     assert m.padded and m.scales.shape == (2, 512)
     assert isinstance(tq.quantize_module(lin, 8), tq.Int8Linear)
-    with pytest.raises(NotImplementedError):
-        tq.quantize_module(torch.nn.Linear(256, 40, bias=True), 4)
+    assert m.bias is None
+    # a bias (Qwen2's QKV bias) is kept as it is, unquantized, as
+    # quantize_linear / quantize_linear4 keep it (quant.py:31-32, 72-73)
+    biased = torch.nn.Linear(256, 40, bias=True)
+    for bits, kind in ((4, tq.Int4Linear), (8, tq.Int8Linear)):
+        q = tq.quantize_module(biased, bits)
+        assert isinstance(q, kind) and torch.equal(q.bias, biased.bias)

@@ -189,6 +189,43 @@ def test_pattern_translation_matches_regex():
         ttok.compile_pattern(r"[\S]")
 
 
+# code points assigned after Unicode 15.0 (Python 3.12's unicodedata):
+# Telugu U+0C5C, Cyrillic U+1C89, Arabic U+088F; letters to `regex`
+NEW_LETTERS = "\u0c5c\u1c89\u088f"
+
+
+def _generated_strings(n, seed=0):
+    """Seeded strings over letters old and new, digits, punctuation,
+    white space, combining marks, CJK and emoji."""
+    alphabet = (list("abcXYZ019 .,!?'-_\t\n\r") + list("éßÅñ²Ⅷ٣") +
+                ["\u0301", "\u3000", "\xa0", "中", "文", "\U0001f600",
+                 "'s", "'ll", " ", "  "] + list(NEW_LETTERS) * 3)
+    rng = np.random.default_rng(seed)
+    return ["".join(rng.choice(alphabet, size=rng.integers(1, 40)))
+            for _ in range(n)]
+
+
+def test_bpe_new_unicode_letters_as_jax(tok_dirs):
+    """With `regex` importable the port pre-tokenizes with it, as the JAX
+    package does: letters assigned after Unicode 15.0 split as letters,
+    and seeded strings give the JAX ByteLevelBPE's ids.  The standard
+    library fallback (`compile_pattern`) cannot know them."""
+    regex = pytest.importorskip("regex")
+    d = tok_dirs["split"]
+    t, j = ttok.load_pure_bpe(d), jtok.load_pure_bpe(d)
+    assert isinstance(t.pat, type(regex.compile("")))
+    text = f"word{NEW_LETTERS}word {NEW_LETTERS[1]}x9"
+    assert t.pat.findall(text) == j.pat.findall(text) == [
+        f"word{NEW_LETTERS}word", f" {NEW_LETTERS[1]}x", "9"]
+    assert ttok.compile_pattern(ttok.PRETOKENIZE_REGEX).findall(text) != \
+        t.pat.findall(text)
+    for text in _generated_strings(300) + [NEW_LETTERS, "".join(CORPUS)]:
+        ids = t.encode(text)
+        assert ids == j.encode(text), repr(text)
+        assert t.decode(ids, skip_special_tokens=False) == \
+            j.decode(ids, skip_special_tokens=False)
+
+
 def _messages(conv):
     conv.append_message(conv.roles[0], "<image>\nWhat is this?")
     conv.append_message(conv.roles[1], "A cat on a mat.")
@@ -263,8 +300,18 @@ def test_gen_kwargs_to_config_as_jax(kw):
 
 
 def test_gen_kwargs_dream_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tadapter.gen_kwargs_to_config({}, "dream")
+    """Dream's gen_kwargs (ported since: the name is the test's history)
+    give JAX's DreamGenerationConfig, field for field."""
+    from lavida_mod_tpu_torch.config import DreamGenerationConfig
+
+    for kw in ({}, {"max_new_tokens": 64, "steps": 32, "alg": "entropy"},
+               {"max_new_tokens": 128, "schedule": "shift",
+                "schedule__shift": 0.33, "step_ratio": 0.5,
+                "temperature": 0.2, "alg_temp": 0.1, "top_p": 0.95,
+                "top_k": 40, "prefix_lm": True}):
+        got = tadapter.gen_kwargs_to_config(kw, "dream")
+        assert type(got) is DreamGenerationConfig
+        assert got == as_port_config(jgen_kwargs(kw, "dream")), kw
 
 
 def test_decode_output_as_jax(tok_dirs):

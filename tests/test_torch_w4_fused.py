@@ -179,8 +179,11 @@ def test_cpu_routes_count_no_launch():
 
 
 # the plan of w4_ffn_fused's GEMMs: the 8B decode shape at every row count
-# the fused plan takes (and one above it), and the FFN cases above
+# the fused plan takes (and one above it), Dream-7B's (28 groups: a ragged
+# last slice of the up GEMM; H 18944 read through 20480 padded down rows),
+# and the FFN cases above
 PLAN_CASES = [(T, 4096, 12288, 12288) for T in (8, 16, 24, 32, 40)] + [
+    (T, 3584, 18944, 20480) for T in (8, 32, 40)] + [
     (d["T"], d["D"], d["H"], d["Hd"]) for op, d in CASES if op == "ffn"]
 
 
@@ -209,10 +212,12 @@ def test_ffn_plan_owns_every_tile_once_within_shared_memory(T, D, H, Hd):
 
 
 # the plan of w4_qkv_norm's GEMM: [q|k|v] and the head of the 8B at every
-# row count of the decode paths (and one above a 32-row slice), the tiny
-# mixed models' [q|k|v] and head widths, and the other cases of this file
+# row count of the decode paths (and one above a 32-row slice), Dream-7B's
+# [q|k|v] and its head padded to 152064 columns, the tiny mixed models'
+# [q|k|v] and head widths, and the other cases of this file
 QKV_PLAN_CASES = [(T, 4096, N) for N in (12288, 126464)
                   for T in (8, 16, 24, 32, 40, 128)] + [
+    (T, 3584, N) for N in (4608, 152064) for T in (8, 32, 40)] + [
     (32, 512, 1536), (32, 512, 512), (32, 4096, 13600), (8, 384, 96),
     (40, 256, 160), (40, 384, 160)] + [
     (d["T"], d["D"], d["N"]) for op, d in CASES if op == "qkv"]
