@@ -48,7 +48,12 @@ exits non-zero and never prints the final line:
      Dream width at 300 rows ([300, 18944] x 3584).  kv8_decode_attention
      within 6e-3 of its plain version at the B = 4 and B = 8 kv8 batches'
      shapes, a ragged GQA case, G = 16, S = 16384 (many key chunks),
-     Dream-7B's G = 7 and a batch row with every key masked.
+     Dream-7B's G = 7 and a batch row with every key masked; its int4
+     instance (the --kv4 cache, codes packed two a byte) within 6e-3 of its
+     plain version at the B = 4 and B = 8 batches, one request's cache (S =
+     1088), Dream's GQA, hd 16 (8-byte rows by cp.async), 32, 64 and 256,
+     S = 6401 and 16384, padded rows and a row with every key masked, each
+     beside the int8 kernel's time at the same shape.
      fused_vit_mlp within 5e-2 of its plain version at one image (M =
      3645), 20 views (M = 14580) and a ragged M 77 / D 256 / F 520, its
      error printed beside its first design's, the port's unfused chain
@@ -69,6 +74,9 @@ exits non-zero and never prints the final line:
      w4_matmul_res's and w4_ffn_fused's device time in it split by their
      two, two and four kernels (528, 512 and 512 launches of each
      asserted); one decode layer at B = 1 timed through the fused plan.
+     Then bench.py --kv4 at B = 1: one request through generate_fused(kv8=
+     4), the decode over the int4 KV cache: wall, peak memory and every
+     kernel's launches asserted (32 x 16 of #8's int4 instance).
   6. output checks on a small input: a tiny model in bf16 on the card
      against the same weights in f32 on the CPU (plain path), and a tiny
      mixed-layout model on the card against the same quantized weights on
@@ -88,7 +96,20 @@ exits non-zero and never prints the final line:
      and decode_output, ids below the vocab and the text cut at the stop
      id; the six kernels' launches counted over the two requests (twice a
      mixed request's); the stage walls, bytes on disk, host RSS after each
-     stage and peak device memory.  The checkpoint is deleted afterwards.
+     stage and peak device memory.  The checkpoint is kept for 7b.
+ 7b. the server (lavida_mod_tpu_torch/serve): the port's controller and a
+     worker built from its CLI flags (--model-path <7's checkpoint> --mixed
+     --kv4 --decode-batch 4: the mixed layout with fuse=False, the int4 KV
+     cache) in threads on 127.0.0.1; the worker registers; four concurrent
+     requests (base64 PNGs of four anyres sizes where PIL imports, else
+     text, with the four image requests run through the worker model's
+     generate_batch) dispatched through the controller merge into one
+     batch of 4, each answer decoded text; an OpenAI /v1/chat/completions
+     request and a single request take the batcher's B = 1 route; every
+     kernel's launches asserted per call (w8a8_matmul for the prefill,
+     w4_matmul_grouped's decode kernel, #8's int4 instance, fused_vit_mlp
+     for the tower); walls, peak memory and the device-busy share of one
+     batch.  The checkpoint is deleted afterwards.
   8. the batched int4 main path (the serve worker's --int4 --decode-batch
      N, bench.py --batch): a new LaViDaConfig() model from seed 0 through
      to_serving_layout("int4", fuse=False), then eval.adapter.
@@ -99,7 +120,9 @@ exits non-zero and never prints the final line:
      kernels apart), the profiler's device-busy share of one
      batch; one decode layer at B = 1 timed through the unfused layout.
   9. a tiny int4 + kv8 + fused-ViT-MLP model on the card against the same
-     weights on the CPU.
+     weights on the CPU; the tiny bf16 model (hd 16) over the int4 KV
+     cache likewise (one decode step from the same cache, and kv4
+     generate_batch).
  10. the training attention kernels (prefix_flash_fwd, prefix_flash_dq,
      prefix_flash_dkv) against their plain versions on the card at the
      stage-1 shape (8 doubled rows x 1152 tokens, 32 heads, hd 128, prefix
@@ -803,6 +826,21 @@ def phase_w4_matmul(torch, device, res):
         del codes
 
 
+# #8's int4 instance: (B, T, H, Hkv, hd, S, row 0's pad), launches per run
+# (one B = 4 worker batch: 32 layers x 16 steps)
+KV4_CASES = [((4, 32, 32, 32, 128, 1184, None), LLADA_LAYERS * STEPS),
+             ((8, 32, 32, 32, 128, 1184, None), 0),
+             ((1, 32, 32, 32, 128, 1088, None), 0),
+             ((4, 32, 28, 4, 128, 1184, None), 0),
+             ((2, 32, 16, 1, 128, 300, None), 0),
+             ((2, 32, 8, 8, 16, 300, 5), 0),
+             ((2, 16, 8, 4, 32, 200, 3), 0),
+             ((2, 32, 4, 4, 64, 6401, None), 0),
+             ((1, 32, 8, 8, 128, 16384, 700), 0),
+             ((2, 32, 8, 8, 256, 500, 9), 0),
+             ((2, 32, 32, 32, 128, 1184, -1), 0)]
+
+
 def phase_batch_kernels(torch, device, res):
     """The three kernels of the batched int4 path against their plain
     versions at its shapes (summed over one B = 4 batch's launches; the
@@ -889,6 +927,44 @@ def phase_batch_kernels(torch, device, res):
                 4 * H * T * keys * hd,
                 2 * B * Hkv * S * (hd + 4) + 4 * q.numel() + B * S,
                 note=" (limit 6e-3)")
+
+    # kv8_decode_attention over the int4 cache (--kv4, the int4 instance):
+    # the worker's B = 4 batch (its sums weigh this shape by one batch's
+    # 32 x 16 launches), B = 8, one request's cache (S = 1088), Dream-7B's
+    # GQA, G = 16, hd 16 (8-byte rows by cp.async), 32, 64 and 256, S = 6401 and
+    # 16384 (key chunks), front-padded rows and a row with every key
+    # masked; beside each, the int8 kernel at the same shape
+    for (B, T, H, Hkv, hd, S, pad0), per in KV4_CASES:
+        q, k4, ks, v4, vs, valid = kv8_case_inputs(
+            torch, randn, B, T, H, Hkv, hd, S, pad0, bits=4)
+        before = tk.kv8_decode_attention.int4_launches
+        out = tk.kv8_decode_attention(q, k4, ks, v4, vs, valid)
+        torch.cuda.synchronize()
+        if tk.kv8_decode_attention.int4_launches != before + 1:
+            raise AssertionError("the int4 cache did not take the int4 "
+                                 "kernel")
+        ref = tk.kv8_decode_attention_reference(q, k4, ks, v4, vs, valid)
+        torch.testing.assert_close(out.float(), ref.float(), atol=6e-3,
+                                   rtol=6e-3)
+        err = (out.float() - ref.float()).abs().max().item()
+        c8 = kv8_case_inputs(torch, randn, B, T, H, Hkv, hd, S, pad0)
+        int8_ms = cuda_ms(lambda: tk.kv8_decode_attention(*c8))
+        keys = int(valid.sum())
+        name = "kv8_decode_attention_int4"
+        res.add(name, f"q[{B},{T},{H},{hd}] Hkv {Hkv} S {S}"
+                + ("" if pad0 is None else f" row 0 masked {pad0}"),
+                per, err,
+                lambda: tk.kv8_decode_attention(q, k4, ks, v4, vs, valid),
+                cuda_ms(lambda: tk.kv8_decode_attention_reference(
+                    q, k4, ks, v4, vs, valid), 5 if S < 8192 else 2), None,
+                4 * H * T * keys * hd,
+                2 * B * Hkv * S * (hd // 2 + 4) + 4 * q.numel() + B * S,
+                note=f" (limit 6e-3; the int8 kernel at this shape "
+                     f"{int8_ms:.4f} ms)")
+        r = res.k[name]
+        r["int8_kernel_ms"] = r.get("int8_kernel_ms", 0.0) + per * int8_ms
+        r["per_shape"][-1]["int8_kernel_ms"] = int8_ms
+        del q, k4, v4, c8
 
     # fused_vit_mlp: one image (5 views x 729 tokens) per call in the
     # adapter path, 26 layers x 4 images per batch; 20 views at once is
@@ -1237,8 +1313,9 @@ def phase_small_mixed(torch, device):
 def phase_checkpoint(torch, device, card):
     """The checkpoint and text path at full width (rehearse_8b_load): a
     reference-layout LaViDa-LLaDA-8B checkpoint written to disk and loaded
-    back, the mixed layout, the llada template and the BPE tokenizer, one
-    request served twice and decoded.  The counts are set to 0 before and
+    back (and kept for the server phase), the mixed layout, the llada
+    template and the BPE tokenizer, one request served twice and
+    decoded.  The counts are set to 0 before and
     read after; writing, loading and quantizing launch none of the six
     kernels, so each must have launched exactly twice a mixed request's
     count."""
@@ -1259,7 +1336,7 @@ def phase_checkpoint(torch, device, card):
             "w4_ffn_fused": LLADA_LAYERS * STEPS}
     for op in ops.values():
         op.launches = 0
-    out = rehearse_8b_load.rehearse(torch, device)
+    out = rehearse_8b_load.rehearse(torch, device, keep=True)
     counts = {k: op.launches for k, op in ops.items()}
     if counts != {k: 2 * n for k, n in want.items()}:
         raise AssertionError(f"checkpoint path launches {counts}, want twice"
@@ -1287,8 +1364,9 @@ BATCH8_SIZES = BATCH_SIZES + [(1100, 380), (512, 1024), (384, 384),
 
 
 class _RegimeCount:
-    """The launches of one of w4_matmul_grouped's two kernels, read and
-    reset as `.launches` like a wrapper's count."""
+    """The launches of one of w4_matmul_grouped's two kernels (or of #8's
+    int4 instance), read and reset as `.launches` like a wrapper's
+    count."""
 
     def __init__(self, fn, regime):
         self.fn, self.attr = fn, f"{regime}_launches"
@@ -1321,6 +1399,8 @@ def _batch_ops():
             "w4_matmul_grouped_prefill": _RegimeCount(tg.w4_matmul_grouped,
                                                       "prefill"),
             "kv8_decode_attention": tk.kv8_decode_attention,
+            "kv8_decode_attention_int4": _RegimeCount(
+                tk.kv8_decode_attention, "int4"),
             "fused_vit_mlp": tv.fused_vit_mlp}
 
 
@@ -1474,6 +1554,375 @@ def phase_small_batch(torch, device):
         raise AssertionError(f"tiny int4 model logits differ: {rel}")
     if (b == cfg.llada.mask_token_id).any():
         raise AssertionError("mask tokens left in the tiny batch output")
+
+    # the int4 KV cache at hd 16 (8-byte rows: #8's cp.async route): the
+    # tiny bf16 model on the card and on the CPU, one decode step over the
+    # same int4 cache (built on the CPU), then kv8=4 generate_batch
+    from lavida_mod_tpu_torch.generation import diffusion as td
+    from lavida_mod_tpu_torch.ops import kv8_attention as tk
+    from lavida_mod_tpu_torch.predict import tiny_config
+
+    tcfg = tiny_config()
+    cpu = LaViDa.random_init(tcfg, 0, torch.bfloat16, "cpu")
+    gpu = copy.deepcopy(cpu).to(device)
+    if tcfg.llada.head_dim != 16:
+        raise AssertionError("the tiny model's head dim is not 16")
+    treqs = []
+    for size in ((100, 60), (60, 100), (112, 112)):
+        nw, nh = anyres_grid_shape(size, tcfg.vision.grid_pinpoints, 56)
+        views = rng.standard_normal((1 + nw * nh, 3, 56, 56)).astype(
+            np.float32)
+        ids = np.concatenate([[5, 6, -200], rng.integers(3, 400, 4)])
+        treqs.append((ids, [views], [size]))
+    embeds = [cpu.encode_prompt(*r)[0] for r in treqs]
+    P = min(e.shape[0] for e in embeds)
+    prefix = torch.stack([e[:P] for e in embeds])
+    G = 32
+    x = torch.full((3, G), tcfg.llada.mask_token_id, dtype=torch.long)
+    with torch.no_grad():
+        cache = td.prefill_cache(cpu.llada, prefix, G, kv8=4)
+        step = []
+        for m in (cpu, gpu):
+            c = [tuple(t.to(m.device).clone() for t in layer)
+                 for layer in cache]
+            logits, _ = m.llada(m.llada.embed_tokens(x.to(m.device)),
+                                positions=torch.arange(P, P + G,
+                                                       device=m.device),
+                                kv_cache=c, kv_write_index=P,
+                                use_cache=True)
+            step.append(logits.float().cpu())
+    n4 = tk.kv8_decode_attention.int4_launches
+    rel4 = ((step[1] - step[0]).abs().max() / step[0].abs().max()).item()
+    a4, _ = generate_batch(cpu, treqs, gen, kv8=4)
+    b4, _ = generate_batch(gpu, treqs, gen, kv8=4)
+    launched = tk.kv8_decode_attention.int4_launches - n4
+    print(f"[check] tiny bf16 model (hd 16) over the int4 KV cache, #8's "
+          f"int4 instance on the card vs the plain version on the CPU: one "
+          f"decode step from the same cache, logits max|diff|/max|ref| "
+          f"{rel4:.3e} (limit 5e-2); B=3 kv4 generate_batch tokens agree "
+          f"{float((a4 == b4).mean()):.2f}, {launched} int4 launches on the "
+          f"card")
+    if not np.isfinite(rel4) or rel4 > 5e-2:
+        raise AssertionError(f"tiny kv4 decode logits differ: {rel4}")
+    if launched != tcfg.llada.n_layers * 16 or \
+            (b4 == tcfg.llada.mask_token_id).any():
+        raise AssertionError(f"tiny kv4 batch: {launched} int4 launches")
+
+
+def phase_kv4_request(torch, model, requests, card):
+    """bench.py --kv4 at B = 1: the mixed fused model of phase 5, one
+    request through generate_fused(kv8=4), the decode over the int4 KV
+    cache.  The counts are set to 0 before it and read after."""
+    from lavida_mod_tpu_torch.config import GenerationConfig
+
+    gen = GenerationConfig(**GEN)
+    ids, views, size = requests[0]
+    model.generate_fused(ids, [views], [size], gen, kv8=4)   # warm-up
+    ops = _batch_ops()
+    want = {k: 0 for k in ops}
+    want.update({"short_attention": SIGLIP_LAYERS + LLADA_LAYERS,
+                 "gather_rows": 1, "w8a8_matmul": 4 * LLADA_LAYERS,
+                 "w4_qkv_norm": (LLADA_LAYERS + 1) * STEPS,
+                 "w4_matmul_res": LLADA_LAYERS * STEPS,
+                 "w4_ffn_fused": LLADA_LAYERS * STEPS,
+                 "kv8_decode_attention": LLADA_LAYERS * STEPS,
+                 "kv8_decode_attention_int4": LLADA_LAYERS * STEPS})
+    for op in ops.values():
+        op.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model.generate_fused(ids, [views], [size], gen, kv8=4)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {k: op.launches for k, op in ops.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[kv4] bench --kv4 at B = 1 (mixed fused layout, generate_fused("
+          f"kv8=4)): image {size}, G=32: wall {wall * 1e3:.1f} ms, peak "
+          f"{peak:.2f} GiB ({card}); launches {got}; tokens {out.tolist()}")
+    if out.shape != (32,) or (out == model.cfg.llada.mask_token_id).any():
+        raise AssertionError(f"kv4 request output {out}")
+    if got != want:   # every #8 launch the int4 instance's
+        raise AssertionError(f"kv4 request launches {got}, want {want}")
+    return got, wall, peak
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _post(url, payload, timeout=900):
+    import urllib.request
+
+    req = urllib.request.Request(url, json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def _want_worker(B, images, single, steps=STEPS):
+    """Launches of one worker call in the mixed layout with fuse=False and
+    the int4 KV cache: a B-row batch (generate_batch: one prefill call
+    through the int8 tree, the vision MLP fused) or a single request
+    (generate_fused: the one-gather splice).  The prefill runs the seven
+    int8 linears of each unfused block, every int4 decode linear #4's
+    decode kernel; the head is fused into w4_qkv_norm up to 128 rows.
+    `steps`: the denoise steps of the request's gen_kwargs."""
+    want = {k: 0 for k in _batch_ops()}
+    want["short_attention"] = SIGLIP_LAYERS * images + LLADA_LAYERS
+    want["fused_vit_mlp"] = 0 if single else SIGLIP_LAYERS * images
+    want["gather_rows"] = 1 if single else 0
+    want["w8a8_matmul"] = LLADA_LINEARS * LLADA_LAYERS   # unfused blocks
+    want["w4_matmul_grouped_decode"] = LLADA_LINEARS * LLADA_LAYERS * steps
+    want["w4_matmul_grouped"] = want["w4_matmul_grouped_decode"]
+    want["w4_qkv_norm"] = steps if B * 32 <= 128 else 0
+    want["kv8_decode_attention"] = LLADA_LAYERS * steps
+    want["kv8_decode_attention_int4"] = LLADA_LAYERS * steps
+    return want
+
+
+def phase_server(torch, device, card, path):
+    """The port's controller and a worker (`serve.worker` with --model-path
+    <phase 7's checkpoint> --mixed --kv4 --decode-batch 4) in threads on
+    127.0.0.1: the worker registers, four concurrent requests dispatched
+    through the controller merge into one batch of 4, one OpenAI chat
+    request and one single request take the batcher's B = 1 route.  The
+    counts are set to 0 before each and read after.  The checkpoint is
+    deleted at the end."""
+    import shutil
+    import threading
+
+    from lavida_mod_tpu_torch.eval.adapter import gen_kwargs_to_config
+    from lavida_mod_tpu_torch.ops.schedules import resolve_steps
+    from lavida_mod_tpu_torch.serve import worker as sw
+    from lavida_mod_tpu_torch.serve.controller import Controller
+
+    try:
+        import PIL  # noqa: F401
+        has_pil = True
+    except ImportError:
+        has_pil = False
+    servers = []
+    worker = None
+    try:
+        controller = Controller()
+        cs = controller.server("127.0.0.1", 0)
+        servers.append(cs)
+        threading.Thread(target=cs.serve_forever, daemon=True).start()
+        curl = f"http://127.0.0.1:{cs.server_address[1]}"
+        wport = _free_port()
+        wurl = f"http://127.0.0.1:{wport}"
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        args = sw.parse_args([
+            "--model-path", str(path), "--mixed", "--kv4",
+            "--decode-batch", "4", "--batch-window-ms", "500",
+            "--controller-address", curl, "--worker-address", wurl,
+            "--host", "127.0.0.1", "--port", str(wport)])
+        worker = sw.build_worker(args)
+        ws = worker.server(args.host, args.port)
+        servers.append(ws)
+        threading.Thread(target=ws.serve_forever, daemon=True).start()
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        em = worker.eval_model
+        llada = em.model.llada
+        blk = llada.blocks[0]
+        if not (em.kv8 == 4 and em.model.mixed and not blk.fused_plan(32, False)
+                and blk.cfg.block_type == "llama"):
+            raise AssertionError("the worker's layout is not mixed, unfused, "
+                                 "kv4")
+        if list(controller.worker_info) != [wurl]:
+            raise AssertionError(f"registry {controller.worker_info}")
+        print(f"[server] controller {curl}, worker {wurl} registered; "
+              f"checkpoint loaded and laid out (mixed, fuse=False: "
+              f"--decode-batch 4) in {load_s:.2f} s, peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; PIL "
+              f"{'present' if has_pil else 'absent'} ({card})")
+
+        rng = np.random.default_rng(7)
+        texts = [f"Describe image {i}: what is in it and where?"
+                 for i in range(4)]
+        gen_kw = {"max_new_tokens": 32, "block_length": 32,
+                  "step_per_block": STEPS}
+        images = []
+        if has_pil:
+            import base64
+            import io
+
+            from PIL import Image
+
+            for i, (w, h) in enumerate(BATCH_SIZES):
+                img = Image.fromarray(rng.integers(0, 255, (h, w, 3),
+                                                   dtype=np.uint8))
+                buf = io.BytesIO()
+                img.save(buf, "PNG")
+                images.append([base64.b64encode(buf.getvalue()).decode()])
+        else:
+            images = [[] for _ in texts]
+            print("[server] PIL is absent on this machine: the HTTP requests "
+                  "carry text only, and the four image requests run through "
+                  "the worker model's generate_batch (generate_until_batch's "
+                  "inner call) with seeded views")
+        ops = _batch_ops()
+        # every answer's ids, as the worker's model decodes them
+        decoded = []
+        decode = em.model.decode_output
+
+        def recording(ids, tokenizer, stop_ids=None):
+            text = decode(ids, tokenizer, stop_ids)
+            decoded.append((np.asarray(ids), text))
+            return text
+
+        em.model.decode_output = recording
+        vocab = em.model.cfg.llada.vocab_size
+        mask = em.model.cfg.llada.mask_token_id
+
+        def check_answers(texts_got, n):
+            rows = decoded[-n:]
+            if len(decoded) < n or any(
+                    ids.shape != (32,) or (ids == mask).any()
+                    or ids.max() >= vocab for ids, _ in rows):
+                raise AssertionError(f"answer ids {rows}")
+            if sorted(texts_got) != sorted(t for _, t in rows):
+                raise AssertionError(f"answers {texts_got} are not the "
+                                     f"decodes {[t for _, t in rows]}")
+
+        def batch_of_4(tag):
+            answers = [None] * 4
+
+            def call(i):
+                answers[i] = _post(curl + "/worker_generate_stream", {
+                    "model": args.model_name, "prompt": texts[i],
+                    "images": images[i], "gen_kwargs": gen_kw})
+
+            ts = [threading.Thread(target=call, args=(i,)) for i in range(4)]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join()
+            return answers
+
+        batch_of_4("warm-up")
+        walls, counts = {}, {}
+        for op in ops.values():
+            op.launches = 0
+        sizes0 = len(worker.batcher.served_sizes)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        answers = batch_of_4("timed")
+        walls["batch4"] = time.perf_counter() - t0
+        counts["batch4"] = {k: op.launches for k, op in ops.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        served = worker.batcher.served_sizes[sizes0:]
+        n_img = 4 if has_pil else 0
+        want = _want_worker(4, n_img, False)
+        print(f"[server] four concurrent /worker_generate_stream requests "
+              f"through the controller ({'images ' + str(BATCH_SIZES) if has_pil else 'text only'}): "
+              f"served as {served}, wall {walls['batch4'] * 1e3:.1f} ms, "
+              f"peak {peak:.2f} GiB ({card}); launches {counts['batch4']}")
+        for i, a in enumerate(answers):
+            print(f"[server] answer {i}: error_code {a.get('error_code')}, "
+                  f"latency {a.get('latency_s', 0) * 1e3:.1f} ms, text "
+                  f"{a.get('text')!r}")
+        if served != [(4, 4)]:
+            raise AssertionError(f"the four requests were served as {served}")
+        if any(a.get("error_code") != 0 for a in answers):
+            raise AssertionError(f"answers {answers}")
+        check_answers([a["text"] for a in answers], 4)
+        print(f"[server] the batch's ids (32 each, no mask, below the vocab "
+              f"{vocab}) decode to the answers; request 0's ids "
+              f"{decoded[-4][0].tolist()} (ids outside the checkpoint's "
+              f"trained BPE vocabulary decode to nothing)")
+        if counts["batch4"] != want:
+            raise AssertionError(f"batch launches {counts['batch4']}, want "
+                                 f"{want}")
+
+        if not has_pil:
+            # the four image requests: generate_until_batch's inner call,
+            # with the seeded views of four anyres sizes
+            from lavida_mod_tpu_torch.config import GenerationConfig
+            from lavida_mod_tpu_torch.eval.adapter import generate_batch
+
+            reqs = []
+            for size in BATCH_SIZES:
+                ids, views, _ = bench_request(48, size, rng)
+                reqs.append((ids, [views], [size]))
+            gen = GenerationConfig(**GEN)
+            for op in ops.values():
+                op.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, _ = generate_batch(em.model, reqs, gen, kv8=em.kv8)
+            walls["batch4_images"] = time.perf_counter() - t0
+            counts["batch4_images"] = {k: op.launches for k, op in ops.items()}
+            text = [em.model.decode_output(row, em.tokenizer) for row in out]
+            print(f"[server] the four image requests {BATCH_SIZES} through "
+                  f"the worker model's generate_batch(kv8=4): wall "
+                  f"{walls['batch4_images'] * 1e3:.1f} ms ({card}); launches "
+                  f"{counts['batch4_images']}; texts {text}")
+            if counts["batch4_images"] != _want_worker(4, 4, False):
+                raise AssertionError(f"image batch launches "
+                                     f"{counts['batch4_images']}")
+            if (out == em.model.cfg.llada.mask_token_id).any():
+                raise AssertionError("mask tokens left in the image batch")
+
+        # one OpenAI chat request and one single request: the B = 1 route
+        for op in ops.values():
+            op.launches = 0
+        t0 = time.perf_counter()
+        chat = _post(wurl + "/v1/chat/completions", {
+            "model": args.model_name, "max_tokens": 32,
+            "messages": [{"role": "user", "content": texts[0]}]})
+        walls["chat"] = time.perf_counter() - t0
+        counts["chat"] = {k: op.launches for k, op in ops.items()}
+        for op in ops.values():
+            op.launches = 0
+        t0 = time.perf_counter()
+        single = _post(curl + "/worker_generate_stream", {
+            "model": args.model_name, "prompt": texts[1],
+            "images": images[1], "gen_kwargs": gen_kw})
+        walls["single"] = time.perf_counter() - t0
+        counts["single"] = {k: op.launches for k, op in ops.items()}
+        print(f"[server] /v1/chat/completions: wall {walls['chat'] * 1e3:.1f}"
+              f" ms, launches {counts['chat']}, answer "
+              f"{chat['choices'][0]['message']['content']!r}; single request"
+              f" through the controller: wall {walls['single'] * 1e3:.1f} ms, "
+              f"launches {counts['single']}, answer {single.get('text')!r}; "
+              f"served sizes {worker.batcher.served_sizes} ({card})")
+        if chat.get("object") != "chat.completion" \
+                or single.get("error_code") != 0:
+            raise AssertionError(f"chat {chat}, single {single}")
+        check_answers([single["text"]], 1)
+        # the chat request's gen_kwargs are {max_new_tokens: 32}: the
+        # adapter's defaults give it one block of 32 steps
+        gen = gen_kwargs_to_config({"max_new_tokens": 32})
+        chat_steps = resolve_steps(gen.max_new_tokens, gen.block_length,
+                                   gen.steps, gen.step_per_block)[1]
+        if counts["chat"] != _want_worker(1, 0, True, chat_steps):
+            raise AssertionError(f"chat launches {counts['chat']}")
+        if counts["single"] != _want_worker(1, n_img // 4, True):
+            raise AssertionError(f"single launches {counts['single']}")
+        if worker.batcher.served_sizes[-2:] != [(1, 1), (1, 1)]:
+            raise AssertionError("the lone requests were not served alone")
+
+        # the device-busy share of one batch of the worker's model
+        share = _print_profile("server", _profile_busy(
+            torch, lambda: em.generate_until_batch(
+                texts, [[] for _ in texts], gen_kw)),
+            "one B = 4 text batch of the worker", card)
+        return counts, walls, peak, share
+    finally:
+        if worker is not None:
+            worker.close()
+        for srv in servers:
+            srv.shutdown()
+            srv.server_close()
+        shutil.rmtree(path, ignore_errors=True)
 
 
 def phase_train_kernels(torch, device, res):
@@ -2341,12 +2790,19 @@ def main() -> None:
     model, requests, counts, walls = phase_main_path(torch, device, card)
     mixed_counts, mixed_walls, peaks, fused_layer_ms = phase_mixed_path(
         torch, model, requests, card)
+    kv4_counts, kv4_wall, kv4_peak = phase_kv4_request(torch, model,
+                                                       requests, card)
     del model
     torch.cuda.empty_cache()
     phase_small_reference(torch, device)
     phase_small_mixed(torch, device)
     torch.cuda.empty_cache()
     ckpt_counts, ckpt = phase_checkpoint(torch, device, card)
+    torch.cuda.empty_cache()
+    from lavida_mod_tpu_torch.rehearse_8b_load import DEFAULT_PATH
+
+    server_counts, server_walls, server_peak, server_share = phase_server(
+        torch, device, card, DEFAULT_PATH)
     torch.cuda.empty_cache()
     model, batch_counts, batch_walls, share, unfused_layer_ms = \
         phase_batched_path(torch, device, card)
@@ -2398,7 +2854,8 @@ def main() -> None:
               launches_checkpoint_path=ckpt_counts["gather_rows"]),
         entry("w8a8_matmul", "w8a8_matmul.cu", "pallas_w8.py:53",
               mixed_counts["w8a8_matmul"],
-              launches_checkpoint_path=ckpt_counts["w8a8_matmul"]),
+              launches_checkpoint_path=ckpt_counts["w8a8_matmul"],
+              launches_server_b4=server_counts["batch4"]["w8a8_matmul"]),
         entry("w4_qkv_norm", "w4_fused.cu", "w4_fused.py:80",
               mixed_counts["w4_qkv_norm"],
               launches_batch_b4=b4["w4_qkv_norm"],
@@ -2411,14 +2868,23 @@ def main() -> None:
               launches_checkpoint_path=ckpt_counts["w4_ffn_fused"]),
         entry("w4_matmul_grouped_decode", "w4_grouped.cu",
               "pallas_w4.py:129", b4["w4_matmul_grouped_decode"],
-              launches_batch_b8=b8["w4_matmul_grouped_decode"]),
+              launches_batch_b8=b8["w4_matmul_grouped_decode"],
+              launches_server_b4=server_counts["batch4"][
+                  "w4_matmul_grouped_decode"]),
         entry("w4_matmul_grouped_prefill", "w4_grouped.cu",
               "pallas_w4.py:129", b4["w4_matmul_grouped_prefill"],
               launches_batch_b8=b8["w4_matmul_grouped_prefill"]),
         entry("kv8_decode_attention", "kv8_attention.cu",
               "kv8_attention.py:98", b4k["kv8_decode_attention"]),
+        entry("kv8_decode_attention_int4", "kv8_attention.cu",
+              "kv8_attention.py:98",
+              server_counts["batch4"]["kv8_decode_attention_int4"],
+              launches_kv4_b1=kv4_counts["kv8_decode_attention_int4"],
+              launches_server_single=server_counts["single"][
+                  "kv8_decode_attention_int4"]),
         entry("fused_vit_mlp", "vit_mlp.cu", "vit_mlp.py:63",
-              b4["fused_vit_mlp"], launches_batch_b8=b8["fused_vit_mlp"]),
+              b4["fused_vit_mlp"], launches_batch_b8=b8["fused_vit_mlp"],
+              launches_server_b4=server_counts["batch4"]["fused_vit_mlp"]),
         entry("prefix_flash_fwd", "prefix_flash.cu", "prefix_flash.py:53",
               train_counts["prefix_flash_fwd"]),
         entry("prefix_flash_dq", "prefix_flash.cu", "prefix_flash.py:143",
@@ -2468,7 +2934,13 @@ def main() -> None:
           f"GiB), mixed requests "
           f"{[round(w * 1e3, 1) for w in dream['walls']]} ms (peak "
           f"{[round(p, 2) for p in dream['peaks']]} GiB), launches on the "
-          f"Dream path (bf16 request + three mixed) {dream_counts}; "
+          f"Dream path (bf16 request + three mixed) {dream_counts}; bench "
+          f"--kv4 at B = 1 (mixed fused, int4 KV cache): wall "
+          f"{kv4_wall * 1e3:.1f} ms, peak {kv4_peak:.2f} GiB; worker (8B "
+          f"checkpoint, --mixed --kv4 --decode-batch 4) walls "
+          f"{ {k: round(w * 1e3, 1) for k, w in server_walls.items()} } ms, "
+          f"peak {server_peak:.2f} GiB, device busy of a B = 4 batch "
+          f"{'not measured' if server_share is None else f'{100 * server_share:.1f} %'}; "
           f"whole script {time.perf_counter() - t_start:.1f} s on {card}")
     print(card)
     print(json.dumps({"kernels": entries}))

@@ -19,6 +19,11 @@ estimator, adapter.py:204-209).  Not ported yet: `loglikelihood` for
 LLaDA (the MC estimator, ROADMAP.md Queue 1 item 7) and video requests
 (data/video.py and the video encode, Queue 1 item 9): each raises.
 
+The serve worker (serve/worker.py) answers its requests through this
+class: one request through `generate_until`, a merged batch through
+`generate_until_batch`.  `kv8` takes the JAX package's values: False,
+True (the int8 KV cache, `--kv8`) or 4 (the int4 one, `--kv4`).
+
 `generate_batch` (adapter.py:245-318) is the path of the serve worker's
 `--decode-batch N` and of bench.py's throughput mode.  It takes requests
 already tokenized (ids with -200 image markers) and preprocessed (one
@@ -95,14 +100,15 @@ def generate_batch(
     gen: Optional[GenerationConfig] = None,
     *,
     prefix_bucket: Optional[int] = 128,
-    kv8: bool = False,
+    kv8: bool | int = False,
     generator: Optional[torch.Generator] = None,
 ) -> tuple[np.ndarray, dict]:
     """requests: (input_ids, [views per image], [(width, height) per
     image]) each, and optionally a fourth item, the view of `model` that
     encodes the request (`LavidaEvalModel`'s "pad" mode for several
-    images).  Returns (ids [B, G], walls {"encode": s, "generate": s});
-    the walls end in a device synchronize."""
+    images).  kv8: False, True (the int8 KV cache) or 4 (the int4 one).
+    Returns (ids [B, G], walls {"encode": s, "generate": s}); the walls end
+    in a device synchronize."""
     gen = as_port_config(gen) or GenerationConfig()
     device = model.device
     t0 = time.perf_counter()
@@ -135,7 +141,8 @@ class LavidaEvalModel:
     """generate_until over (text, images) requests, in text."""
 
     def __init__(self, model, tokenizer, conv_template: str = "llada",
-                 prefix_bucket: Optional[int] = 128, kv8: bool = False):
+                 prefix_bucket: Optional[int] = 128,
+                 kv8: bool | int = False):
         self.model = model
         self.tokenizer = tokenizer
         self.conv_template = conv_template

@@ -23,8 +23,9 @@ lavida_mod_tpu/generation/diffusion.py for the serving slice.
     prealloc branch) prefills fixed-size batch chunks straight into one
     merged [B, P+G] buffer (the last chunk overlapping when B is not a
     multiple of the chunk) and denoises the merged batch.  With `kv8` the
-    bf16 buffers are quantized once at decode entry into int8 (k8, ks, v8,
-    vs) buffers (:228-237) and the bf16 ones are freed.
+    bf16 buffers are quantized once at decode entry into (k8, ks, v8, vs)
+    buffers (:224-237) and the bf16 ones are freed: int8 for kv8=True, int4
+    (packed two a byte) for kv8=4, the JAX package's convention.
   - The JAX scan becomes a Python loop over the control table.  The table
     and the block ends stay device tensors: the loop reads no value back
     to the host, so prefill + denoise can later be captured as one CUDA
@@ -128,7 +129,7 @@ def generate_cached_fused(
     temperature: float,
     remasking: str,
     act_int8_prefill: bool = False,
-    kv8: bool = False,
+    kv8: bool | int = False,
     chunk: Optional[int] = None,
 ) -> torch.Tensor:
     """Prefill the prefix [B, P, D] (`prefill_cache`), then denoise x
@@ -142,13 +143,14 @@ def generate_cached_fused(
 @torch.no_grad()
 def prefill_cache(model: LLaDA, prefix_embeds: torch.Tensor, G: int,
                   prefix_valid: Optional[torch.Tensor] = None,
-                  act_int8: bool = False, kv8: bool = False,
+                  act_int8: bool = False, kv8: bool | int = False,
                   chunk: Optional[int] = None) -> list:
     """The prefix [B, P, D] prefilled into preallocated [B, P+G] K/V
     buffers through the short-attention kernel (the JAX path with
     use_flash_prefill=True); prefix_valid [B, P] bool masks front padding
     rows.  act_int8: the prefill runs the int8 prefill tree (A8
-    activations).  kv8: the buffers quantized into the int8 cache.  chunk:
+    activations).  kv8: the buffers quantized into the int8 cache (True) or
+    the int4 one (4).  chunk:
     prefill in slices of this many rows, each written in place into the
     merged buffers, the last slice an overlapping window ending at B when
     chunk does not divide B (prefill is deterministic, so the rewritten
@@ -166,7 +168,9 @@ def prefill_cache(model: LLaDA, prefix_embeds: torch.Tensor, G: int,
         _prefill_into(model, cache, prefix_embeds[lo:lo + c],
                       None if prefix_valid is None
                       else prefix_valid[lo:lo + c], lo, act_int8)
-    return quantize_cache(cache) if kv8 else cache
+    if not kv8:
+        return cache
+    return quantize_cache(cache, 4 if kv8 == 4 else 8)
 
 
 def _prefill_into(model: LLaDA, cache: list, embeds: torch.Tensor,
@@ -185,10 +189,12 @@ def _prefill_into(model: LLaDA, cache: list, embeds: torch.Tensor,
           return_logits=False, use_flash=True, act_int8=act_int8)
 
 
-def quantize_cache(cache: list) -> list:
-    """bf16 [B, S, Hkv, hd] (k, v) buffers -> int8 (k8, ks, v8, vs) ones
-    (diffusion.py:228-237), quantized once at decode entry."""
-    return [(*quantize_kv(k), *quantize_kv(v)) for k, v in cache]
+def quantize_cache(cache: list, bits: int = 8) -> list:
+    """bf16 [B, S, Hkv, hd] (k, v) buffers -> (k8, ks, v8, vs) ones of
+    `bits`-bit codes (diffusion.py:228-237), quantized once at decode entry
+    (int4 with the reciprocal scale of JAX's jitted decode)."""
+    return [(*quantize_kv(k, bits, reciprocal=bits == 4),
+             *quantize_kv(v, bits, reciprocal=bits == 4)) for k, v in cache]
 
 
 @torch.no_grad()
@@ -200,7 +206,7 @@ def generate(
     prefix_valid: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
     act_int8_prefill: bool = False,
-    kv8: bool = False,
+    kv8: bool | int = False,
     chunk: Optional[int] = None,
     draft_tokens=None,
     verbose: bool = False,
@@ -209,7 +215,8 @@ def generate(
     """`gen.max_new_tokens` tokens after prefix_embeds [B, P, D] ->
     [B, G] (diffusion.py:682-766, prefix_lm branch).  act_int8_prefill:
     the mixed layout's split (the int8 tree prefills, the decode linears
-    denoise).  chunk: the chunked prefill of `generate_chunked_prefill`.
+    denoise).  kv8: False, True (the int8 KV cache) or 4 (the int4 one).
+    chunk: the chunked prefill of `generate_chunked_prefill`.
     Draft tokens, the verbose and dLLM-cache paths and prefix_lm=False
     raise NotImplementedError."""
     gen = as_port_config(gen)

@@ -48,9 +48,12 @@ or `--only vit_mlp` a sixth or a seventh alone:
                    shape and not the same function, the bf16-cache
                    `dense_attention` that the path without kv8 runs (twice
                    the cache bytes), also cold; and #8 at Dream-7B's GQA
-                   (28 / 4 heads, B = 4), outside the sums; first, the
-                   largest error against the plain version at each of
-                   chip_smoke.py's #8 cases (KV8_CASES).
+                   (28 / 4 heads, B = 4), outside the sums; each shape
+                   also over the int4 cache (--kv4: #8's int4 instance,
+                   half the cache bytes), cold and warm, with its bound;
+                   first, the largest error against the plain version at
+                   each of chip_smoke.py's #8 cases (KV8_CASES), over the
+                   int8 and the int4 cache.
   fused_vit_mlp    #9 at the batched path's call (one image: M = 3645 =
                    5 views x 729 rows, D = 1152, F = 4304; 104 launches
                    per B = 4 batch), at 20 views at once (M = 14580) and
@@ -500,14 +503,15 @@ KV8_CASES = [(4, 32, 32, 32, 128, 1184, None), (8, 32, 32, 32, 128, 1184, None),
              (2, 32, 32, 32, 128, 1184, -1)]
 
 
-def kv8_case_inputs(torch, randn, B, T, H, Hkv, hd, S, pad0):
+def kv8_case_inputs(torch, randn, B, T, H, Hkv, hd, S, pad0, bits=8):
     """q, k8, ks, v8, vs and the [B, S] bool mask of a KV8_CASES case, drawn
-    with `randn(*shape)` (a tensor on the card)."""
+    with `randn(*shape)` (a tensor on the card); the cache of `bits`-bit
+    codes (4: packed int4)."""
     from lavida_mod_tpu_torch.ops import kv8_attention as tk
 
     q = randn(B, T, H, hd).bfloat16()
-    k8, ks = tk.quantize_kv(randn(B, S, Hkv, hd).bfloat16())
-    v8, vs = tk.quantize_kv(randn(B, S, Hkv, hd).bfloat16())
+    k8, ks = tk.quantize_kv(randn(B, S, Hkv, hd).bfloat16(), bits)
+    v8, vs = tk.quantize_kv(randn(B, S, Hkv, hd).bfloat16(), bits)
     valid = torch.ones(B, S, dtype=torch.bool, device=q.device)
     for b in range(B):
         valid[b, :(37 * b) % (S // 4)] = False
@@ -527,20 +531,25 @@ def time_kv8(torch, dev, gen, record, card) -> dict:
     out = {"calls": [], "per_batch": {}, "errors": []}
     # the largest error against the plain version at chip_smoke's cases
     # (a tree whose wrapper refuses a case says so)
-    for case in KV8_CASES:
-        args = kv8_case_inputs(torch, lambda *shape: torch.randn(
-            *shape, device=dev, generator=gen), *case)
+    for case, bits in [(c, b) for b in (8, 4) for c in KV8_CASES]:
         try:
+            args = kv8_case_inputs(torch, lambda *shape: torch.randn(
+                *shape, device=dev, generator=gen), *case, bits=bits)
             got = tk.kv8_decode_attention(*args)
-        except ValueError as e:
-            print(f"[times] kv8_decode_attention case {case}: refused ({e})")
-            out["errors"].append({"case": case, "refused": str(e)})
+        except (ValueError, NotImplementedError) as e:
+            print(f"[times] kv8_decode_attention int{bits} case {case}: "
+                  f"refused ({e})")
+            out["errors"].append({"case": case, "bits": bits,
+                                  "refused": str(e)})
             continue
-        err = (got.float() - tk.kv8_decode_attention_reference(*args)
-               .float()).abs().max().item()
-        print(f"[times] kv8_decode_attention case {case}: max error {err:.3e} "
-              f"against the plain version (limit 6e-3)")
-        out["errors"].append({"case": case, "max_abs_err": err})
+        ref = tk.kv8_decode_attention_reference(*args)
+        err = (got.float() - ref.float()).abs().max().item()
+        ok = torch.allclose(got.float(), ref.float(), atol=6e-3, rtol=6e-3)
+        print(f"[times] kv8_decode_attention int{bits} case {case}: max "
+              f"error {err:.3e} against the plain version, within atol = "
+              f"rtol = 6e-3: {ok}")
+        out["errors"].append({"case": case, "bits": bits,
+                              "max_abs_err": err, "within_band": ok})
         del args, got
     T, hd, S = 32, 128, 1184
     with torch.no_grad():
@@ -556,9 +565,16 @@ def time_kv8(torch, dev, gen, record, card) -> dict:
                   for _ in range(KV8_CACHES)]
             caches = [(*tk.quantize_kv(k), *tk.quantize_kv(v))
                       for k, v in kv]
+            try:
+                caches4 = [(*tk.quantize_kv(k, 4), *tk.quantize_kv(v, 4))
+                           for k, v in kv]
+            except (ValueError, NotImplementedError) as e:
+                print(f"[times] kv8_decode_attention: no int4 cache ({e})")
+                caches4 = None
             bias = make_bias(kv_valid=valid)
             nbytes = 2 * B * Hkv * S * (hd + 4) + 4 * q.numel() + B * S
             bound = nbytes / 3.35e12 * 1e3
+            bound4 = (nbytes - B * Hkv * S * hd) / 3.35e12 * 1e3
             shape = f"q[{B},{T},{H},{hd}] Hkv {Hkv} S {S}"
             times = {}
             for temp, n in [("cold", KV8_CACHES), ("warm", 1)]:
@@ -568,6 +584,10 @@ def time_kv8(torch, dev, gen, record, card) -> dict:
                     k8, ks, v8, vs = caches[next(it) % n]
                     return tk.kv8_decode_attention(q, k8, ks, v8, vs, valid)
 
+                def call4(n=n, it=iter(range(1 << 62))):
+                    k4, ks, v4, vs = caches4[next(it) % n]
+                    return tk.kv8_decode_attention(q, k4, ks, v4, vs, valid)
+
                 def dense(n=n, it=iter(range(1 << 62))):
                     k, v = kv[next(it) % n]
                     return dense_attention(q, k, v, bias=bias)
@@ -576,24 +596,43 @@ def time_kv8(torch, dev, gen, record, card) -> dict:
                 times[f"dense_{temp}"] = three_times(dense)
                 record("kv8_decode_attention", f"{shape} {temp} ({n} caches)",
                        0, times[temp], times[f"dense_{temp}"])
+                if caches4 is not None:
+                    times[f"int4_{temp}"] = three_times(call4)
+                    record("kv8_decode_attention_int4",
+                           f"{shape} {temp} ({n} caches)", 0,
+                           times[f"int4_{temp}"], None)
             ms = times["cold"]["ms"]
             print(f"[times] kv8_decode_attention {shape}: device {ms:.4f} ms "
                   f"per call cold, {times['warm']['ms']:.4f} warm, bound "
                   f"{bound:.4f} ms ({100 * bound / ms:.1f} % of it cold); "
                   f"bf16 dense_attention {times['dense_cold']['ms']:.4f} ms "
                   f"cold ({card})")
+            if caches4 is not None:
+                ms4 = times["int4_cold"]["ms"]
+                print(f"[times] kv8_decode_attention int4 {shape}: device "
+                      f"{ms4:.4f} ms per call cold, "
+                      f"{times['int4_warm']['ms']:.4f} warm, bound "
+                      f"{bound4:.4f} ms ({100 * bound4 / ms4:.1f} % of it "
+                      f"cold); the int8 kernel {ms:.4f} ms cold ({card})")
             out["calls"].append({"shape": [B, T, H, Hkv, hd, S],
-                                 "bound_ms": bound, **times})
+                                 "bound_ms": bound, "int4_bound_ms": bound4,
+                                 **times})
             if summed:
                 per = {k: KV8_LAUNCHES * t["ms"] for k, t in times.items()}
                 per["bound"] = KV8_LAUNCHES * bound
+                per["int4_bound"] = KV8_LAUNCHES * bound4
                 out["per_batch"][f"b{B}"] = per
                 print(f"[times] kv8_decode_attention per B = {B} kv8 batch "
                       f"({KV8_LAUNCHES} launches): cold {per['cold']:.2f} ms,"
                       f" warm {per['warm']:.2f} ms, bound {per['bound']:.2f} "
                       f"ms; bf16 dense_attention cold {per['dense_cold']:.2f}"
                       f" ms ({card})")
-            del kv, caches
+                if caches4 is not None:
+                    print(f"[times] kv8_decode_attention int4 per B = {B} "
+                          f"kv4 batch: cold {per['int4_cold']:.2f} ms, warm "
+                          f"{per['int4_warm']:.2f} ms, bound "
+                          f"{per['int4_bound']:.2f} ms ({card})")
+            del kv, caches, caches4
     return out
 
 

@@ -157,6 +157,7 @@ def library() -> ctypes.CDLL:
     lib.lavida_w4_grouped.argtypes = [vp] * 5 + [ci] * 9 + [vp]
     lib.lavida_w4_grouped_decode.argtypes = [vp] * 5 + [ci] * 9 + [vp]
     lib.lavida_kv8_decode_attention.argtypes = [vp] * 8 + [ci] * 6 + [cf] + [ci] * 6 + [vp]
+    lib.lavida_kv4_decode_attention.argtypes = [vp] * 8 + [ci] * 6 + [cf] + [ci] * 6 + [vp]
     lib.lavida_vit_mlp.argtypes = [vp] * 10 + [ci] * 3 + [cf, vp]
     lib.lavida_prefix_flash_fwd.argtypes = [vp] * 7 + [ci] * 6 + [cf, vp]
     lib.lavida_prefix_flash_dq.argtypes = [vp] * 9 + [ci] * 6 + [cf, vp]
@@ -167,7 +168,8 @@ def library() -> ctypes.CDLL:
                lib.lavida_w4_matmul_res,
                lib.lavida_w4_ffn_fused, lib.lavida_w4_grouped,
                lib.lavida_w4_grouped_decode,
-               lib.lavida_kv8_decode_attention, lib.lavida_vit_mlp,
+               lib.lavida_kv8_decode_attention,
+               lib.lavida_kv4_decode_attention, lib.lavida_vit_mlp,
                lib.lavida_prefix_flash_fwd, lib.lavida_prefix_flash_dq,
                lib.lavida_prefix_flash_dkv, lib.lavida_w4_matmul):
         fn.restype = ci

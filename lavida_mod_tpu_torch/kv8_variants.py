@@ -5,12 +5,13 @@ one process on one CUDA card:
 
     python3 lavida_mod_tpu_torch/kv8_variants.py
         [--variants base,nocompute,noload,noconv,fastexp,src=PATH]
-        [--shapes 4x32x32x32x1184] [--caches 4]
+        [--shapes 4x32x32x32x1184] [--caches 4] [--bits 8|4]
 
 Each variant is this tree's csrc/kv8_attention.cu (with the headers it
 includes) compiled by its own nvcc, all in parallel, and called through
-`lavida_kv8_decode_attention` with the plan of ops/kv8_attention.py::
-kv8_plan.  A variant is `base` or edits joined by "+":
+`lavida_kv8_decode_attention` (with --bits 4, the int4 instance
+`lavida_kv4_decode_attention` over a packed int4 cache) with the plan of
+ops/kv8_attention.py::kv8_plan.  A variant is `base` or edits joined by "+":
   nocompute  the warps skip every key group's work (products, softmax)
              but wait for each tile: the ring alone;
   noload     no copies: each stage's barrier completes at once, and the
@@ -25,8 +26,8 @@ kv8_plan.  A variant is `base` or edits joined by "+":
   nomma      each product replaced by four float adds of its operands'
              bits (no tensor cores; the widening stays);
   asm        the products as non-volatile asm, free to move;
-  noconv     `widen` returns its words as they are (no conversion; the
-             compiler drops the unused arithmetic);
+  noconv     `widen` and `nib2` return their words as they are (no
+             conversion; the compiler drops the unused arithmetic);
   fastexp    the softmax's exponentials as __expf (ex2.approx), exact to
              the band;
   src=PATH   another kv8_attention.cu with the same entry point and plan
@@ -57,8 +58,8 @@ EDITS = {
     "nocompute": [("    for (int kg = ksi; kg < kKeys / kGroup && ",
                    "    for (int kg = ksi; kg < 0 && ")],
     "noload": [
-        ("    hopper::mbar_expect_tx(bar, 2 * L::kTile);", "    hopper::mbar_arrive(bar);"),
-        ("    for (int bx = 0; bx < L::kBoxes; ++bx) {", "    for (int bx = 0; bx < 0; ++bx) {"),
+        ("      hopper::mbar_expect_tx(bar, 2 * L::kTile);", "      hopper::mbar_arrive(bar);"),
+        ("      for (int bx = 0; bx < L::kBoxes; ++bx) {", "      for (int bx = 0; bx < 0; ++bx) {"),
         ("  for (int e = lane; e < nk; e += 32) {", "  for (int e = lane; e < 0; e += 32) {"),
         ("  if (vrow != nullptr) {\n    const uintptr_t a", "  if (false) {\n    const uintptr_t a")],
     "noepi": [("  if (splits > 1) {\n    constexpr int kSlot",
@@ -74,7 +75,9 @@ EDITS = {
   c[3] += __uint_as_float(a[3]);""")],
     "asm": [("  asm volatile(\n      \"mma.sync", "  asm(\n      \"mma.sync")],
     "noconv": [("  return __byte_perm(__float_as_uint(fx), __float_as_uint(fy), 0x7632);",
-                "  return x ^ y;")],
+                "  return x ^ y;"),
+               ('  asm("fma.rn.bf16x2 %0, %1, %2, %3;\\n" : "=r"(r) : "r"(x), '
+                '"r"(0x3F803F80u), "r"(0xC308C308u));', "  r = x;")],
     "fastexp": [("expf(", "__expf(")],
 }
 EXACT = ("base", "fastexp", "timeline", "asm")
@@ -105,6 +108,7 @@ def main(argv: list[str]) -> None:
                     default="base,nocompute,noload,noconv,fastexp")
     ap.add_argument("--shapes", default="4x32x32x32x1184")
     ap.add_argument("--caches", type=int, default=4)
+    ap.add_argument("--bits", type=int, choices=(8, 4), default=8)
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.dirname(HERE))
     import torch
@@ -133,11 +137,11 @@ def main(argv: list[str]) -> None:
             if proc.returncode:
                 print(f"[variants] {v}: nvcc failed, left out:\n{log[-3000:]}")
                 continue
-            m = re.search(r"kv8_kernelILi128E[^']*' for 'sm_90a'\n([\s\S]*?"
-                          r"Used \d+ registers[^\n]*)", log)
+            m = re.search(rf"kv8_kernelILi128ELi{args.bits}E[^']*' for "
+                          r"'sm_90a'\n([\s\S]*?Used \d+ registers[^\n]*)", log)
             print(f"[variants] {v}: ptxas {' '.join(m[1].split()) if m else '?'}")
             so = ctypes.CDLL(lib)
-            fn = so.lavida_kv8_decode_attention
+            fn = getattr(so, f"lavida_kv{args.bits}_decode_attention")
             fn.argtypes = [vp] * 8 + [ci] * 6 + [cf] + [ci] * 6 + [vp]
             fn.restype = ci
             fn.so = so
@@ -150,7 +154,7 @@ def run_shapes(torch, tk, cuda_ms, fns, args):
     gen = torch.Generator(device=dev).manual_seed(0)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     name = torch.cuda.get_device_name(0)
-    hd = 128
+    hd, bits = 128, args.bits
     for shape in args.shapes.split(","):
         B, T, H, Hkv, S = map(int, shape.split("x"))
         q = torch.randn(B, T, H, hd, device=dev, generator=gen).bfloat16()
@@ -160,18 +164,18 @@ def run_shapes(torch, tk, cuda_ms, fns, args):
         caches = []
         for _ in range(args.caches):
             k8, ks = tk.quantize_kv(torch.randn(B, S, Hkv, hd, device=dev,
-                                                generator=gen).bfloat16())
+                                                generator=gen).bfloat16(), bits)
             v8, vs = tk.quantize_kv(torch.randn(B, S, Hkv, hd, device=dev,
-                                                generator=gen).bfloat16())
+                                                generator=gen).bfloat16(), bits)
             caches.append((k8, ks, v8, vs))
         ref = tk.kv8_decode_attention_reference(q, *caches[0], valid)
         calls = {}
         for v, fn in fns.items():
-            p = tk.kv8_plan(B, T, H, Hkv, S, hd, sms)
+            p = tk.kv8_plan(B, T, H, Hkv, S, hd, sms, bits)
             st = [int(x[2:]) for x in v.split("+") if re.fullmatch(r"st\d", x)]
             if st:
                 p = p._replace(stages=st[0], smem=p.smem - (p.stages - st[0])
-                               * tk.kv8_stage_bytes(hd))
+                               * tk.kv8_stage_bytes(hd, bits))
             out = torch.empty_like(q)
             ws = torch.empty(max(1, p.units * p.row_tiles * 16 * (hd + 2)),
                              dtype=torch.float32, device=dev)
@@ -212,10 +216,11 @@ def run_shapes(torch, tk, cuda_ms, fns, args):
               f"{kv[0].numel() / 1e6:.1f} MB {copy_ms:.4f} ms "
               f"({2 * kv[0].numel() / copy_ms / 1e9:.2f} TB/s read + write)")
         del kv, dst
-        nbytes = 2 * B * Hkv * S * (hd + 4) + 4 * q.numel() + B * S
+        nbytes = (2 * B * Hkv * S * (hd * bits // 8 + 4) + 4 * q.numel()
+                  + B * S)
         bound = nbytes / 3.35e12 * 1e3
         for v, t in times.items():
-            print(f"[variants] {v} {shape} ({args.caches} caches): "
+            print(f"[variants] {v} int{bits} {shape} ({args.caches} caches): "
                   f"{' / '.join(f'{x:.4f}' for x in t)} ms per call, bound "
                   f"{bound:.4f} ms ({100 * bound / min(t):.1f} % of it) "
                   f"({name})")

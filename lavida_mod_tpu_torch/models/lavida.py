@@ -495,7 +495,7 @@ class LaViDa(nn.Module):
         image_sizes: Sequence[tuple[int, int]] = (),
         gen: Optional[GenerationConfig] = None,
         prefix_bucket: Optional[int] = None,
-        kv8: bool = False,
+        kv8: bool | int = False,
         generator: Optional[torch.Generator] = None,
         tokens_hook=None,
         logits_hook=None,
@@ -551,7 +551,7 @@ class LaViDa(nn.Module):
         gen: Optional[GenerationConfig] = None,
         prefix_bucket: Optional[int] = None,
         generator: Optional[torch.Generator] = None,
-        kv8: bool = False,
+        kv8: bool | int = False,
     ) -> np.ndarray:
         """One sample: ids with -200 image markers, one [V, C, S, S] view
         stack and one (width, height) size per image.  Returns the [G]
@@ -562,7 +562,7 @@ class LaViDa(nn.Module):
         reuse compiled executables; the tokens do not change.
         generator: the randomness of temperature > 0 or random remasking
         (default: seed 0 on the model's device).  kv8: decode over the
-        int8 KV cache."""
+        int8 KV cache (True) or the int4 one (4)."""
         gen = as_port_config(gen) or GenerationConfig()
         if not gen.prefix_lm:
             raise NotImplementedError("generate_fused implements the "

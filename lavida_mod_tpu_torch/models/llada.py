@@ -32,11 +32,12 @@ to f32 as in the JAX package (`head_fusable`, llada.py:200-216,
 684-699).  Unlike the JAX package the plans engage on
 the CPU too, where the ops run their plain versions.
 
-With an int8 KV cache (a per-layer 4-tuple (k8, ks, v8, vs) in the
-head-major layout of ops/kv8_attention.py, llada.py:285-295) each decode
-call quantizes its rows into the buffers in place (`write_rows`) and
-attends through `kv8_decode_attention` (kernel #8) under the filled-rows
-and padding mask.
+With a quantized KV cache (a per-layer 4-tuple (k8, ks, v8, vs) in the
+head-major layout of ops/kv8_attention.py, llada.py:285-295: int8 codes,
+or int4 ones packed two a byte) each decode call quantizes its rows into
+the buffers in place at their width (`write_rows`) and attends through
+`kv8_decode_attention` (kernel #8) under the filled-rows and padding
+mask.
 
 Training (llada.py:407-667 on the list-of-layers model): `forward` takes
 `prefix_lengths` [B], the prefix-LM block mask over SEQUENCE indices (never
@@ -209,9 +210,9 @@ class LLaDABlock(nn.Module):
         IN PLACE at rows [kv_write_index, kv_write_index + T) -- the JAX
         package's dynamic_update_slice, without its functional copy -- and
         attention reads the whole buffers.  A 4-tuple `layer_past` is the
-        int8 cache: the rows are quantized into it and attention runs the
-        kv8 kernel masked by `kv8_valid` [B, S]; the present is the
-        4-tuple."""
+        int8 or int4 cache: the rows are quantized into it and attention
+        runs the kv8 kernel masked by `kv8_valid` [B, S]; the present is
+        the 4-tuple."""
         cfg = self.cfg
         B, T, D = x.shape
         Hq, Hkv, hd = cfg.n_heads, cfg.effective_n_kv_heads, cfg.head_dim
@@ -237,8 +238,8 @@ class LLaDABlock(nn.Module):
         v = v.reshape(B, T, Hkv, hd)
         if layer_past is not None and len(layer_past) == 4:
             if kv_write_index is None or use_flash:
-                raise ValueError("the int8 KV cache is a decode cache: it "
-                                 "needs kv_write_index and no flash")
+                raise ValueError("the quantized KV cache is a decode cache:"
+                                 " it needs kv_write_index and no flash")
             present = write_rows(*layer_past, k, v, kv_write_index)
             att = kv8_decode_attention(q, *present, kv_valid=kv8_valid)
         else:
@@ -370,7 +371,8 @@ class LLaDA(nn.Module):
         positions: [T] absolute RoPE positions (default: the row indices,
           offset by kv_write_index).
         kv_cache: per-layer preallocated (k, v) buffers [B, S, Hkv, hd], or
-          int8 (k8, ks, v8, vs) buffers [B, Hkv, S, hd] / [B, Hkv, 1, S];
+          quantized (k8, ks, v8, vs) buffers [B, Hkv, S, hd] int8 or
+          [B, Hkv, S, hd / 2] packed int4, and [B, Hkv, 1, S];
           requires kv_write_index (a host int), where this call's rows are
           written in place; keys at or past kv_write_index + T are masked.
         kv_valid: [B, S] bool over the buffer rows; self_valid: [B, T]
@@ -429,6 +431,8 @@ class LLaDA(nn.Module):
             valid = filled[None].expand(B, S)
             if kv_valid is not None:
                 valid = valid & kv_valid
+            elif kv8:   # kernel #8 reads the mask as contiguous bytes
+                valid = valid.contiguous()
         bias = q_seg = kv_seg = pf_args = None
         if attention_impl == "prefix_flash":
             if kv_cache is not None or use_flash:

@@ -1,22 +1,34 @@
-"""Decode attention over an int8 KV cache: the port of
+"""Decode attention over an int8 or int4 KV cache: the port of
 lavida_mod_tpu/ops/kv8_attention.py (kernel #8, `kv8_decode_attention`,
-and its host-side helpers), the worker's and bench's `--kv8` flag.
+and its host-side helpers), the worker's and bench's `--kv8` and `--kv4`
+flags.
 
-Layout, as in the JAX package: K/V as int8 codes [B, Hkv, S, hd]
-(head-major) with per-(batch, head, position) f32 scales [B, Hkv, 1, S],
-`scale = max(amax over hd, 1e-8) / 127`.
+Layout, as in the JAX package: K/V codes [B, Hkv, S, hd] (head-major) with
+per-(batch, head, position) f32 scales [B, Hkv, 1, S], `scale = max(amax
+over hd, 1e-8) / qmax`, qmax 127 for int8 and 7 for int4.  torch has no
+int4 dtype, so the int4 codes are stored packed two a byte, uint8 [B, Hkv,
+S, hd / 2], code 2i in the low nibble of byte i (the order of the JAX
+package's pack_w4): a cache is int4 when its dtype is uint8, as JAX's is
+when its dtype is jnp.int4 (`is_kv4`).  The kernel reads a word of 8 codes
+of a K row as two k steps and pairs codes (2i, 2i + 1) of V rows by one
+byte permute, so a lane still reads a K row in 16-byte and a V row in
+8-byte loads at hd 128 (csrc/kv8_attention.cu).
 
   - `quantize_kv` / `dequantize_kv` (kv8_attention.py:41-62): plain torch,
-    as the JAX package computes them in XLA.
+    as the JAX package computes them in XLA.  JAX's op-by-op quantize
+    divides by qmax; inside jit, as its decode runs it, XLA multiplies by
+    f32(1 / qmax) instead (`reciprocal=True`).  The int8 cache keeps the
+    quotient it was ported with; the int4 cache takes the decode's product.
   - `write_rows` (:152-163): this step's rows quantized and written IN
-    PLACE into the preallocated int8 buffers (the JAX package's
-    dynamic_update_slice, without its functional copy).
+    PLACE into the preallocated buffers, at the width of the cache's dtype
+    (the JAX package's dynamic_update_slice, without its functional copy).
   - `kv8_decode_attention` (:98-149): CUDA tensors launch the kernel of
-    csrc/kv8_attention.cu; CPU tensors run the plain version, which follows
-    the TPU kernel's order: scores (q . k8) * (ks * sm_scale) in f32,
-    masked to -1e30 (a row that sees no valid key averages over all S),
-    the whole row softmaxed, p * vs rounded to bf16, the PV product in f32,
-    the result in q's dtype.
+    csrc/kv8_attention.cu (its int8 or its int4 instance, by the cache's
+    dtype); CPU tensors run the plain version, which unpacks an int4 cache
+    to int8 codes and follows the TPU kernel's order: scores (q . k8) * (ks
+    * sm_scale) in f32, masked to -1e30 (a row that sees no valid key
+    averages over all S), the whole row softmaxed, p * vs rounded to bf16,
+    the PV product in f32, the result in q's dtype.
 
 The kernel streams each (batch row, KV head)'s cache once through a TMA
 ring with an online softmax, so it takes any S, and a head dim of 16, 32,
@@ -26,8 +38,6 @@ more than one) and ring stages; csrc/kv8_attention.cu mirrors its constants
 and refuses a plan that does not match.  It rounds bf16(exp(s - m_running)
 * vs) where the TPU rounds bf16(p_norm * vs), within the 6e-3 band of
 tests/test_kv8.py.
-
-The int4 cache (`--kv4`) is not ported: `quantize_kv(bits=4)` raises.
 """
 
 from __future__ import annotations
@@ -42,37 +52,72 @@ from .. import kernels
 NEG_INF = -1e30
 
 
-def quantize_kv(x: torch.Tensor, bits: int = 8):
-    """[B, S, H, hd] float -> (int8 [B, H, S, hd], f32 [B, H, 1, S])."""
-    if bits != 8:
-        raise NotImplementedError("the int4 KV cache (kv4) is not ported")
+def is_kv4(codes: torch.Tensor) -> bool:
+    """Whether a cache buffer holds packed int4 codes (uint8) rather than
+    int8 ones."""
+    return codes.dtype == torch.uint8
+
+
+def pack_kv4(codes: torch.Tensor) -> torch.Tensor:
+    """int codes [..., hd] in [-8, 7] -> uint8 [..., hd / 2], code 2i in
+    the low nibble of byte i."""
+    c = codes.to(torch.int16) & 0xF
+    return (c[..., 0::2] | (c[..., 1::2] << 4)).to(torch.uint8)
+
+
+def unpack_kv4(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of pack_kv4 -> int8 [..., hd]."""
+    p = packed.to(torch.int16)
+    c = torch.stack([p & 0xF, p >> 4], dim=-1).flatten(-2)
+    return torch.where(c >= 8, c - 16, c).to(torch.int8)
+
+
+def quantize_kv(x: torch.Tensor, bits: int = 8, reciprocal: bool = False):
+    """[B, S, H, hd] float -> (codes [B, H, S, hd] int8, or [B, H, S, hd / 2]
+    uint8 packed int4 for bits=4; f32 scales [B, H, 1, S]).  reciprocal:
+    scale = max(amax, 1e-8) * f32(1 / qmax), as JAX's jitted decode
+    computes it, instead of the quotient."""
+    if bits not in (8, 4):
+        raise ValueError(f"quantize_kv: bits {bits} (8 or 4)")
+    qmax = 127.0 if bits == 8 else 7.0
     xf = x.transpose(1, 2).float()
-    amax = xf.abs().amax(dim=-1, keepdim=True)
-    scale = torch.clamp_min(amax, 1e-8) / torch.full_like(amax, 127.0)
-    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    amax = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True), 1e-8)
+    if reciprocal:
+        scale = amax * torch.reciprocal(torch.full_like(amax, qmax))
+    else:
+        scale = amax / torch.full_like(amax, qmax)
+    q = torch.clamp(torch.round(xf / scale), -qmax, qmax).to(torch.int8)
+    if bits == 4:
+        q = pack_kv4(q)
     return q.contiguous(), scale[..., 0][:, :, None, :].contiguous()
 
 
 def dequantize_kv(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """Inverse of quantize_kv -> [B, S, H, hd] f32."""
+    """Inverse of quantize_kv (either width) -> [B, S, H, hd] f32."""
+    if is_kv4(q):
+        q = unpack_kv4(q)
     return (q.float() * scale[:, :, 0, :, None]).transpose(1, 2)
 
 
 @torch.no_grad()
 def write_rows(k8, ks, v8, vs, k_new, v_new, index: int):
     """Quantize this call's rows k_new/v_new [B, T, H, hd] and write them at
-    positions [index, index + T) of the int8 cache, in place.  Returns the
-    same four buffers."""
+    positions [index, index + T) of the cache, in place, at its width (int4
+    with the decode's reciprocal scale).  Returns the same four buffers."""
     T = k_new.shape[1]
+    kv4 = is_kv4(k8)
     for buf, sbuf, new in ((k8, ks, k_new), (v8, vs, v_new)):
-        q, s = quantize_kv(new)
+        q, s = quantize_kv(new, 4 if kv4 else 8, reciprocal=kv4)
         buf[:, :, index:index + T].copy_(q)
         sbuf[..., index:index + T].copy_(s)
     return k8, ks, v8, vs
 
 
 def kv8_decode_attention_reference(q, k8, ks, v8, vs, kv_valid=None):
-    """Plain version (see the module note).  q [B, T, H, hd]."""
+    """Plain version (see the module note).  q [B, T, H, hd]; an int4
+    cache is unpacked to its int8 codes first."""
+    if is_kv4(k8):
+        k8, v8 = unpack_kv4(k8), unpack_kv4(v8)
     B, T, H, hd = q.shape
     Hkv, S = k8.shape[1], k8.shape[2]
     G = H // Hkv
@@ -97,7 +142,7 @@ def kv8_decode_attention_reference(q, k8, ks, v8, vs, kv_valid=None):
 # rows that share the KV head (half at hd 256), each tile one warp per key
 # split; a ring stage holds KV8_KEYS keys of K and V and their scales and
 # mask bytes (KV8_SCALE_BYTES), and the ring KV8_STAGES stages (the kernel
-# takes up to KV8_MAX_STAGES).
+# takes up to KV8_MAX_STAGES).  An int4 stage holds half the K and V bytes.
 KV8_KEYS = 128
 KV8_MAX_STAGES = 6
 KV8_STAGES = 2               # the ring depth taken: 2 read fastest (PERF.md)
@@ -117,16 +162,16 @@ class Kv8Plan(NamedTuple):
     units: int        # B x Hkv x row_blocks x chunks
 
 
-def kv8_stage_bytes(hd: int) -> int:
-    """A ring stage: KV8_KEYS rows of K and of V, then their scales and
-    mask bytes."""
-    return 2 * KV8_KEYS * hd + KV8_SCALE_BYTES
+def kv8_stage_bytes(hd: int, bits: int = 8) -> int:
+    """A ring stage: KV8_KEYS rows of K and of V (hd codes of `bits` bits
+    each), then their scales and mask bytes."""
+    return 2 * KV8_KEYS * (hd * bits // 8) + KV8_SCALE_BYTES
 
 
 def kv8_plan(B: int, T: int, H: int, Hkv: int, S: int, hd: int,
-             sms: int) -> Kv8Plan:
-    """The kernel's layout for q [B, T, H, hd] over S keys on a card of
-    `sms` SMs.  The G*T rows of a KV head are cut into the fewest row
+             sms: int, bits: int = 8) -> Kv8Plan:
+    """The kernel's layout for q [B, T, H, hd] over S keys of a `bits`-bit
+    cache on a card of `sms` SMs.  The G*T rows of a KV head are cut into the fewest row
     blocks of at most KV8_MAX_WARPS 16-row tiles (half at hd 256); each
     tile gets 4, 2 or 1 warps that share each stage's keys, as many as the
     warps allow.  The keys are cut into chunks so that the SM with the most
@@ -135,9 +180,10 @@ def kv8_plan(B: int, T: int, H: int, Hkv: int, S: int, hd: int,
     B = 4 LLaDA (128 (batch row, KV head) pairs) that is one chunk; at B = 4
     Dream (Hkv = 4, G = 7: 32 row blocks) four."""
     if B < 1 or T < 1 or S < 1 or Hkv < 1 or H % Hkv \
-            or H // Hkv > KV8_MAX_G or hd not in (16, 32, 64, 128, 256):
+            or H // Hkv > KV8_MAX_G or hd not in (16, 32, 64, 128, 256) \
+            or bits not in (8, 4):
         raise ValueError(f"kv8_plan: B {B} T {T} H {H} Hkv {Hkv} S {S} "
-                         f"hd {hd}")
+                         f"hd {hd} bits {bits}")
     max_warps = KV8_MAX_WARPS if hd <= 128 else KV8_MAX_WARPS // 2
     mt = -(-(H // Hkv * T) // 16)
     row_blocks = -(-mt // max_warps)
@@ -154,7 +200,7 @@ def kv8_plan(B: int, T: int, H: int, Hkv: int, S: int, hd: int,
         if best is None or cost < best[0]:
             best = (cost, c)
     chunks = best[1]
-    stage = kv8_stage_bytes(hd)
+    stage = kv8_stage_bytes(hd, bits)
     stages = min(KV8_STAGES, (SMEM_LIMIT - 1024) // stage)
     merge = (splits - 1) * row_tiles * (64 * hd + 512)
     return Kv8Plan(row_tiles, row_blocks, splits, chunks, stages,
@@ -168,14 +214,17 @@ def _sms(index: int) -> int:
 
 
 def kv8_decode_attention(q, k8, ks, v8, vs, kv_valid=None):
-    """softmax(q k^T * scale) v over the int8 cache -> [B, T, H, hd] in q's
-    dtype.  q [B, T, H, hd]; kv_valid [B, S] bool or None."""
+    """softmax(q k^T * scale) v over the int8 or int4 cache -> [B, T, H, hd]
+    in q's dtype.  q [B, T, H, hd]; kv_valid [B, S] bool or None.  Counts
+    each launch in `.launches`, and an int4 one in `.int4_launches` too."""
     if not q.is_cuda:
         return kv8_decode_attention_reference(q, k8, ks, v8, vs, kv_valid)
     B, T, H, hd = q.shape
     Hkv, S = k8.shape[1], k8.shape[2]
-    want = {"k8": (k8, torch.int8, (B, Hkv, S, hd)),
-            "v8": (v8, torch.int8, (B, Hkv, S, hd)),
+    kv4 = is_kv4(k8)
+    codes, width = (torch.uint8, hd // 2) if kv4 else (torch.int8, hd)
+    want = {"k8": (k8, codes, (B, Hkv, S, width)),
+            "v8": (v8, codes, (B, Hkv, S, width)),
             "ks": (ks, torch.float32, (B, Hkv, 1, S)),
             "vs": (vs, torch.float32, (B, Hkv, 1, S))}
     if kv_valid is not None:
@@ -191,22 +240,28 @@ def kv8_decode_attention(q, k8, ks, v8, vs, kv_valid=None):
         raise ValueError(f"kv8_decode_attention: q {q.dtype} "
                          f"{tuple(q.shape)} over {Hkv} KV heads")
     q = q.contiguous()
-    p = kv8_plan(B, T, H, Hkv, S, hd, _sms(q.device.index))
+    bits = 4 if kv4 else 8
+    p = kv8_plan(B, T, H, Hkv, S, hd, _sms(q.device.index), bits)
     out = torch.empty_like(q)
     ws = None
     if p.chunks > 1:   # the chunks' (O, m, l) in f32
         ws = torch.empty(p.units * p.row_tiles * 16 * (hd + 2),
                          dtype=torch.float32, device=q.device)
-    kernels.check(kernels.library().lavida_kv8_decode_attention(
+    lib = kernels.library()
+    entry = (lib.lavida_kv4_decode_attention if kv4
+             else lib.lavida_kv8_decode_attention)
+    kernels.check(entry(
         q.data_ptr(), k8.data_ptr(), ks.data_ptr(), v8.data_ptr(),
         vs.data_ptr(), None if kv_valid is None else kv_valid.data_ptr(),
         out.data_ptr(), None if ws is None else ws.data_ptr(), B, T, H, Hkv,
         S, hd, 1.0 / hd ** 0.5, p.row_tiles, p.row_blocks, p.splits,
         p.chunks, p.stages, p.smem,
         torch.cuda.current_stream(q.device).cuda_stream),
-        "kv8_decode_attention")
+        f"kv{bits}_decode_attention")
     kv8_decode_attention.launches += 1
+    kv8_decode_attention.int4_launches += int(kv4)
     return out
 
 
 kv8_decode_attention.launches = 0
+kv8_decode_attention.int4_launches = 0

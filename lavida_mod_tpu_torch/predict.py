@@ -4,7 +4,7 @@ predict.py.
 Usage:
   python -m lavida_mod_tpu_torch.predict [--model-path DIR] [--tiny]
       [--prompt TEXT] [--conv-template llada] [--dtype bfloat16]
-      [--mixed | --int4] [--kv8] [--batch N] [--image PATH]
+      [--mixed | --int4] [--kv8 | --kv4] [--batch N] [--image PATH]
       [--max-new-tokens 32] [--step-per-block 16] [--seed 0]
       [--device cuda]
 
@@ -22,13 +22,14 @@ tree, bench.py's default; the repo's predict.py --mixed); --int4 into the
 single grouped-int4 tree.  The decode tree takes the fused layout for
 one request of 32 or fewer tokens (predict.py:177's gate), else it stays
 unfused (the serve worker's --int4 --decode-batch N).  --kv8 decodes over
-the int8 KV cache.  --batch N serves N requests of different image sizes
+the int8 KV cache, --kv4 over the int4 one (exclusive, as bench.py makes
+them).  --batch N serves N requests of different image sizes
 in one batch (eval.adapter.generate_batch) instead of one request through
 generate_fused.  --image goes through the anyres preprocessing of
 lavida_mod_tpu_torch.data (needs PIL) for every request; without it the
 views are seeded numpy pixels (a 640x640 image, 100x60 with --tiny, and
-other sizes for the rest of a batch).  The repo's --shirg, --kv4, --tp
-and --no-prefix-cache are not in the port: each exits with an error.
+other sizes for the rest of a batch).  The repo's --shirg, --tp and
+--no-prefix-cache are not in the port: each exits with an error.
 Prints the answers and the latency, timed after a warm-up run.
 """
 
@@ -89,7 +90,6 @@ def _views(args, cfg, rng, i=0):
 
 # the repo's predict.py flags that the port does not have yet
 NOT_PORTED = {"--shirg": "SHIRG (ROADMAP.md Queue 1 item 11)",
-              "--kv4": "the int4 KV cache (Queue 1 item 5)",
               "--tp": "tensor-parallel serving (Queue 1 item 9)",
               "--no-prefix-cache": "generation without the prefix cache "
                                    "(Queue 1 item 4)"}
@@ -111,8 +111,11 @@ def main(argv=None) -> None:
                         "layout")
     layout.add_argument("--int4", action="store_true",
                         help="serve the grouped-int4 layout")
-    ap.add_argument("--kv8", action="store_true",
+    kv = ap.add_mutually_exclusive_group()
+    kv.add_argument("--kv8", action="store_true",
                     help="decode over the int8 KV cache")
+    kv.add_argument("--kv4", action="store_true",
+                    help="decode over the int4 KV cache")
     ap.add_argument("--batch", type=int, default=1,
                     help="requests served together (generate_batch)")
     ap.add_argument("--image", default=None)
@@ -181,13 +184,15 @@ def main(argv=None) -> None:
         block_length=min(128, args.max_new_tokens),
         step_per_block=args.step_per_block)
 
+    kv8 = 4 if args.kv4 else args.kv8
+
     def run():
         if args.batch == 1:
             ids, views, sizes = requests[0]
             out = model.generate_fused(ids, views, sizes, gen,
-                                       kv8=args.kv8)[None]
+                                       kv8=kv8)[None]
         else:
-            out, _ = generate_batch(model, requests, gen, kv8=args.kv8)
+            out, _ = generate_batch(model, requests, gen, kv8=kv8)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         return out
@@ -198,7 +203,8 @@ def main(argv=None) -> None:
     dt = time.perf_counter() - t0
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
-    print(f"[predict] layout: {layout}{', kv8' if args.kv8 else ''}")
+    cache = ", kv8" if args.kv8 else ", kv4" if args.kv4 else ""
+    print(f"[predict] layout: {layout}{cache}")
     for i, row in enumerate(out):
         tag = "" if args.batch == 1 else f" {i}"
         if tokenizer is not None:

@@ -59,8 +59,8 @@ def test_quantize_and_dequantize_bit_exact():
     assert q.shape == (2, 4, 40, 128) and s.shape == (2, 4, 1, 40)
     np.testing.assert_array_equal(tk.dequantize_kv(q, s).numpy(),
                                   np.asarray(KV8.dequantize_kv(jq, js)))
-    with pytest.raises(NotImplementedError):
-        tk.quantize_kv(x, bits=4)
+    with pytest.raises(ValueError):
+        tk.quantize_kv(x, bits=2)
 
 
 def test_write_rows_bit_exact_and_in_place():
@@ -148,7 +148,8 @@ def test_plan_constants_match_the_cuda_source():
     assert const("kScaleBytes") == tk.KV8_SCALE_BYTES
     assert const("kMaxG") == tk.KV8_MAX_G
     assert const("kSmemLimit") == tk.SMEM_LIMIT
-    assert "return 2 * kKeys * hd + kScaleBytes;" in src
+    assert "return 2 * kKeys * (hd * bits / 8) + kScaleBytes;" in src
+    assert "const int ring = stages * stage_bytes(hd, bits);" in src
     assert "const int merge = (splits - 1) * row_tiles * (64 * hd + 512);" \
         in src
     for hd in (16, 32, 64, 128, 256):   # an instance per head dim

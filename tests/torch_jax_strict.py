@@ -46,12 +46,18 @@ np.savez(__out_path__, **OUT)
 # The JAX side of a teacher-forced comparison, as code for the strict child:
 # `jax_steps` replays the prealloc branch of the JAX decode
 # (_generate_cached_fused_body, or generate_chunked_prefill's chunk
-# prefills with `chunk`), kv8 quantized at decode entry, one denoise step
+# prefills with `chunk`), kv8 (True: int8, 4: int4) quantized at decode
+# entry, one denoise step
 # at a time, and returns the token buffer before and after every step
-# [steps + 1, B, G] and every step's logits [steps, B, G, V].
+# [steps + 1, B, G] and every step's logits [steps, B, G, V] (and, with
+# keep_cache, the decode-entry cache: the arrays of each layer's tuple in
+# order, codes as int8, bf16 as f32).  jit_kv4=False quantizes an int4
+# cache op by op (the quotient) instead of as the jitted decode does;
+# replay [steps + 1, B, G] runs step i from replay[i] instead.
 JAX_STEPS = """
 def jax_steps(dec_p, lc, prefix, gen, prefix_valid=None, kv8=False,
-              pre_p=None, act_int8=False, chunk=None):
+              pre_p=None, act_int8=False, chunk=None, keep_cache=False,
+              jit_kv4=True, replay=None):
     import jax, jax.numpy as jnp, numpy as np
     from lavida_mod_tpu.generation import diffusion as jd
     from lavida_mod_tpu.models import llada as jl
@@ -81,8 +87,24 @@ def jax_steps(dec_p, lc, prefix, gen, prefix_valid=None, kv8=False,
             kv_write_index=jnp.asarray(0, jnp.int32), kv_valid=kvv,
             self_valid=prefix_valid, use_cache=True, return_logits=False,
             use_flash=True, act_int8=act_int8)
+    import lavida_mod_tpu.ops.kv8_attention as jkv
+    write_rows = jkv.write_rows
+    if kv8 == 4 and jit_kv4:
+        # JAX's decode quantizes the int4 cache inside jit, where XLA
+        # multiplies by f32(1 / 7) where op-by-op JAX divides by 7; on the
+        # int4 grid one code apart moves this model's logits by tens of
+        # percent, so the steps quantize as the decode does (the port's
+        # int4 path takes the same product)
+        quantize_kv = jax.jit(quantize_kv, static_argnums=1)
+        jkv.write_rows = jax.jit(write_rows)
     if kv8:
-        cache = [(*quantize_kv(k), *quantize_kv(v)) for k, v in cache]
+        bits = 4 if kv8 == 4 else 8
+        cache = [(*quantize_kv(k, bits), *quantize_kv(v, bits))
+                 for k, v in cache]
+    cache0 = [np.asarray(a).astype(np.float32 if a.dtype == jnp.bfloat16
+                                   else np.int8 if a.dtype == jnp.int4
+                                   else a.dtype)
+              for layer in cache for a in layer] if keep_cache else None
     mask = lc.mask_token_id
     x = jnp.full((B, G), mask, jnp.int32)
     k_table, block_end = jd.build_control_table(np.asarray(x), 0, G, gen,
@@ -92,6 +114,8 @@ def jax_steps(dec_p, lc, prefix, gen, prefix_valid=None, kv8=False,
     xs, logits_all = [np.asarray(x)], []
     for i in range(k_table.shape[0]):
         key, sk = jax.random.split(key)
+        if replay is not None:
+            x = jnp.asarray(replay[i])
         logits, cache = jl.forward(
             dec_p, lc, jl.embed_tokens(dec_p, x), positions=positions,
             kv_cache=cache, kv_valid=kvv, kv_write_index=P, use_cache=True)
@@ -101,19 +125,24 @@ def jax_steps(dec_p, lc, prefix, gen, prefix_valid=None, kv8=False,
             remasking=gen.remasking, key=sk)
         xs.append(np.asarray(x))
         logits_all.append(np.asarray(logits))
+    jkv.write_rows = write_rows
+    if keep_cache:
+        return np.stack(xs), np.stack(logits_all), cache0
     return np.stack(xs), np.stack(logits_all)
 """
 
 
 def teacher_forced(model, prefix, gen, xs, jax_logits, *, prefix_valid=None,
-                   kv8=False, chunk=None, band=0.05):
+                   kv8=False, chunk=None, band=0.05, cache=None):
     """The port's half of a teacher-forced comparison.  `model` is a port
     LaViDa; prefix [B, P, D] the prefix embeddings to prefill from (JAX's,
     so both start from the same input); xs / jax_logits what `jax_steps`
     recorded.  The port prefills its cache as its
-    generate path does, then runs ONE decode step from each of JAX's
+    generate path does (or starts from `cache`, a decode-entry cache given
+    as the port holds it), then runs ONE decode step from each of JAX's
     buffers x_t, so a difference cannot cascade.  At every step:
-      - the port's logits are within `band` of max |JAX logit|;
+      - the port's logits are within `band` of max |JAX logit| (a number,
+        or one per step);
       - each row commits the positions JAX commits, and the same tokens
         there, except at a near-tie: where the k-th and (k+1)-th largest
         confidences of the row are within 4 * delta of each other in log
@@ -132,8 +161,9 @@ def teacher_forced(model, prefix, gen, xs, jax_logits, *, prefix_valid=None,
     B, P, _ = prefix.shape
     G = gen.max_new_tokens
     mask = lm.cfg.mask_token_id
-    cache = td.prefill_cache(lm, prefix, G, prefix_valid, model.mixed, kv8,
-                             chunk)
+    if cache is None:
+        cache = td.prefill_cache(lm, prefix, G, prefix_valid, model.mixed,
+                                 kv8, chunk)
     kvv = None if prefix_valid is None else torch.cat(
         [prefix_valid, torch.ones(B, G, dtype=torch.bool)], dim=1)
     k_table, block_end = td.build_control_table(
@@ -148,7 +178,7 @@ def teacher_forced(model, prefix, gen, xs, jax_logits, *, prefix_valid=None,
                            kv_valid=kvv, kv_write_index=P, use_cache=True)
         ref = torch.as_tensor(jax_logits[i]).float()
         rel = ((logits - ref).abs().max() / ref.abs().max()).item()
-        assert rel < band, (i, rel)
+        assert rel < (band if np.isscalar(band) else band[i]), (i, rel)
         new = ts.denoise_commit(x, logits, x == mask,
                                 torch.as_tensor(k_table[i]).long(),
                                 int(block_end[i]))
