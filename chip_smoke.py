@@ -76,11 +76,24 @@ exits non-zero and never prints the final line:
      asserted); one decode layer at B = 1 timed through the fused plan.
      Then bench.py --kv4 at B = 1: one request through generate_fused(kv8=
      4), the decode over the int4 KV cache: wall, peak memory and every
-     kernel's launches asserted (32 x 16 of #8's int4 instance).
+     kernel's launches asserted (32 x 16 of #8's int4 instance).  Before
+     the layout, the bf16 model of 4 serves one bench-protocol request
+     without the prefix cache (LaViDa.generate, prefix_lm False: the whole
+     forward over P + 32 rows each step, dense attention) and one verbose
+     request over the prefix cache (16 snapshots, the mask count never
+     rising, the last equal to the tokens returned); after the kv4
+     request, LavidaEvalModel.loglikelihood at MMMU geometry (one 640 x 640
+     image, a 300-token continuation, mc_num 16 in one round of 16 rows)
+     on the int8 prefill tree, weight-only (two forward chunks of 8) and
+     with loglik_act_int8 (four of 4): finite, negative, within 5 % of
+     each other.  Walls, peaks and every kernel's launches asserted.
   6. output checks on a small input: a tiny model in bf16 on the card
-     against the same weights in f32 on the CPU (plain path), and a tiny
+     against the same weights in f32 on the CPU (plain path), a tiny
      mixed-layout model on the card against the same quantized weights on
-     the CPU (plain versions of the fused w4 kernels).
+     the CPU (plain versions of the fused w4 kernels), and a tiny bf16
+     model's no-cache, dLLM (r < G), verbose and draft generations and
+     one log-likelihood round (the same counts and ranks) on the card
+     against the CPU.
   7. the checkpoint and text path at full width
      (lavida_mod_tpu_torch/rehearse_8b_load.py): a reference-layout
      LaViDa-LLaDA-8B checkpoint (32 LLaDA layers, SigLIP's 27, the
@@ -96,7 +109,10 @@ exits non-zero and never prints the final line:
      and decode_output, ids below the vocab and the text cut at the stop
      id; the six kernels' launches counted over the two requests (twice a
      mixed request's); the stage walls, bytes on disk, host RSS after each
-     stage and peak device memory.  The checkpoint is kept for 7b.
+     stage and peak device memory.  The checkpoint is kept for 7b; first
+     predict_fim runs on it (LaViDa.load, the weight-only int8 layout, the
+     trained tokenizer, the default draft, G = 256): the drafted positions
+     kept, wall, peak and launches (the prefill's 32 short_attention).
  7b. the server (lavida_mod_tpu_torch/serve): the port's controller and a
      worker built from its CLI flags (--model-path <7's checkpoint> --mixed
      --kv4 --decode-batch 4: the mixed layout with fuse=False, the int4 KV
@@ -119,6 +135,14 @@ exits non-zero and never prints the final line:
      kernel asserted per batch (w4_matmul_grouped's decode and prefill
      kernels apart), the profiler's device-busy share of one
      batch; one decode layer at B = 1 timed through the unfused layout.
+     Then the same model at B = 1: bench.py --no-cache --no-fused (one
+     request after a warm-up, and one profiled: the device-busy share),
+     --dllm 64 at gen 32 (r >= G) beside the cached scan (token agreement
+     printed), and the TPU rounds' --gen-len 256 --steps 32 --dllm 64
+     beside the same without --dllm; each request's launches asserted
+     (#4's prefill kernel for the prefill and every no-cache step's
+     linears, its decode kernel for the 32-, 64- and 256-row calls, #5 as
+     the head of at most 128 rows).
   9. a tiny int4 + kv8 + fused-ViT-MLP model on the card against the same
      weights on the CPU; the tiny bf16 model (hd 16) over the int4 KV
      cache likewise (one decode step from the same cache, and kv4
@@ -1647,6 +1671,438 @@ def phase_kv4_request(torch, model, requests, card):
     return got, wall, peak
 
 
+# ---------------------------------------------------------------------------
+# generation without the prefix cache, the dLLM cache, verbose, FIM and the
+# MC log-likelihood
+# ---------------------------------------------------------------------------
+
+def _counted(torch, run):
+    """run() with every kernel count set to 0 just before it and read just
+    after: (its result, wall s, peak GiB, launches by kernel)."""
+    ops = _batch_ops()
+    for op in ops.values():
+        op.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (out, wall, torch.cuda.max_memory_allocated() / 2**30,
+            {k: op.launches for k, op in ops.items()})
+
+
+def _want(**kw):
+    want = {k: 0 for k in _batch_ops()}
+    want.update(kw)
+    if "w4_matmul_grouped_decode" in kw or "w4_matmul_grouped_prefill" in kw:
+        want["w4_matmul_grouped"] = (want["w4_matmul_grouped_decode"]
+                                     + want["w4_matmul_grouped_prefill"])
+    return want
+
+
+def _check(tag, got, want, out=None, G=32, mask_id=None):
+    if got != want:
+        raise AssertionError(f"{tag} launches {got}, want {want}")
+    if out is not None and (out.shape[-1] != G or (out == mask_id).any()):
+        raise AssertionError(f"{tag} output {out}")
+
+
+def phase_branches_bf16(torch, model, requests, card):
+    """The bf16 model of phase 4: one bench-protocol request without the
+    prefix cache (LaViDa.generate, gen.prefix_lm False: every step the
+    whole forward over P + 32 rows, dense attention), and one verbose
+    request over the prefix cache (16 snapshots, the mask count never
+    rising, the last equal to the returned tokens)."""
+    from lavida_mod_tpu_torch.config import GenerationConfig
+    from lavida_mod_tpu_torch.generation import diffusion
+
+    ids, views, size = requests[0]
+    mask_id = model.cfg.llada.mask_token_id
+    nc = GenerationConfig(**{**GEN, "prefix_lm": False})
+    out, wall, peak, got = _counted(
+        torch, lambda: model.generate(ids, [views], [size], nc))
+    _check("bf16 no-cache request", got, _want(
+        short_attention=SIGLIP_LAYERS, fused_vit_mlp=SIGLIP_LAYERS), out,
+        mask_id=mask_id)
+    print(f"[nocache] bf16 request without the prefix cache (LaViDa."
+          f"generate, prefix_lm False; P + 32 rows a step, 16 steps): wall "
+          f"{wall * 1e3:.1f} ms, peak {peak:.2f} GiB, launches "
+          f"{ {k: v for k, v in got.items() if v} } ({card}); tokens "
+          f"{out.tolist()}")
+
+    def verbose():
+        prefix = model.encode_prompt(ids, [views], [size])
+        return diffusion.generate(model.llada, prefix,
+                                  GenerationConfig(**GEN), verbose=True)
+
+    (x, history), vwall, vpeak, vgot = _counted(torch, verbose)
+    masks = [int((h == mask_id).sum()) for h in history]
+    if len(history) != STEPS or masks != sorted(masks, reverse=True) or \
+            masks[-1] != 0 or not (history[-1] == x.cpu().numpy()).all():
+        raise AssertionError(f"verbose history: {len(history)} snapshots, "
+                             f"masks {masks}")
+    _check("verbose request", vgot, _want(
+        short_attention=SIGLIP_LAYERS + LLADA_LAYERS,
+        fused_vit_mlp=SIGLIP_LAYERS))
+    print(f"[verbose] bf16 verbose request over the prefix cache "
+          f"(diffusion.generate(verbose=True), a host copy per step): "
+          f"{len(history)} snapshots, masks left {masks}, wall "
+          f"{vwall * 1e3:.1f} ms, peak {vpeak:.2f} GiB ({card})")
+    return {"nocache": (got, wall, peak), "verbose": (vgot, vwall, vpeak)}
+
+
+def phase_branches_int4(torch, model, card):
+    """The int4 unfused model of phase 8 at B = 1: bench.py --no-cache
+    --no-fused (warm-up, then one request, then one profiled), the dLLM
+    cache at gen 32 with --dllm 64 (r >= G: every row each step) beside
+    the cached scan, and the TPU rounds' protocol --gen-len 256 --steps 32
+    --dllm 64 beside the same without --dllm.  Each request's launches are
+    asserted against counts made here: #4's prefill kernel takes the
+    prefill's and the no-cache forward's rows (over 256), its decode
+    kernel the 32-, 64- and 256-row calls; the head is #5 where it takes
+    at most 128 rows (the init pass of gen 32 and the 64-row steps)."""
+    from lavida_mod_tpu_torch.config import GenerationConfig
+    from lavida_mod_tpu_torch.generation import diffusion
+
+    ids, views, size = bench_request(48, (640, 640),
+                                     np.random.default_rng(0))
+    mask_id = model.cfg.llada.mask_token_id
+    lin = LLADA_LINEARS * LLADA_LAYERS
+    vision = dict(short_attention=SIGLIP_LAYERS,
+                  fused_vit_mlp=SIGLIP_LAYERS)
+    res = {}
+
+    nc = GenerationConfig(**{**GEN, "prefix_lm": False})
+    model.generate(ids, [views], [size], nc)                # warm-up
+    out, wall, peak, got = _counted(
+        torch, lambda: model.generate(ids, [views], [size], nc))
+    # a step: 7 x 32 linears over P + 32 rows, the head on the 32 answer
+    # rows (unfused: the forward has over 128 rows)
+    _check("int4 no-cache request", got, _want(
+        **vision, w4_matmul_grouped_prefill=lin * STEPS,
+        w4_matmul_grouped_decode=STEPS), out, mask_id=mask_id)
+    res["nocache"] = (got, wall, peak)
+    print(f"[nocache] int4 unfused request without the prefix cache "
+          f"(bench.py --no-cache --no-fused, B = 1): wall {wall * 1e3:.1f} "
+          f"ms, peak {peak:.2f} GiB, launches "
+          f"{ {k: v for k, v in got.items() if v} } ({card}); tokens "
+          f"{out.tolist()}")
+    res["nocache_busy"] = _print_profile("nocache", _profile_busy(
+        torch, lambda: model.generate(ids, [views], [size], nc)),
+        "one int4 no-cache request", card)
+
+    def dllm(gen, r):
+        prefix = model.encode_prompt(ids, [views], [size])
+        return diffusion.generate(model.llada, prefix, gen,
+                                  dllm_cache=r)[0].cpu().numpy()
+
+    gen32 = GenerationConfig(**GEN)
+    dllm(gen32, 64)                                         # warm-up
+    out, wall, peak, got = _counted(torch, lambda: dllm(gen32, 64))
+    pre = dict(short_attention=SIGLIP_LAYERS + LLADA_LAYERS,
+               fused_vit_mlp=SIGLIP_LAYERS, w4_matmul_grouped_prefill=lin)
+    # init pass and 16 steps of 32 rows, each with the fused head (#5)
+    _check("dLLM gen 32", got, _want(
+        **pre, w4_matmul_grouped_decode=lin * (STEPS + 1),
+        w4_qkv_norm=STEPS + 1), out, mask_id=mask_id)
+    cached, cwall, cpeak, cgot = _counted(
+        torch, lambda: model.generate(ids, [views], [size], gen32))
+    agree = float((out == cached).mean())
+    res["dllm32"] = (got, wall, peak)
+    print(f"[dllm] --dllm 64 at gen 32 (r >= G: every row re-forwarded each "
+          f"step, the logits cache in bf16): wall {wall * 1e3:.1f} ms, peak "
+          f"{peak:.2f} GiB, launches { {k: v for k, v in got.items() if v} }; "
+          f"the cached scan on the same model {cwall * 1e3:.1f} ms; tokens "
+          f"agree {agree:.3f} (exact in exact arithmetic; the bf16 logits "
+          f"cache can reorder near-ties) ({card})")
+
+    steps = 32
+    g256 = GenerationConfig(max_new_tokens=256, block_length=256,
+                            step_per_block=steps, prefix_lm=True,
+                            remasking="low_confidence")
+    dllm(g256, 64)                                          # warm-up
+    out, wall, peak, got = _counted(torch, lambda: dllm(g256, 64))
+    # init pass over 256 rows (head unfused), 32 steps of 64 rows (#5 head)
+    _check("dLLM gen 256", got, _want(
+        **pre, w4_matmul_grouped_decode=lin * (steps + 1) + 1,
+        w4_qkv_norm=steps), out, G=256, mask_id=mask_id)
+    res["dllm256"] = (got, wall, peak)
+    model.generate(ids, [views], [size], g256)              # warm-up
+    cout, cwall, cpeak, cgot = _counted(
+        torch, lambda: model.generate(ids, [views], [size], g256))
+    _check("gen 256 cached", cgot, _want(
+        **pre, w4_matmul_grouped_decode=(lin + 1) * steps), cout, G=256,
+        mask_id=mask_id)
+    res["cached256"] = (cgot, cwall, cpeak)
+    print(f"[dllm] --gen-len 256 --steps 32 --dllm 64: wall {wall * 1e3:.1f}"
+          f" ms, peak {peak:.2f} GiB; the same without --dllm (the cached "
+          f"scan, 256 rows a step): wall {cwall * 1e3:.1f} ms, peak "
+          f"{cpeak:.2f} GiB; tokens agree {float((out == cout).mean()):.3f}"
+          f" ({card})")
+    return res
+
+
+def phase_fim(torch, card, path):
+    """predict_fim with phase 7's checkpoint at full width: LaViDa.load,
+    the weight-only int8 layout, the trained tokenizer, the llada template
+    and the default draft; G = 256 in one block, the drafted positions
+    kept (predict_fim asserts it)."""
+    from lavida_mod_tpu_torch import predict_fim
+
+    res, wall, peak, got = _counted(torch, lambda: predict_fim.main(
+        ["--model-path", str(path), "--device", "cuda"]))
+    # no image: the prefill's attention only; weight-only int8 launches
+    # no W8A8 kernel
+    _check("FIM request", got, _want(short_attention=LLADA_LAYERS))
+    ids, draft = res["ids"], res["draft"]
+    holes = int((draft == 126336).sum())
+    if len(ids) != 256 or not (ids[:len(draft)][draft != 126336]
+                               == draft[draft != 126336]).all():
+        raise AssertionError(f"FIM output {ids}")
+    print(f"[fim] predict_fim --model-path <7's checkpoint> (load, the "
+          f"weight-only int8 layout, the llada template, the default "
+          f"draft: {len(draft)} tokens, {holes} holes, G = {len(ids)}): "
+          f"wall {wall:.2f} s ("
+          + ", ".join(f"{k} {v:.2f} s" for k, v in res["walls"].items())
+          + f"), peak {peak:.2f} GiB, launches "
+          f"{ {k: v for k, v in got.items() if v} }, drafted positions kept "
+          f"({card})")
+    return got, wall, peak
+
+
+class _CharTokenizer:
+    """One id per character (3 + its code point mod 400)."""
+
+    class _Out:
+        def __init__(self, ids):
+            self.input_ids = ids
+
+    def __call__(self, text):
+        return self._Out([3 + ord(c) % 400 for c in text])
+
+
+def phase_loglik(torch, model, card):
+    """LavidaEvalModel.loglikelihood on the mixed model of phase 5 at MMMU
+    geometry: one 640 x 640 image (5 views) and its question, a 300-token
+    continuation, mc_num 16 in one round of b = 16 rows: weight-only on
+    the int8 prefill tree (two forward chunks of 8 rows), then with
+    loglik_act_int8 (W8A8, four chunks of 4)."""
+    from PIL import Image
+
+    from lavida_mod_tpu_torch.eval.adapter import LavidaEvalModel
+
+    rng = np.random.default_rng(6)
+    img = Image.fromarray(rng.integers(0, 255, (640, 640, 3),
+                                       dtype=np.uint8))
+    question = ("Question: which of the options best describes the scene "
+                "in the image? Options: (A) a street (B) a kitchen (C) a "
+                "field (D) a river. Answer with the option's letter.")
+    cont = "".join(chr(97 + i) for i in rng.integers(0, 26, 300))
+    ev = LavidaEvalModel(model, _CharTokenizer())
+    out = {}
+    for act in (False, True):
+        ev.loglik_act_int8 = act
+        ll, wall, peak, got = _counted(
+            torch, lambda: ev.loglikelihood(question, [img], cont))
+        chunks = 4 if act else 2
+        _check(f"loglik act_int8={act}", got, _want(
+            short_attention=SIGLIP_LAYERS + LLADA_LAYERS * chunks,
+            fused_vit_mlp=SIGLIP_LAYERS,
+            w8a8_matmul=4 * LLADA_LAYERS * chunks if act else 0))
+        if not (np.isfinite(ll) and ll < 0):
+            raise AssertionError(f"log-likelihood {ll}")
+        out[act] = (ll, wall, peak, got)
+        print(f"[loglik] LavidaEvalModel.loglikelihood (mixed model, the "
+              f"int8 prefill tree, act_int8 {act}; 16 rows of P + 300, "
+              f"{chunks} forward chunks): {ll:.4f}, wall {wall * 1e3:.1f} "
+              f"ms, peak {peak:.2f} GiB, launches "
+              f"{ {k: v for k, v in got.items() if v} } ({card})")
+    a, b = out[False][0], out[True][0]
+    if abs(a - b) / abs(a) > 0.05:
+        raise AssertionError(f"weight-only {a} and act_int8 {b} differ by "
+                             f"more than 5 %")
+    return out
+
+
+TINY_ROUTES = ("no cache", "dLLM r=8", "verbose", "draft")
+
+
+def _tiny_commit_ok(torch, x, got, want, ref, logits, k, b_end, mask):
+    """Whether a step's commits on the card (got [1, G]) are the CPU's
+    (want) from the same buffer x, but for a near-tie at the CPU's logits
+    ref: the k-th and (k+1)-th log-confidences of the masked rows before
+    b_end within 4 * delta (delta = max |logits - ref|), or a committed
+    token's top two logits within 2 * delta (the rule of the repo's
+    teacher-forced tests).  Returns 0 (equal), 1 (a near-tie) or raises."""
+    if torch.equal(got, want):
+        return 0
+    delta = (logits - ref).abs().max().item()
+    G = x.shape[1]
+    got_set, want_set = got[0] != x[0], want[0] != x[0]
+    if not torch.equal(got_set, want_set):
+        masked = (x[0] == mask) & (torch.arange(G) < b_end)
+        conf = torch.softmax(ref[0], -1).amax(-1)[masked]
+        top = torch.sort(conf.log(), descending=True).values
+        gap = (top[k - 1] - top[k]).item() if k < len(top) else 0.0
+        if gap > 4 * delta:
+            raise AssertionError(f"commit set differs, gap {gap} > "
+                                 f"4 * {delta}")
+        return 1
+    for t in torch.nonzero(got_set & (got[0] != want[0]))[:, 0]:
+        top2 = torch.topk(ref[0, t], 2).values
+        if (top2[0] - top2[1]).item() > 2 * delta:
+            raise AssertionError(f"token at {int(t)} differs")
+    return 1
+
+
+def tiny_route_steps(torch, cpu, gpu, prefix, route):
+    """Every step of one `generate` route of a tiny model (G 32, 16 steps,
+    B = 1), run on the card from the CPU's state before it: the no-cache
+    step (`denoise_full`), the dLLM step (`dllm_step`, r = 8 < G: the
+    scatter mode writing the K/V of the chosen rows in place), the
+    verbose route's read-only cached step (`denoise_readonly`, the concat
+    mode) and the write-index step from a drafted buffer
+    (`denoise_cached`).  At each step the logits on the card (for dLLM
+    the whole logits cache and the K/V cache after the write) are within
+    5e-2 of max |CPU value|, and its commits are the CPU's but for
+    near-ties (`_tiny_commit_ok`).  Returns (steps, worst relative
+    difference, near-ties)."""
+    from lavida_mod_tpu_torch.config import GenerationConfig
+    from lavida_mod_tpu_torch.generation import diffusion as td
+
+    mask = cpu.cfg.mask_token_id
+    P, G = prefix.shape[1], 32
+    gen = GenerationConfig(max_new_tokens=G, block_length=G, steps=16,
+                           prefix_lm=route != "no cache")
+    x = torch.full((1, G), mask)
+    if route == "draft":
+        x[0, :6] = torch.tensor([5, mask, 7, 8, mask, 9])
+    off = 0 if gen.prefix_lm else P
+    kt, be = td.build_control_table(
+        np.concatenate([np.zeros((1, off), np.int64), x.numpy()], 1), off,
+        G, gen, mask)
+    kt, be = torch.as_tensor(kt), torch.as_tensor(be)
+    sample = (None, 0.0, "low_confidence")
+    dev = gpu.wte.weight.device
+    pos = torch.arange(P, P + G)
+
+    def run(m, st, x, i):
+        """(logits [1, G, V] f32, x after the step, state after it)."""
+        d = m.wte.weight.device
+        pre, ki, bi = prefix.to(d), kt[i:i + 1].to(d), be[i:i + 1].to(d)
+        if route == "no cache":
+            lg = m(torch.cat([pre, m.embed_tokens(x)], 1), logits_from=P)[0]
+            return lg, td.denoise_full(m, x, pre, ki, bi, None, *sample), st
+        if route == "verbose":
+            lg = m(m.embed_tokens(x), positions=pos.to(d), kv_cache=st)[0]
+            return lg, td.denoise_readonly(m, x, st, ki, bi, None,
+                                           *sample), st
+        if route == "draft":
+            lg = m(m.embed_tokens(x), positions=pos.to(d), kv_cache=st,
+                   kv_write_index=P, use_cache=True)[0]
+            return lg, td.denoise_cached(m, x, st, ki, bi, None,
+                                         *sample), st
+        (lc, ch, stale), cache = st
+        xn, lc, ch, stale = td.dllm_step(m, x, lc, ch, stale, cache, None,
+                                         ki[0], bi[0], 8, *sample)
+        return lc.float(), xn, ((lc, ch, stale), cache)
+
+    def rel(a, b):
+        return ((a.float().cpu() - b.float()).abs().max()
+                / b.float().abs().max()).item()
+
+    with torch.no_grad():
+        if route == "dLLM r=8":
+            (_, *carry), cache, _ = td.dllm_init(cpu, x, prefix)
+            st_c = (tuple(carry), cache)
+        else:
+            make = td.prefill if route == "verbose" else (
+                lambda m, p: td.prefill_cache(m, p, G))
+            st_c = None if route == "no cache" else make(cpu, prefix)
+            st_g = None if route == "no cache" else make(gpu, prefix.to(dev))
+        worst, near = 0.0, 0
+        for i in range(kt.shape[0]):
+            if route == "dLLM r=8":     # the card starts from the CPU's state
+                (lc, ch, stale), cache = st_c
+                st_g = tuple(
+                    [t.to(dev, copy=True) for t in ts]
+                    for ts in ((lc, ch, stale), *cache))
+                st_g = (st_g[0], st_g[1:])
+            lg_g, x_g, st_g = run(gpu, st_g, x.to(dev), i)
+            lg_c, x_c, st_c = run(cpu, st_c, x, i)
+            diffs = [rel(lg_g, lg_c)]
+            if route == "dLLM r=8":
+                diffs += [rel(a, b) for kv_g, kv_c in zip(st_g[1], st_c[1])
+                          for a, b in zip(kv_g, kv_c)]
+            worst = max(worst, *diffs)
+            if not max(diffs) < 5e-2:
+                raise AssertionError(f"tiny {route} step {i}: {diffs}")
+            near += _tiny_commit_ok(torch, x, x_g.cpu(), x_c, lg_c,
+                                    lg_g.float().cpu(), int(kt[i, 0]),
+                                    int(be[i]) - off, mask)
+            x = x_c
+    if (x == mask).any():
+        raise AssertionError(f"tiny {route}: mask tokens left")
+    return kt.shape[0], worst, near
+
+
+def phase_small_branches(torch, device):
+    """The tiny bf16 model on the card against the same weights on the
+    CPU: every step of the no-cache, dLLM (r < G), verbose and draft
+    routes from the CPU's state (`tiny_route_steps`), each route's whole
+    generation on the card (no mask left), and one log-likelihood round
+    with the same counts and ranks."""
+    from lavida_mod_tpu_torch.config import GenerationConfig
+    from lavida_mod_tpu_torch.generation import diffusion
+    from lavida_mod_tpu_torch.generation import log_likelihood as tll
+    from lavida_mod_tpu_torch.models.llada import LLaDA
+    from lavida_mod_tpu_torch.predict import tiny_config
+
+    lcfg = tiny_config().llada
+    cpu = LLaDA(lcfg, "cpu", torch.bfloat16)
+    g = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.2)
+    gpu = LLaDA(lcfg, device, torch.bfloat16)
+    gpu.load_state_dict(cpu.state_dict())
+    prefix = torch.randn(1, 40, lcfg.d_model, generator=g).bfloat16()
+    mask = lcfg.mask_token_id
+    draft = np.array([[5, mask, 7, 8, mask, 9]])
+    line = []
+    for route, gkw, kw in zip(TINY_ROUTES, (dict(prefix_lm=False), {}, {}, {}),
+                              ({}, dict(dllm_cache=8), dict(verbose=True),
+                               dict(draft_tokens=draft))):
+        n, worst, near = tiny_route_steps(torch, cpu, gpu, prefix, route)
+        gen = GenerationConfig(max_new_tokens=32, block_length=32, steps=16,
+                               **gkw)
+        out = diffusion.generate(gpu, prefix.to(device), gen, **kw)
+        if route == "verbose":
+            out, hist = out
+            if len(hist) != 16 or not (hist[-1] == out.cpu().numpy()).all():
+                raise AssertionError("verbose history")
+        if (out == mask).any():
+            raise AssertionError(f"tiny {route}: mask tokens left")
+        line.append(f"{route}: {n} steps, worst {worst:.3e}, near-ties "
+                    f"{near}")
+    with torch.no_grad():
+        answer = torch.randint(3, 400, (70,), generator=g)
+        counts, ranks = tll.draw_round(g, 70, 16, "cpu")
+        lref = float(tll.mc_round(cpu, prefix, answer, counts, ranks))
+        lgot = float(tll.mc_round(gpu, prefix.to(device), answer.to(device),
+                                  counts.to(device), ranks.to(device),
+                                  use_flash=True))
+    lrel = abs(lgot - lref) / abs(lref)
+    print(f"[check] tiny bf16 model, each step on the card from the CPU's "
+          f"state (logits and the dLLM K/V within 5e-2 of max |CPU value|, "
+          f"commits equal but for near-ties): {'; '.join(line)}; one "
+          f"log-likelihood round with the same draws {lgot:.4f} vs "
+          f"{lref:.4f} ({lrel:.3e}, limit 2e-2)")
+    if not lrel < 2e-2:
+        raise AssertionError(f"tiny log-likelihood round differs: {lrel}")
+
+
 def _free_port() -> int:
     import socket
 
@@ -2788,24 +3244,30 @@ def main() -> None:
     prefix_flash_summary(res, card)
     torch.cuda.empty_cache()
     model, requests, counts, walls = phase_main_path(torch, device, card)
+    br16 = phase_branches_bf16(torch, model, requests, card)
     mixed_counts, mixed_walls, peaks, fused_layer_ms = phase_mixed_path(
         torch, model, requests, card)
     kv4_counts, kv4_wall, kv4_peak = phase_kv4_request(torch, model,
                                                        requests, card)
+    loglik = phase_loglik(torch, model, card)
     del model
     torch.cuda.empty_cache()
     phase_small_reference(torch, device)
     phase_small_mixed(torch, device)
+    phase_small_branches(torch, device)
     torch.cuda.empty_cache()
     ckpt_counts, ckpt = phase_checkpoint(torch, device, card)
     torch.cuda.empty_cache()
     from lavida_mod_tpu_torch.rehearse_8b_load import DEFAULT_PATH
 
+    fim_counts, fim_wall, fim_peak = phase_fim(torch, card, DEFAULT_PATH)
+    torch.cuda.empty_cache()
     server_counts, server_walls, server_peak, server_share = phase_server(
         torch, device, card, DEFAULT_PATH)
     torch.cuda.empty_cache()
     model, batch_counts, batch_walls, share, unfused_layer_ms = \
         phase_batched_path(torch, device, card)
+    br4 = phase_branches_int4(torch, model, card)
     del model
     torch.cuda.empty_cache()
     phase_small_batch(torch, device)
@@ -2842,12 +3304,24 @@ def main() -> None:
                 "launches": launches, **res.get(name), **extra}
 
     b4, b4k, b8 = (batch_counts[k] for k in ("b4", "b4_kv8", "b8_chunked"))
+    nc16, vb = br16["nocache"][0], br16["verbose"][0]
+    nc4, d32, d256, c256 = (br4[k][0] for k in ("nocache", "dllm32",
+                                                 "dllm256", "cached256"))
+    ll_w, ll_a = loglik[False][3], loglik[True][3]
     entries = [
         entry("short_attention", "short_attention.cu",
               "short_attention.py:78", counts["short_attention"],
               launches_mixed_path=mixed_counts["short_attention"],
               launches_batch_b4=b4["short_attention"],
-              launches_checkpoint_path=ckpt_counts["short_attention"]),
+              launches_checkpoint_path=ckpt_counts["short_attention"],
+              launches_nocache_bf16=nc16["short_attention"],
+              launches_nocache_int4=nc4["short_attention"],
+              launches_verbose=vb["short_attention"],
+              launches_dllm_gen32=d32["short_attention"],
+              launches_dllm_gen256=d256["short_attention"],
+              launches_fim=fim_counts["short_attention"],
+              launches_loglik=ll_w["short_attention"],
+              launches_loglik_act_int8=ll_a["short_attention"]),
         entry("gather_rows", "gather_rows.cu", "pallas_gather.py:26",
               counts["gather_rows"],
               launches_mixed_path=mixed_counts["gather_rows"],
@@ -2855,11 +3329,15 @@ def main() -> None:
         entry("w8a8_matmul", "w8a8_matmul.cu", "pallas_w8.py:53",
               mixed_counts["w8a8_matmul"],
               launches_checkpoint_path=ckpt_counts["w8a8_matmul"],
-              launches_server_b4=server_counts["batch4"]["w8a8_matmul"]),
+              launches_server_b4=server_counts["batch4"]["w8a8_matmul"],
+              launches_loglik=ll_w["w8a8_matmul"],
+              launches_loglik_act_int8=ll_a["w8a8_matmul"]),
         entry("w4_qkv_norm", "w4_fused.cu", "w4_fused.py:80",
               mixed_counts["w4_qkv_norm"],
               launches_batch_b4=b4["w4_qkv_norm"],
-              launches_checkpoint_path=ckpt_counts["w4_qkv_norm"]),
+              launches_checkpoint_path=ckpt_counts["w4_qkv_norm"],
+              launches_dllm_gen32=d32["w4_qkv_norm"],
+              launches_dllm_gen256=d256["w4_qkv_norm"]),
         entry("w4_matmul_res", "w4_fused.cu", "w4_fused.py:250",
               mixed_counts["w4_matmul_res"],
               launches_checkpoint_path=ckpt_counts["w4_matmul_res"]),
@@ -2870,10 +3348,18 @@ def main() -> None:
               "pallas_w4.py:129", b4["w4_matmul_grouped_decode"],
               launches_batch_b8=b8["w4_matmul_grouped_decode"],
               launches_server_b4=server_counts["batch4"][
-                  "w4_matmul_grouped_decode"]),
+                  "w4_matmul_grouped_decode"],
+              launches_nocache_int4=nc4["w4_matmul_grouped_decode"],
+              launches_dllm_gen32=d32["w4_matmul_grouped_decode"],
+              launches_dllm_gen256=d256["w4_matmul_grouped_decode"],
+              launches_cached_gen256=c256["w4_matmul_grouped_decode"]),
         entry("w4_matmul_grouped_prefill", "w4_grouped.cu",
               "pallas_w4.py:129", b4["w4_matmul_grouped_prefill"],
-              launches_batch_b8=b8["w4_matmul_grouped_prefill"]),
+              launches_batch_b8=b8["w4_matmul_grouped_prefill"],
+              launches_nocache_int4=nc4["w4_matmul_grouped_prefill"],
+              launches_dllm_gen32=d32["w4_matmul_grouped_prefill"],
+              launches_dllm_gen256=d256["w4_matmul_grouped_prefill"],
+              launches_cached_gen256=c256["w4_matmul_grouped_prefill"]),
         entry("kv8_decode_attention", "kv8_attention.cu",
               "kv8_attention.py:98", b4k["kv8_decode_attention"]),
         entry("kv8_decode_attention_int4", "kv8_attention.cu",
@@ -2884,7 +3370,9 @@ def main() -> None:
                   "kv8_decode_attention_int4"]),
         entry("fused_vit_mlp", "vit_mlp.cu", "vit_mlp.py:63",
               b4["fused_vit_mlp"], launches_batch_b8=b8["fused_vit_mlp"],
-              launches_server_b4=server_counts["batch4"]["fused_vit_mlp"]),
+              launches_server_b4=server_counts["batch4"]["fused_vit_mlp"],
+              launches_nocache_int4=nc4["fused_vit_mlp"],
+              launches_loglik=ll_w["fused_vit_mlp"]),
         entry("prefix_flash_fwd", "prefix_flash.cu", "prefix_flash.py:53",
               train_counts["prefix_flash_fwd"]),
         entry("prefix_flash_dq", "prefix_flash.cu", "prefix_flash.py:143",
@@ -2899,6 +3387,8 @@ def main() -> None:
             e["dream_path"] = dres.get(e["name"])
     bw = {k: (round(w * 1e3, 1), round(w * 1e3 / B, 1), round(p, 2))
           for k, (w, B, p) in batch_walls.items()}
+    nc_busy = ("not measured" if br4["nocache_busy"] is None
+               else f"{100 * br4['nocache_busy']:.1f} %")
     busy1 = ("not measured" if stage1["busy"] is None
              else f"{100 * stage1['busy']:.1f} %")
     attn1 = ("not measured" if stage1["prefix_flash_ms"] is None
@@ -2941,6 +3431,21 @@ def main() -> None:
           f"{ {k: round(w * 1e3, 1) for k, w in server_walls.items()} } ms, "
           f"peak {server_peak:.2f} GiB, device busy of a B = 4 batch "
           f"{'not measured' if server_share is None else f'{100 * server_share:.1f} %'}; "
+          f"no cache (one request, wall ms / peak GiB): bf16 "
+          f"{br16['nocache'][1] * 1e3:.1f} / {br16['nocache'][2]:.2f}, int4 "
+          f"{br4['nocache'][1] * 1e3:.1f} / {br4['nocache'][2]:.2f}, its "
+          f"device busy {nc_busy}; "
+          f"verbose bf16 {br16['verbose'][1] * 1e3:.1f} / "
+          f"{br16['verbose'][2]:.2f}; dLLM (int4 unfused): --dllm 64 gen 32 "
+          f"{br4['dllm32'][1] * 1e3:.1f} / {br4['dllm32'][2]:.2f}, gen 256 "
+          f"steps 32 --dllm 64 {br4['dllm256'][1] * 1e3:.1f} / "
+          f"{br4['dllm256'][2]:.2f} vs without --dllm "
+          f"{br4['cached256'][1] * 1e3:.1f} / {br4['cached256'][2]:.2f}; "
+          f"FIM (8B checkpoint, weight-only int8, G 256) {fim_wall:.2f} s "
+          f"with the load / {fim_peak:.2f}; log-likelihood (mixed, MMMU "
+          f"geometry) weight-only {loglik[False][1] * 1e3:.1f} / "
+          f"{loglik[False][2]:.2f}, act_int8 {loglik[True][1] * 1e3:.1f} / "
+          f"{loglik[True][2]:.2f}; "
           f"whole script {time.perf_counter() - t_start:.1f} s on {card}")
     print(card)
     print(json.dumps({"kernels": entries}))

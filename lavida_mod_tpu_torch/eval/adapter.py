@@ -1,6 +1,6 @@
-"""The eval-model adapter of lavida_mod_tpu/eval/adapter.py, its
-generation half: `gen_kwargs_to_config`, `LavidaEvalModel` and the
-batched `generate_batch`.
+"""The eval-model adapter of lavida_mod_tpu/eval/adapter.py:
+`gen_kwargs_to_config`, `LavidaEvalModel` and the batched
+`generate_batch`.
 
 `LavidaEvalModel` (adapter.py:63) builds each request's prompt from the
 conversation template and the tokenizer (`_build_inputs`: "<image>\n"
@@ -8,16 +8,21 @@ per image, the template's own chat template where the tokenizer has one,
 `tokenizer_image_token`; several images switch the model's view to the
 "pad" aspect mode, adapter.py:102-129), preprocesses the PIL images, and
 answers in text: `generate_until` through `LaViDa.generate_fused` (the
-prefix-cache mode) or `LaViDa.generate` (a LaViDa-Dream model's
-requests: `gen_kwargs_to_config(.., "dream")` gives a
-`DreamGenerationConfig`, which `generate` runs through the Dream sampler,
-adapter.py:141-158), `generate_until_batch` through `generate_batch`
-(the LLaDA sampler only), each cut and decoded by `decode_output`, the
-latency of each request kept for `avg_latency`.  `loglikelihood` raises
-for Dream as the JAX adapter does (its AR-shifted head has no MC
-estimator, adapter.py:204-209).  Not ported yet: `loglikelihood` for
-LLaDA (the MC estimator, ROADMAP.md Queue 1 item 7) and video requests
-(data/video.py and the video encode, Queue 1 item 9): each raises.
+prefix-cache mode) or `LaViDa.generate` (gen_kwargs {"prefix_lm": false},
+the no-cache mode, and a LaViDa-Dream model's requests:
+`gen_kwargs_to_config(.., "dream")` gives a `DreamGenerationConfig`,
+which `generate` runs through the Dream sampler, adapter.py:131-160),
+`generate_until_batch` through `generate_batch` (the LLaDA sampler only;
+without the cache at any B, unchunked, and refused in the mixed layout,
+adapter.py:269-277), each cut and decoded by `decode_output`, the latency
+of each request kept for `avg_latency`.  `loglikelihood` scores a
+continuation (truncated to 300 tokens) with the MC estimator
+(generation/log_likelihood.py, `mc_num` 16) over the prompt's prefix, in
+the mixed layout on the int8 prefill tree, weight-only unless
+`loglik_act_int8` (adapter.py:202-223); it raises for Dream as the JAX
+adapter does (its AR-shifted head has no MC estimator).  Not ported yet:
+video requests (data/video.py and the video encode, ROADMAP.md Queue 1
+item 9): they raise.
 
 The serve worker (serve/worker.py) answers its requests through this
 class: one request through `generate_until`, a merged batch through
@@ -53,6 +58,7 @@ from ..data import SigLIPImageProcessor, process_images
 from ..data.conversation import get_conv_template
 from ..data.prompts import tokenizer_image_token
 from ..generation import diffusion
+from ..generation.log_likelihood import get_log_likelihood
 
 
 def gen_kwargs_to_config(gen_kwargs: dict, lm_family: str = "llada"):
@@ -125,9 +131,14 @@ def generate_batch(
         batch[b, Pb - p.shape[0]:] = p          # front-pad (masked)
         valid[b, Pb - p.shape[0]:] = True
     del prefixes
+    if model.mixed and not gen.prefix_lm:
+        raise NotImplementedError(
+            "mixed decode_params needs the prefix-cache mode "
+            "(prefix_lm=True) — the no-cache path has no "
+            "prefill/decode split; drop --mixed or prefix_lm=False")
     kw = dict(prefix_valid=valid, generator=generator,
               act_int8_prefill=model.mixed, kv8=kv8)
-    if B > 4:
+    if B > 4 and gen.prefix_lm:
         out = diffusion.generate_chunked_prefill(model.llada, batch, gen,
                                                  chunk=2, **kw)
     else:
@@ -142,10 +153,16 @@ class LavidaEvalModel:
 
     def __init__(self, model, tokenizer, conv_template: str = "llada",
                  prefix_bucket: Optional[int] = 128,
-                 kv8: bool | int = False):
+                 kv8: bool | int = False, mc_num: int = 16,
+                 loglik_act_int8: bool = False):
         self.model = model
         self.tokenizer = tokenizer
         self.conv_template = conv_template
+        # the MC estimator's samples per continuation, and its opt-in
+        # int8 activations (an activation-quantization error can flip a
+        # close multiple-choice ranking, so weight-only is the default)
+        self.mc_num = mc_num
+        self.loglik_act_int8 = loglik_act_int8
         # pad prompt lengths to buckets (the JAX adapter's compile reuse;
         # the port's tokens do not depend on it)
         self.prefix_bucket = prefix_bucket
@@ -205,8 +222,14 @@ class LavidaEvalModel:
             # 366-376 raises); the LLaDA one would mis-score its logits
             raise NotImplementedError(
                 "loglikelihood is not supported for the Dream backbone")
-        raise NotImplementedError("the MC log-likelihood is not in the "
-                                  "port yet (ROADMAP.md Queue 1 item 7)")
+        input_ids, views, sizes, model = self._build_inputs(text, images)
+        prefix = model.encode_prompt(input_ids, views, sizes)
+        ans = np.asarray(self.tokenizer(continuation).input_ids[:300])
+        # mc_num full bidirectional forwards: prefill-shaped work, so the
+        # mixed layout scores on its int8 prefill tree (adapter.py:215-223)
+        return get_log_likelihood(
+            self.model.llada, prefix, ans, mc_num=self.mc_num,
+            act_int8=self.loglik_act_int8, prefill_tree=self.model.mixed)
 
     def generate_until_batch(self, texts: Sequence[str],
                              images_list: Sequence[Sequence],

@@ -1,10 +1,10 @@
-"""Masked-diffusion generation with the prefix KV cache, ported from
-lavida_mod_tpu/generation/diffusion.py for the serving slice.
+"""Masked-diffusion generation, ported from
+lavida_mod_tpu/generation/diffusion.py.
 
   - `build_control_table` is a numpy copy of the JAX host planner (that
     module imports jax): the per-step transfer counts depend only on each
-    block's initial mask layout, so the whole [steps, B] table is built
-    before the loop.
+    block's initial mask layout (drafts included), so the whole
+    [steps, B] table is built before the loop.
   - `generate_cached_fused` is the prealloc branch of
     `_generate_cached_fused_body` (diffusion.py:139-168): the prefix is
     prefilled straight into preallocated [B, P+G] K/V buffers
@@ -17,19 +17,33 @@ lavida_mod_tpu/generation/diffusion.py for the serving slice.
     denoise loop the decode linears -- `_generate_cached_fused_body`'s
     `params` / `decode_params` / `act_int8_prefill` (diffusion.py:111-168),
     with the two trees inside one module.
-  - `generate` is the JAX `generate` (diffusion.py:682-766) in its
-    prefix-cache, non-verbose, non-dLLM branch: the control table, then
-    `generate_cached_fused`; `generate_chunked_prefill` (:406-529, the
-    prealloc branch) prefills fixed-size batch chunks straight into one
-    merged [B, P+G] buffer (the last chunk overlapping when B is not a
-    multiple of the chunk) and denoises the merged batch.  With `kv8` the
-    bf16 buffers are quantized once at decode entry into (k8, ks, v8, vs)
-    buffers (:224-237) and the bf16 ones are freed: int8 for kv8=True, int4
-    (packed two a byte) for kv8=4, the JAX package's convention.
+  - `prefill` + `denoise_readonly`: the unpadded prefix cache
+    (diffusion.py:46) and the read-only cached step over it
+    (diffusion.py:297-312, the concat mode of `LLaDA.forward`), the route
+    of the verbose history.
+  - `denoise_full`: no cache (diffusion.py:536); every step runs the whole
+    forward over [prefix, x]; the head runs on the answer rows only.
+  - `generate_dllm`: the dLLM-cache partial recompute (diffusion.py:583),
+    B = 1, its prefix prefilled by `prefill_cache` into [1, P+G] buffers
+    (the JAX package's prefill and pad), then the scatter mode of
+    `LLaDA.forward`.
+  - The denoise steps attend densely, as the JAX package's `generate`
+    does by default (its use_flash=False); the prefills run the
+    short-attention kernel.
+  - `generate` routes as the JAX `generate` (diffusion.py:682-842): the
+    prefix cache, dLLM, verbose (cached and no-cache), no cache, draft
+    tokens, and the JAX package's refusals; `generate_chunked_prefill`
+    (:406-529, the prealloc branch) prefills fixed-size batch chunks
+    straight into one merged [B, P+G] buffer (the last chunk overlapping
+    when B is not a multiple of the chunk) and denoises the merged batch.
+    With `kv8` the bf16 buffers are quantized once at decode entry into
+    (k8, ks, v8, vs) buffers (:224-237) and the bf16 ones are freed: int8
+    for kv8=True, int4 (packed two a byte) for kv8=4, the JAX package's
+    convention.
   - The JAX scan becomes a Python loop over the control table.  The table
-    and the block ends stay device tensors: the loop reads no value back
-    to the host, so prefill + denoise can later be captured as one CUDA
-    graph.
+    and the block ends stay device tensors: the non-verbose loops read no
+    value back to the host, so prefill + denoise can later be captured as
+    one CUDA graph.
 """
 
 from __future__ import annotations
@@ -198,6 +212,180 @@ def quantize_cache(cache: list, bits: int = 8) -> list:
 
 
 @torch.no_grad()
+def prefill(model: LLaDA, prefix_embeds: torch.Tensor,
+            prefix_valid: Optional[torch.Tensor] = None) -> list:
+    """The prefix [B, P, D] encoded once into an unpadded cache
+    (diffusion.py:46-63) through the short-attention kernel (the port's
+    prefill convention, the JAX package's use_flash_prefill): the
+    per-layer (k, v) [B, P, Hkv, hd] with rotated keys, read by the
+    concat mode of `LLaDA.forward`."""
+    _, cache = model(prefix_embeds, self_valid=prefix_valid, use_cache=True,
+                     return_logits=False, use_flash=True)
+    return cache
+
+
+def denoise_readonly(
+    model: LLaDA,
+    x: torch.Tensor,
+    cache: list,
+    k_table: torch.Tensor,
+    block_end: torch.Tensor,
+    prefix_valid: Optional[torch.Tensor],
+    generator: Optional[torch.Generator],
+    temperature: float,
+    remasking: str,
+) -> torch.Tensor:
+    """Denoise steps over a read-only prefix cache (diffusion.py:297-313):
+    each step appends x's K/V to the unpadded cache (the concat mode),
+    masked by prefix_valid over the prefix.  Returns the final x [B, G]."""
+    B, G = x.shape
+    P = cache[0][0].shape[1]
+    positions = torch.arange(P, P + G, device=x.device)
+    mask_id = model.cfg.mask_token_id
+    for i in range(k_table.shape[0]):
+        logits, _ = model(model.embed_tokens(x), positions=positions,
+                          kv_cache=cache, kv_valid=prefix_valid)
+        x = sampling.denoise_commit(
+            x, logits, x == mask_id, k_table[i], block_end[i],
+            temperature=temperature, remasking=remasking,
+            generator=generator)
+    return x
+
+
+def denoise_full(
+    model: LLaDA,
+    x: torch.Tensor,
+    prefix_embeds: torch.Tensor,
+    k_table: torch.Tensor,
+    block_end: torch.Tensor,
+    prefix_valid: Optional[torch.Tensor],
+    generator: Optional[torch.Generator],
+    temperature: float,
+    remasking: str,
+) -> torch.Tensor:
+    """The no-cache denoise (`_denoise_scan_full`, diffusion.py:536-575):
+    every step re-embeds x, concatenates it after the prefix and runs the
+    whole bidirectional forward over P + G rows (self_valid masking the
+    prefix's padding).  The head runs on the G answer rows alone
+    (`logits_from=P`), where JAX computes [B, P + G, V] logits and keeps
+    [:, P:]: the head is row-wise and its kind (fused or not) is chosen on
+    all P + G rows, so the kept rows are the same values, without the
+    prefix's logits.  block_end [steps] is absolute (prefix included), as
+    the no-cache control table builds it.  Returns x."""
+    B, G = x.shape
+    P = prefix_embeds.shape[1]
+    mask_id = model.cfg.mask_token_id
+    sv = None
+    if prefix_valid is not None:
+        sv = torch.cat([prefix_valid, torch.ones(
+            B, G, dtype=torch.bool, device=x.device)], dim=1)
+    for i in range(k_table.shape[0]):
+        embeds = torch.cat([prefix_embeds,
+                            model.embed_tokens(x).to(prefix_embeds.dtype)],
+                           dim=1)
+        logits, _ = model(embeds, self_valid=sv, logits_from=P)
+        x = sampling.denoise_commit(
+            x, logits, x == mask_id, k_table[i], block_end[i] - P,
+            temperature=temperature, remasking=remasking,
+            generator=generator)
+    return x
+
+
+def dllm_rows(prio: torch.Tensor, r: int) -> torch.Tensor:
+    """The r rows a dLLM step re-forwards: the r largest priorities in
+    descending order, ties to the lower index first, as jax.lax.top_k
+    orders them (torch.topk breaks ties in no promised order, and the
+    priorities tie all the time).  prio [G] f32 -> [r] long."""
+    return torch.sort(prio, descending=True, stable=True).indices[:r]
+
+
+@torch.no_grad()
+def generate_dllm(
+    model: LLaDA,
+    x: torch.Tensor,
+    prefix_embeds: torch.Tensor,
+    k_table: torch.Tensor,
+    block_end: torch.Tensor,
+    prefix_valid: Optional[torch.Tensor],
+    generator: Optional[torch.Generator],
+    recompute: int,
+    temperature: float,
+    remasking: str,
+) -> torch.Tensor:
+    """dLLM-Cache-style denoising at B = 1 (`_generate_dllm_fused`,
+    diffusion.py:583-679): `dllm_init`, then each step (`dllm_step`)
+    re-forwards only r = min(recompute, G) rows, chosen by
+    prio = changed * 1e6 + where(masked, stale, -1e6) (the rows committed
+    last step, then the stalest masked ones; `dllm_rows`), through the
+    scatter mode, which writes their K/V in place at those rows; their
+    logits replace the cached ones and the commit reads the whole logits
+    cache.  `stale` counts the steps since a row was last re-forwarded.
+    recompute >= G re-forwards every row each step: the cached scan.
+    Returns x [1, G]."""
+    if x.shape[0] != 1:
+        raise ValueError("dLLM cache path is the B=1 serving latency path")
+    r = min(recompute, x.shape[1])
+    state, cache, kv_valid = dllm_init(model, x, prefix_embeds, prefix_valid)
+    for i in range(k_table.shape[0]):
+        state = dllm_step(model, *state, cache, kv_valid, k_table[i],
+                          block_end[i], r, generator, temperature,
+                          remasking)
+    return state[0]
+
+
+def dllm_init(model: LLaDA, x: torch.Tensor, prefix_embeds: torch.Tensor,
+              prefix_valid: Optional[torch.Tensor] = None):
+    """The dLLM state before its first step (diffusion.py:614-648): the
+    prefix prefilled into [1, P + G] buffers (`prefill_cache`), then one
+    init pass over x's G rows at write index P that seeds their K/V and
+    the bf16 logits cache.  Returns ((x, logits_c [1, G, V] bf16, changed
+    [G] bool, stale [G] f32), cache, kv_valid)."""
+    B, G = x.shape
+    P = prefix_embeds.shape[1]
+    device = x.device
+    cache = prefill_cache(model, prefix_embeds, G, prefix_valid)
+    kv_valid = None
+    if prefix_valid is not None:
+        kv_valid = torch.cat([prefix_valid, torch.ones(
+            B, G, dtype=torch.bool, device=device)], dim=1)
+    logits_c, _ = model(model.embed_tokens(x),
+                        positions=torch.arange(P, P + G, device=device),
+                        kv_cache=cache, kv_valid=kv_valid, kv_write_index=P,
+                        use_cache=True)
+    state = (x, logits_c.to(torch.bfloat16),
+             torch.zeros(G, dtype=torch.bool, device=device),
+             torch.zeros(G, dtype=torch.float32, device=device))
+    return state, cache, kv_valid
+
+
+def dllm_step(model: LLaDA, x, logits_c, changed, stale, cache, kv_valid,
+              k_row, b_end, r: int, generator, temperature: float,
+              remasking: str):
+    """One step of `generate_dllm` (diffusion.py:649-671): x [1, G],
+    logits_c [1, G, V] bf16, changed [G] bool (committed last step), stale
+    [G] f32, the [1, P + G] cache; the cache and logits_c are written in
+    place.  Returns the new (x, logits_c, changed, stale)."""
+    G = x.shape[1]
+    P = cache[0][0].shape[1] - G
+    masked = x[0] == model.cfg.mask_token_id
+    prio = (changed.to(torch.float32) * 1e6
+            + torch.where(masked, stale, torch.full_like(stale, -1e6)))
+    pos = dllm_rows(prio, r)
+    logits_r, _ = model(model.embed_tokens(x[:, pos]), positions=P + pos,
+                        kv_cache=cache, kv_valid=kv_valid,
+                        kv_scatter_idx=P + pos, use_cache=True)
+    logits_c[:, pos] = logits_r.to(logits_c.dtype)
+    x_new = sampling.denoise_commit(
+        x, logits_c.float(), x[0:1] == model.cfg.mask_token_id, k_row,
+        b_end, temperature=temperature, remasking=remasking,
+        generator=generator)
+    fresh = torch.zeros(G, dtype=torch.bool, device=x.device)
+    fresh[pos] = True
+    stale = torch.where(fresh, torch.zeros_like(stale), stale + 1.0)
+    return x_new, logits_c, (x_new != x)[0], stale
+
+
+@torch.no_grad()
 def generate(
     model: LLaDA,
     prefix_embeds: torch.Tensor,
@@ -211,35 +399,110 @@ def generate(
     draft_tokens=None,
     verbose: bool = False,
     dllm_cache: Optional[int] = None,
-) -> torch.Tensor:
-    """`gen.max_new_tokens` tokens after prefix_embeds [B, P, D] ->
-    [B, G] (diffusion.py:682-766, prefix_lm branch).  act_int8_prefill:
-    the mixed layout's split (the int8 tree prefills, the decode linears
-    denoise).  kv8: False, True (the int8 KV cache) or 4 (the int4 one).
-    chunk: the chunked prefill of `generate_chunked_prefill`.
-    Draft tokens, the verbose and dLLM-cache paths and prefix_lm=False
-    raise NotImplementedError."""
+):
+    """`gen.max_new_tokens` tokens after prefix_embeds [B, P, D] -> x
+    [B, G] (diffusion.py:682-812), or (x, history) when verbose, history
+    one numpy [B, G] snapshot of x after every step.
+
+    draft_tokens [B, Td] (Td <= G): a FIM skeleton written into the head of
+    x (generate.py:189-191); the control table is built from that x, so
+    drafted positions are never counted as masked, and only the mask-id
+    holes are denoised.  act_int8_prefill: the mixed layout's split (the
+    int8 tree prefills, the decode linears denoise).  kv8: False, True
+    (the int8 KV cache) or 4 (the int4 one).  chunk: the chunked prefill
+    of `generate_chunked_prefill`.
+
+    Routes, as the JAX package routes them:
+      - gen.prefix_lm, the default: the prefill into [B, P + G] buffers and
+        the write-index denoise (`generate_cached_fused`); dllm_cache=r:
+        `generate_dllm`
+        (B = 1); verbose: `prefill` + one `denoise_readonly` step at a time;
+      - prefix_lm=False: no cache, `denoise_full`, its control table in
+        absolute coordinates (a [B, P + G] buffer whose prefix is never
+        masked); verbose: one step at a time.  kv8 has no cache to act on
+        there and is unused, as in the JAX package.
+    NotImplementedError, with the JAX package's messages, for kv8 or the
+    mixed split with dLLM or verbose, verbose with dLLM, and the mixed
+    split without the cache."""
     gen = as_port_config(gen)
-    if not gen.prefix_lm or draft_tokens is not None or verbose \
-            or dllm_cache is not None:
-        raise NotImplementedError(
-            "the port's generate implements the prefix-cache, non-verbose, "
-            "non-dLLM path without draft tokens only")
-    B, G = prefix_embeds.shape[0], gen.max_new_tokens
+    B, P, _ = prefix_embeds.shape
+    G = gen.max_new_tokens
     mask_id = model.cfg.mask_token_id
     device = prefix_embeds.device
-    x = torch.full((B, G), mask_id, dtype=torch.long, device=device)
-    k_table, block_end = build_control_table(
-        np.full((B, G), mask_id, np.int64), 0, G, gen, mask_id)
-    if k_table.shape[0] == 0:
-        return x
+    x_host = np.full((B, G), mask_id, np.int64)
+    if draft_tokens is not None:
+        draft = np.asarray(draft_tokens.cpu() if torch.is_tensor(draft_tokens)
+                           else draft_tokens)
+        if draft.shape[1] > G:
+            raise ValueError(f"{draft.shape[1]} draft tokens in a "
+                             f"{G}-token buffer")
+        x_host[:, :draft.shape[1]] = draft
+    x = torch.as_tensor(x_host, device=device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
-    return generate_cached_fused(
-        model, x, prefix_embeds, torch.as_tensor(k_table, device=device),
-        torch.as_tensor(block_end, device=device), prefix_valid, generator,
-        gen.temperature, gen.remasking, act_int8_prefill=act_int8_prefill,
-        kv8=kv8, chunk=chunk)
+
+    def tables(x0, prompt_len):
+        k_table, block_end = build_control_table(x0, prompt_len, G, gen,
+                                                 mask_id)
+        return (k_table.shape[0], torch.as_tensor(k_table, device=device),
+                torch.as_tensor(block_end, device=device))
+
+    sample = (generator, gen.temperature, gen.remasking)
+    if gen.prefix_lm:
+        n, k_table, block_end = tables(x_host, 0)
+        if n == 0:
+            return (x, []) if verbose else x
+        if dllm_cache is not None:
+            if kv8 or act_int8_prefill:
+                raise NotImplementedError(
+                    "kv8 / act_int8_prefill / mixed decode_params are not "
+                    "implemented for the dLLM partial-recompute path; "
+                    "drop --kv8/--mixed or --dllm")
+            if verbose:
+                raise NotImplementedError(
+                    "verbose history is not implemented for the dLLM "
+                    "partial-recompute path; drop --dllm or verbose")
+            return generate_dllm(model, x, prefix_embeds, k_table, block_end,
+                                 prefix_valid, generator, int(dllm_cache),
+                                 gen.temperature, gen.remasking)
+        if not verbose:
+            return generate_cached_fused(
+                model, x, prefix_embeds, k_table, block_end, prefix_valid,
+                *sample, act_int8_prefill=act_int8_prefill, kv8=kv8,
+                chunk=chunk)
+        if kv8 or act_int8_prefill:
+            raise NotImplementedError(
+                "kv8 / act_int8_prefill / mixed decode_params are only "
+                "wired on the fused non-verbose path; drop --kv8/--mixed "
+                "or verbose")
+        cache = prefill(model, prefix_embeds, prefix_valid)
+
+        def step(x, i):
+            return denoise_readonly(model, x, cache, k_table[i:i + 1],
+                                    block_end[i:i + 1], prefix_valid,
+                                    *sample)
+    else:
+        if act_int8_prefill:
+            raise NotImplementedError(
+                "mixed decode_params needs the prefix-cache mode "
+                "(prefix_lm=True) — the no-cache path has no "
+                "prefill/decode split")
+        n, k_table, block_end = tables(np.concatenate(
+            [np.zeros((B, P), np.int64), x_host], axis=1), P)
+        if n == 0:
+            return (x, []) if verbose else x
+        if not verbose:
+            return denoise_full(model, x, prefix_embeds, k_table, block_end,
+                                prefix_valid, *sample)
+
+        def step(x, i):
+            return denoise_full(model, x, prefix_embeds, k_table[i:i + 1],
+                                block_end[i:i + 1], prefix_valid, *sample)
+    history = []
+    for i in range(n):              # `_generate_verbose` (diffusion.py:815)
+        x = step(x, i)
+        history.append(x.cpu().numpy())
+    return x, history
 
 
 def generate_chunked_prefill(model: LLaDA, prefix_embeds: torch.Tensor,

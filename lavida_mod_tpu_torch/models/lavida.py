@@ -499,11 +499,17 @@ class LaViDa(nn.Module):
         generator: Optional[torch.Generator] = None,
         tokens_hook=None,
         logits_hook=None,
+        draft_tokens=None,
     ) -> np.ndarray:
         """One sample through `encode_prompt` and `diffusion.generate`
         (lavida.py:454-531, the LLaDA sampler): the prefix front-padded to
         a multiple of prefix_bucket with the pad rows masked; in the mixed
-        layout the int8 tree prefills.  Returns the [G] generated ids.
+        layout the int8 tree prefills.  Every branch of `generate` by
+        `gen`: the prefix cache, or none (gen.prefix_lm False; refused in
+        the mixed layout, as the JAX package refuses it).  draft_tokens: a
+        [Td] FIM skeleton (Td <= G) written into the head of the answer,
+        its mask-id holes denoised (predict_fim.py).  Returns the [G]
+        generated ids.
 
         With a `DreamGenerationConfig`, the Dream sampler instead
         (lavida.py:500-512): no prefix bucket, dense attention, the hooks
@@ -539,7 +545,9 @@ class LaViDa(nn.Module):
                              "(generation_utils.py:308-309)")
         out = diffusion.generate(
             self.llada, prefix, gen, prefix_valid=prefix_valid,
-            generator=generator, act_int8_prefill=self.mixed, kv8=kv8)
+            generator=generator, act_int8_prefill=self.mixed, kv8=kv8,
+            draft_tokens=(None if draft_tokens is None
+                          else np.asarray(draft_tokens)[None]))
         return out[0].cpu().numpy()
 
     @torch.no_grad()

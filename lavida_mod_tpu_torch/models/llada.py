@@ -16,7 +16,17 @@ forward paths the slices run:
     attention through the short-attention kernel with segment ids built
     from that mask (llada.py:537-548);
   - decode with kv_write_index=P and dense attention (llada.py:296-329);
-  - the f32 logits head (llada.py:700-708).
+  - the two other cache modes of llada.py:296-315, 449-504: with a
+    kv_cache and neither index, "concat": the cache is a read-only past of
+    S_past rows, this call's keys are appended (S = S_past + T) and the
+    queries sit at S_past.. in the mask; with `kv_scatter_idx` [T],
+    "scatter": this call's K/V are written in place at those cache rows,
+    S is the buffer's size, the RoPE positions are the caller's and so is
+    the whole mask (kv_valid, or none) -- the dLLM cache's partial
+    recompute.  A quantized cache takes neither, as in the JAX package;
+  - the f32 logits head (llada.py:700-708), and `head`, the head alone on
+    normalized rows without the fused plan (the no-cache denoise's answer
+    rows, the MC estimator's chunks).
 The cache holds keys rotated once at write time, as in the JAX package.
 
 Quantized serving (`quantize`, `add_prefill_tree`; llada.py:807-866): a
@@ -173,9 +183,10 @@ class LLaDABlock(nn.Module):
     def linear_names(self) -> tuple[str, ...]:
         return _LINEARS[self.cfg.block_type]
 
-    def _lin(self, name: str, x: torch.Tensor, act_int8: bool):
-        if act_int8 and self.prefill is not None:
-            return self.prefill[name](x, act_int8=True)
+    def _lin(self, name: str, x: torch.Tensor, act_int8: bool,
+             prefill_tree: bool = False):
+        if (act_int8 or prefill_tree) and self.prefill is not None:
+            return self.prefill[name](x, act_int8=act_int8)
         return _run_linear(getattr(self, name), x, act_int8)
 
     def fused_plan(self, rows: int, act_int8: bool) -> bool:
@@ -204,20 +215,30 @@ class LLaDABlock(nn.Module):
 
     def forward(self, x, *, sin, cos, positions, bias, layer_past,
                 kv_write_index, use_flash, q_seg, kv_seg, act_int8=False,
-                kv8_valid=None, prefix_flash=None):
+                kv8_valid=None, prefix_flash=None, kv_scatter_idx=None,
+                prefill_tree=False):
         """x [B, T, D] -> (x, (k, v)).  With `layer_past` (preallocated
         [B, S, Hkv, hd] buffers) this call's rotated k and v are written
-        IN PLACE at rows [kv_write_index, kv_write_index + T) -- the JAX
-        package's dynamic_update_slice, without its functional copy -- and
-        attention reads the whole buffers.  A 4-tuple `layer_past` is the
-        int8 or int4 cache: the rows are quantized into it and attention
-        runs the kv8 kernel masked by `kv8_valid` [B, S]; the present is
-        the 4-tuple."""
+        IN PLACE at rows [kv_write_index, kv_write_index + T), or at the
+        rows `kv_scatter_idx` [T] -- the JAX package's dynamic_update_slice
+        and scatter, without their functional copies -- and attention
+        reads the whole buffers; with neither, `layer_past` is a read-only
+        past that this call's k and v are appended to, and the present is
+        this call's (k, v) alone (llada.py:296-315).  A 4-tuple
+        `layer_past` is the int8 or int4 cache: the rows are quantized into
+        it and attention runs the kv8 kernel masked by `kv8_valid` [B, S];
+        the present is the 4-tuple.  prefill_tree: the linears of the
+        int8 prefill tree where the block has one, with int8 activations
+        only under act_int8 (weight-only otherwise)."""
         cfg = self.cfg
         B, T, D = x.shape
         Hq, Hkv, hd = cfg.n_heads, cfg.effective_n_kv_heads, cfg.head_dim
         eps = cfg.rms_norm_eps
-        fused = self.fused_plan(B * T, act_int8)
+        fused = self.fused_plan(B * T, act_int8 or prefill_tree)
+
+        def lin(name, h):
+            return self._lin(name, h, act_int8, prefill_tree)
+
         if fused:
             qkv = w4_qkv_norm(x.reshape(B * T, D), self.attn_norm.weight,
                               self.att_proj.packed, self.att_proj.scales,
@@ -225,11 +246,9 @@ class LLaDABlock(nn.Module):
             q, k, v = qkv.split([D, Hkv * hd, Hkv * hd], dim=-1)
         elif cfg.block_type == "llama":
             h = self.attn_norm(x)
-            q = self._lin("q_proj", h, act_int8)
-            k = self._lin("k_proj", h, act_int8)
-            v = self._lin("v_proj", h, act_int8)
+            q, k, v = (lin(n, h) for n in ("q_proj", "k_proj", "v_proj"))
         else:
-            qkv = self._lin("att_proj", self.attn_norm(x), act_int8)
+            qkv = lin("att_proj", self.attn_norm(x))
             q, k, v = qkv.split([D, Hkv * hd, Hkv * hd], dim=-1)
         q = apply_rope(q.reshape(B, T, Hq, hd), positions, sin, cos,
                        cfg.rope_full_precision)
@@ -243,16 +262,25 @@ class LLaDABlock(nn.Module):
             present = write_rows(*layer_past, k, v, kv_write_index)
             att = kv8_decode_attention(q, *present, kv_valid=kv8_valid)
         else:
+            present = (k, v)
             if layer_past is not None:
                 pk, pv = layer_past
-                pk[:, kv_write_index:kv_write_index + T].copy_(k)
-                pv[:, kv_write_index:kv_write_index + T].copy_(v)
-                k, v = pk, pv
-            present = (k, v)
+                if kv_scatter_idx is not None:
+                    pk.index_copy_(1, kv_scatter_idx, k.to(pk.dtype))
+                    pv.index_copy_(1, kv_scatter_idx, v.to(pv.dtype))
+                    k, v = present = pk, pv
+                elif kv_write_index is not None:
+                    pk[:, kv_write_index:kv_write_index + T].copy_(k)
+                    pv[:, kv_write_index:kv_write_index + T].copy_(v)
+                    k, v = present = pk, pv
+                else:       # a read-only past: this call's rows appended
+                    k, v = torch.cat([pk, k], dim=1), torch.cat([pv, v], dim=1)
             if prefix_flash is not None:
                 att = prefix_flash_attention(q, k, v, *prefix_flash)
             elif use_flash:
-                att = flash_attention(q, k, v, q_seg, kv_seg)
+                # the kernel takes contiguous rows; v is a view of the
+                # fused [q|k|v] projection in the sequential layout
+                att = flash_attention(q, k, v.contiguous(), q_seg, kv_seg)
             else:
                 att = dense_attention(q, k, v, bias=bias)
         if fused:
@@ -263,18 +291,17 @@ class LLaDABlock(nn.Module):
                              self.ff_proj.scales, self.ff_out.packed,
                              self.ff_out.scales, eps).view(B, T, D)
             return x, present
-        x = x + self._lin("attn_out", att.reshape(B, T, D), act_int8)
+        x = x + lin("attn_out", att.reshape(B, T, D))
         h2 = self.ff_norm(x)
         if cfg.block_type == "llama":
             # jax.nn.silu's op order (ops/activations.py): in bf16 it
             # rounds where PyTorch's fused F.silu does not
-            ff = (silu(self._lin("ff_proj", h2, act_int8))
-                  * self._lin("up_proj", h2, act_int8))
+            ff = silu(lin("ff_proj", h2)) * lin("up_proj", h2)
         else:
             # swiglu chunks (xx, gate) and returns silu(gate) * xx
-            xx, gate = self._lin("ff_proj", h2, act_int8).chunk(2, dim=-1)
+            xx, gate = lin("ff_proj", h2).chunk(2, dim=-1)
             ff = silu(gate) * xx
-        x = x + self._lin("ff_out", ff, act_int8)
+        x = x + lin("ff_out", ff)
         return x, present
 
 
@@ -320,8 +347,26 @@ class LLaDA(nn.Module):
                 and rows % 8 == 0 and head.scales.shape[0] * 128 == D
                 and D <= 4096 and head.scales.shape[1] % 512 == 0)
 
-    def logits(self, x: torch.Tensor, act_int8: bool = False
-               ) -> torch.Tensor:
+    def head(self, x: torch.Tensor, prefill_tree: bool = False
+             ) -> torch.Tensor:
+        """The head alone on ln_f-normalized rows x [..., D] -> f32 logits
+        [..., V], as `linear(x, ff_out, preferred=f32)` (quant.py:170-186)
+        computes it, never the fused int4 head: bf16 weights through an
+        f32-result product, quantized ones through their linear
+        (weight-only int8, or the grouped int4 kernel), with prefill_tree
+        the mixed layout's int8 head.  Row for row the value does not
+        depend on how many rows come along."""
+        head = self.ff_out
+        if prefill_tree and self.prefill_head is not None:
+            head = self.prefill_head
+        if isinstance(head, nn.Linear):
+            lead, D = x.shape[:-1], x.shape[-1]
+            return bmm_f32(x.reshape(1, -1, D), head.weight.t()[None]) \
+                .view(*lead, -1)
+        return _run_linear(head, x, preferred=torch.float32)
+
+    def logits(self, x: torch.Tensor, act_int8: bool = False,
+               rows: Optional[int] = None) -> torch.Tensor:
         """ln_f, then the head, f32 logits [B, T, V].  With `act_int8` and
         the mixed layout's prefill head, that int8 head (weight-only, the
         JAX prefill tree's `linear(.., preferred=f32)`, llada.py:707-708).
@@ -331,22 +376,18 @@ class LLaDA(nn.Module):
         accumulate and write f32 (torch.bmm out_dtype), so no f32 copy of
         the 2 GB head is kept and logits are never rounded to bf16.
         Fused int4 head: `w4_qkv_norm` on ln_f's weight, bf16 logits cast
-        to f32 (llada.py:684-699).  Other quantized heads: their linear with
-        an f32 result."""
+        to f32 (llada.py:684-699), where `head_fusable` allows `rows` (the
+        forward's row count when x is a slice of it; default x's).  Other
+        quantized heads: their linear with an f32 result."""
         B, T, D = x.shape
         head = self.ff_out
         if act_int8 and self.prefill_head is not None:
-            return _run_linear(self.prefill_head, self.ln_f(x),
-                               preferred=torch.float32)
-        if self.head_fusable(B * T):
+            return self.head(self.ln_f(x), prefill_tree=True)
+        if self.head_fusable(B * T if rows is None else rows):
             lg = w4_qkv_norm(x.reshape(B * T, D), self.ln_f.weight,
                              head.packed, head.scales, self.cfg.rms_norm_eps)
             return lg[:, :head.out_features].float().view(B, T, -1)
-        x = self.ln_f(x)
-        if isinstance(head, nn.Linear):
-            return bmm_f32(x.reshape(1, B * T, D), head.weight.t()[None]) \
-                .view(B, T, -1)
-        return _run_linear(head, x, preferred=torch.float32)
+        return self.head(self.ln_f(x))
 
     def forward(
         self,
@@ -357,11 +398,14 @@ class LLaDA(nn.Module):
         kv_valid: Optional[torch.Tensor] = None,
         self_valid: Optional[torch.Tensor] = None,
         kv_write_index: Optional[int] = None,
+        kv_scatter_idx: Optional[torch.Tensor] = None,
         use_cache: bool = False,
         return_logits: bool = True,
         last_logits_only: bool = False,
+        logits_from: int = 0,
         use_flash: bool = False,
         act_int8: bool = False,
+        prefill_tree: bool = False,
         prefix_lengths: Optional[torch.Tensor] = None,
         attention_impl: str = "dense",
         remat=False,
@@ -369,21 +413,34 @@ class LLaDA(nn.Module):
         """Run the blocks on input embeddings [B, T, D].
 
         positions: [T] absolute RoPE positions (default: the row indices,
-          offset by kv_write_index).
-        kv_cache: per-layer preallocated (k, v) buffers [B, S, Hkv, hd], or
-          quantized (k8, ks, v8, vs) buffers [B, Hkv, S, hd] int8 or
-          [B, Hkv, S, hd / 2] packed int4, and [B, Hkv, 1, S];
-          requires kv_write_index (a host int), where this call's rows are
-          written in place; keys at or past kv_write_index + T are masked.
-        kv_valid: [B, S] bool over the buffer rows; self_valid: [B, T]
-          bool over this call's rows.
+          offset by kv_write_index, or by the past's length in the concat
+          mode; required in the scatter mode).
+        kv_cache: per-layer (k, v) buffers [B, S, Hkv, hd], or quantized
+          (k8, ks, v8, vs) buffers [B, Hkv, S, hd] int8 or [B, Hkv, S,
+          hd / 2] packed int4, and [B, Hkv, 1, S].  With kv_write_index (a
+          host int) this call's rows are written in place there and keys
+          at or past kv_write_index + T are masked; with kv_scatter_idx
+          [T] (a long tensor of buffer rows) they are written in place at
+          those rows and only kv_valid masks; with neither (bf16 only) the
+          buffers are a read-only past of S_past rows and this call's keys
+          are appended after them (S = S_past + T).
+        kv_valid: [B, S] bool over the buffer rows (the past's rows in the
+          concat mode); self_valid: [B, T] bool over this call's rows.
         last_logits_only: the logits of the last row only [B, 1, V]
           (modeling_llada.py:1426).
+        logits_from: the logits of rows logits_from.. only (the head is
+          row-wise: the values of the full forward's rows, the fused-head
+          choice made on all of them, B * T or, with last_logits_only,
+          B, as llada.py:679-684 makes it).
         use_flash: attention through the short-attention kernel, masked by
           segment ids; otherwise dense attention with an additive bias.
         act_int8: per-token int8 activations on int8 linears, through the
           blocks' prefill tree when they have one (linear_act_int8), and
           the prefill tree's int8 head.
+        prefill_tree: the blocks' int8 prefill tree and head where they
+          have one even without act_int8, weight-only (the JAX package's
+          `prefill_params` passed as the weights, as the MC estimator of
+          the mixed layout does).
         prefix_lengths: [B] the prefix-LM block mask for training
           (modeling_llada.py:1351-1368): key kv is visible from query q when
           kv < prefix_length or q >= prefix_length, over sequence indices.
@@ -408,31 +465,47 @@ class LLaDA(nn.Module):
         remat = remat_layers(remat) and torch.is_grad_enabled()
         if remat and use_cache:
             raise ValueError("remat keeps no per-layer cache")
+        past = kv8 = 0
         if kv_cache is not None:
-            if kv_write_index is None:
-                raise NotImplementedError(
-                    "kv_cache needs kv_write_index: only preallocated "
-                    "buffers written in place are ported")
             kv8 = len(kv_cache[0]) == 4
-            S = kv_cache[0][0].shape[2 if kv8 else 1]
-            start = kv_write_index
-        elif kv_write_index is not None or kv_valid is not None:
-            raise ValueError("kv_write_index / kv_valid need a kv_cache")
+            past = kv_cache[0][0].shape[2 if kv8 else 1]
+            if kv8 and kv_write_index is None:
+                raise ValueError("the quantized KV cache is a decode cache:"
+                                 " it needs kv_write_index")
+        elif (kv_write_index is not None or kv_valid is not None
+              or kv_scatter_idx is not None):
+            raise ValueError("kv_write_index / kv_scatter_idx / kv_valid "
+                             "need a kv_cache")
+        if kv_scatter_idx is not None:
+            if positions is None:
+                raise ValueError("scattered cache updates need explicit "
+                                 "RoPE positions")
+            S = past
+        elif kv_write_index is not None:
+            S, start = past, kv_write_index
         else:
-            S, start, kv8 = T, 0, False
+            S, start = past + T, past
         if positions is None:
             positions = torch.arange(start, start + T, device=device)
         sin, cos = self._rope_tables(max(self.cfg.max_sequence_length, S),
                                      device)
 
         valid = self_valid
-        if kv_cache is not None:
+        if kv_scatter_idx is not None:
+            valid = kv_valid                # the caller owns the mask
+        elif kv_write_index is not None:
             filled = torch.arange(S, device=device) < kv_write_index + T
             valid = filled[None].expand(B, S)
             if kv_valid is not None:
                 valid = valid & kv_valid
             elif kv8:   # kernel #8 reads the mask as contiguous bytes
                 valid = valid.contiguous()
+        elif past and (kv_valid is not None or self_valid is not None):
+            pv = (kv_valid if kv_valid is not None else
+                  torch.ones(B, past, dtype=torch.bool, device=device))
+            sv = (self_valid if self_valid is not None else
+                  torch.ones(B, T, dtype=torch.bool, device=device))
+            valid = torch.cat([pv, sv], dim=1)
         bias = q_seg = kv_seg = pf_args = None
         if attention_impl == "prefix_flash":
             if kv_cache is not None or use_flash:
@@ -454,10 +527,13 @@ class LLaDA(nn.Module):
             # the prefix-LM mask is about SEQUENCE structure: sequence
             # indices, not the RoPE positions (llada.py:496-504)
             prefix = prefix_lengths is not None
+            # the mask's query rows in the buffer (llada.py:499-504)
+            q_rows = None if not prefix else (
+                kv_scatter_idx if kv_scatter_idx is not None
+                else torch.arange(start, start + T, device=device))
             bias = make_bias(
                 kv_valid=valid, prefix_lengths=prefix_lengths,
-                q_positions=(torch.arange(start, start + T, device=device)
-                             if prefix else None),
+                q_positions=q_rows if prefix else None,
                 kv_positions=torch.arange(S, device=device) if prefix else None)
 
         x = embeds
@@ -467,7 +543,9 @@ class LLaDA(nn.Module):
                       layer_past=None if kv_cache is None else kv_cache[li],
                       kv_write_index=kv_write_index, use_flash=use_flash,
                       q_seg=q_seg, kv_seg=kv_seg, act_int8=act_int8,
-                      kv8_valid=valid if kv8 else None, prefix_flash=pf_args)
+                      kv8_valid=valid if kv8 else None, prefix_flash=pf_args,
+                      kv_scatter_idx=kv_scatter_idx,
+                      prefill_tree=prefill_tree)
             if remat:
                 x = checkpoint(lambda h, blk=block, kw=kw: blk(h, **kw)[0],
                                x, use_reentrant=False)
@@ -480,7 +558,8 @@ class LLaDA(nn.Module):
             return self.ln_f(x), new_cache
         if last_logits_only:
             x = x[:, -1:]
-        return self.logits(x, act_int8), new_cache
+        return self.logits(x[:, logits_from:], act_int8 or prefill_tree,
+                           rows=x.shape[0] * x.shape[1]), new_cache
 
     # ------------------------------------------------------------------
     # serving layouts

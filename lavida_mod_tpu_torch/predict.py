@@ -5,8 +5,8 @@ Usage:
   python -m lavida_mod_tpu_torch.predict [--model-path DIR] [--tiny]
       [--prompt TEXT] [--conv-template llada] [--dtype bfloat16]
       [--mixed | --int4] [--kv8 | --kv4] [--batch N] [--image PATH]
-      [--max-new-tokens 32] [--step-per-block 16] [--seed 0]
-      [--device cuda]
+      [--max-new-tokens 32] [--step-per-block 16] [--no-prefix-cache]
+      [--seed 0] [--device cuda]
 
 With --model-path the model is `LaViDa.load` of that checkpoint directory
 (its geometry from its config.json, or the toy geometry with --tiny) in
@@ -28,9 +28,13 @@ in one batch (eval.adapter.generate_batch) instead of one request through
 generate_fused.  --image goes through the anyres preprocessing of
 lavida_mod_tpu_torch.data (needs PIL) for every request; without it the
 views are seeded numpy pixels (a 640x640 image, 100x60 with --tiny, and
-other sizes for the rest of a batch).  The repo's --shirg, --tp and
---no-prefix-cache are not in the port: each exits with an error.
-Prints the answers and the latency, timed after a warm-up run.
+other sizes for the rest of a batch).  --no-prefix-cache generates
+without the prefix cache (each denoise step runs the whole forward over
+the prompt and the answer; one request through LaViDa.generate); with
+--mixed it exits, as the JAX package's generate refuses the mixed split
+without the cache.  The repo's --shirg and --tp are not in the port: each
+exits with an error.  Prints the answers and the latency, timed after a
+warm-up run.
 """
 
 from __future__ import annotations
@@ -90,9 +94,7 @@ def _views(args, cfg, rng, i=0):
 
 # the repo's predict.py flags that the port does not have yet
 NOT_PORTED = {"--shirg": "SHIRG (ROADMAP.md Queue 1 item 11)",
-              "--tp": "tensor-parallel serving (Queue 1 item 9)",
-              "--no-prefix-cache": "generation without the prefix cache "
-                                   "(Queue 1 item 4)"}
+              "--tp": "tensor-parallel serving (Queue 1 item 9)"}
 
 
 def main(argv=None) -> None:
@@ -121,6 +123,8 @@ def main(argv=None) -> None:
     ap.add_argument("--image", default=None)
     ap.add_argument("--max-new-tokens", type=int, default=32)
     ap.add_argument("--step-per-block", type=int, default=None)
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="generate without the prefix KV cache")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     for flag in NOT_PORTED:
@@ -129,6 +133,10 @@ def main(argv=None) -> None:
     for flag, what in NOT_PORTED.items():
         if getattr(args, flag[2:].replace("-", "_")):
             ap.error(f"{flag}: {what} is not in the port yet")
+    if args.no_prefix_cache and args.mixed:
+        ap.error("--no-prefix-cache with --mixed: mixed decode_params needs "
+                 "the prefix-cache mode (prefix_lm=True) — the no-cache path "
+                 "has no prefill/decode split")
 
     import torch
 
@@ -182,15 +190,16 @@ def main(argv=None) -> None:
     gen = GenerationConfig(
         max_new_tokens=args.max_new_tokens,
         block_length=min(128, args.max_new_tokens),
-        step_per_block=args.step_per_block)
+        step_per_block=args.step_per_block,
+        prefix_lm=not args.no_prefix_cache)
 
     kv8 = 4 if args.kv4 else args.kv8
 
     def run():
         if args.batch == 1:
             ids, views, sizes = requests[0]
-            out = model.generate_fused(ids, views, sizes, gen,
-                                       kv8=kv8)[None]
+            run1 = model.generate_fused if gen.prefix_lm else model.generate
+            out = run1(ids, views, sizes, gen, kv8=kv8)[None]
         else:
             out, _ = generate_batch(model, requests, gen, kv8=kv8)
         if device.type == "cuda":
@@ -203,7 +212,8 @@ def main(argv=None) -> None:
     dt = time.perf_counter() - t0
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
-    cache = ", kv8" if args.kv8 else ", kv4" if args.kv4 else ""
+    cache = (", no prefix cache" if args.no_prefix_cache else
+             ", kv8" if args.kv8 else ", kv4" if args.kv4 else "")
     print(f"[predict] layout: {layout}{cache}")
     for i, row in enumerate(out):
         tag = "" if args.batch == 1 else f" {i}"

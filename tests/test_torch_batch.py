@@ -289,15 +289,28 @@ def test_generate_matches_generate_fused(setup):
 
 
 def test_generate_rejects_unported_branches(setup):
+    """The branches of generate that were refused before they were ported
+    (verbose, dLLM, draft tokens, no cache) now run on the batched int4
+    layout; what the JAX package refuses still raises: kv8 or the mixed
+    split with dLLM or verbose, and the mixed split without the cache
+    (tests/test_torch_generate_branches.py holds the messages to JAX's)."""
     from lavida_mod_tpu_torch.generation import diffusion as td
 
     tm, _, _ = setup
     prefix = torch.zeros(1, 8, 512, dtype=torch.bfloat16)
     gen = GenerationConfig(**GEN)
-    for kw in (dict(verbose=True), dict(dllm_cache=8),
-               dict(draft_tokens=np.zeros((1, 4), np.int64))):
+    mask = tm.cfg.llada.mask_token_id
+    x, history = td.generate(tm.llada, prefix, gen, verbose=True)
+    assert len(history) == 16 and (x != mask).all()
+    for kw in (dict(dllm_cache=8),
+               dict(draft_tokens=np.full((1, 4), 7, np.int64))):
+        assert (td.generate(tm.llada, prefix, gen, **kw) != mask).all()
+    assert (td.generate(tm.llada, prefix,
+                        gen.replace(prefix_lm=False)) != mask).all()
+    for kw, g in ((dict(dllm_cache=8, kv8=True), gen),
+                  (dict(verbose=True, act_int8_prefill=True), gen),
+                  (dict(act_int8_prefill=True),
+                   gen.replace(prefix_lm=False))):
         with pytest.raises(NotImplementedError):
-            td.generate(tm.llada, prefix, gen, **kw)
-    with pytest.raises(NotImplementedError):
-        td.generate(tm.llada, prefix, gen.replace(prefix_lm=False))
+            td.generate(tm.llada, prefix, g, **kw)
     assert as_port_config(gen) is gen

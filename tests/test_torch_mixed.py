@@ -202,6 +202,32 @@ def test_decode_forward_within_band_of_jax(models, monkeypatch):
     assert not torch.equal(lg, lg.bfloat16().float())
 
 
+
+def test_last_logits_only_fuses_the_head_on_b_rows(models, monkeypatch):
+    """With last_logits_only the fused int4 head is chosen on the B rows
+    left after the cut, as llada.py:679-684 chooses it: 8 sequences of 20
+    rows (160 rows, past the head's 128-row gate) fuse it on 8 rows."""
+    from lavida_mod_tpu_torch.models import llada as tl
+
+    jm, tm = models
+    monkeypatch.setattr(jl, "FORCE_FUSED_INTERPRET", True)
+    calls, fused = [], tl.w4_qkv_norm
+    monkeypatch.setattr(tl, "w4_qkv_norm", lambda x, *a, **k: (
+        calls.append(tuple(x.shape)), fused(x, *a, **k))[1])
+    x = np.random.default_rng(3).integers(3, 400, (8, 20)).astype(np.int32)
+    lp = jm.params["llada"]
+    assert jl._w4_head_fusable(jm.cfg.llada, lp, lp["ff_out"], 8)
+    assert not tm.llada.head_fusable(160) and tm.llada.head_fusable(8)
+    want, _ = jl.forward(lp, jm.cfg.llada, jl.embed_tokens(lp, x),
+                         last_logits_only=True)
+    with torch.no_grad():
+        got, _ = tm.llada(tm.llada.embed_tokens(torch.from_numpy(x).long()),
+                          last_logits_only=True)
+    assert got.shape == want.shape and got.shape[:2] == (8, 1)
+    assert calls == [(8, 512)]
+    assert torch.equal(got, got.bfloat16().float())
+    assert _rel_err(got.numpy(), want) < 0.05
+
 def test_int8_prefill_within_band_of_jax(models):
     jm, tm = models
     rng = np.random.default_rng(0)

@@ -443,7 +443,7 @@ def test_generate_until_batch_decodes_generate_batch(tok_dirs, image,
         tm, requests, tadapter.gen_kwargs_to_config(GEN_KW))
     assert got == [tm.decode_output(row, tok) for row in ids]
     assert len(ev.latencies) == 3
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ev.loglikelihood("q", [img], "a")
+    ll = ev.loglikelihood("q", [img], "a")     # the MC estimator
+    assert np.isfinite(ll) and ll < 0
     with pytest.raises(NotImplementedError, match="item 9"):
         ev.generate_until("q", [img, img], GEN_KW, video=True)

@@ -133,14 +133,16 @@ def jax_steps(dec_p, lc, prefix, gen, prefix_valid=None, kv8=False,
 
 
 def teacher_forced(model, prefix, gen, xs, jax_logits, *, prefix_valid=None,
-                   kv8=False, chunk=None, band=0.05, cache=None):
+                   kv8=False, chunk=None, band=0.05, cache=None, step=None):
     """The port's half of a teacher-forced comparison.  `model` is a port
     LaViDa; prefix [B, P, D] the prefix embeddings to prefill from (JAX's,
     so both start from the same input); xs / jax_logits what `jax_steps`
     recorded.  The port prefills its cache as its
     generate path does (or starts from `cache`, a decode-entry cache given
     as the port holds it), then runs ONE decode step from each of JAX's
-    buffers x_t, so a difference cannot cascade.  At every step:
+    buffers x_t, so a difference cannot cascade (`step`, x [B, G] ->
+    logits [B, G, V], replaces that decode step, e.g. by the no-cache
+    forward).  At every step:
       - the port's logits are within `band` of max |JAX logit| (a number,
         or one per step);
       - each row commits the positions JAX commits, and the same tokens
@@ -161,7 +163,7 @@ def teacher_forced(model, prefix, gen, xs, jax_logits, *, prefix_valid=None,
     B, P, _ = prefix.shape
     G = gen.max_new_tokens
     mask = lm.cfg.mask_token_id
-    if cache is None:
+    if cache is None and step is None:
         cache = td.prefill_cache(lm, prefix, G, prefix_valid, model.mixed,
                                  kv8, chunk)
     kvv = None if prefix_valid is None else torch.cat(
@@ -173,9 +175,13 @@ def teacher_forced(model, prefix, gen, xs, jax_logits, *, prefix_valid=None,
     for i in range(k_table.shape[0]):
         x = torch.as_tensor(xs[i]).long()
         with torch.no_grad():
-            logits, _ = lm(lm.embed_tokens(x),
-                           positions=torch.arange(P, P + G), kv_cache=cache,
-                           kv_valid=kvv, kv_write_index=P, use_cache=True)
+            if step is not None:
+                logits = step(x)
+            else:
+                logits, _ = lm(lm.embed_tokens(x),
+                               positions=torch.arange(P, P + G),
+                               kv_cache=cache, kv_valid=kvv,
+                               kv_write_index=P, use_cache=True)
         ref = torch.as_tensor(jax_logits[i]).float()
         rel = ((logits - ref).abs().max() / ref.abs().max()).item()
         assert rel < (band if np.isscalar(band) else band[i]), (i, rel)
