@@ -184,6 +184,30 @@ exits non-zero and never prints the final line:
      kernels) and on the CPU (plain versions) from the same f32 masters
      with the same injected mask: loss, trainable gradients and updated
      masters within stated bands.
+ 13b. the training CLI (lavida_mod_tpu_torch/train/cli.py, train.py's
+     port), in process through `cli.main`, on 16 synthetic records of 768
+     x 768 PNGs (tools/make_synthetic_data.py) under train_runs/ in the
+     checkout (refused if it exists, deleted at the end): T1, stage 1 at
+     full LaViDa-LLaDA-8B (--tunable mm_mlp_adapter --lr 1e-3 --ce-chunk
+     512 --batch-size 4 --steps 6 --log-every 1 --save-every 2
+     --adapter-only-save --prefetch 2 --decode-workers 4 --profile):
+     finite losses, the launches per step of #10, #2 and #1 asserted,
+     the frozen LLaDA and SigLIP bit-identical to a new init from the
+     seed, the projector and newline moved, checkpoint-{2,4,6}/
+     mm_projector written and the last loaded back bit-equal through
+     load_adapter_into; step walls beside phase 11's, logged tokens/s,
+     peak, the busy share of the profiled microsteps.  T2, every part
+     tunable at --geometry 457m, --precision bf16 --remat nested
+     --ce-chunk 512 --grad-accum 2: run A (one update, a full async
+     save), run B restoring it bit-equal to A's final state (checksums of
+     every tensor and count), run C resuming for a second update (finite
+     losses, every group moved, the tower's #1 VJP run); save, commit and
+     restore walls.  T3, the remat ladder at 457m (whole_layer, nested,
+     dots_nobatch, dots, one_in_2, none with dense attention, whole_layer
+     with blockwise and with prefix_flash): step-1 losses within 1 % of
+     whole_layer's, peaks whole_layer < dots_nobatch < dots < none.  T4,
+     phase 7's trained tokenizer through load_hf_or_offline
+     (transformers' AutoTokenizer) and the pure loader: equal ids.
  14. the kernels of the LaViDa-Dream path against their plain versions at
      Dream-7B's shapes (P the bench request's prefix): short_attention at
      the GQA prefill (28 query / 4 KV heads) and SigLIP's, gather_rows at
@@ -213,13 +237,16 @@ exits non-zero and never prints the final line:
      same weights on the CPU: decode logits and the tokens.
 Then the card's name and power limit, one JSON line of per-kernel results
 (each entry with `launches_dream_path`, and `dream_path`, its sums at the
-Dream shapes, where phase 14 measured it), and as the last line
+Dream shapes, where phase 14 measured it; #1, #2 and #10 with
+`launches_train_cli`, T1's), and as the last line
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import subprocess
 import time
 
@@ -2817,6 +2844,350 @@ def phase_small_train(torch, device):
 
 
 # ---------------------------------------------------------------------------
+# the training CLI
+# ---------------------------------------------------------------------------
+
+TRAIN_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "train_runs")
+T1_STEPS = 6
+TUNABLE_ALL = "mm_mlp_adapter,mm_vision_tower,mm_language_model"
+
+
+def _cli(torch, argv):
+    """train.cli.main in process, its host wall (a sync each side) added."""
+    from lavida_mod_tpu_torch.train import cli
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = cli.main(argv)
+    torch.cuda.synchronize()
+    res["wall_s"] = time.perf_counter() - t0
+    return res
+
+
+def _state_sums(torch, state):
+    """{payload path: [the sum of the bit patterns, the f64 sum of
+    squares]} over every tensor of a full checkpoint's payload (model,
+    masters, optimizer state), and the scalars as they are."""
+    from lavida_mod_tpu_torch.train.cli import train_payload
+
+    params, opt_state = train_payload(state)
+    views = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = {}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}/")
+            elif isinstance(v, torch.Tensor):
+                t = v.detach().reshape(-1)
+                out[prefix + k] = torch.stack([
+                    t.view(views[t.element_size()]).sum(
+                        dtype=torch.int64).double(),
+                    t.double().square().sum()]).cpu()
+            else:
+                out[prefix + k] = v
+
+    with torch.no_grad():
+        walk({"params": params, "opt_state": opt_state}, "")
+    return out
+
+
+def _same_sums(a, b) -> bool:
+    import torch
+
+    return set(a) == set(b) and all(
+        torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor)
+        else a[k] == b[k] for k in a)
+
+
+def _dir_gb(path) -> float:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs) / 1e9
+
+
+def _walls(res):
+    """Per logged optimizer step: (wall ms, data tokens/s)."""
+    return [(1e3 / r["steps_per_s"], r["tokens_per_s"]) for r in res["logged"]]
+
+
+def phase_train_cli_stage1(torch, device, card, stage1):
+    """Stage 1 at full LaViDa-LLaDA-8B through train.cli.main (T1)."""
+    from lavida_mod_tpu_torch.config import LaViDaConfig
+    from lavida_mod_tpu_torch.models.lavida import LaViDa
+    from lavida_mod_tpu_torch.tools.make_synthetic_data import make
+    from lavida_mod_tpu_torch.utils.checkpoint import (ADAPTER,
+                                                       load_adapter_into)
+
+    t0 = t_phase = time.perf_counter()
+    data = make(os.path.join(TRAIN_ROOT, "data"), n=16, size=768)
+    images = os.path.join(TRAIN_ROOT, "data", "images")
+    print(f"[train_cli] 16 synthetic records of 768 x 768 PNGs (each the HD "
+          f"anyres input, base + 4 tiles) in {time.perf_counter() - t0:.2f}"
+          f" s (tools/make_synthetic_data.py)")
+    out = os.path.join(TRAIN_ROOT, "stage1")
+    ops = _train_ops()
+    for op in ops.values():
+        op.launches = 0
+    res = _cli(torch, [
+        "--data-path", data, "--image-folder", images, "--output-dir", out,
+        "--tunable", "mm_mlp_adapter", "--lr", "1e-3", "--ce-chunk", "512",
+        "--batch-size", "4", "--steps", str(T1_STEPS), "--log-every", "1",
+        "--save-every", "2", "--adapter-only-save", "--prefetch", "2",
+        "--decode-workers", "4", "--profile",
+        os.path.join(TRAIN_ROOT, "profile")])
+    counts = {k: op.launches for k, op in ops.items()}
+    per_step = {"prefix_flash_fwd": 2 * LLADA_LAYERS,
+                "prefix_flash_dq": LLADA_LAYERS,
+                "prefix_flash_dkv": LLADA_LAYERS, "gather_rows": 1,
+                "short_attention": 2 * SIGLIP_LAYERS}
+    if counts != {k: T1_STEPS * n for k, n in per_step.items()}:
+        raise AssertionError(f"launches over {T1_STEPS} steps {counts}, "
+                             f"want {per_step} per step")
+    losses = res["losses"]
+    if len(losses) != T1_STEPS or not np.isfinite(losses).all() or not all(
+            np.isfinite(r["loss"]) for r in res["logged"]):
+        raise AssertionError(f"losses {losses}")
+    state = res["state"]
+    masters = {n: m.detach().clone() for n, m in state.masters.items()}
+    if {n.split(".")[0] for n in masters} != {"projector", "image_newline"}:
+        raise AssertionError(f"trainable {sorted(masters)[:4]}")
+    for n in (2, 4, 6):
+        if not os.path.isdir(os.path.join(out, f"checkpoint-{n}", ADAPTER)):
+            raise AssertionError(f"no checkpoint-{n}/{ADAPTER}")
+    merged = load_adapter_into(dict(state.model.state_dict()),
+                               os.path.join(out, f"checkpoint-{T1_STEPS}",
+                                            ADAPTER))
+    if not all(torch.equal(merged[n], m) for n, m in masters.items()):
+        raise AssertionError("the last adapter checkpoint is not the final "
+                             "f32 projector and newline")
+    sums = _checksums(torch, [state.model.llada, state.model.siglip])
+    walls = _walls(res)
+    prof, peak = res["profile"], res["peak_gib"]
+    saves = [round(w, 3) for _, w in res["saves"]]
+    del res, state, merged
+    torch.cuda.empty_cache()
+    # the frozen parts against a new init from the same seed, cast as the
+    # mixed policy casts it
+    ref = LaViDa.random_init(LaViDaConfig(), 0, torch.float32, device)
+    with torch.no_grad():
+        for m in (ref.llada, ref.siglip):
+            for p in m.parameters():
+                p.data = p.data.to(torch.bfloat16)
+    if not torch.equal(_checksums(torch, [ref.llada, ref.siglip]), sums):
+        raise AssertionError("a frozen LLaDA or SigLIP weight changed")
+    init = dict(ref.named_parameters())
+    moved = {n.split(".")[0] for n, m in masters.items()
+             if not torch.equal(init[n].detach(), m)}
+    if moved != {"projector", "image_newline"}:
+        raise AssertionError(f"moved: {moved}")
+    del ref, init
+    torch.cuda.empty_cache()
+    ms = [w for w, _ in walls]
+    med = float(np.median(ms[1:]))
+    tok = float(np.median([t for _, t in walls[1:]]))
+    busy = prof.busy_share if prof is not None else None
+    busy_s = ("not measured" if busy is None else
+              f"{100 * busy:.1f} % ({prof.busy_ms:.1f} of {prof.wall_ms:.1f}"
+              f" ms, profiler on)")
+    print(f"[train_cli] stage 1 at full LaViDa-LLaDA-8B through train.cli."
+          f"main (--tunable mm_mlp_adapter --batch-size 4 --steps "
+          f"{T1_STEPS} --prefetch 2 --decode-workers 4, mixed precision, "
+          f"prefix_flash, whole_layer remat, ce_chunk 512): losses "
+          f"{[round(x, 4) for x in losses]}; step walls "
+          f"{[round(w, 1) for w in ms]} ms (2-4 profiled, 4 with the "
+          f"trace's export), median of steps 2-{T1_STEPS} "
+          f"{med:.1f} ms against phase 11's {stage1['wall_ms']:.1f} ms in "
+          f"this run; logged data tokens/s (median) {tok:.0f} against "
+          f"phase 11's {stage1['tokens_per_s']:.0f}; peak {peak:.2f} GiB; "
+          f"device busy over the profiled microsteps 2-4 {busy_s}; "
+          f"adapter saves "
+          f"{saves} s; launches per step {per_step}; frozen LLaDA + SigLIP "
+          f"bit-identical to the seed's init, projector + image_newline "
+          f"moved, checkpoint-{T1_STEPS}/{ADAPTER} loads back bit-equal; "
+          f"phase wall {time.perf_counter() - t_phase:.1f} s ({card})")
+    return counts, {"median_ms": med, "tokens_per_s": tok, "peak_gib": peak,
+                    "busy": busy, "walls_ms": ms}
+
+
+def phase_train_cli_457m(torch, device, card):
+    """Every tunable part at --geometry 457m with a full save and a
+    bit-equal resume (T2)."""
+    from lavida_mod_tpu_torch.ops.short_attention import short_attention
+
+    t_phase = time.perf_counter()
+    data = os.path.join(TRAIN_ROOT, "data", "data.json")
+    out = os.path.join(TRAIN_ROOT, "457m")
+    argv = ["--data-path", data, "--image-folder",
+            os.path.join(TRAIN_ROOT, "data", "images"), "--output-dir", out,
+            "--geometry", "457m", "--precision", "bf16", "--tunable",
+            TUNABLE_ALL, "--remat", "nested", "--ce-chunk", "512",
+            "--grad-accum", "2", "--log-every", "1", "--seed", "1"]
+    a = _cli(torch, argv + ["--steps", "1"])
+    final = _state_sums(torch, a["state"])
+    gb = _dir_gb(os.path.join(out, "checkpoint-2"))
+    info = {"a_wall": a["wall_s"], "a_peak": a["peak_gib"],
+            "staged": a["saves"][-1][1], "commit": a["commit_s"],
+            "a_losses": a["losses"], "init": a["init_s"]}
+    masters = list(a["state"].masters)
+    del a
+    torch.cuda.empty_cache()
+    b = _cli(torch, argv + ["--steps", "1"])
+    if not (b["restored_from"] or "").endswith("checkpoint-2") \
+            or b["losses"]:
+        raise AssertionError(f"run B restored {b['restored_from']}, took "
+                             f"{len(b['losses'])} microsteps")
+    if not _same_sums(_state_sums(torch, b["state"]), final):
+        raise AssertionError("the restored state is not run A's final state")
+    info["restore"] = b["restore_s"]
+    del b
+    torch.cuda.empty_cache()
+    vjp0 = short_attention.backward_calls
+    c = _cli(torch, argv + ["--steps", "2"])
+    vjp = short_attention.backward_calls - vjp0
+    if c["start_step"] != 2 or len(c["losses"]) != 2 \
+            or not np.isfinite(c["losses"]).all():
+        raise AssertionError(f"run C: start {c['start_step']}, losses "
+                             f"{c['losses']}")
+    if vjp != 2 * SIGLIP_LAYERS:
+        raise AssertionError(f"short_attention VJP ran {vjp} times")
+    after = _state_sums(torch, c["state"])
+
+    def group(n):
+        top = n.split(".")[0]
+        return {"llada": "base", "siglip": "vision_tower"}.get(top,
+                                                               "projector")
+
+    moved = {group(n) for n in masters
+             if not torch.equal(after[f"params/model/{n}"],
+                                final[f"params/model/{n}"])}
+    if moved != {"base", "vision_tower", "projector"}:
+        raise AssertionError(f"after run C's update only {moved} moved")
+    info.update(c_wall=c["wall_s"], c_peak=c["peak_gib"],
+                c_losses=c["losses"], c_restore=c["restore_s"],
+                c_commit=c["commit_s"])
+    n_params = sum(p.numel() for p in c["state"].model.parameters())
+    del c
+    torch.cuda.empty_cache()
+    shutil.rmtree(out)
+    print(f"[train_cli] --geometry 457m (6 llama layers d 2048, tied head, "
+          f"square so400m views; {n_params / 1e9:.3f} B params), --precision "
+          f"bf16, every part tunable, --remat nested --ce-chunk 512 "
+          f"--grad-accum 2: run A (2 microsteps, init {info['init']:.2f} s) "
+          f"wall {info['a_wall']:.2f} s, losses "
+          f"{[round(x, 4) for x in info['a_losses']]}, peak "
+          f"{info['a_peak']:.2f} GiB, full async save of checkpoint-2 "
+          f"({gb:.3f} GB) staged in {info['staged']:.2f} s and committed "
+          f"{info['commit']:.2f} s later; run B restored it in "
+          f"{info['restore']:.2f} s, every tensor and count bit-equal to run "
+          f"A's final state (checksums); run C resumed (restore "
+          f"{info['c_restore']:.2f} s), microsteps 3-4 wall "
+          f"{info['c_wall']:.2f} s, losses "
+          f"{[round(x, 4) for x in info['c_losses']]}, peak "
+          f"{info['c_peak']:.2f} GiB, every group moved, short_attention's "
+          f"VJP ran {vjp} times; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s ({card})")
+    return info
+
+
+LADDER = [("whole_layer", "dense"), ("nested", "dense"),
+          ("dots_nobatch", "dense"), ("dots", "dense"), ("one_in_2", "dense"),
+          ("none", "dense"), ("whole_layer", "blockwise"),
+          ("whole_layer", "prefix_flash")]
+
+
+def phase_remat_ladder(torch, device, card):
+    """One step per remat strategy at 457m, same seed and batch (T3)."""
+    t_phase = time.perf_counter()
+    data = os.path.join(TRAIN_ROOT, "data", "data.json")
+    rows = {}
+    for remat, impl in LADDER:
+        out = os.path.join(TRAIN_ROOT, f"ladder-{remat}-{impl}")
+        res = _cli(torch, [
+            "--data-path", data, "--image-folder",
+            os.path.join(TRAIN_ROOT, "data", "images"), "--output-dir", out,
+            "--geometry", "457m", "--precision", "bf16", "--tunable",
+            TUNABLE_ALL, "--ce-chunk", "512", "--steps", "2",
+            "--log-every", "1", "--adapter-only-save", "--seed", "2",
+            "--remat", remat, "--attn-impl", impl])
+        rows[(remat, impl)] = (res["losses"][0], res["peak_gib"],
+                               _walls(res)[1][0])
+        del res
+        torch.cuda.empty_cache()
+        shutil.rmtree(out)
+    base = rows[("whole_layer", "dense")][0]
+    for key, (loss, peak, wall) in rows.items():
+        print(f"[ladder] --remat {key[0]:12s} --attn-impl {key[1]:12s} step-1 "
+              f"loss {loss:.5f}, peak {peak:.3f} GiB, step-2 wall "
+              f"{wall:.1f} ms ({card})")
+        if not abs(loss - base) < 0.01 * abs(base):
+            raise AssertionError(f"{key}: loss {loss} against {base} (limit "
+                                 f"1 %)")
+    peaks = [rows[(r, "dense")][1] for r in ("whole_layer", "dots_nobatch",
+                                             "dots", "none")]
+    if not peaks[0] < peaks[1] < peaks[2] < peaks[3]:
+        raise AssertionError(f"peaks whole_layer, dots_nobatch, dots, none: "
+                             f"{peaks}")
+    print(f"[ladder] 457m, bf16, every part tunable, B 4, one step each: "
+          f"losses within 1 % of whole_layer's; peak order whole_layer < "
+          f"dots_nobatch < dots < none holds; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s ({card})")
+    return rows
+
+
+def phase_tokenizer_gap(card):
+    """Phase 7's trained tokenizer through load_hf_or_offline (transformers'
+    AutoTokenizer when it imports) and the pure loader (T4)."""
+    import json as _json
+
+    from lavida_mod_tpu_torch.data.tokenizer import (load_hf_or_offline,
+                                                     load_tokenizer)
+    from lavida_mod_tpu_torch.rehearse_8b_load import (build_prompt,
+                                                       write_tokenizer)
+
+    path = os.path.join(TRAIN_ROOT, "tokenizer")
+    os.makedirs(path)
+    write_tokenizer(path)
+    cfg_path = os.path.join(path, "tokenizer_config.json")
+    with open(cfg_path) as f:
+        tcfg = _json.load(f)
+    # as the published LLaDA tokenizer_config.json names it
+    tcfg["tokenizer_class"] = "PreTrainedTokenizerFast"
+    with open(cfg_path, "w") as f:
+        _json.dump(tcfg, f)
+    try:
+        import transformers
+        tv = transformers.__version__
+        # the trained vocab's ids skip to the specials at 126081..: newer
+        # transformers warn about those holes, listing every missing id
+        transformers.logging.set_verbosity_error()
+    except ImportError:
+        tv = None
+    hf = load_hf_or_offline(path)
+    pure = load_tokenizer(path, prefer_pure=True)
+    kind = type(hf).__module__ + "." + type(hf).__name__
+    if tv is not None and not type(hf).__module__.startswith("transformers"):
+        raise AssertionError(f"transformers {tv} imports but "
+                             f"load_hf_or_offline gave {kind}")
+    text = build_prompt(pure)[0]
+    rng = np.random.default_rng(14)
+    texts = [text] + [pure.decode(rng.integers(0, len(pure.vocab),
+                                               48).tolist(),
+                                  skip_special_tokens=False)
+                      for _ in range(300)]
+    bad = [t for t in texts
+           if hf.encode(t, add_special_tokens=False) != pure.encode(t)]
+    shutil.rmtree(path)
+    if bad:
+        raise AssertionError(f"{len(bad)} of {len(texts)} strings tokenize "
+                             f"differently, e.g. {bad[0]!r}")
+    print(f"[tokenizer] phase 7's BPE through load_hf_or_offline ({kind}, "
+          f"transformers {tv or 'absent'}) and the pure loader (native merge "
+          f"engine {'on' if pure._native is not None else 'off'}): equal ids "
+          f"on the prompt and 300 decoded strings ({card})")
+
+
+# ---------------------------------------------------------------------------
 # LaViDa-Dream at full Dream-7B width
 # ---------------------------------------------------------------------------
 
@@ -3275,6 +3646,17 @@ def main() -> None:
     stage2_peak = phase_stage2(torch, device, card)
     phase_small_train(torch, device)
     torch.cuda.empty_cache()
+    if os.path.exists(TRAIN_ROOT):
+        raise RuntimeError(f"{TRAIN_ROOT} exists: delete it first (the "
+                           f"training CLI phases write there)")
+    try:
+        cli_counts, t1 = phase_train_cli_stage1(torch, device, card, stage1)
+        t2 = phase_train_cli_457m(torch, device, card)
+        ladder = phase_remat_ladder(torch, device, card)
+        phase_tokenizer_gap(card)
+    finally:
+        shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
+    torch.cuda.empty_cache()
     from lavida_mod_tpu_torch.config import LaViDaConfig, dream_7b_config
     from lavida_mod_tpu_torch.models.multimodal import build_gather_plan
 
@@ -3321,11 +3703,13 @@ def main() -> None:
               launches_dllm_gen256=d256["short_attention"],
               launches_fim=fim_counts["short_attention"],
               launches_loglik=ll_w["short_attention"],
-              launches_loglik_act_int8=ll_a["short_attention"]),
+              launches_loglik_act_int8=ll_a["short_attention"],
+              launches_train_cli=cli_counts["short_attention"]),
         entry("gather_rows", "gather_rows.cu", "pallas_gather.py:26",
               counts["gather_rows"],
               launches_mixed_path=mixed_counts["gather_rows"],
-              launches_checkpoint_path=ckpt_counts["gather_rows"]),
+              launches_checkpoint_path=ckpt_counts["gather_rows"],
+              launches_train_cli=cli_counts["gather_rows"]),
         entry("w8a8_matmul", "w8a8_matmul.cu", "pallas_w8.py:53",
               mixed_counts["w8a8_matmul"],
               launches_checkpoint_path=ckpt_counts["w8a8_matmul"],
@@ -3374,11 +3758,14 @@ def main() -> None:
               launches_nocache_int4=nc4["fused_vit_mlp"],
               launches_loglik=ll_w["fused_vit_mlp"]),
         entry("prefix_flash_fwd", "prefix_flash.cu", "prefix_flash.py:53",
-              train_counts["prefix_flash_fwd"]),
+              train_counts["prefix_flash_fwd"],
+              launches_train_cli=cli_counts["prefix_flash_fwd"]),
         entry("prefix_flash_dq", "prefix_flash.cu", "prefix_flash.py:143",
-              train_counts["prefix_flash_dq"]),
+              train_counts["prefix_flash_dq"],
+              launches_train_cli=cli_counts["prefix_flash_dq"]),
         entry("prefix_flash_dkv", "prefix_flash.cu", "prefix_flash.py:179",
-              train_counts["prefix_flash_dkv"]),
+              train_counts["prefix_flash_dkv"],
+              launches_train_cli=cli_counts["prefix_flash_dkv"]),
         entry("w4_matmul", "w4_matmul.cu", "pallas_w4.py:49", 0),
     ]
     for e in entries:
@@ -3391,6 +3778,10 @@ def main() -> None:
                else f"{100 * br4['nocache_busy']:.1f} %")
     busy1 = ("not measured" if stage1["busy"] is None
              else f"{100 * stage1['busy']:.1f} %")
+    busy_cli = ("not measured" if t1["busy"] is None
+                else f"{100 * t1['busy']:.1f} %")
+    ladder_s = {f"{r}/{a}": (round(v[0], 4), round(v[1], 3), round(v[2], 1))
+                for (r, a), v in ladder.items()}
     attn1 = ("not measured" if stage1["prefix_flash_ms"] is None
              else f"{sum(stage1['prefix_flash_ms'].values()):.2f} ms")
     print("[result] kernel ms / plain_ms / library_ms / bound_ms: summed "
@@ -3412,7 +3803,15 @@ def main() -> None:
           f"fwd, 32 dq, 32 dkv; launches over 3 steps): stage-1 step "
           f"{stage1['wall_ms']:.1f} ms, {stage1['tokens_per_s']:.0f} data "
           f"tokens/s, peak {stage1['peak_gib']:.2f} GiB, device busy "
-          f"{busy1}, #10 device time {attn1}; stage-2 (4 LLaDA layers) peak "
+          f"{busy1}, #10 device time {attn1}; the training CLI at 8B stage 1 "
+          f"({T1_STEPS} steps, launches {cli_counts}): median step "
+          f"{t1['median_ms']:.1f} ms, {t1['tokens_per_s']:.0f} data "
+          f"tokens/s, peak {t1['peak_gib']:.2f} GiB, busy "
+          f"{busy_cli}; 457m every part tunable: save staged {t2['staged']:.2f} s + "
+          f"commit {t2['commit']:.2f} s, restore {t2['restore']:.2f} s, peak "
+          f"{t2['c_peak']:.2f} GiB; remat ladder (loss, peak GiB, step ms) "
+          f"{ladder_s}; "
+          f"stage-2 (4 LLaDA layers) peak "
           f"{stage2_peak:.2f} GiB; checkpoint path (8B written, loaded, "
           f"mixed, one request twice in text): write {ckpt['write_s']:.2f} "
           f"s, load {ckpt['load_s']:.2f} s, layout {ckpt['layout_s']:.2f} s, "

@@ -6,9 +6,10 @@ Layer map (mirrors lavida_mod_tpu):
   config.py    the model and generation configs (a copy; `as_port_config`
                takes the JAX package's dataclasses by field name)
   constants.py, data/   token constants, anyres geometry and image
-               preprocessing, the BPE tokenizer, the conversation
-               templates, prompt tokenization and the infill corruption
-               (copies)
+               preprocessing, the BPE tokenizer (with the native merge
+               engine of csrc/bpe.cpp), the conversation templates, prompt
+               tokenization, the infill corruption, the training
+               preprocessors, dataset and collator (copies)
   ops/         plain tensor functions (norms, rope, attention, pooling,
                sampling, schedules, activations, quantizers and quantized
                linears, the int8 KV cache) and the wrappers of the
@@ -30,11 +31,16 @@ Layer map (mirrors lavida_mod_tpu):
   generation/  the prefix-cached masked-diffusion denoise loop, plain and
                with chunked batch prefill, and the Dream sampler
   eval/        the eval adapter: text in and out, and batched generation
-  train/       the masked-diffusion loss, the optax-equivalent optimizer
-               and the multimodal train step (stage-1 / stage-2 training)
+  train/       the masked-diffusion loss, the optax-equivalent optimizer,
+               the multimodal train step (stage-1 / stage-2 training) and
+               the training CLI (`python -m lavida_mod_tpu_torch.train`,
+               train.py's port)
+  utils/       the training CLI's checkpoints (save, async save, resume,
+               adapter-only), metrics log and profiler trace
   convert.py   JAX params (numpy pytree) -> this package's state dict, or
                f32 training masters
-  tools/       the safetensors reader and writer, the weight-delta tools
+  tools/       the safetensors reader and writer, the weight-delta tools,
+               the synthetic training dataset
   predict.py   prediction CLI (one request or a batch, from a checkpoint
                directory or seeded weights)
   rehearse_8b_load.py  writes a full-size reference-layout checkpoint,

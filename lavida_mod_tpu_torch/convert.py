@@ -5,7 +5,8 @@ The input is the JAX params pytree with every leaf a numpy array
 (`jax.tree.map(np.asarray, params)`): LLaDA blocks stacked [L, ...] or
 listed by `unstack_blocks` (llada.py:796), in the llama layout or the
 fused sequential one (`att_proj`), SigLIP layers stacked [L, ...], the
-projector's layer list, `image_newline`, `wte` and the `ff_out` head.
+projector's layer list, `image_newline`, `wte` and the `ff_out` head
+(absent from a tied config's tree: the port's head is then wte's).
 JAX linear kernels are [in, out]; nn.Linear weights are [out, in], the HF
 checkpoint layout, so every kernel is transposed here.
 

@@ -25,9 +25,10 @@ Differences from the JAX package's module:
     White_Space set, as `regex` and the `tokenizers` runtime read them
     (`re`'s own `\\s` also takes U+001C..U+001F).  On that fallback the
     characters assigned after the interpreter's Unicode version are not
-    letters (Python 3.12's `unicodedata` is Unicode 15.0);
-  - the merge loop is the pure-Python one only; the C++ merge engine of
-    the JAX package (csrc/bpe.cpp through data/native.py) is not ported.
+    letters (Python 3.12's `unicodedata` is Unicode 15.0).
+As in the JAX package, `ByteLevelBPE` takes the C++ merge engine
+(csrc/bpe.cpp through data/native.py, built at first use) when it loads,
+and keeps the pure-Python loop (`_bpe`) for when it does not.
 `regex`, `tokenizers`, `transformers` and `jinja2` are imported only
 inside the functions that use them.
 """
@@ -193,6 +194,12 @@ class ByteLevelBPE:
                 re.escape(t)
                 for t in sorted(self.special, key=len, reverse=True)) + ")")
         self._bpe_cache: dict[str, list[str]] = {}
+        # the native merge engine (csrc/bpe.cpp through data/native.py):
+        # the regex, NFC and byte mapping stay here, the rank-driven merge
+        # loop runs in C++; None when it cannot be built or loaded
+        from .native import load_bpe_native
+
+        self._native = load_bpe_native(self.vocab, merges)
 
     def _bpe(self, token: str) -> list[str]:
         cached = self._bpe_cache.get(token)
@@ -223,6 +230,10 @@ class ByteLevelBPE:
 
     def _encode_ordinary(self, text: str) -> list[int]:
         text = unicodedata.normalize("NFC", text)
+        if self._native is not None:
+            return self._native.apply([
+                [self.vocab[self.b2u[b]] for b in tok.encode("utf-8")]
+                for tok in self.pat.findall(text)])
         ids = []
         for tok in self.pat.findall(text):
             mapped = "".join(self.b2u[b] for b in tok.encode("utf-8"))

@@ -52,28 +52,50 @@ mask.
 Training (llada.py:407-667 on the list-of-layers model): `forward` takes
 `prefix_lengths` [B], the prefix-LM block mask over SEQUENCE indices (never
 the RoPE `positions`, which training may shift), and `attention_impl`:
-"dense" builds make_bias's additive mask, "prefix_flash" runs the fused
-prefix-LM kernel #10 (ops/prefix_flash.py, plen 0 when none is given) and
-"auto" picks prefix_flash on CUDA and dense on the CPU, as train.py's
---attn-impl auto picks by backend.  `remat="whole_layer"` (or True)
-checkpoints each block (torch.utils.checkpoint), keeping the layer
-boundaries and recomputing the inside in the backward; the JAX package's
-"nested", "dots", "dots_nobatch" and "one_in_N" strategies raise
-NotImplementedError (ROADMAP.md).
+"dense" builds make_bias's additive mask, "blockwise" runs the online
+softmax over key blocks of `kv_block` (ops/attention.py, the masks built
+per block), "prefix_flash" runs the fused prefix-LM kernel #10
+(ops/prefix_flash.py, plen 0 when none is given) and "auto" picks
+prefix_flash on CUDA and dense on the CPU, as train.py's --attn-impl auto
+picks by backend.  `remat` is the JAX package's activation-checkpointing
+strategy (llada.py:365-404, 603-668), on torch.utils.checkpoint:
+  - "whole_layer" (or True): each block checkpointed, the layer boundaries
+    kept and the inside recomputed in the backward;
+  - "nested": sqrt checkpointing, G groups (the first of 8, 4, 2, 1 with
+    L % G == 0 and L // G >= G; 1 below 4 layers), each group checkpointed
+    and each layer inside it too;
+  - "dots" / "dots_nobatch": each block checkpointed with a selective
+    policy that saves matmul outputs (jax.checkpoint_policies'
+    dots_saveable / dots_with_no_batch_dims_saveable): every aten
+    mm / addmm / bmm / baddbmm output, or only the products without batch
+    dims (mm / addmm: the linears; the attention's bmm products are
+    recomputed); inside #10's autograd.Function the products are the
+    kernel's and nothing is saved;
+  - "one_in_N" or an int N: per group of N layers the first checkpointed
+    and the other N - 1 plain (L % N must be 0); N = 1 is whole_layer.
+The vision tower takes a bool (per-layer remat), as JAX's siglip.forward.
+
+Weight tying (`weight_tying`, the 457m / 913m geometries): the model has
+no `ff_out` and the head is wte's transpose (`head_weight`), in the
+forward, `head`, the loss's ce_chunk and the quantized layouts, which keep
+it in bf16 as the JAX package keeps its einsum with wte.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..config import LLaDAConfig, as_port_config
 
 from ..ops.activations import silu
-from ..ops.attention import bmm_f32, dense_attention, flash_attention, make_bias
+from ..ops.attention import (blockwise_attention, bmm_f32, dense_attention,
+                             flash_attention, make_bias)
 from ..ops.kv8_attention import kv8_decode_attention, write_rows
 from ..ops.norms import rms_norm
 from ..ops.prefix_flash import prefix_flash_attention
@@ -97,27 +119,106 @@ def check_supported(cfg: LLaDAConfig) -> None:
         "attention_layer_norm": cfg.attention_layer_norm,
         "input_emb_norm": cfg.input_emb_norm,
         "scale_logits": cfg.scale_logits,
-        "weight_tying": cfg.weight_tying,
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
             f"LLaDA port covers the llama/silu and sequential/swiglu rms "
-            f"blocks (optionally with Qwen2's QKV bias) with untied head and "
-            f"rope only; unsupported: {bad}")
+            f"blocks (optionally with Qwen2's QKV bias) with rope only; "
+            f"unsupported: {bad}")
 
 
-def remat_layers(remat) -> bool:
-    """Whether an activation-checkpointing strategy checkpoints each layer
-    (`_remat_group`, llada.py:368-394): False / None / "none" no, True /
-    "whole_layer" yes; the others are not ported."""
-    if remat in (False, None, "none"):
-        return False
-    if remat in (True, "whole_layer"):
-        return True
-    raise NotImplementedError(
-        f"activation checkpointing {remat!r}: the port has whole_layer only "
-        f"(nested, dots, dots_nobatch and one_in_N are ROADMAP work)")
+def remat_plan(remat) -> tuple[str, int]:
+    """An activation-checkpointing strategy (`_remat_group`, llada.py:
+    368-394) as (kind, N): ("none", 1) for False / None / "none" / 0,
+    ("whole_layer", 1) for True / "whole_layer" / one_in_1,
+    ("nested" | "dots" | "dots_nobatch", 1), ("one_in", N) for "one_in_N"
+    or an int N > 1; anything else raises ValueError."""
+    if remat is None or remat is False or remat == "none" or (
+            type(remat) is int and remat == 0):
+        return "none", 1
+    if remat is True or remat == "whole_layer":
+        return "whole_layer", 1
+    if remat in ("nested",) + _POLICIES:
+        return remat, 1
+    n = None
+    if isinstance(remat, str) and remat.startswith("one_in_"):
+        tail = remat[len("one_in_"):]
+        n = int(tail) if tail.isdigit() else None
+    elif type(remat) is int and remat > 0:
+        n = remat
+    if n is None:
+        raise ValueError(f"unknown activation-checkpointing strategy: "
+                         f"{remat!r}")
+    return ("whole_layer", 1) if n == 1 else ("one_in", n)
+
+
+# the aten products a selective-checkpoint policy saves (dots_saveable and
+# dots_with_no_batch_dims_saveable): F.linear reaches mm / addmm, the
+# attention's batched products bmm / baddbmm
+_NOBATCH_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_POLICIES = ("dots", "dots_nobatch")
+_SAVED = {"dots_nobatch": _NOBATCH_DOTS,
+          "dots": _NOBATCH_DOTS + (torch.ops.aten.bmm.default,
+                                   torch.ops.aten.baddbmm.default)}
+
+
+def _save_dots(saved, ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in saved
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _policy_context(kind: str):
+    return functools.partial(create_selective_checkpoint_contexts,
+                             functools.partial(_save_dots, _SAVED[kind]))
+
+
+def nested_groups(n_layers: int) -> int:
+    """The group count G of "nested" (llada.py:620-622)."""
+    if n_layers < 4:
+        return 1
+    return next(g for g in (8, 4, 2, 1)
+                if n_layers % g == 0 and n_layers // g >= g)
+
+
+def run_blocks(blocks, x: torch.Tensor, layer, remat) -> torch.Tensor:
+    """x through `blocks` by `layer(block, x)`, checkpointed by the
+    strategy `remat` (see remat_plan)."""
+    kind, n = remat_plan(remat)
+    ckpt = functools.partial(checkpoint, use_reentrant=False)
+    if kind == "none":
+        for blk in blocks:
+            x = layer(blk, x)
+        return x
+    if kind in _POLICIES:
+        ctx = _policy_context(kind)
+        for blk in blocks:
+            x = ckpt(layer, blk, x, context_fn=ctx)
+        return x
+    if kind == "whole_layer":
+        for blk in blocks:
+            x = ckpt(layer, blk, x)
+        return x
+    L = len(blocks)
+    if kind == "nested":
+        G = nested_groups(L)
+
+        def group(h, members):
+            for blk in members:
+                h = ckpt(layer, blk, h)
+            return h
+
+        for g in range(G):
+            x = ckpt(group, x, blocks[g * (L // G):(g + 1) * (L // G)])
+        return x
+    if L % n:
+        raise ValueError(f"activation_checkpointing one_in_{n} needs "
+                         f"n_layers ({L}) divisible by {n}")
+    for g in range(0, L, n):
+        x = ckpt(layer, blocks[g], x)
+        for blk in blocks[g + 1:g + n]:
+            x = layer(blk, x)
+    return x
 
 
 def _block_n(*ns: int) -> Optional[int]:
@@ -216,7 +317,7 @@ class LLaDABlock(nn.Module):
     def forward(self, x, *, sin, cos, positions, bias, layer_past,
                 kv_write_index, use_flash, q_seg, kv_seg, act_int8=False,
                 kv8_valid=None, prefix_flash=None, kv_scatter_idx=None,
-                prefill_tree=False):
+                prefill_tree=False, blockwise=None):
         """x [B, T, D] -> (x, (k, v)).  With `layer_past` (preallocated
         [B, S, Hkv, hd] buffers) this call's rotated k and v are written
         IN PLACE at rows [kv_write_index, kv_write_index + T), or at the
@@ -277,6 +378,8 @@ class LLaDABlock(nn.Module):
                     k, v = torch.cat([pk, k], dim=1), torch.cat([pv, v], dim=1)
             if prefix_flash is not None:
                 att = prefix_flash_attention(q, k, v, *prefix_flash)
+            elif blockwise is not None:
+                att = blockwise_attention(q, k, v, **blockwise)
             elif use_flash:
                 # the kernel takes contiguous rows; v is a view of the
                 # fused [q|k|v] projection in the sequential layout
@@ -306,7 +409,8 @@ class LLaDABlock(nn.Module):
 
 
 class LLaDA(nn.Module):
-    """Embedding, blocks, final RMSNorm and the untied logits head."""
+    """Embedding, blocks, final RMSNorm and the logits head (wte's
+    transpose when the config ties them)."""
 
     def __init__(self, cfg: LLaDAConfig, device, dtype=None):
         super().__init__()
@@ -318,12 +422,17 @@ class LLaDA(nn.Module):
         self.blocks = nn.ModuleList(
             LLaDABlock(cfg, device, dtype) for _ in range(cfg.n_layers))
         self.ln_f = RMSNorm(D, cfg.rms_norm_eps, device, dtype)
-        self.ff_out = nn.Linear(D, E, bias=False, device=device,
-                                dtype=dtype)
+        self.ff_out: Optional[nn.Module] = None if cfg.weight_tying else \
+            nn.Linear(D, E, bias=False, device=device, dtype=dtype)
         # the mixed layout's int8 head, the prefill tree's (add_prefill_tree)
         self.prefill_head: Optional[nn.Module] = None
         self._rope_key = None
         self._rope = None
+
+    @property
+    def head_weight(self) -> torch.Tensor:
+        """The float head's [E, D] weight: ff_out's, or wte's when tied."""
+        return self.wte.weight if self.ff_out is None else self.ff_out.weight
 
     def embed_tokens(self, ids: torch.Tensor) -> torch.Tensor:
         """wte lookup (modeling_llada.py:1283)."""
@@ -359,10 +468,10 @@ class LLaDA(nn.Module):
         head = self.ff_out
         if prefill_tree and self.prefill_head is not None:
             head = self.prefill_head
-        if isinstance(head, nn.Linear):
+        if head is None or isinstance(head, nn.Linear):
+            w = self.wte.weight if head is None else head.weight
             lead, D = x.shape[:-1], x.shape[-1]
-            return bmm_f32(x.reshape(1, -1, D), head.weight.t()[None]) \
-                .view(*lead, -1)
+            return bmm_f32(x.reshape(1, -1, D), w.t()[None]).view(*lead, -1)
         return _run_linear(head, x, preferred=torch.float32)
 
     def logits(self, x: torch.Tensor, act_int8: bool = False,
@@ -408,6 +517,7 @@ class LLaDA(nn.Module):
         prefill_tree: bool = False,
         prefix_lengths: Optional[torch.Tensor] = None,
         attention_impl: str = "dense",
+        kv_block: int = 1024,
         remat=False,
     ):
         """Run the blocks on input embeddings [B, T, D].
@@ -433,7 +543,7 @@ class LLaDA(nn.Module):
           choice made on all of them, B * T or, with last_logits_only,
           B, as llada.py:679-684 makes it).
         use_flash: attention through the short-attention kernel, masked by
-          segment ids; otherwise dense attention with an additive bias.
+          segment ids; otherwise attention_impl's.
         act_int8: per-token int8 activations on int8 linears, through the
           blocks' prefill tree when they have one (linear_act_int8), and
           the prefill tree's int8 head.
@@ -444,10 +554,12 @@ class LLaDA(nn.Module):
         prefix_lengths: [B] the prefix-LM block mask for training
           (modeling_llada.py:1351-1368): key kv is visible from query q when
           kv < prefix_length or q >= prefix_length, over sequence indices.
-        attention_impl: "dense", "prefix_flash" (self-attention only) or
-          "auto" (prefix_flash on CUDA, dense on the CPU).
-        remat: False or "whole_layer" / True (checkpoint each block while
-          autograd records; no cache then).
+        attention_impl: "dense", "blockwise" or "prefix_flash" (both
+          self-attention only) or "auto" (prefix_flash on CUDA, dense on
+          the CPU).
+        kv_block: blockwise's key block.
+        remat: an activation-checkpointing strategy (`remat_plan`; applied
+          while autograd records; no cache then).
 
         Returns (logits [B, T, V] f32, or ln_f(hidden) [B, T, D] when
         return_logits is False; the per-layer (k, v) list when use_cache,
@@ -458,11 +570,11 @@ class LLaDA(nn.Module):
         if attention_impl == "auto":
             attention_impl = ("prefix_flash" if device.type == "cuda"
                               else "dense")
-        if attention_impl not in ("dense", "prefix_flash"):
-            raise NotImplementedError(
-                f"attention_impl {attention_impl!r}: the port has dense and "
-                f"prefix_flash")
-        remat = remat_layers(remat) and torch.is_grad_enabled()
+        if attention_impl not in ("dense", "blockwise", "prefix_flash"):
+            raise ValueError(f"attention_impl {attention_impl!r}: dense, "
+                             f"blockwise, prefix_flash or auto")
+        if not torch.is_grad_enabled() or remat_plan(remat)[0] == "none":
+            remat = False
         if remat and use_cache:
             raise ValueError("remat keeps no per-layer cache")
         past = kv8 = 0
@@ -506,8 +618,16 @@ class LLaDA(nn.Module):
             sv = (self_valid if self_valid is not None else
                   torch.ones(B, T, dtype=torch.bool, device=device))
             valid = torch.cat([pv, sv], dim=1)
-        bias = q_seg = kv_seg = pf_args = None
-        if attention_impl == "prefix_flash":
+        bias = q_seg = kv_seg = pf_args = bw_args = None
+        if attention_impl == "blockwise":
+            if kv_cache is not None or use_flash:
+                raise ValueError("blockwise is a training self-attention: no "
+                                 "kv_cache, no use_flash")
+            bw_args = dict(kv_valid=valid, prefix_lengths=prefix_lengths,
+                           q_positions=torch.arange(start, start + T,
+                                                    device=device),
+                           kv_block=kv_block)
+        elif attention_impl == "prefix_flash":
             if kv_cache is not None or use_flash:
                 raise ValueError("prefix_flash is the training self-attention:"
                                  " no kv_cache, no use_flash")
@@ -538,21 +658,23 @@ class LLaDA(nn.Module):
 
         x = embeds
         presents = []
-        for li, block in enumerate(self.blocks):
-            kw = dict(sin=sin, cos=cos, positions=positions, bias=bias,
-                      layer_past=None if kv_cache is None else kv_cache[li],
-                      kv_write_index=kv_write_index, use_flash=use_flash,
-                      q_seg=q_seg, kv_seg=kv_seg, act_int8=act_int8,
-                      kv8_valid=valid if kv8 else None, prefix_flash=pf_args,
-                      kv_scatter_idx=kv_scatter_idx,
-                      prefill_tree=prefill_tree)
-            if remat:
-                x = checkpoint(lambda h, blk=block, kw=kw: blk(h, **kw)[0],
-                               x, use_reentrant=False)
-                continue
-            x, present = block(x, **kw)
-            if use_cache:
-                presents.append(present)
+        kw = dict(sin=sin, cos=cos, positions=positions, bias=bias,
+                  kv_write_index=kv_write_index, use_flash=use_flash,
+                  q_seg=q_seg, kv_seg=kv_seg, act_int8=act_int8,
+                  kv8_valid=valid if kv8 else None, prefix_flash=pf_args,
+                  kv_scatter_idx=kv_scatter_idx, prefill_tree=prefill_tree,
+                  blockwise=bw_args)
+        if remat:
+            x = run_blocks(self.blocks, x,
+                           lambda blk, h: blk(h, layer_past=None, **kw)[0],
+                           remat)
+        else:
+            for li, block in enumerate(self.blocks):
+                x, present = block(
+                    x, layer_past=None if kv_cache is None else kv_cache[li],
+                    **kw)
+                if use_cache:
+                    presents.append(present)
         new_cache = presents if use_cache else None
         if not return_logits:
             return self.ln_f(x), new_cache
@@ -610,7 +732,8 @@ class LLaDA(nn.Module):
             b.prefill = nn.ModuleDict({
                 n: Int8Linear.from_linear(getattr(b, n))
                 for n in b.linear_names})
-        self.prefill_head = Int8Linear.from_linear(self.ff_out)
+        if self.ff_out is not None:     # a tied head stays wte's, in bf16
+            self.prefill_head = Int8Linear.from_linear(self.ff_out)
 
     @torch.no_grad()
     def quantize(self, bits: int) -> None:
@@ -622,7 +745,8 @@ class LLaDA(nn.Module):
         for b in self.blocks:
             for n in b.linear_names:
                 setattr(b, n, quantize_module(getattr(b, n), bits))
-        self.ff_out = quantize_module(self.ff_out, bits)
+        if self.ff_out is not None:     # a tied head stays wte's, in bf16
+            self.ff_out = quantize_module(self.ff_out, bits)
 
     def adopt_layout(self, state: dict) -> None:
         """Swap each linear for the kind `state` holds (keys of a quantized
@@ -646,6 +770,8 @@ class LLaDA(nn.Module):
                     for n in b.linear_names})
             for n in b.linear_names:
                 setattr(b, n, kind(f"{pre}{n}.", getattr(b, n)))
+        if self.ff_out is None:
+            return
         if "prefill_head.weight_q" in state:
             self.prefill_head = kind("prefill_head.", self.ff_out, Int8Linear)
         self.ff_out = kind("ff_out.", self.ff_out)

@@ -6,6 +6,10 @@
     scores and softmax are f32; probabilities are cast to v's dtype before
     the PV product.  Serves the decode steps over the bf16 KV cache and
     the dense training attention (make_bias's prefix-LM mask).
+  - `blockwise_attention`: the memory-bounded training attention, an
+    online softmax over key blocks with the prefix-LM and key-padding
+    masks built per block (plain XLA in the JAX package, so torch ops are
+    its port);
   - `flash_attention` and `vision_attention`: the segment-masked and the
     unmasked entry points of the short-attention kernel
     (ops/short_attention.py), which runs on CUDA and falls to its plain
@@ -20,6 +24,7 @@ NEG_INF = masked, kept finite so a fully masked row stays finite.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .short_attention import short_attention
 
@@ -91,6 +96,90 @@ def vision_attention(q: torch.Tensor, k: torch.Tensor,
     """Unmasked bidirectional attention for the vision tower: the kernel
     on CUDA, its plain version on the CPU."""
     return short_attention(q, k, v)
+
+
+def _key_block(q, kb, vb, valid, start, m, l, acc, prefix_lengths,
+               q_positions, scale):
+    """One key block of `blockwise_attention` (attention.py:241-264):
+    scores, the block's mask, the running max / sum / accumulator."""
+    B, T, Hkv, G, hd = q.shape
+    blk = kb.shape[1]
+    qf = q.permute(0, 2, 3, 1, 4).reshape(B * Hkv, G * T, hd)
+    kt = kb.permute(0, 2, 3, 1).reshape(B * Hkv, hd, blk)
+    s = bmm_f32(qf, kt).view(B, Hkv, G, T, blk) * scale
+    allowed = valid[:, None, :]                         # [B, 1, blk]
+    if prefix_lengths is not None:
+        kv_pos = start + torch.arange(blk, device=q.device)
+        pl = prefix_lengths.to(torch.int32)[:, None, None]
+        allowed = allowed & ((kv_pos[None, None, :] < pl)
+                             | (q_positions[None, :, None] >= pl))
+    else:
+        allowed = allowed.expand(B, T, blk)
+    s = torch.where(allowed[:, None, None], s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(s - m_new[..., None])
+    l = l * alpha + p.sum(dim=-1)
+    vt = vb.permute(0, 2, 1, 3).reshape(B * Hkv, blk, hd)
+    pv = bmm_f32(p.to(vb.dtype).reshape(B * Hkv, G * T, blk), vt)
+    pv = pv.view(B, Hkv, G, T, hd).permute(0, 3, 1, 2, 4)
+    acc = acc * alpha.permute(0, 3, 1, 2)[..., None] + pv
+    return m_new, l, acc
+
+
+def blockwise_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    kv_valid: torch.Tensor | None = None,
+    prefix_lengths: torch.Tensor | None = None,
+    q_positions: torch.Tensor | None = None,
+    scale: float | None = None,
+    kv_block: int = 1024,
+) -> torch.Tensor:
+    """Memory-bounded attention (attention.py:182-270): an online softmax
+    over key blocks of `kv_block` rows, flash attention's algorithm in
+    plain tensor ops.  kv_valid [B, S] bool, prefix_lengths [B] (allowed =
+    kv in the prefix or q in the suffix, over sequence indices),
+    q_positions [T] (default arange).  Shapes as dense_attention; returns
+    [B, T, Hq, hd] in q's dtype.  The masks are built per block and, while
+    autograd records, each block's step is checkpointed, so neither the
+    forward nor the backward holds anything O(T x S): a block's scores
+    are recomputed in the backward from its (max, sum, accumulator)."""
+    B, T, Hq, hd = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    if Hq % Hkv:
+        raise ValueError(f"blockwise_attention: {Hq} q heads over {Hkv}")
+    G = Hq // Hkv
+    if scale is None:
+        scale = 1.0 / hd ** 0.5
+    dev = q.device
+    if q_positions is None:
+        q_positions = torch.arange(T, device=dev)
+    nb = -(-S // kv_block)
+    pad = nb * kv_block - S
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    valid = (torch.ones(B, S, dtype=torch.bool, device=dev)
+             if kv_valid is None else kv_valid.to(torch.bool))
+    if pad:
+        valid = torch.nn.functional.pad(valid, (0, pad))
+    qg = q.reshape(B, T, Hkv, G, hd)
+    m = torch.full((B, Hkv, G, T), NEG_INF, device=dev)
+    l = torch.zeros(B, Hkv, G, T, device=dev)
+    acc = torch.zeros(B, T, Hkv, G, hd, device=dev)
+    record = torch.is_grad_enabled()
+    for i in range(nb):
+        lo = i * kv_block
+        args = (qg, k[:, lo:lo + kv_block], v[:, lo:lo + kv_block],
+                valid[:, lo:lo + kv_block], lo, m, l, acc, prefix_lengths,
+                q_positions, scale)
+        m, l, acc = (checkpoint(_key_block, *args, use_reentrant=False)
+                     if record else _key_block(*args))
+    out = acc / l.clamp(min=1e-30).permute(0, 3, 1, 2)[..., None]
+    return out.reshape(B, T, Hq, hd).to(q.dtype)
 
 
 def make_bias(

@@ -145,7 +145,7 @@ def diffusion_loss(
         record = torch.is_grad_enabled()
         nll_sum = hits = 0
         for i in range(0, Lp, c):
-            args = (hidden[:, i:i + c], lm.ff_out.weight, tgt_p[:, i:i + c],
+            args = (hidden[:, i:i + c], lm.head_weight, tgt_p[:, i:i + c],
                     sup_p[:, i:i + c])
             n, h = (checkpoint(_head_chunk, *args, use_reentrant=False)
                     if record else _head_chunk(*args))

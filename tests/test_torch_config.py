@@ -228,3 +228,25 @@ def test_checkpoint_and_text_path_runs_without_the_optional_packages(
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.split() == ["49", "32"]
     assert not (tmp_path / "ckpt").exists()
+
+
+TRAINING_CLI = (
+    "train/cli.py", "train/__main__.py", "utils/__init__.py",
+    "utils/checkpoint.py", "utils/logging.py", "utils/profiling.py",
+    "data/preprocess.py", "data/dataset.py", "data/native.py",
+    "tools/make_synthetic_data.py")
+
+
+def test_import_scans_cover_the_training_cli_slice():
+    """The scans above walk the training CLI's modules too."""
+    files = {f.relative_to(REPO / "lavida_mod_tpu_torch").as_posix()
+             for f in (REPO / "lavida_mod_tpu_torch").rglob("*.py")}
+    assert set(TRAINING_CLI) <= files
+    import pkgutil
+
+    import lavida_mod_tpu_torch as p
+    names = {m.name for m in pkgutil.walk_packages(
+        p.__path__, "lavida_mod_tpu_torch.")}
+    assert {"lavida_mod_tpu_torch." + f[:-3].replace("/", ".")
+            for f in TRAINING_CLI
+            if not f.endswith("__init__.py")} <= names

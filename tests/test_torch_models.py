@@ -245,7 +245,7 @@ def test_convert_raises_on_unmapped_leaves(leaf):
 
 
 @pytest.mark.parametrize("kw", [dict(block_type="sequential"),
-                                dict(weight_tying=True),
+                                dict(input_emb_norm=True),
                                 dict(attention_layer_norm=True)])
 def test_unsupported_llada_configs_raise(kw):
     with pytest.raises(NotImplementedError):
