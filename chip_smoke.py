@@ -235,10 +235,35 @@ exits non-zero and never prints the final line:
  16. a tiny mixed LaViDa-Dream (widths multiples of 512: the fused plan
      with the bias, a 1000-row head padded to 1024) on the card against the
      same weights on the CPU: decode logits and the tokens.
+SHIRG (models/shirg.py, train/lora.py, train_shirg_lora.py), in the phases
+above: phase 3 also times #1 at SHIRG's [2, 1024, 16, 72] in bf16 beside
+SDPA, and #1's f32 instance (FFMA) at the harness tower's [4, 1024, 16,
+72] and a ragged GQA shape with rows that see no key, within 2e-5 of its
+plain version, beside SDPA in f32, its bound at the f32 rate of 67
+TFLOP/s; after phase 4, its bf16 8B model serves a seeded 1024 x 768
+image through process_shirg_2view and shirg_encode (`base`, then `full`
+with the similarity merge) into LaViDa.generate(image_features=...):
+a [980, 4096] block, no mask left, 26 + 32 #1 launches and nothing else
+per request, the encode split into tower / scores + top-k / merge; after
+phase 5, bench.py --shirg's composition on the mixed model
+(shirg_encode, splice_embeddings, generate_cached_fused with its own
+control table): phase 5's #3 and #5-#7 launches, no #2, and with the
+fused ViT MLP 26 launches of #9; after phase 6, a tiny SHIRG encode in
+f32 (#1's f32 instance) and a tiny SHIRG-LoRA microstep on the card
+against the CPU; after 13b, the SHIRG-LoRA harness
+(train_shirg_lora.main) at full LaViDa-LLaDA-8B in f32, B = 2, three
+steps, --warmup-steps 1: finite losses and grad norms, 26 #1 (f32)
+launches per step, the active SigLIP factors moved, every frozen leaf
+bit-unchanged, the inert factors (SigLIP's gated ones and the projector's,
+which the projector never reads) with B still zero and A decayed by
+weight decay alone, the adapter save reloaded bit-equal, the step walls
+and the peak beside the reckoned one and the card's memory.
 Then the card's name and power limit, one JSON line of per-kernel results
 (each entry with `launches_dream_path`, and `dream_path`, its sums at the
 Dream shapes, where phase 14 measured it; #1, #2 and #10 with
-`launches_train_cli`, T1's), and as the last line
+`launches_train_cli`, T1's; the SHIRG paths' launches; #1's f32 instance
+as `short_attention_f32`, its launches the harness run's), and as the
+last line
 {"ok": true, "device": {...}}.
 """
 
@@ -264,8 +289,9 @@ LLADA_LINEARS = 7    # q, k, v, attn_out, ff_proj, up_proj, ff_out
 # cases (by M), as its first design (mma.sync on a cp.async ring) read it
 # on an NVIDIA H100 80GB HBM3
 VIT_FIRST_DESIGN_ERR = {3645: 3.125e-2, 14580: 3.125e-2, 77: 3.906e-3}
-# H100 SXM published peaks (dense): HBM bytes/s, bf16 flop/s, int8 op/s
-HBM_BPS, BF16_FLOPS, INT8_OPS = 3.35e12, 989e12, 1979e12
+# H100 SXM published peaks (dense): HBM bytes/s, bf16 flop/s, int8 op/s,
+# f32 flop/s outside the tensor cores
+HBM_BPS, BF16_FLOPS, INT8_OPS, F32_FLOPS = 3.35e12, 989e12, 1979e12, 67e12
 
 
 def card_line() -> str:
@@ -275,9 +301,12 @@ def card_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def bound_ms(ops: float, nbytes: float, int8: bool = False):
-    """(least time in ms, "bytes" or "operations") of one launch."""
-    t_ops = ops / (INT8_OPS if int8 else BF16_FLOPS) * 1e3
+def bound_ms(ops: float, nbytes: float, int8: bool = False,
+             f32: bool = False):
+    """(least time in ms, "bytes" or "operations") of one launch; `f32`:
+    operations at the f32 rate outside the tensor cores."""
+    t_ops = ops / (INT8_OPS if int8 else F32_FLOPS if f32
+                   else BF16_FLOPS) * 1e3
     t_bytes = nbytes / HBM_BPS * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
                                  else "bytes")
@@ -291,7 +320,8 @@ class Results:
         self.k = {}
 
     def add(self, name, shape, per, err, kernel, plain_ms, library_ms, ops,
-            nbytes, int8=False, note="", weight=None, library_b2b=None):
+            nbytes, int8=False, note="", weight=None, library_b2b=None,
+            f32=False):
         """`kernel` calls the kernel's wrapper: timed on the device alone
         (`ms`) and back to back as the host issues it (`ms_back_to_back`,
         the larger of the host's and the card's time per call; the library
@@ -299,7 +329,7 @@ class Results:
         the launches of one main-path run at this shape; the sums weigh
         the shape by `weight` (default `per`)."""
         ms, b2b = cuda_ms(kernel), cuda_ms(kernel, hold=False)
-        b, by = bound_ms(ops, nbytes, int8)
+        b, by = bound_ms(ops, nbytes, int8, f32)
         lib = "none" if library_ms is None else (
             f"{library_ms:.4f} ms (kernel {ms / library_ms:.2f}x its time)")
         print(f"[kernels] {name} {shape}: err {err:.3e}{note}, kernel "
@@ -424,6 +454,9 @@ def phase_kernels(torch, device, res):
         ("g4_hd96", (2, 300, 8, 96), (2, 333, 2, 96), "pad", 0),
         ("late_g4_hd72", (1, 130, 8, 72), (1, 300, 2, 72), "late", 0),
         ("late_g1_hd128", (1, 129, 4, 128), (1, 300, 4, 128), "late", 0),
+        # SHIRG's two 448^2 views (32 x 32 patches), timed beside SDPA but
+        # weighed 0 in the bench request's sums
+        ("shirg_views", (2, 1024, 16, 72), (2, 1024, 16, 72), None, 0),
     ]
     for name, qs, ks, kind, per_request in cases:
         q, k, v = randn(*qs), randn(*ks), randn(*ks)
@@ -444,7 +477,7 @@ def phase_kernels(torch, device, res):
         plain_ms = cuda_ms(
             lambda: short_attention_reference(q, k, v, sq, skv))
         lib_ms = lib_b2b = None
-        if per_request:
+        if per_request or name == "shirg_views":
             # one library call of the same function on the same inputs:
             # SDPA with the segment mask as a boolean attention mask
             mask = None if sq is None else (
@@ -469,6 +502,7 @@ def phase_kernels(torch, device, res):
                 4 * B * H * T * keys * hd,
                 2 * (q.numel() + k.numel() + v.numel() + q.numel()),
                 note=note, library_b2b=lib_b2b)
+    _short_attention_f32(torch, device, res, segments)
 
     ids, views, size = bench_request(48, (640, 640),
                                      np.random.default_rng(0))
@@ -502,6 +536,54 @@ def phase_kernels(torch, device, res):
     res.add("gather_rows", f"splice table{tuple(table.shape)} idx[{T}]", 1,
             0.0, lambda: gather_rows(table, idx[0]), g_plain, g_lib, 0, 2 * T * 4096 * 2 + 8 * T,
             note=f" (exact; kernel alone {g_kernel:.4f} ms)")
+
+
+def _short_attention_f32(torch, device, res, segments):
+    """#1's f32 instance (FFMA, f32 products) against its plain version in
+    f32 (TF32 off) at the SHIRG-LoRA harness's tower shape (B = 2: four
+    448^2 views, 26 launches per step) and a ragged GQA case with rows
+    that see no key; SDPA in f32 as the library call."""
+    import torch.nn.functional as F
+
+    from lavida_mod_tpu_torch.ops.short_attention import (
+        short_attention, short_attention_reference)
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    for name, qs, ks, kind, per_step in (
+            ("shirg_lora_tower", (4, 1024, 16, 72), (4, 1024, 16, 72), None,
+             SIGLIP_LAYERS),
+            ("ragged_pad_gqa", (2, 77, 8, 72), (2, 131, 2, 72), "pad", 0)):
+        q = torch.randn(*qs, device=device, generator=gen)
+        k, v = (torch.randn(*ks, device=device, generator=gen)
+                for _ in range(2))
+        sq, skv = segments(kind, qs[0], qs[1], ks[1])
+        out = short_attention(q, k, v, sq, skv)
+        torch.cuda.synchronize()
+        ref = short_attention_reference(q, k, v, sq, skv)
+        # f32 products in another order than the plain version's matmuls:
+        # the JAX f32 tolerance of the kernel tests
+        torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+        err = (out - ref).abs().max().item()
+        plain_ms = cuda_ms(lambda: short_attention_reference(q, k, v, sq,
+                                                             skv))
+        mask = None if sq is None else (sq[:, None, :, None]
+                                        == skv[:, None, None, :])
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        G = qs[2] // ks[2]
+        if G > 1:
+            kt, vt = (t.repeat_interleave(G, 1) for t in (kt, vt))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+        lib_ms = cuda_ms(sdpa)
+        B, T, H, hd = qs
+        keys = ks[1] if skv is None else int(skv[0].sum())
+        res.add("short_attention_f32", f"{name} q{qs} kv{ks} f32", per_step,
+                err, lambda: short_attention(q, k, v, sq, skv), plain_ms,
+                lib_ms, 4 * B * H * T * keys * hd,
+                4 * (q.numel() + k.numel() + v.numel() + q.numel()),
+                note=" (limit 2e-5 + 2e-5 |o|)", f32=True)
 
 
 def bench_requests(rng):
@@ -1452,7 +1534,8 @@ def _batch_ops():
             "kv8_decode_attention": tk.kv8_decode_attention,
             "kv8_decode_attention_int4": _RegimeCount(
                 tk.kv8_decode_attention, "int4"),
-            "fused_vit_mlp": tv.fused_vit_mlp}
+            "fused_vit_mlp": tv.fused_vit_mlp,
+            "short_attention_f32": _RegimeCount(short_attention, "f32")}
 
 
 def _want_batch(B, kv8, chunk):
@@ -3575,6 +3658,339 @@ def phase_small_dream(torch, device):
     if b.shape != (32,) or (b < 0).any() or (b >= 1000).any():
         raise AssertionError(f"tiny Dream output {b}")
 
+# ---------------------------------------------------------------------------
+# SHIRG: served at full LaViDa-LLaDA-8B, and its Extra-LoRA harness
+# ---------------------------------------------------------------------------
+
+SHIRG_SIZE = (1024, 768)
+SHIRG_MERGE = {"merge_similar": True, "merge_threshold": 0.9}
+
+
+def shirg_request(rng):
+    """(ids, [2, 3, 448, 448] views, image size) of a SHIRG request: a
+    seeded 1024 x 768 image through process_shirg_2view, the bench
+    protocol's prompt (the image marker after 8 of 48 text tokens)."""
+    from PIL import Image
+
+    from lavida_mod_tpu_torch.data import SigLIPImageProcessor
+    from lavida_mod_tpu_torch.models.shirg import process_shirg_2view
+
+    w, h = SHIRG_SIZE
+    img = Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+    views = process_shirg_2view(img, SigLIPImageProcessor(size=384))
+    text = rng.integers(3, 30000, size=48)
+    return np.concatenate([text[:8], [-200], text[8:]]), views, img.size
+
+
+def _shirg_splits(t):
+    return (f"tower {t['tower_s'] * 1e3:.1f} ms, scores + top-k "
+            f"{t['select_s'] * 1e3:.1f} ms, merge {t['merge_s'] * 1e3:.1f} ms")
+
+
+def phase_shirg_bf16(torch, model, card):
+    """Phase 4's bf16 model serves two SHIRG requests: `base`, then `full`
+    with the similarity merge, each shirg_encode (timed in its tower /
+    scores + top-k / merge parts) then LaViDa.generate(image_features=...)
+    at gen 32, 16 steps."""
+    from lavida_mod_tpu_torch.config import GenerationConfig
+    from lavida_mod_tpu_torch.models.shirg import shirg_encode
+
+    gen = GenerationConfig(**GEN)
+    ids, views, size = shirg_request(np.random.default_rng(20))
+    mask_id = model.cfg.llada.mask_token_id
+
+    def serve(method, sp, timings):
+        block = shirg_encode(model, views, method=method,
+                             selection_params=sp, timings=timings)
+        if block.shape != (980, model.cfg.llada.d_model) \
+                or block.dtype != torch.bfloat16:
+            raise AssertionError(f"SHIRG block {tuple(block.shape)} "
+                                 f"{block.dtype}")
+        return model.generate(ids, gen=gen, image_features=[block])
+
+    serve("base", None, None)                                # warm-up
+    shirg_encode(model, views, method="full", selection_params=SHIRG_MERGE)
+    want = _want(short_attention=SIGLIP_LAYERS + LLADA_LAYERS)
+    out = {}
+    for method, sp in (("base", None), ("full", SHIRG_MERGE)):
+        t = {}
+        toks, wall, peak, got = _counted(torch, lambda: serve(method, sp, t))
+        tag = method + (" + merge" if sp else "")
+        print(f"[shirg] bf16 8B, {tag}: image {size} -> 2 views of 448^2 -> "
+              f"980 tokens, P = {len(ids) - 1 + 980}, G = 32: wall "
+              f"{wall * 1e3:.1f} ms (encode: {_shirg_splits(t)}), peak "
+              f"{peak:.2f} GiB, launches {got} ({card}); tokens "
+              f"{toks.tolist()}")
+        _check(f"shirg bf16 {tag}", got, want, toks, mask_id=mask_id)
+        out[tag] = (got, wall, peak, t)
+    return out
+
+
+def phase_shirg_mixed(torch, model, card):
+    """bench.py --shirg's composition (bench.py:399-430) on phase 5's mixed
+    model: shirg_encode, splice_embeddings, then generate_cached_fused with
+    the request's own control table (the int8 tree prefills through the
+    flash kernel, the fused int4 decode); once more with the fused ViT MLP
+    (#9) in the tower, as bench.py --shirg --fused-vit runs it."""
+    from lavida_mod_tpu_torch.config import GenerationConfig
+    from lavida_mod_tpu_torch.generation.diffusion import (
+        build_control_table, generate_cached_fused)
+    from lavida_mod_tpu_torch.models.multimodal import splice_embeddings
+    from lavida_mod_tpu_torch.models.shirg import shirg_encode
+
+    gen = GenerationConfig(**GEN)
+    ids, views, size = shirg_request(np.random.default_rng(21))
+    cfg, device = model.cfg, model.device
+    G, mask_id = gen.max_new_tokens, cfg.llada.mask_token_id
+    k_table, block_end = build_control_table(
+        np.full((1, G), mask_id, np.int64), 0, G, gen, mask_id)
+    k_table = torch.as_tensor(k_table, device=device)
+    block_end = torch.as_tensor(block_end, device=device)
+
+    def serve(fused_vit, timings=None):
+        with torch.no_grad():
+            block = shirg_encode(model, views, fused_mlp=fused_vit,
+                                 timings=timings)
+            prefix = splice_embeddings(model, ids, [block.to(
+                torch.bfloat16)])[None]
+            x = torch.full((1, G), mask_id, dtype=torch.long, device=device)
+            gen_rng = torch.Generator(device=device).manual_seed(0)
+            out = generate_cached_fused(
+                model.llada, x, prefix, k_table, block_end, None, gen_rng,
+                gen.temperature, gen.remasking, act_int8_prefill=True)
+        return out[0].cpu().numpy()
+
+    base = dict(short_attention=SIGLIP_LAYERS + LLADA_LAYERS,
+                w8a8_matmul=4 * LLADA_LAYERS,
+                w4_qkv_norm=(LLADA_LAYERS + 1) * STEPS,
+                w4_matmul_res=LLADA_LAYERS * STEPS,
+                w4_ffn_fused=LLADA_LAYERS * STEPS)
+    res = {}
+    for fused_vit in (False, True):
+        serve(fused_vit)                                      # warm-up
+        t = {}
+        toks, wall, peak, got = _counted(torch, lambda: serve(fused_vit, t))
+        want = _want(**base, fused_vit_mlp=SIGLIP_LAYERS if fused_vit else 0)
+        tag = "--fused-vit" if fused_vit else "plain tower"
+        print(f"[shirg] mixed 8B (bench.py --shirg, {tag}): image {size}, "
+              f"980 tokens, G = 32: wall {wall * 1e3:.1f} ms (encode: "
+              f"{_shirg_splits(t)}), peak {peak:.2f} GiB, launches {got} "
+              f"({card}); tokens {toks.tolist()}")
+        _check(f"shirg mixed {tag}", got, want, toks, mask_id=mask_id)
+        res[tag] = (got, wall, peak, t)
+    return res
+
+
+def _lora_step_pair(torch, device):
+    """The tiny SHIRG-LoRA microstep in f32 on the CPU and on the card from
+    the same weights, factors and mask: (loss, grad_norm, factors) each."""
+    from lavida_mod_tpu_torch.models.lavida import LaViDa
+    from lavida_mod_tpu_torch.models.shirg import shirg_token_count
+    from lavida_mod_tpu_torch.predict import tiny_config
+    from lavida_mod_tpu_torch.train import lora as tl
+    from lavida_mod_tpu_torch.train.step import init_train_state
+
+    cfg = tiny_config()
+    ref = LaViDa.random_init(cfg, 0, torch.float32, "cpu")
+    tl.add_shirg_lora(ref, 1, rank=8, alpha=16.0)
+    with torch.no_grad():
+        for n, p in ref.named_parameters():     # factors that act
+            if n.endswith("lora_b"):
+                p.normal_(0.0, 0.02, generator=torch.Generator().manual_seed(
+                    len(n)))
+    rng = np.random.default_rng(22)
+    B, T = 2, 16
+    n_img = shirg_token_count(1024)
+    batch = {"pixel_values": torch.from_numpy(rng.standard_normal(
+                 (B, 2, 3, 448, 448)).astype(np.float32)),
+             "text_ids": torch.from_numpy(rng.integers(3, 400, (B, T))),
+             "labels": torch.from_numpy(np.concatenate(
+                 [np.full((B, n_img + 4), -100),
+                  rng.integers(3, 400, (B, T - 4))], axis=1))}
+    mask = torch.from_numpy(rng.random((B, n_img + T)) < 0.5)
+    out = {}
+    for dev in ("cpu", device):
+        import copy
+
+        model = copy.deepcopy(ref).to(dev)
+        opt = tl.make_lora_optimizer(lr=1e-3, weight_decay=0.01,
+                                     warmup_steps=0, total_steps=10)
+        state = init_train_state(model, opt)
+        m = tl.make_shirg_lora_train_step(cfg, opt)(state, batch,
+                                                    masked_indices=mask)
+        out[str(dev)] = (m["loss"].item(), m["grad_norm"].item(),
+                         {k: {n: t.cpu() for n, t in f.items()} for k, f in
+                          tl.split_lora_state(model).items()})
+    return out["cpu"], out[str(device)]
+
+
+def phase_small_shirg(torch, device):
+    """A tiny SHIRG encode in f32 on the card (#1's f32 instance in the
+    tower) against the CPU's plain versions from the same weights, and one
+    tiny SHIRG-LoRA microstep likewise (f32, the same mask)."""
+    from lavida_mod_tpu_torch.models.lavida import LaViDa
+    from lavida_mod_tpu_torch.models.shirg import shirg_encode
+    from lavida_mod_tpu_torch.ops.short_attention import short_attention
+    from lavida_mod_tpu_torch.predict import tiny_config
+
+    cpu = LaViDa.random_init(tiny_config(), 0, torch.float32, "cpu")
+    gpu = LaViDa(tiny_config(), device=device, dtype=torch.float32)
+    gpu.load_state_dict(cpu.state_dict())
+    views = np.random.default_rng(23).standard_normal(
+        (2, 3, 448, 448)).astype(np.float32)
+    f0 = short_attention.f32_launches
+    with torch.no_grad():
+        feats = [m.siglip(torch.from_numpy(views).to(m.device)).cpu()
+                 for m in (cpu, gpu)]
+        blocks = [shirg_encode(m, views, method="full").cpu()
+                  for m in (cpu, gpu)]
+    n_f32 = short_attention.f32_launches - f0
+    rel = ((feats[1] - feats[0]).abs().max() / feats[0].abs().max()).item()
+    diff = (blocks[1] - blocks[0]).abs().amax(dim=-1)
+    swapped = int((diff > 1e-4 * blocks[0].abs().max()).sum())
+    (l0, g0, f_cpu), (l1, g1, f_gpu) = _lora_step_pair(torch, device)
+    worst = max(((f_gpu[k][n] - f_cpu[k][n]).abs().max().item(), k, n)
+                for k in f_cpu for n in ("lora_a", "lora_b"))
+    print(f"[check] tiny SHIRG in f32, card (#1 f32 instance, {n_f32} "
+          f"launches) vs CPU: tower max|diff|/max|ref| {rel:.3e} (limit "
+          f"1e-4), 980-token blocks differ beyond 1e-4 of max in {swapped} "
+          f"rows (limit 8: near-tie swaps of the selection); tiny SHIRG-LoRA "
+          f"microstep: loss {l1:.6f} vs {l0:.6f} (limit 1e-4 relative), "
+          f"grad_norm {g1:.6f} vs {g0:.6f} (limit 1e-3 relative), factors "
+          f"max|diff| {worst[0]:.3e} at {worst[1]}/{worst[2]} (limit 2 lr)")
+    if n_f32 != 2 * len(gpu.siglip.layers) or not rel < 1e-4 \
+            or swapped > 8:
+        raise AssertionError("the tiny SHIRG encode differs on the card")
+    if not abs(l1 - l0) < 1e-4 * abs(l0) or not abs(g1 - g0) < 1e-3 * g0 \
+            or not worst[0] <= 2.002e-3:
+        raise AssertionError("the tiny SHIRG-LoRA step differs on the card")
+
+
+def _bit_sums(torch, tensors):
+    """Per tensor: the int64 sum of its bit patterns and of a strided
+    subset of them (no f64 copy of 34 GB of weights)."""
+    out = []
+    with torch.no_grad():
+        for t in tensors:
+            flat = t.detach().reshape(-1)
+            bits = flat.view(torch.int32 if flat.element_size() == 4
+                             else torch.int16)
+            out.append(torch.stack([bits.sum(dtype=torch.int64),
+                                    bits[::97].sum(dtype=torch.int64)]))
+    return torch.stack(out).cpu()
+
+
+SHIRG_LORA_STEPS = 3
+
+
+def phase_shirg_lora_harness(torch, device, card):
+    """The SHIRG-LoRA harness (train_shirg_lora.py) at full
+    LaViDa-LLaDA-8B in f32, as the JAX script runs it: B = 2, three steps
+    on synthetic records, --warmup-steps 1 (the first update's lr is 0),
+    the adapter save at the end."""
+    from lavida_mod_tpu_torch import train_shirg_lora as h
+    from lavida_mod_tpu_torch.ops.short_attention import short_attention
+    from lavida_mod_tpu_torch.tools.make_synthetic_data import make
+    from lavida_mod_tpu_torch.train import lora as tl
+
+    data = make(os.path.join(TRAIN_ROOT, "shirg_data"), n=8, size=768)
+    out_dir = os.path.join(TRAIN_ROOT, "shirg_lora")
+    before = {}
+
+    def snapshot(model):
+        before["frozen"] = _bit_sums(torch, [
+            p for n, p in model.named_parameters()
+            if not n.endswith((".lora_a", ".lora_b"))])
+        before["factors"] = {k: {n: t.clone() for n, t in f.items()}
+                             for k, f in tl.split_lora_state(model).items()}
+        ops = _batch_ops()
+        for op in ops.values():           # the counts of the run alone
+            op.launches = 0
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run = h.main(["--data-path", data, "--image-folder",
+                  os.path.join(TRAIN_ROOT, "shirg_data", "images"),
+                  "--output-dir", out_dir, "--steps", str(SHIRG_LORA_STEPS),
+                  "--batch-size", "2", "--warmup-steps", "1",
+                  "--save-every", str(SHIRG_LORA_STEPS), "--device",
+                  str(device)], on_ready=snapshot)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: op.launches for k, op in _batch_ops().items()}
+    per_step = _want(short_attention=SIGLIP_LAYERS,
+                     short_attention_f32=SIGLIP_LAYERS)
+    want = {k: SHIRG_LORA_STEPS * n for k, n in per_step.items()}
+    if counts != want:
+        raise AssertionError(f"harness launches {counts}, want {want}")
+    model, opt = run["state"].model, run["optimizer"]
+    losses, norms = run["losses"], run["grad_norms"]
+    if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
+        raise AssertionError(f"losses {losses}, grad norms {norms}")
+    # the targeted SigLIP factors moved, every frozen leaf is
+    # bit-unchanged, the inert factors (SigLIP q / k past block 5, v past
+    # block 3, and the projector's, which JAX's projector never reads)
+    # kept B at zero and decayed A by (1 - lr_t wd) per update, and the
+    # adapter save reloads bit-equal through load_lora_state
+    frozen = [p for n, p in model.named_parameters()
+              if not n.endswith((".lora_a", ".lora_b"))]
+    if not torch.equal(_bit_sums(torch, frozen), before["frozen"]):
+        raise AssertionError("a frozen leaf moved")
+    factors_before = before["factors"]
+    after = tl.split_lora_state(model)
+    wd, count = 0.01, run["state"].opt_state["groups"]["lora"]["count"]
+    moved = inert = 0
+    for k, f in after.items():
+        a0 = factors_before[k]["lora_a"]
+        scale = f["lora_scale"].reshape(-1)
+        active = (scale != 0) & torch.tensor(k.startswith("siglip"))
+        for i in range(scale.numel()):
+            a = f["lora_a"].reshape(-1, *a0.shape[-2:])[i]
+            b = f["lora_b"].reshape(-1, *f["lora_b"].shape[-2:])[i]
+            ai = a0.reshape(-1, *a0.shape[-2:])[i].to(a.device)
+            if active[i]:
+                if not b.any() or torch.equal(a, ai):
+                    raise AssertionError(f"{k}[{i}] did not move")
+                moved += 1
+                continue
+            want = ai
+            for c in range(count):
+                lr_t = float(np.float32(opt.groups["lora"].lr(c)))
+                want = want + (-lr_t) * (wd * want)
+            if b.any() or not torch.allclose(a, want, rtol=1e-6, atol=0):
+                raise AssertionError(f"inert {k}[{i}] moved otherwise")
+            inert += 1
+    saved = h.load_adapters(run["saved"][-1])
+    with torch.no_grad():
+        for _, m in tl.iter_linears(model):
+            if getattr(m, "lora_a", None) is not None:
+                m.lora_a.zero_()
+                m.lora_b.zero_()
+    tl.load_lora_state(model, saved)
+    again = tl.split_lora_state(model)
+    if any(not torch.equal(again[k][n], after[k][n])
+           for k in after for n in after[k]):
+        raise AssertionError("the adapter save does not reload bit-equal")
+    plan = run["peak_plan"]
+    peak = max(run["peaks"])
+    total = torch.cuda.get_device_properties(0).total_memory
+    walls = [round(w, 3) for w in run["walls"]]
+    print(f"[shirg_lora] harness at full LaViDa-LLaDA-8B in f32 "
+          f"({run['n_lora'] / 1e6:.2f} M LoRA params, rank 64, B = 2, "
+          f"{SHIRG_LORA_STEPS} steps, warmup 1): losses "
+          f"{[round(x, 4) for x in run['losses']]}, grad norms "
+          f"{[round(x, 4) for x in run['grad_norms']]}, step walls {walls} "
+          f"s, whole run {wall:.1f} s (model init {run['init_s']:.1f} s), "
+          f"peak {peak / 1e9:.2f} GB (reckoned {plan['total'] / 1e9:.2f} GB; "
+          f"card {total / 1e9:.2f} GB); {moved} active factor pairs moved, "
+          f"{inert} inert pairs kept B = 0 and decayed A as weight decay "
+          f"says, frozen leaves bit-unchanged, adapters reloaded bit-equal "
+          f"({card})")
+    if peak >= total:
+        raise AssertionError(f"peak {peak} over the card's {total}")
+    return {"walls": run["walls"], "peak": peak, "plan": plan["total"],
+            "wall": wall, "losses": run["losses"], "counts": counts}
+
 
 def main() -> None:
     import torch
@@ -3612,20 +4028,25 @@ def main() -> None:
     res.summary("short_attention", "one mixed request (26 SigLIP + 32 "
                 "prefill launches)", card)
     res.summary("w8a8_matmul", "one mixed request (128 launches)", card)
+    res.summary("short_attention_f32", "one SHIRG-LoRA harness step (26 "
+                "launches in the tower's forward)", card)
     prefix_flash_summary(res, card)
     torch.cuda.empty_cache()
     model, requests, counts, walls = phase_main_path(torch, device, card)
     br16 = phase_branches_bf16(torch, model, requests, card)
+    shirg16 = phase_shirg_bf16(torch, model, card)
     mixed_counts, mixed_walls, peaks, fused_layer_ms = phase_mixed_path(
         torch, model, requests, card)
     kv4_counts, kv4_wall, kv4_peak = phase_kv4_request(torch, model,
                                                        requests, card)
     loglik = phase_loglik(torch, model, card)
+    shirg_mx = phase_shirg_mixed(torch, model, card)
     del model
     torch.cuda.empty_cache()
     phase_small_reference(torch, device)
     phase_small_mixed(torch, device)
     phase_small_branches(torch, device)
+    phase_small_shirg(torch, device)
     torch.cuda.empty_cache()
     ckpt_counts, ckpt = phase_checkpoint(torch, device, card)
     torch.cuda.empty_cache()
@@ -3654,6 +4075,8 @@ def main() -> None:
         t2 = phase_train_cli_457m(torch, device, card)
         ladder = phase_remat_ladder(torch, device, card)
         phase_tokenizer_gap(card)
+        torch.cuda.empty_cache()
+        shirg_lora = phase_shirg_lora_harness(torch, device, card)
     finally:
         shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -3686,6 +4109,10 @@ def main() -> None:
                 "launches": launches, **res.get(name), **extra}
 
     b4, b4k, b8 = (batch_counts[k] for k in ("b4", "b4_kv8", "b8_chunked"))
+    sh16 = {k: sum(c[0][k] for c in shirg16.values())
+            for k in shirg16["base"][0]}
+    shmx, shfv = shirg_mx["plain tower"][0], shirg_mx["--fused-vit"][0]
+    shl = shirg_lora["counts"]
     nc16, vb = br16["nocache"][0], br16["verbose"][0]
     nc4, d32, d256, c256 = (br4[k][0] for k in ("nocache", "dllm32",
                                                  "dllm256", "cached256"))
@@ -3704,7 +4131,13 @@ def main() -> None:
               launches_fim=fim_counts["short_attention"],
               launches_loglik=ll_w["short_attention"],
               launches_loglik_act_int8=ll_a["short_attention"],
-              launches_train_cli=cli_counts["short_attention"]),
+              launches_train_cli=cli_counts["short_attention"],
+              launches_shirg_bf16=sh16["short_attention"],
+              launches_shirg_mixed=shmx["short_attention"],
+              launches_shirg_lora=shl["short_attention"]),
+        entry("short_attention_f32", "short_attention.cu",
+              "short_attention.py:78", shl["short_attention_f32"],
+              launches_per_harness_step=SIGLIP_LAYERS),
         entry("gather_rows", "gather_rows.cu", "pallas_gather.py:26",
               counts["gather_rows"],
               launches_mixed_path=mixed_counts["gather_rows"],
@@ -3715,19 +4148,23 @@ def main() -> None:
               launches_checkpoint_path=ckpt_counts["w8a8_matmul"],
               launches_server_b4=server_counts["batch4"]["w8a8_matmul"],
               launches_loglik=ll_w["w8a8_matmul"],
-              launches_loglik_act_int8=ll_a["w8a8_matmul"]),
+              launches_loglik_act_int8=ll_a["w8a8_matmul"],
+              launches_shirg_mixed=shmx["w8a8_matmul"]),
         entry("w4_qkv_norm", "w4_fused.cu", "w4_fused.py:80",
               mixed_counts["w4_qkv_norm"],
               launches_batch_b4=b4["w4_qkv_norm"],
               launches_checkpoint_path=ckpt_counts["w4_qkv_norm"],
               launches_dllm_gen32=d32["w4_qkv_norm"],
-              launches_dllm_gen256=d256["w4_qkv_norm"]),
+              launches_dllm_gen256=d256["w4_qkv_norm"],
+              launches_shirg_mixed=shmx["w4_qkv_norm"]),
         entry("w4_matmul_res", "w4_fused.cu", "w4_fused.py:250",
               mixed_counts["w4_matmul_res"],
-              launches_checkpoint_path=ckpt_counts["w4_matmul_res"]),
+              launches_checkpoint_path=ckpt_counts["w4_matmul_res"],
+              launches_shirg_mixed=shmx["w4_matmul_res"]),
         entry("w4_ffn_fused", "w4_fused.cu", "w4_fused.py:322",
               mixed_counts["w4_ffn_fused"],
-              launches_checkpoint_path=ckpt_counts["w4_ffn_fused"]),
+              launches_checkpoint_path=ckpt_counts["w4_ffn_fused"],
+              launches_shirg_mixed=shmx["w4_ffn_fused"]),
         entry("w4_matmul_grouped_decode", "w4_grouped.cu",
               "pallas_w4.py:129", b4["w4_matmul_grouped_decode"],
               launches_batch_b8=b8["w4_matmul_grouped_decode"],
@@ -3756,7 +4193,8 @@ def main() -> None:
               b4["fused_vit_mlp"], launches_batch_b8=b8["fused_vit_mlp"],
               launches_server_b4=server_counts["batch4"]["fused_vit_mlp"],
               launches_nocache_int4=nc4["fused_vit_mlp"],
-              launches_loglik=ll_w["fused_vit_mlp"]),
+              launches_loglik=ll_w["fused_vit_mlp"],
+              launches_shirg_mixed_fused_vit=shfv["fused_vit_mlp"]),
         entry("prefix_flash_fwd", "prefix_flash.cu", "prefix_flash.py:53",
               train_counts["prefix_flash_fwd"],
               launches_train_cli=cli_counts["prefix_flash_fwd"]),
@@ -3845,6 +4283,17 @@ def main() -> None:
           f"geometry) weight-only {loglik[False][1] * 1e3:.1f} / "
           f"{loglik[False][2]:.2f}, act_int8 {loglik[True][1] * 1e3:.1f} / "
           f"{loglik[True][2]:.2f}; "
+          f"SHIRG (one request each, wall ms / peak GiB): bf16 base "
+          f"{shirg16['base'][1] * 1e3:.1f} / {shirg16['base'][2]:.2f}, bf16 "
+          f"full + merge {shirg16['full + merge'][1] * 1e3:.1f} / "
+          f"{shirg16['full + merge'][2]:.2f}, mixed "
+          f"{shirg_mx['plain tower'][1] * 1e3:.1f} / "
+          f"{shirg_mx['plain tower'][2]:.2f}, mixed --fused-vit "
+          f"{shirg_mx['--fused-vit'][1] * 1e3:.1f} / "
+          f"{shirg_mx['--fused-vit'][2]:.2f}; SHIRG-LoRA harness (8B f32, "
+          f"B = 2) step walls {[round(w, 3) for w in shirg_lora['walls']]} "
+          f"s, peak {shirg_lora['peak'] / 1e9:.2f} GB (reckoned "
+          f"{shirg_lora['plan'] / 1e9:.2f} GB); "
           f"whole script {time.perf_counter() - t_start:.1f} s on {card}")
     print(card)
     print(json.dumps({"kernels": entries}))

@@ -26,9 +26,15 @@ one) maps to `.bias` in every tree.  LaViDa-Dream's LM is a tree of the
 same names (`convert_dream_state_dict`, models/dream.py), so it converts
 as LLaDA's does.
 
+LoRA factors (train/lora.py) carry across with their linear: `lora_a`
+[in, r] and `lora_b` [r, out] keep the JAX orientation (the port's forward
+computes (x @ A) @ B as JAX does) and `lora_scale` becomes a 0-d entry,
+one per layer of a stacked tree.  A linear with only some of the three, or
+factors whose shapes do not chain [in, r] -> [r, out] over the linear's
+widths, raises and names the leaf.
+
 Every other leaf is mapped or the conversion raises: a quantized leaf
-outside the LM, a LoRA factor or any unknown name is an error, never
-dropped.
+outside the LM or any unknown name is an error, never dropped.
 
 Training: the JAX package's f32 tree (`multimodal.init_params` after
 `cast_floating(f32)`) becomes the compute model through `LaViDa.from_jax`
@@ -99,20 +105,32 @@ def _unmapped(path) -> Exception:
         why = "a quantized leaf outside the LM's linears (only they are"
         why += " quantized in the port)"
     elif isinstance(leaf, str) and leaf.startswith("lora_"):
-        why = "a LoRA factor: merge it into the kernel first"
+        why = "a LoRA factor outside the linears that carry one"
     else:
         why = "no counterpart in the port"
     return ValueError(f"cannot convert params leaf {'/'.join(map(str, path))}"
                       f": {why}")
 
 
+LORA_LEAVES = ("lora_a", "lora_b", "lora_scale")
+
+
 def _linear_leaf(name, leaf, arr, path, out, quantized=False):
-    """A linear's kernel (transposed to .weight) or bias; with `quantized`
-    also its int8 or int4 leaves."""
+    """A linear's kernel (transposed to .weight), bias or LoRA factor;
+    with `quantized` also its int8 or int4 leaves."""
     if leaf == "kernel":
         out[f"{name}.weight"] = _linear_weight(arr)
     elif leaf == "bias":
         out[f"{name}.bias"] = _tensor(arr)
+    elif leaf in LORA_LEAVES:
+        t = _tensor(arr)
+        if not t.is_floating_point():
+            raise ValueError(f"cannot convert params leaf "
+                             f"{'/'.join(map(str, path))}: a LoRA factor "
+                             f"of {t.dtype}")
+        out[f"{name}.{leaf}"] = t
+        out.setdefault(_LORA_PATHS, {})[name] = "/".join(
+            map(str, path[:-1]))
     elif quantized and leaf == "kernel_q":
         out[f"{name}.weight_q"] = _linear_weight(arr)
     elif quantized and leaf == "scale":
@@ -139,11 +157,48 @@ def _layer_leaf(prefix, layer, mod, leaf, arr, linears, norms, path, out,
         raise _unmapped(path)
 
 
+_LORA_PATHS = "__lora_paths__"
+
+
+def _in_out(out: dict, name: str):
+    """The (in, out) widths of the converted linear `name`, or None."""
+    for leaf in ("weight", "weight_q"):
+        w = out.get(f"{name}.{leaf}")
+        if w is not None:
+            return w.shape[1], w.shape[0]
+    return None
+
+
+def _check_lora(out: dict) -> None:
+    """Every linear with a LoRA leaf has all three, chained [in, r] ->
+    [r, out] over its widths, and a 0-d scale; raises naming the leaf."""
+    for name, jpath in out.pop(_LORA_PATHS, {}).items():
+        got = {leaf: out.get(f"{name}.{leaf}") for leaf in LORA_LEAVES}
+        missing = [leaf for leaf, t in got.items() if t is None]
+        a, b, scale = (got[leaf] for leaf in LORA_LEAVES)
+        io = _in_out(out, name)
+        if missing:
+            why = f"no {'/'.join(missing)} beside it"
+        elif a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+            why = (f"factors a {tuple(a.shape)}, b {tuple(b.shape)} do "
+                   f"not chain")
+        elif io is not None and (a.shape[0], b.shape[1]) != io:
+            why = (f"factors [{a.shape[0]} -> {b.shape[1]}] on a linear "
+                   f"[{io[0]} -> {io[1]}]")
+        elif scale.dim() != 0:
+            why = f"a lora_scale of shape {tuple(scale.shape)}"
+        else:
+            continue
+        leaf = next(leaf for leaf in LORA_LEAVES if got[leaf] is not None)
+        raise ValueError(f"cannot convert params leaf {jpath}/{leaf}: a "
+                         f"malformed LoRA linear ({why})")
+
+
 def state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
     """JAX LaViDa params (numpy leaves) -> `LaViDa` state dict (CPU
     tensors in the leaves' dtype)."""
     _check_linear_kinds(params)
-    out: dict[str, torch.Tensor] = {}
+    out: dict = {}
     for path, arr in _flatten(params):
         top, n = path[0], len(path)
         if path == ("image_newline",):
@@ -177,6 +232,7 @@ def state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
                          out)
         else:
             raise _unmapped(path)
+    _check_lora(out)
     return out
 
 

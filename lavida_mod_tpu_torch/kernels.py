@@ -146,6 +146,9 @@ def library() -> ctypes.CDLL:
     lib.lavida_short_attention_bf16.argtypes = [
         vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, cf, vp]
     lib.lavida_short_attention_bf16.restype = ci
+    lib.lavida_short_attention_f32.argtypes = [
+        vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, cf, vp]
+    lib.lavida_short_attention_f32.restype = ci
     lib.lavida_gather_rows.argtypes = [vp, vp, ci, vp, cl, cl, vp]
     lib.lavida_gather_rows.restype = ci
     lib.lavida_w8a8_matmul.argtypes = [vp] * 6 + [ci, ci, ci, vp]

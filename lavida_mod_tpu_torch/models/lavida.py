@@ -19,7 +19,8 @@ image-newline vector, with the entry points:
     int8 tree with A8 activations (lavida.py:594-595);
   - `encode_prompt(...)` and `generate(...)`: the multi-dispatch path
     (lavida.py:430-531) the batched adapter runs, one image encode per
-    image and the splice by concatenation, then `diffusion.generate`
+    image (or the given `image_features` blocks, SHIRG's) and the splice
+    by concatenation, then `diffusion.generate`
     with optional front-padding to a bucket and the int8 KV cache, or,
     with a `DreamGenerationConfig`, the Dream sampler
     (`dream_sampler.dream_generate`, lavida.py:500-512) with its hooks.
@@ -75,6 +76,7 @@ from ..config import (DreamGenerationConfig, GenerationConfig, LaViDaConfig,
 from ..generation import diffusion
 from ..generation.diffusion import build_control_table, generate_cached_fused
 from ..generation.dream_sampler import dream_generate
+from ..ops.quant import attach_lora
 from . import dream, llada_loader, multimodal, projector, siglip
 from .llada import LLaDA, RMSNorm
 from .projector import Projector
@@ -364,8 +366,9 @@ class LaViDa(nn.Module):
         """The model with the JAX package's params (a pytree of numpy
         arrays, LLaDA blocks stacked or unstacked, linears plain, int8 or
         int4) on `device`, its float parameters in the params' dtype unless
-        `dtype` is given.  `prefill_params`: the JAX model's int8 prefill
-        tree of the mixed layout (`LaViDa.prefill_params`).  `cfg` is the
+        `dtype` is given.  LoRA factors in `params` go onto their linears
+        (ops/quant.attach_lora).  `prefill_params`: the JAX model's int8
+        prefill tree of the mixed layout (`LaViDa.prefill_params`).  `cfg` is the
         JAX model's config after `to_serving_layout` (the sequential
         block layout when it fused), the JAX dataclass or the port's."""
         from ..convert import prefill_state_from_jax, state_dict_from_jax
@@ -386,6 +389,10 @@ class LaViDa(nn.Module):
             if model.get_submodule(name).out_features != n:
                 raise ValueError(f"{name}: __trim_{n}__ disagrees with the "
                                  f"config")
+        for k in [k for k in state if k.endswith(".lora_a")]:
+            name = k[:-len(".lora_a")]
+            attach_lora(model.get_submodule(name), state[k],
+                        state[f"{name}.lora_b"], state[f"{name}.lora_scale"])
         model.load_state_dict(state, strict=True, assign=True)
         model.to(device=device)
         if dtype is not None:
@@ -472,15 +479,18 @@ class LaViDa(nn.Module):
     @torch.no_grad()
     def encode_prompt(self, input_ids: np.ndarray,
                       images: Sequence[np.ndarray] = (),
-                      image_sizes: Sequence[tuple[int, int]] = ()
+                      image_sizes: Sequence[tuple[int, int]] = (),
+                      image_features: Optional[Sequence[torch.Tensor]] = None
                       ) -> torch.Tensor:
         """One sample: ids with -200 markers and per-image view stacks ->
         spliced prefix embeddings [1, P, D] (lavida.py:430-452), one
-        vision encode per image."""
+        vision encode per image; `image_features` supplies the blocks
+        [n_i, D] instead (SHIRG's 980-token selection, models/shirg.py)."""
         device = self.device
-        feats = [multimodal.encode_image(
-            self, torch.as_tensor(np.asarray(v), device=device), size,
-            fused_mlp=self._vision_fused_mlp())
+        feats = list(image_features) if image_features is not None else [
+            multimodal.encode_image(
+                self, torch.as_tensor(np.asarray(v), device=device), size,
+                fused_mlp=self._vision_fused_mlp())
             for v, size in zip(images, image_sizes)]
         embeds = multimodal.splice_embeddings(self, input_ids, feats)
         if self.cfg.tokenizer_model_max_length:
@@ -500,8 +510,11 @@ class LaViDa(nn.Module):
         tokens_hook=None,
         logits_hook=None,
         draft_tokens=None,
+        image_features: Optional[Sequence[torch.Tensor]] = None,
     ) -> np.ndarray:
-        """One sample through `encode_prompt` and `diffusion.generate`
+        """One sample through `encode_prompt` (with `image_features`, the
+        given blocks in place of the encodes: `predict --shirg`) and
+        `diffusion.generate`
         (lavida.py:454-531, the LLaDA sampler): the prefix front-padded to
         a multiple of prefix_bucket with the pad rows masked; in the mixed
         layout the int8 tree prefills.  Every branch of `generate` by
@@ -517,7 +530,8 @@ class LaViDa(nn.Module):
         the int8 tree prefills unless a hook is given (the hooked loop
         prefills with the decode linears)."""
         gen = as_port_config(gen) or GenerationConfig()
-        prefix = self.encode_prompt(input_ids, images, image_sizes)
+        prefix = self.encode_prompt(input_ids, images, image_sizes,
+                                    image_features)
         prefix_valid = None
         if prefix_bucket:
             P = prefix.shape[1]

@@ -99,7 +99,8 @@ from ..ops.attention import (blockwise_attention, bmm_f32, dense_attention,
 from ..ops.kv8_attention import kv8_decode_attention, write_rows
 from ..ops.norms import rms_norm
 from ..ops.prefix_flash import prefix_flash_attention
-from ..ops.quant import Int4Linear, Int8Linear, quantize_module
+from ..ops.quant import (Int4Linear, Int8Linear, has_lora, lora_term,
+                         quantize_module)
 from ..ops.rope import apply_rope, rope_tables
 from ..ops.w4_fused import w4_ffn_fused, w4_matmul_res, w4_qkv_norm
 
@@ -230,10 +231,11 @@ def _block_n(*ns: int) -> Optional[int]:
 def _run_linear(m: nn.Module, x: torch.Tensor, act_int8: bool = False,
                 preferred=None) -> torch.Tensor:
     """`linear` / `linear_act_int8` (quant.py:170-230) on any linear kind.
-    A float linear's bias is added to the rounded product, in its dtype
-    (quant.py:185-186), never fused into the product's accumulation."""
+    A float linear's LoRA term and bias are added to the rounded product,
+    in its dtype (quant.py:182-186), never fused into the product's
+    accumulation."""
     if isinstance(m, nn.Linear):
-        y = torch.nn.functional.linear(x, m.weight)
+        y = lora_term(m, x, torch.nn.functional.linear(x, m.weight))
         return y if m.bias is None else y + m.bias
     return m(x, act_int8=act_int8, preferred=preferred)
 
@@ -294,14 +296,16 @@ class LLaDABlock(nn.Module):
         """`_w4_fused_plan` (llada.py:142-197) as a geometry gate: the
         sequential/swiglu layout, decode-sized rows, four unpadded int4
         linears whose widths the TPU kernels' blocks divide, a bias on
-        att_proj only (w4_qkv_norm adds it in its epilogue)."""
+        att_proj only (w4_qkv_norm adds it in its epilogue), no LoRA
+        factors (llada.py:177: the kernels would drop them)."""
         cfg = self.cfg
         if act_int8 or cfg.block_type != "sequential":
             return False
         if rows > 32 or rows % 8:
             return False
         lins = [getattr(self, n) for n in self.linear_names]
-        if not all(isinstance(m, Int4Linear) and not m.padded for m in lins):
+        if not all(isinstance(m, Int4Linear) and not m.padded
+                   and not has_lora(m) for m in lins):
             return False
         if any(m.bias is not None for m in lins if m is not self.att_proj):
             return False
@@ -448,10 +452,11 @@ class LLaDA(nn.Module):
         return self._rope
 
     def head_fusable(self, rows: int) -> bool:
-        """`_w4_head_fusable` (llada.py:200-216): an int4 head over d_model
-        <= 4096 and decode-sized rows."""
+        """`_w4_head_fusable` (llada.py:200-216): an int4 head without a
+        bias or LoRA factors over d_model <= 4096 and decode-sized rows."""
         head, D = self.ff_out, self.cfg.d_model
         return (isinstance(head, Int4Linear) and head.bias is None
+                and not has_lora(head)
                 and rows <= 128
                 and rows % 8 == 0 and head.scales.shape[0] * 128 == D
                 and D <= 4096 and head.scales.shape[1] % 512 == 0)
@@ -471,7 +476,8 @@ class LLaDA(nn.Module):
         if head is None or isinstance(head, nn.Linear):
             w = self.wte.weight if head is None else head.weight
             lead, D = x.shape[:-1], x.shape[-1]
-            return bmm_f32(x.reshape(1, -1, D), w.t()[None]).view(*lead, -1)
+            y = bmm_f32(x.reshape(1, -1, D), w.t()[None]).view(*lead, -1)
+            return y if head is None else lora_term(head, x, y)
         return _run_linear(head, x, preferred=torch.float32)
 
     def logits(self, x: torch.Tensor, act_int8: bool = False,

@@ -6,7 +6,12 @@ other projector kinds of the JAX package raise NotImplementedError.
 
 `port_name` maps the reference's Sequential names (mm_projector.0.weight,
 .2.weight, ...: a Linear at every even index, the GELUs between them,
-projector.py:139-147) onto `layers.{index // 2}`."""
+projector.py:139-147) onto `layers.{index // 2}`.
+
+The forward reads each linear's weight and bias only, as the JAX
+projector does (`h @ kernel + bias`, projector.py:99-103): LoRA factors
+attached there (train/lora.py's SHIRG recipe targets both linears) do not
+act and get no gradient (ROADMAP Queue 3)."""
 
 from __future__ import annotations
 
@@ -41,7 +46,7 @@ class Projector(nn.Module):
         for i, layer in enumerate(self.layers):
             if i > 0:
                 x = gelu_erf(x)
-            x = layer(x)
+            x = torch.nn.functional.linear(x, layer.weight, layer.bias)
         return x
 
 

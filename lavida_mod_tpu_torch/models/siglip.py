@@ -17,9 +17,21 @@ the CPU.  With `fused_mlp` the MLP half of each layer runs as one
 serving choice, which the training step never makes.  The tower trains:
 its ops are differentiable (the attention through the short-attention VJP)
 and `remat` checkpoints each layer while autograd records (siglip.py:214-215).
-Not ported: bicubic interpolation of the position table for other
-resolutions (a token count that differs from the table raises), int8
-towers and LoRA.
+Its linears take LoRA factors (ops/quant.attach_lora; SHIRG's Extra-LoRA on
+q/k/v), and the fused MLP refuses an fc1 or fc2 that carries them or is
+quantized (siglip.py:171-178).
+
+A view whose patch grid differs from the position table's (SHIRG's 448^2
+views: 32 x 32 patches against so400m's 27 x 27 table) gets the table
+resized as `jax.image.resize(.., "bicubic")` resizes it (`_interp_pos_embed`,
+siglip.py:103-110), which is not `F.interpolate(mode="bicubic")`: the Keys
+kernel with a = -0.5 at half-pixel centres, taps outside the grid dropped
+and each output's weights renormalised, and, for a smaller grid, the
+kernel widened by the shrink factor (antialiasing).  `bicubic_weights`
+builds that rule's [out, in] matrix on the host in numpy f32, and the table
+is `W @ grid @ W^T` per channel in f32, cast back to the table's dtype.
+The result is cached by grid size while the table does not change and no
+gradient is wanted of it.  Not ported: int8 towers.
 
 `port_name` maps the reference checkpoint's tower names (siglip_base.py:
 576-627, below "vision_model.") onto this module's, as
@@ -32,9 +44,11 @@ the LaViDa tower never runs, map to None: they are dropped.
 
 from __future__ import annotations
 
+import math
 import re
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -44,6 +58,37 @@ from ..ops.attention import vision_attention
 from ..ops.activations import gelu_tanh
 from ..ops.norms import layer_norm
 from ..ops.vit_mlp import fused_vit_mlp
+
+
+def bicubic_weights(n_in: int, n_out: int) -> np.ndarray:
+    """[n_out, n_in] f32 weights of jax.image.resize's bicubic rule along
+    one axis (jax/_src/image/scale.py compute_weight_mat with scale
+    n_out / n_in, no translation, antialias on)."""
+    f32 = np.float32
+    inv = f32(1.0 / (n_out / n_in))
+    kscale = max(inv, f32(1.0))
+    sample = (np.arange(n_out, dtype=f32) + f32(0.5)) * inv - f32(0.5)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None]) / kscale
+    w = ((f32(1.5) * x - f32(2.5)) * x) * x + f32(1.0)
+    w = np.where(x >= 1.0, ((f32(-0.5) * x + f32(2.5)) * x - f32(4.0)) * x
+                 + f32(2.0), w)
+    w = np.where(x >= 2.0, f32(0.0), w).astype(f32)
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, f32(0.0)).T.astype(f32)
+
+
+def interp_pos_embed(pos_embed: torch.Tensor, grid: int) -> torch.Tensor:
+    """[g*g, D] table -> [grid*grid, D] by the bicubic rule, in f32, cast
+    back to the table's dtype (siglip.py:103-110)."""
+    g = int(round(math.sqrt(pos_embed.shape[0])))
+    D = pos_embed.shape[-1]
+    w = torch.from_numpy(bicubic_weights(g, grid)).to(pos_embed.device)
+    t = pos_embed.reshape(g, g, D).float()
+    out = torch.einsum("ai,ijd,bj->abd", w, t, w)
+    return out.reshape(grid * grid, D).to(pos_embed.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -84,6 +129,9 @@ class SigLIPLayer(nn.Module):
                                self.v_proj(z).view(N, T, nh, hd))
         h = h + self.out_proj(att.reshape(N, T, D))
         if fused_mlp:
+            if not all(type(fc) is nn.Linear for fc in (self.fc1, self.fc2)):
+                raise ValueError("fused_mlp takes plain float fc1 / fc2 "
+                                 "only: no LoRA factors, no int8 layout")
             return fused_vit_mlp(h, self.ln2.weight, self.ln2.bias,
                                  self.fc1.weight, self.fc1.bias,
                                  self.fc2.weight, self.fc2.bias,
@@ -114,12 +162,13 @@ class SigLIP(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(cfg.num_patches, D, **kw))
         self.layers = nn.ModuleList(
             SigLIPLayer(cfg, device, dtype) for _ in range(cfg.n_layers_used))
+        self._pos_cache = (None, None)
 
     def fused_mlp_ok(self) -> bool:
         """siglip.py:84-100: the fused MLP kernel takes a plain bf16 tower
-        (fc1/fc2 with their biases, no quantized layout) whose width is
-        lane-aligned (128 | D)."""
-        return all(isinstance(fc, nn.Linear) and fc.bias is not None
+        (fc1/fc2 with their biases, no LoRA, no quantized layout) whose
+        width is lane-aligned (128 | D)."""
+        return all(type(fc) is nn.Linear and fc.bias is not None
                    and fc.weight.dtype == torch.bfloat16
                    for layer in self.layers for fc in (layer.fc1, layer.fc2)
                    ) and self.cfg.hidden_size % 128 == 0
@@ -132,12 +181,12 @@ class SigLIP(nn.Module):
         pixels must not promote a bf16 tower to f32.  `remat`: checkpoint
         each layer when autograd records."""
         x = pixel_values.to(self.patch_embed.weight.dtype)
-        x = self.patch_embed(patchify(x, self.cfg.patch_size))
-        if x.shape[1] != self.pos_embed.shape[0]:
-            raise NotImplementedError(
-                f"{x.shape[1]} patch tokens vs a {self.pos_embed.shape[0]}-"
-                f"slot position table: bicubic interpolation is not ported")
-        x = x + self.pos_embed[None]
+        # the patch embedding reads weight and bias only, as JAX's
+        # (siglip.py:151-152)
+        x = torch.nn.functional.linear(patchify(x, self.cfg.patch_size),
+                                       self.patch_embed.weight,
+                                       self.patch_embed.bias)
+        x = x + self.pos_table(x.shape[1])[None]
         remat = remat and torch.is_grad_enabled()
         for layer in self.layers:
             if remat:
@@ -145,6 +194,22 @@ class SigLIP(nn.Module):
             else:
                 x = layer(x, fused_mlp)
         return x
+
+    def pos_table(self, n_tokens: int) -> torch.Tensor:
+        """The position table for `n_tokens` patches: the learned one, or
+        it resized bicubically to the square grid of n_tokens."""
+        pos = self.pos_embed
+        if n_tokens == pos.shape[0]:
+            return pos
+        grid = int(round(math.sqrt(n_tokens)))
+        if grid * grid != n_tokens:
+            raise ValueError(f"{n_tokens} patch tokens are no square grid")
+        if torch.is_grad_enabled() and pos.requires_grad:
+            return interp_pos_embed(pos, grid)
+        key = (grid, pos.data_ptr(), pos._version, pos.dtype, pos.device)
+        if self._pos_cache[0] != key:
+            self._pos_cache = (key, interp_pos_embed(pos.detach(), grid))
+        return self._pos_cache[1]
 
 
 PATCH_CONV = "embeddings.patch_embedding.weight"

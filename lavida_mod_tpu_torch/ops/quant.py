@@ -27,6 +27,15 @@ host code, and in torch, which runs on the card so 8B of bf16 weights are
 quantized where they lie.  Divisions by a constant divide by a tensor:
 PyTorch's CUDA division by a Python scalar multiplies by its reciprocal,
 which is not the IEEE quotient numpy and XLA compute.
+
+LoRA (train/lora.py): `attach_lora` gives any of the three linear kinds
+the factors `lora_a` [in, r] and `lora_b` [r, out] (trainable
+parameters, in the JAX [in, out] orientation) and `lora_scale` (a 0-d
+frozen parameter, alpha / r or 0), and its forward adds
+`((x @ A) @ B) * scale`, the factors cast to x's dtype, after the product
+and before the bias, in the product's dtype (quant.py:182-186); a float
+nn.Linear becomes a `LoRALinear` for it.  Quantizing a linear drops its
+factors, as `quantize_linear` does.
 """
 
 from __future__ import annotations
@@ -243,6 +252,59 @@ def linear_w4_reference(x: torch.Tensor, packed: torch.Tensor,
 # modules
 # ---------------------------------------------------------------------------
 
+def has_lora(m: nn.Module) -> bool:
+    return getattr(m, "lora_a", None) is not None
+
+
+def lora_term(m: nn.Module, x: torch.Tensor, y: torch.Tensor
+              ) -> torch.Tensor:
+    """y + ((x @ A) @ B) * scale when `m` carries LoRA factors (quant.py:
+    182-184): the product in x's dtype, the sum in y's."""
+    if not has_lora(m):
+        return y
+    dt = x.dtype
+    delta = (x @ m.lora_a.to(dt)) @ m.lora_b.to(dt)
+    return y + delta.to(y.dtype) * m.lora_scale.to(y.dtype)
+
+
+class LoRALinear(nn.Linear):
+    """A float linear carrying LoRA factors (`attach_lora`): the product,
+    the LoRA term, then the bias, each in the product's dtype (the JAX
+    `linear` order; a plain nn.Linear fuses its bias into the product)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = lora_term(self, x, torch.nn.functional.linear(x, self.weight))
+        return y if self.bias is None else y + self.bias
+
+
+def attach_lora(m: nn.Module, a: torch.Tensor, b: torch.Tensor,
+                scale) -> None:
+    """Give the linear `m` the factors a [in, r], b [r, out] (trainable)
+    and a 0-d `lora_scale` (frozen), replacing any it had."""
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0] \
+            or a.shape[0] != m.in_features or b.shape[1] != m.out_features:
+        raise ValueError(f"LoRA factors a {tuple(a.shape)}, b "
+                         f"{tuple(b.shape)} for a linear [{m.in_features} "
+                         f"-> {m.out_features}]")
+    if type(m) is nn.Linear:
+        m.__class__ = LoRALinear
+    elif not isinstance(m, (LoRALinear, Int8Linear, Int4Linear)):
+        raise TypeError(f"no LoRA for a {type(m).__name__}")
+    scale = torch.as_tensor(scale, dtype=a.dtype, device=a.device)
+    m.lora_a = nn.Parameter(a)
+    m.lora_b = nn.Parameter(b)
+    m.lora_scale = nn.Parameter(scale.reshape(()), requires_grad=False)
+
+
+def detach_lora(m: nn.Module) -> None:
+    """Drop the LoRA factors of `m` (a LoRALinear becomes nn.Linear)."""
+    for n in ("lora_a", "lora_b", "lora_scale"):
+        if n in m._parameters:
+            del m._parameters[n]
+    if type(m) is LoRALinear:
+        m.__class__ = nn.Linear
+
+
 def _bias_param(out_features: int, bias: bool, device, dtype):
     if not bias:
         return None
@@ -280,18 +342,34 @@ class Int8Linear(nn.Module):
 
     def forward(self, x: torch.Tensor, act_int8: bool = False,
                 preferred=None) -> torch.Tensor:
+        """With LoRA and act_int8: on the CPU the JAX CPU order
+        (quant.py:224-230: the f32 epilogue, the term and the bias added
+        in f32 before the one rounding); on the card the TPU order
+        (pallas_w8.py:227-236): #3's bf16 result, then the term and the
+        bias in the result's dtype."""
         if act_int8:
             from .w8a8 import linear_w8a8
 
-            return linear_w8a8(x, self.weight_q, self.scale, preferred,
-                               self.bias)
+            if not has_lora(self):
+                return linear_w8a8(x, self.weight_q, self.scale, preferred,
+                                   self.bias)
+            if x.is_cuda:
+                y = lora_term(self, x, linear_w8a8(
+                    x, self.weight_q, self.scale, preferred))
+                return y if self.bias is None else y + self.bias.to(y.dtype)
+            x8, sx = quantize_act_int8(x.reshape(-1, x.shape[-1]))
+            y = int_matmul(x8, self.weight_q).float() * sx * self.scale
+            y = lora_term(self, x, y.reshape(*x.shape[:-1], -1))
+            if self.bias is not None:
+                y = y + self.bias.float()
+            return y.to(preferred or x.dtype)
         # quant.py:176-179: the codes cast to x's dtype, the product in
         # `preferred` (exact upcasts), then the scale -- a plain matmul in
         # the JAX package too (XLA's), so torch.matmul on every device;
         # the bias is added in the result's dtype (quant.py:185-186)
         dt = preferred or x.dtype
         y = x.to(dt) @ self.weight_q.to(dt).t()
-        y = y * self.scale.to(dt)
+        y = lora_term(self, x, y * self.scale.to(dt))
         return y if self.bias is None else y + self.bias.to(dt)
 
 
@@ -329,8 +407,8 @@ class Int4Linear(nn.Module):
         """`_linear_w4` (quant.py:120-167): on the card the grouped W4A8
         kernel (pallas_w4.py:129, ops/w4_grouped.py) on bf16 rows, K
         zero-padded, the padded N trimmed; on the CPU the JAX package's
-        own CPU math (`linear_w4_reference`).  A bias is added to that
-        result in its dtype (quant.py:185-186)."""
+        own CPU math (`linear_w4_reference`).  The LoRA term and a bias
+        are added to that result in its dtype (quant.py:182-186)."""
         if not x.is_cuda:
             y = linear_w4_reference(x, self.packed, self.scales,
                                     self.out_features, preferred)
@@ -345,6 +423,7 @@ class Int4Linear(nn.Module):
             y = w4_matmul_grouped(x2d.contiguous(), self.packed, self.scales)
             y = y[:, :self.out_features].to(preferred or x.dtype)
             y = y.reshape(*lead, self.out_features)
+        y = lora_term(self, x, y)
         return y if self.bias is None else y + self.bias.to(y.dtype)
 
 

@@ -3,9 +3,12 @@ lavida_mod_tpu/ops/short_attention.py.
 
 `short_attention` dispatches on where its tensors lie.  CUDA tensors launch
 the hand-written Hopper kernel in `csrc/short_attention.cu` (online softmax
-over streamed K/V tiles, so every S is served, with no 4096 cap); CPU
-tensors run `short_attention_reference`, the plain PyTorch version of the
-same function.  There is no fallback from one to the other.
+over streamed K/V tiles, so every S is served, with no 4096 cap): bf16
+operands its wgmma instance, f32 operands (the f32 training harness's
+tower, as the Pallas kernel takes them) its f32 instance, FFMA with f32
+products, counted in `.f32_launches` too; CPU tensors run
+`short_attention_reference`, the plain PyTorch version of the same
+function.  There is no fallback from one to the other.
 
 Semantics (as the TPU kernel): head h reads K/V head h // G; a key is
 masked with the finite -1e30 when its segment id differs from the query's;
@@ -84,13 +87,16 @@ def _check_cuda_args(q, k, v, segment_ids_q, segment_ids_kv):
     if hd % 8 != 0 or hd > 128:
         raise ValueError(f"short_attention: head dim {hd} must be a "
                          f"multiple of 8 and at most 128")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"short_attention: q is {q.dtype}; the CUDA kernel "
+                        f"takes bfloat16 or float32")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"short_attention: {name} on {t.device}, "
                              f"q on {q.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"short_attention: {name} is {t.dtype}; the "
-                            f"CUDA kernel takes bfloat16")
+        if t.dtype != q.dtype:
+            raise TypeError(f"short_attention: {name} is {t.dtype}, q is "
+                            f"{q.dtype}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"short_attention: {name} must be contiguous "
                              f"and 16-byte aligned")
@@ -118,7 +124,11 @@ def _forward(q, k, v, segment_ids_q, segment_ids_kv):
     S, Hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     masked = segment_ids_q is not None
-    err = kernels.library().lavida_short_attention_bf16(
+    f32 = q.dtype == torch.float32
+    lib = kernels.library()
+    entry = (lib.lavida_short_attention_f32 if f32 else
+             lib.lavida_short_attention_bf16)
+    err = entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         segment_ids_q.data_ptr() if masked else None,
         segment_ids_kv.data_ptr() if masked else None, out.data_ptr(),
@@ -126,6 +136,7 @@ def _forward(q, k, v, segment_ids_q, segment_ids_kv):
         torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check(err, "short_attention")
     short_attention.launches += 1
+    short_attention.f32_launches += int(f32)
     return out
 
 
@@ -155,8 +166,8 @@ def short_attention(
 ) -> torch.Tensor:
     """Attention of q [B, T, Hq, hd] over k, v [B, S, Hkv, hd] (GQA when
     Hq > Hkv), masked by segment-id equality when both id arrays
-    ([B, T] / [B, S] int32) are given.  CUDA: bf16, contiguous, hd a
-    multiple of 8 up to 128.  Returns [B, T, Hq, hd] in q's dtype;
+    ([B, T] / [B, S] int32) are given.  CUDA: bf16 or f32, contiguous, hd
+    a multiple of 8 up to 128.  Returns [B, T, Hq, hd] in q's dtype;
     differentiable in q, k and v."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
@@ -167,4 +178,5 @@ def short_attention(
 
 
 short_attention.launches = 0
+short_attention.f32_launches = 0
 short_attention.backward_calls = 0

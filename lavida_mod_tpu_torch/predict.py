@@ -6,7 +6,7 @@ Usage:
       [--prompt TEXT] [--conv-template llada] [--dtype bfloat16]
       [--mixed | --int4] [--kv8 | --kv4] [--batch N] [--image PATH]
       [--max-new-tokens 32] [--step-per-block 16] [--no-prefix-cache]
-      [--seed 0] [--device cuda]
+      [--shirg [--shirg-method base]] [--seed 0] [--device cuda]
 
 With --model-path the model is `LaViDa.load` of that checkpoint directory
 (its geometry from its config.json, or the toy geometry with --tiny) in
@@ -32,7 +32,12 @@ other sizes for the rest of a batch).  --no-prefix-cache generates
 without the prefix cache (each denoise step runs the whole forward over
 the prompt and the answer; one request through LaViDa.generate); with
 --mixed it exits, as the JAX package's generate refuses the mixed split
-without the cache.  The repo's --shirg and --tp are not in the port: each
+without the cache.  --shirg (with --shirg-method, predict.py:186-205)
+replaces the anyres encode by SHIRG's 2-view selection
+(models/shirg.py): the image (--image, else a seeded one of the request's
+size) goes through `process_shirg_2view` and `shirg_encode` to a
+980-token block, spliced by `LaViDa.generate(image_features=...)`, one
+request (no --batch).  The repo's --tp N (N > 1) is not in the port: it
 exits with an error.  Prints the answers and the latency, timed after a
 warm-up run.
 """
@@ -92,9 +97,18 @@ def _views(args, cfg, rng, i=0):
     return views, size
 
 
-# the repo's predict.py flags that the port does not have yet
-NOT_PORTED = {"--shirg": "SHIRG (ROADMAP.md Queue 1 item 11)",
-              "--tp": "tensor-parallel serving (Queue 1 item 9)"}
+
+
+def _shirg_image(args, rng, i=0):
+    """The PIL image of request i for --shirg: --image, else seeded
+    pixels of the request's size."""
+    from PIL import Image
+
+    if args.image:
+        return Image.open(args.image).convert("RGB")
+    sizes = TINY_SIZES if args.tiny else SIZES
+    w, h = sizes[i % len(sizes)]
+    return Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
 
 
 def main(argv=None) -> None:
@@ -125,14 +139,20 @@ def main(argv=None) -> None:
     ap.add_argument("--step-per-block", type=int, default=None)
     ap.add_argument("--no-prefix-cache", action="store_true",
                     help="generate without the prefix KV cache")
+    ap.add_argument("--shirg", action="store_true",
+                    help="SHIRG-Fovea 2-view token selection instead of "
+                    "anyres")
+    ap.add_argument("--shirg-method", default="base")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
-    for flag in NOT_PORTED:
-        ap.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--tp", type=int, default=1, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    for flag, what in NOT_PORTED.items():
-        if getattr(args, flag[2:].replace("-", "_")):
-            ap.error(f"{flag}: {what} is not in the port yet")
+    if args.tp > 1:
+        ap.error("--tp: tensor-parallel serving (ROADMAP.md Queue 1 item 9) "
+                 "is not in the port yet")
+    if args.shirg and args.batch != 1:
+        ap.error("--shirg serves one request (predict.py's generate with "
+                 "image_features); drop --batch")
     if args.no_prefix_cache and args.mixed:
         ap.error("--no-prefix-cache with --mixed: mixed decode_params needs "
                  "the prefix-cache mode (prefix_lm=True) — the no-cache path "
@@ -179,7 +199,15 @@ def main(argv=None) -> None:
     rng = np.random.default_rng(args.seed)
     requests = []
     for i in range(args.batch):
-        views, size = _views(args, cfg, rng, i)
+        if args.shirg:
+            from .data import SigLIPImageProcessor
+            from .models.shirg import process_shirg_2view
+
+            img = _shirg_image(args, rng, i)
+            views, size = process_shirg_2view(img, SigLIPImageProcessor(
+                size=cfg.vision.siglip.image_size)), img.size
+        else:
+            views, size = _views(args, cfg, rng, i)
         if tokenizer is not None:
             ids = prompt_ids
         else:
@@ -195,8 +223,18 @@ def main(argv=None) -> None:
 
     kv8 = 4 if args.kv4 else args.kv8
 
+    shirg_tokens = []
+
     def run():
-        if args.batch == 1:
+        if args.shirg:
+            from .models.shirg import shirg_encode
+
+            ids, views, sizes = requests[0]
+            block = shirg_encode(model, views[0], method=args.shirg_method)
+            shirg_tokens[:] = [block.shape[0]]
+            out = model.generate(ids, gen=gen, kv8=kv8,
+                                 image_features=[block])[None]
+        elif args.batch == 1:
             ids, views, sizes = requests[0]
             run1 = model.generate_fused if gen.prefix_lm else model.generate
             out = run1(ids, views, sizes, gen, kv8=kv8)[None]
@@ -215,6 +253,9 @@ def main(argv=None) -> None:
     cache = (", no prefix cache" if args.no_prefix_cache else
              ", kv8" if args.kv8 else ", kv4" if args.kv4 else "")
     print(f"[predict] layout: {layout}{cache}")
+    if args.shirg:
+        print(f"[predict] shirg: {shirg_tokens[0]} tokens from 2 views of "
+              f"448^2 (method {args.shirg_method}, image {requests[0][2][0]})")
     for i, row in enumerate(out):
         tag = "" if args.batch == 1 else f" {i}"
         if tokenizer is not None:

@@ -31,9 +31,11 @@ returns new trees.
 `grad_norm` is JAX's metric, optax.global_norm over the gradient of every
 leaf, frozen ones included (step.py:247, 314): a step differentiates the
 frozen leaves too (their requires_grad is set for its forward and
-backward, so a frozen tower runs under autograd as in JAX), sums their
-squared gradients into the norm, and frees the gradients; they do not
-reach the optimizer.  Sharding (`mesh`, `batch_axes`) is not ported.
+backward, so a frozen tower runs under autograd as in JAX), and a hook
+takes each frozen leaf's f32 norm as soon as its gradient is accumulated
+and frees that gradient, so no more than a few are held at once (8.45 B
+frozen f32 leaves would double the SHIRG-LoRA step's memory); they do
+not reach the optimizer.  Sharding (`mesh`, `batch_axes`) is not ported.
 """
 
 from __future__ import annotations
@@ -332,19 +334,30 @@ def _no_sharding(mesh, batch_axes) -> None:
 def _microstep(state: TrainState, optimizer: Optimizer, forward) -> dict:
     """forward() -> (loss, metrics); backward, grad_norm over every leaf,
     one optimizer microstep on the masters.  The frozen leaves require a
-    gradient for this forward and backward only: their gradients enter the
-    norm and are freed."""
+    gradient for this forward and backward only: each one's gradient
+    enters the norm as it is accumulated and is freed there."""
     params = dict(state.model.named_parameters())
     frozen = [p for n, p in params.items() if n not in state.masters
               and p.is_floating_point() and not p.requires_grad]
+    norms = []
+
+    def take(p):
+        # f32 norm of the bf16 or f32 gradient, no f32 copy of it
+        norms.append(torch.linalg.vector_norm(p.grad, dtype=torch.float32))
+        p.grad = None
+
+    hooks = []
     for p in frozen:
         p.requires_grad_(True)
+        hooks.append(p.register_post_accumulate_grad_hook(take))
     try:
         loss, metrics = forward()
         loss.backward()
     finally:
-        for p in frozen:
+        for p, h in zip(frozen, hooks):
+            h.remove()
             p.requires_grad_(False)
+            p.grad = None
     grads = {}
     for n in state.masters:
         p = params[n]
@@ -353,14 +366,8 @@ def _microstep(state: TrainState, optimizer: Optimizer, forward) -> dict:
         p.grad = None
     sq = sum((g.float().square().sum() for g in grads.values()),
              torch.zeros((), device=loss.device))
-    frozen_grads = [p.grad for p in frozen if p.grad is not None]
-    if frozen_grads:
-        # one fused pass, f32 sums of the bf16 gradients (no f32 copies)
-        norms = torch._foreach_norm(frozen_grads, 2, dtype=torch.float32)
+    if norms:
         sq = sq + torch.stack(norms).square().sum()
-    del frozen_grads    # the gradients go with their last references
-    for p in frozen:
-        p.grad = None
     metrics["grad_norm"] = torch.sqrt(sq)
     optimizer.step(grads, state.opt_state, state.masters)
     return {k: v.detach() for k, v in metrics.items()}

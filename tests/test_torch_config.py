@@ -250,3 +250,37 @@ def test_import_scans_cover_the_training_cli_slice():
     assert {"lavida_mod_tpu_torch." + f[:-3].replace("/", ".")
             for f in TRAINING_CLI
             if not f.endswith("__init__.py")} <= names
+
+
+SHIRG = ("models/shirg.py", "train/lora.py", "train_shirg_lora.py",
+         "shirg_compare.py")
+
+
+def test_import_scans_cover_the_shirg_slice():
+    """The scans above walk the SHIRG slice's modules too, and
+    models.shirg imports without PIL: process_shirg_2view needs it only
+    when it is called."""
+    files = {f.relative_to(REPO / "lavida_mod_tpu_torch").as_posix()
+             for f in (REPO / "lavida_mod_tpu_torch").rglob("*.py")}
+    assert set(SHIRG) <= files
+    import pkgutil
+
+    import lavida_mod_tpu_torch as p
+    names = {m.name for m in pkgutil.walk_packages(
+        p.__path__, "lavida_mod_tpu_torch.")}
+    assert {"lavida_mod_tpu_torch." + f[:-3].replace("/", ".")
+            for f in SHIRG} <= names
+    code = (
+        "import sys\n"
+        "sys.modules['PIL'] = None\n"
+        "sys.modules['jax'] = None\n"
+        "from lavida_mod_tpu_torch.models import shirg\n"
+        "from lavida_mod_tpu_torch import train_shirg_lora, shirg_compare\n"
+        "try:\n"
+        "    shirg.process_shirg_2view(None, None)\n"
+        "except ImportError:\n"
+        "    print('PIL needed when called')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip() == "PIL needed when called"

@@ -442,8 +442,10 @@ def test_convert_trim_key_checked():
 @pytest.mark.parametrize("where,leaf", [
     ("llada", "lora_a"), ("llada", "mystery"), ("siglip", "kernel_q")])
 def test_convert_still_raises(models, where, leaf):
-    """LoRA factors, unknown names and quantized leaves outside the LM
-    still raise, naming the leaf."""
+    """A malformed LoRA factor (a lone int8 lora_a on an int4 linear:
+    well-formed factors carry across, tests/test_torch_lora.py), unknown
+    names and quantized leaves outside the LM still raise, naming the
+    leaf."""
     jm, _ = models
     p = _np(jm.params)
     if where == "llada":

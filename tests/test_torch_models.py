@@ -68,8 +68,17 @@ def test_siglip_tower(pair):
 
 
 def test_siglip_rejects_other_resolutions(pair):
-    with pytest.raises(NotImplementedError):
-        pair[1].siglip(torch.zeros(1, 3, 70, 70))
+    """Another square patch grid (70^2: 5 x 5 against the 4 x 4 table)
+    now runs with the bicubic table, as JAX's tower; a grid that is no
+    square is still refused."""
+    p, m = pair
+    pix = np.random.default_rng(3).standard_normal((2, 3, 70, 70)).astype(
+        np.float32)
+    _close(m.siglip(torch.from_numpy(pix)),
+           jsig.forward(p["siglip"], CFG.vision.siglip, jnp.asarray(pix)),
+           atol=1e-5)
+    with pytest.raises(ValueError, match="no square grid"):
+        m.siglip(torch.zeros(1, 3, 70, 56))
 
 
 def test_projector(pair):
@@ -236,9 +245,20 @@ def test_convert_stacked_equals_unstacked():
 @pytest.mark.parametrize("leaf", ["kernel_q", "kernel_p4", "lora_a",
                                   "mystery"])
 def test_convert_raises_on_unmapped_leaves(leaf):
+    """Quantized leaves outside the quantized layout, unknown names and a
+    malformed LoRA factor (a lone int8 lora_a) raise naming the leaf; a
+    well-formed LoRA triple carries across."""
     p = jax.tree.map(np.asarray, JLaViDa.random_init(CFG, 3,
                                                      jnp.float32).params)
     p["llada"] = jl.unstack_blocks(p["llada"])
+    if leaf == "lora_a":
+        good = jax.tree.map(lambda a: a, p)
+        q = good["llada"]["blocks"][1]["q_proj"]
+        q.update(lora_a=np.ones((64, 4), np.float32),
+                 lora_b=np.ones((4, 64), np.float32),
+                 lora_scale=np.float32(2.0))
+        assert state_dict_from_jax(good)[
+            "llada.blocks.1.q_proj.lora_b"].shape == (4, 64)
     p["llada"]["blocks"][1]["q_proj"][leaf] = np.zeros((4,), np.int8)
     with pytest.raises(ValueError, match="q_proj"):
         state_dict_from_jax(p)

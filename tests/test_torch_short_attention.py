@@ -325,3 +325,37 @@ def test_kernel_matches_plain_on_cuda(cuda, B, T, S, Hq, Hkv, hd, kind):
         # on an H100 within 1.95e-3 - 3.9e-3 (one bf16 ulp of |o| < 1)
         torch.testing.assert_close(out.float(), ref.float(), atol=8e-3,
                                    rtol=8e-3)
+
+
+@pytest.mark.parametrize("B,T,S,Hq,Hkv,hd,kind", [
+    (4, 1024, 1024, 16, 16, 72, None),  # the SHIRG-LoRA harness's tower
+    (2, 77, 131, 8, 2, 64, "pad"),      # GQA, ragged, rows with no key
+    (1, 65, 63, 4, 2, 72, "pad"),       # S < T, S not a tile multiple
+    (1, 37, 1, 4, 1, 128, "pad"),       # S = 1, G = 4
+    (2, 50, 50, 4, 4, 16, None),        # hd 16
+    (1, 130, 300, 8, 2, 72, "late"),    # leading tiles masked
+    (1, 70, 90, 2, 1, 96, "pad"),       # hd 96
+    (1, 129, 300, 4, 4, 128, "late"),   # hd 128
+])
+def test_f32_kernel_matches_plain_on_cuda(cuda, B, T, S, Hq, Hkv, hd, kind):
+    """The f32 instance (FFMA, f32 products) against the plain version in
+    f32 (TF32 off) within the JAX f32 tolerance, 2e-5."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        g = torch.Generator(device=cuda).manual_seed(1)
+        q = torch.randn(B, T, Hq, hd, generator=g, device=cuda)
+        k, v = (torch.randn(B, S, Hkv, hd, generator=g, device=cuda)
+                for _ in range(2))
+        q_seg, kv_seg = _segments(kind, B, T, S, cuda)
+        ref = short_attention_reference(q, k, v, q_seg, kv_seg)
+        before = (short_attention.launches, short_attention.f32_launches)
+        out = short_attention(q, k, v, q_seg, kv_seg)
+        torch.cuda.synchronize()
+        assert (short_attention.launches,
+                short_attention.f32_launches) == (before[0] + 1,
+                                                  before[1] + 1)
+        assert out.dtype == torch.float32
+        torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
