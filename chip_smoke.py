@@ -237,10 +237,11 @@ exits non-zero and never prints the final line:
      same weights on the CPU: decode logits and the tokens.
 SHIRG (models/shirg.py, train/lora.py, train_shirg_lora.py), in the phases
 above: phase 3 also times #1 at SHIRG's [2, 1024, 16, 72] in bf16 beside
-SDPA, and #1's f32 instance (FFMA) at the harness tower's [4, 1024, 16,
-72] and a ragged GQA shape with rows that see no key, within 2e-5 of its
-plain version, beside SDPA in f32, its bound at the f32 rate of 67
-TFLOP/s; after phase 4, its bf16 8B model serves a seeded 1024 x 768
+SDPA, and #1's f32 instance (3xTF32 on the tensor cores) at the harness
+tower's [4, 1024, 16, 72] and a ragged GQA shape with rows that see no
+key, within 2e-5 of its plain version, beside SDPA in f32, its bound the
+3xTF32 floor (3 x its operations at 495 TFLOP/s) with the FFMA figure (at
+the f32 rate of 67 TFLOP/s) printed beside it; after phase 4, its bf16 8B model serves a seeded 1024 x 768
 image through process_shirg_2view and shirg_encode (`base`, then `full`
 with the similarity merge) into LaViDa.generate(image_features=...):
 a [980, 4096] block, no mask left, 26 + 32 #1 launches and nothing else
@@ -277,9 +278,11 @@ import time
 
 import numpy as np
 
-from lavida_mod_tpu_torch.kernel_times import (KV8_CASES, added_times, cuda_ms,
-                                                host_us, kernel_split,
-                                                kv8_case_inputs)
+from lavida_mod_tpu_torch.kernel_times import (KV8_CASES, SHORT_F32_CASES,
+                                                added_times, cuda_ms, host_us,
+                                                kernel_split, kv8_case_inputs,
+                                                short_f32_bounds_ms,
+                                                short_f32_inputs)
 from lavida_mod_tpu_torch.step_times import print_by_kind
 
 SIGLIP_LAYERS = 26   # so400m's 27 layers less the dropped last one
@@ -290,8 +293,8 @@ LLADA_LINEARS = 7    # q, k, v, attn_out, ff_proj, up_proj, ff_out
 # on an NVIDIA H100 80GB HBM3
 VIT_FIRST_DESIGN_ERR = {3645: 3.125e-2, 14580: 3.125e-2, 77: 3.906e-3}
 # H100 SXM published peaks (dense): HBM bytes/s, bf16 flop/s, int8 op/s,
-# f32 flop/s outside the tensor cores
-HBM_BPS, BF16_FLOPS, INT8_OPS, F32_FLOPS = 3.35e12, 989e12, 1979e12, 67e12
+# TF32 flop/s
+HBM_BPS, BF16_FLOPS, INT8_OPS, TF32_FLOPS = 3.35e12, 989e12, 1979e12, 495e12
 
 
 def card_line() -> str:
@@ -304,9 +307,10 @@ def card_line() -> str:
 def bound_ms(ops: float, nbytes: float, int8: bool = False,
              f32: bool = False):
     """(least time in ms, "bytes" or "operations") of one launch; `f32`:
-    operations at the f32 rate outside the tensor cores."""
-    t_ops = ops / (INT8_OPS if int8 else F32_FLOPS if f32
-                   else BF16_FLOPS) * 1e3
+    products in f32 through 3xTF32, three times the operations at the
+    dense TF32 rate."""
+    t_ops = (3 * ops / TF32_FLOPS if f32 else
+             ops / (INT8_OPS if int8 else BF16_FLOPS)) * 1e3
     t_bytes = nbytes / HBM_BPS * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
                                  else "bytes")
@@ -502,7 +506,7 @@ def phase_kernels(torch, device, res):
                 4 * B * H * T * keys * hd,
                 2 * (q.numel() + k.numel() + v.numel() + q.numel()),
                 note=note, library_b2b=lib_b2b)
-    _short_attention_f32(torch, device, res, segments)
+    _short_attention_f32(torch, device, res)
 
     ids, views, size = bench_request(48, (640, 640),
                                      np.random.default_rng(0))
@@ -538,30 +542,27 @@ def phase_kernels(torch, device, res):
             note=f" (exact; kernel alone {g_kernel:.4f} ms)")
 
 
-def _short_attention_f32(torch, device, res, segments):
-    """#1's f32 instance (FFMA, f32 products) against its plain version in
-    f32 (TF32 off) at the SHIRG-LoRA harness's tower shape (B = 2: four
-    448^2 views, 26 launches per step) and a ragged GQA case with rows
-    that see no key; SDPA in f32 as the library call."""
+def _short_attention_f32(torch, device, res):
+    """#1's f32 instance (3xTF32 on the tensor cores) against its plain
+    version in f32 (TF32 off) at kernel_times.py's SHORT_F32_CASES: the
+    SHIRG-LoRA harness's tower shape (B = 2: four 448^2 views, 26 launches
+    per step) and a ragged GQA case with rows that see no key; SDPA in f32
+    as the library call.  The bound is the 3xTF32 floor; the FFMA figure
+    (the operations once at the f32 rate of 67 TFLOP/s, the bound of the
+    first, FFMA design) is printed beside it."""
     import torch.nn.functional as F
 
     from lavida_mod_tpu_torch.ops.short_attention import (
         short_attention, short_attention_reference)
 
     gen = torch.Generator(device=device).manual_seed(5)
-    for name, qs, ks, kind, per_step in (
-            ("shirg_lora_tower", (4, 1024, 16, 72), (4, 1024, 16, 72), None,
-             SIGLIP_LAYERS),
-            ("ragged_pad_gqa", (2, 77, 8, 72), (2, 131, 2, 72), "pad", 0)):
-        q = torch.randn(*qs, device=device, generator=gen)
-        k, v = (torch.randn(*ks, device=device, generator=gen)
-                for _ in range(2))
-        sq, skv = segments(kind, qs[0], qs[1], ks[1])
+    for name, qs, ks, kind, per_step in SHORT_F32_CASES:
+        q, k, v, sq, skv = short_f32_inputs(torch, device, gen, qs, ks, kind)
         out = short_attention(q, k, v, sq, skv)
         torch.cuda.synchronize()
         ref = short_attention_reference(q, k, v, sq, skv)
-        # f32 products in another order than the plain version's matmuls:
-        # the JAX f32 tolerance of the kernel tests
+        # 3xTF32 products (f32's accuracy), summed in another order than the
+        # plain version's matmuls: the JAX f32 tolerance of the kernel tests
         torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
         err = (out - ref).abs().max().item()
         plain_ms = cuda_ms(lambda: short_attention_reference(q, k, v, sq,
@@ -579,12 +580,14 @@ def _short_attention_f32(torch, device, res, segments):
         lib_ms = cuda_ms(sdpa)
         B, T, H, hd = qs
         keys = ks[1] if skv is None else int(skv[0].sum())
+        ops = 4 * B * H * T * keys * hd
+        nbytes = 4 * (q.numel() + k.numel() + v.numel() + q.numel())
+        ffma = short_f32_bounds_ms(ops, nbytes)[1]
         res.add("short_attention_f32", f"{name} q{qs} kv{ks} f32", per_step,
                 err, lambda: short_attention(q, k, v, sq, skv), plain_ms,
-                lib_ms, 4 * B * H * T * keys * hd,
-                4 * (q.numel() + k.numel() + v.numel() + q.numel()),
-                note=" (limit 2e-5 + 2e-5 |o|)", f32=True)
-
+                lib_ms, ops, nbytes, f32=True,
+                note=f" (limit 2e-5 + 2e-5 |o|; bound: the 3xTF32 floor, "
+                     f"the FFMA figure {ffma:.4f} ms)")
 
 def bench_requests(rng):
     """The three bench-protocol requests of the main paths."""

@@ -2,13 +2,14 @@
 """Time kernel wrappers of a checkout on one CUDA card, beside the PyTorch
 call that computes the same function:
 
-    python3 lavida_mod_tpu_torch/kernel_times.py [CHECKOUT] [--only w4_grouped|kv8|vit_mlp]
+    python3 lavida_mod_tpu_torch/kernel_times.py [CHECKOUT]
+        [--only w4_grouped|kv8|vit_mlp|short_f32]
 
 CHECKOUT is the root of a tree whose `lavida_mod_tpu_torch` package is
 timed (default: the tree holding this file), so two versions of the
 kernels can be timed in turns on one card, one process each.  It times
-five groups (`--only w4_grouped` the last alone), and with `--only kv8`
-or `--only vit_mlp` a sixth or a seventh alone:
+five groups (`--only w4_grouped` the last alone), and with `--only kv8`,
+`--only vit_mlp` or `--only short_f32` a sixth, seventh or eighth alone:
 
   short_attention  per shape of one mixed request (26 SigLIP + 32 prefill
                    launches), against SDPA with the same mask;
@@ -68,6 +69,14 @@ or `--only vit_mlp` a sixth or a seventh alone:
                    fc2(gelu_tanh(fc1(layer_norm(x)))): cuBLAS GEMMs and
                    eager elementwise kernels, models/siglip.py) and its
                    two F.linear products alone.
+  short_attention_f32  #1's f32 instance at the SHIRG-LoRA harness's
+                   tower ([4, 1024, 16, 72], 26 launches per step) and at
+                   a ragged GQA case ([2, 77, 8, 72] over 131 keys, the
+                   last 5 rows seeing no key), beside SDPA in f32 (TF32
+                   off), each with its largest error against the plain
+                   version and two bounds: the 3xTF32 floor (3 x 4 B H T
+                   keys hd operations at 495 TFLOP/s, or the bytes) and
+                   the FFMA figure (4 B H T keys hd at 67 TFLOP/s).
 
 Each is timed three ways:
 
@@ -165,9 +174,9 @@ def main(argv: list[str]) -> None:
         i = argv.index("--only")
         only = argv[i + 1]
         argv = argv[:i] + argv[i + 2:]
-        if only not in ("w4_grouped", "kv8", "vit_mlp"):
+        if only not in ("w4_grouped", "kv8", "vit_mlp", "short_f32"):
             raise ValueError(f"--only {only}: the groups are w4_grouped, "
-                             f"kv8 and vit_mlp")
+                             f"kv8, vit_mlp and short_f32")
     tree = os.path.abspath(argv[0] if argv else os.path.dirname(here))
     # import the checkout's package, not a sibling of this file
     sys.path[:] = [tree] + [p for p in sys.path
@@ -221,6 +230,11 @@ def main(argv: list[str]) -> None:
         out = time_vit_mlp(torch, dev, gen, record, name)
         print(json.dumps({"tree": tree, "device": name, "shapes": rows,
                           "vit_mlp": out}))
+        return
+    if only == "short_f32":
+        out = time_short_f32(torch, dev, gen, record, name)
+        print(json.dumps({"tree": tree, "device": name, "shapes": rows,
+                          "short_f32": out}))
         return
     with torch.no_grad():
         for shape, kv, valid, per in [((5, 729, 16, 72), (5, 729, 16, 72),
@@ -730,6 +744,92 @@ def time_vit_mlp(torch, dev, gen, record, card) -> dict:
             print(f"[times] fused_vit_mlp {call} split: adds {added:.4f} ms "
                   f"per call, runs {ms:.4f} ms from launch to end  "
                   f"{key[:100]}")
+    return out
+
+
+# #1's f32 instance: (name, q shape, kv shape, segments, launches per
+# SHIRG-LoRA harness step)
+SHORT_F32_CASES = [
+    ("shirg_lora_tower", (4, 1024, 16, 72), (4, 1024, 16, 72), None, 26),
+    ("ragged_pad_gqa", (2, 77, 8, 72), (2, 131, 2, 72), "pad", 0),
+]
+TF32_FLOPS, F32_FLOPS, HBM_BPS = 495e12, 67e12, 3.35e12
+
+
+def short_f32_bounds_ms(ops, nbytes):
+    """(3xTF32 floor, FFMA figure) in ms of one f32 attention call: its
+    operations three times at the dense TF32 rate, or once at the f32 rate
+    outside the tensor cores, against its bytes at 3.35 TB/s."""
+    t_bytes = nbytes / HBM_BPS
+    return (max(3 * ops / TF32_FLOPS, t_bytes) * 1e3,
+            max(ops / F32_FLOPS, t_bytes) * 1e3)
+
+
+def short_f32_inputs(torch, dev, gen, qs, ks, kind):
+    """q, k, v f32 and the segment ids of a SHORT_F32_CASES case; "pad":
+    keys valid up to min(T, S - 3), the last 5 query rows matching no key."""
+    q = torch.randn(*qs, device=dev, generator=gen)
+    k, v = (torch.randn(*ks, device=dev, generator=gen) for _ in range(2))
+    sq = skv = None
+    if kind == "pad":
+        B, T, S = qs[0], qs[1], ks[1]
+        sq = torch.ones(B, T, dtype=torch.int32, device=dev)
+        sq[:, -5:] = 2
+        skv = (torch.arange(S, device=dev) < min(T, S - 3)).int()[None]
+        skv = skv.expand(B, S).contiguous()
+    return q, k, v, sq, skv
+
+
+def time_short_f32(torch, dev, gen, record, card) -> dict:
+    """#1's f32 instance at SHORT_F32_CASES beside SDPA in f32 (module
+    note): device, back-to-back and host time per call, the bounds, the
+    largest error against the plain version, and the sums per harness
+    step."""
+    import torch.nn.functional as F
+    from lavida_mod_tpu_torch.ops.short_attention import (
+        short_attention, short_attention_reference)
+
+    out = {"calls": [], "per_step": {}}
+    with torch.no_grad():
+        for name, qs, ks, kind, per in SHORT_F32_CASES:
+            q, k, v, sq, skv = short_f32_inputs(torch, dev, gen, qs, ks, kind)
+            err = (short_attention(q, k, v, sq, skv)
+                   - short_attention_reference(q, k, v, sq, skv)
+                   ).abs().max().item()
+            mask = None if sq is None else (sq[:, None, :, None]
+                                            == skv[:, None, None, :])
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            G = qs[2] // ks[2]
+            if G > 1:
+                kt, vt = (t.repeat_interleave(G, 1) for t in (kt, vt))
+            mine = three_times(lambda: short_attention(q, k, v, sq, skv))
+            lib = three_times(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask))
+            shape = f"{name} q{qs} kv{ks}"
+            record("short_attention_f32", shape, per, mine, lib)
+            B, T, H, hd = qs
+            keys = ks[1] if skv is None else int(skv[0].sum())
+            tc, ffma = short_f32_bounds_ms(
+                4 * B * H * T * keys * hd,
+                4 * (2 * q.numel() + k.numel() + v.numel()))
+            ms = mine["ms"]
+            print(f"[times] short_attention_f32 {shape}: device {ms:.4f} ms "
+                  f"({ms / lib['ms']:.2f}x SDPA's {lib['ms']:.4f}), 3xTF32 "
+                  f"floor {tc:.4f} ms ({100 * tc / ms:.1f} % of it), FFMA "
+                  f"figure {ffma:.4f} ms; max error {err:.3e} against the "
+                  f"plain version (limit 2e-5 + 2e-5 |o|) ({card})")
+            out["calls"].append({"shape": shape, "bound_ms": tc,
+                                 "ffma_bound_ms": ffma, "max_abs_err": err,
+                                 "kernel": mine, "sdpa": lib})
+            if per:
+                out["per_step"] = {"kernel_ms": per * ms,
+                                   "sdpa_ms": per * lib["ms"],
+                                   "bound_ms": per * tc,
+                                   "ffma_bound_ms": per * ffma}
+                print(f"[times] short_attention_f32 per harness step ({per} "
+                      f"launches): {per * ms:.2f} ms, SDPA "
+                      f"{per * lib['ms']:.2f} ms, 3xTF32 floor "
+                      f"{per * tc:.2f} ms ({card})")
     return out
 
 

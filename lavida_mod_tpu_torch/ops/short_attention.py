@@ -5,10 +5,10 @@ lavida_mod_tpu/ops/short_attention.py.
 the hand-written Hopper kernel in `csrc/short_attention.cu` (online softmax
 over streamed K/V tiles, so every S is served, with no 4096 cap): bf16
 operands its wgmma instance, f32 operands (the f32 training harness's
-tower, as the Pallas kernel takes them) its f32 instance, FFMA with f32
-products, counted in `.f32_launches` too; CPU tensors run
-`short_attention_reference`, the plain PyTorch version of the same
-function.  There is no fallback from one to the other.
+tower, as the Pallas kernel takes them) its f32 instance, both products in
+3xTF32 on the tensor cores (f32 accuracy), counted in `.f32_launches` too;
+CPU tensors run `short_attention_reference`, the plain PyTorch version of
+the same function.  There is no fallback from one to the other.
 
 Semantics (as the TPU kernel): head h reads K/V head h // G; a key is
 masked with the finite -1e30 when its segment id differs from the query's;
