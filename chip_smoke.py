@@ -885,81 +885,106 @@ def phase_quant_kernels(torch, device, res):
           f"err {err:.3e} (relative, limit 2e-2)")
 
 
-def _int4pack_library(torch, x, codes, scale):
-    """torch._weight_int4pack_mm (tinygemm) on the same codes and per-
-    channel scale: q = code + 8, the scale repeated over 128-row groups in
-    bf16, zero points 0, so that (q - 8) * scale is the weight.  Returns
-    (fn, its output) or (None, the reason there is no such call)."""
-    K, N = codes.shape
-    if not hasattr(torch, "_weight_int4pack_mm") or K % 128:
-        return None, "no torch._weight_int4pack_mm for this shape"
-    q = (codes.t() + 8).to(torch.int32)
-    try:
-        wpack = torch._convert_weight_to_int4pack(
-            (q[:, ::2] << 4 | q[:, 1::2]).to(torch.uint8).contiguous(), 8)
-        sz = torch.zeros(K // 128, N, 2, dtype=torch.bfloat16,
-                         device=x.device)
-        sz[..., 0] = scale.bfloat16()
+# #11's cases checked beside the timed ones (kernel_times.W4MM_CASES): the
+# plans' edges (64 rows, the decode plan's last; 65, the prefill plan's
+# first), a split decode at a width TMA refuses (N % 16 = 8), a prefill of
+# ragged row blocks with splits, and K/2 and N odd (2-byte x loads, byte
+# weight loads)
+W4MM_EDGES = [(64, 4096, 12288), (65, 4096, 12288), (32, 4096, 1000),
+              (300, 4096, 1000), (3, 38, 37)]
 
-        def fn():
-            return torch._weight_int4pack_mm(x, wpack, 128, sz)
 
-        out = fn()
-    except RuntimeError as e:
-        return None, (f"torch._weight_int4pack_mm refused: "
-                      f"{str(e).splitlines()[0][:200]}")
-    return fn, out
+def _w4mm_inputs(torch, device, gen, T, K, N):
+    x = torch.randn(T, K, device=device, generator=gen).bfloat16()
+    codes = torch.randint(-8, 8, (K, N), device=device, generator=gen)
+    packed = ((codes[1::2] & 0xF) << 4 | (codes[0::2] & 0xF)).to(
+        torch.uint8).view(torch.int8).contiguous()
+    scale = torch.rand(N, device=device, generator=gen) * 0.01 + 0.005
+    return x, codes, packed, scale
+
+
+def _w4mm_check(torch, t4, out, x2, packed, scale):
+    """The largest error of #11's `out` against its plain version; raises
+    beyond one bf16 ulp of the larger side plus the bound on two f32 orders
+    of the same dot (2 K 2^-24 sum|x w| scale, for near-cancelling
+    outputs: the kernel sums the lo and hi products, split by split, in one
+    accumulator).  Returns (error, the plain output)."""
+    ref = t4.w4_matmul_reference(x2, packed, scale)
+    lo, hi = t4.unpack_nibbles(packed)
+    sabs = (x2[0].float().abs() @ lo.abs().float()
+            + x2[1].float().abs() @ hi.abs().float()) * scale
+    big = torch.maximum(out.float().abs(), ref.float().abs())
+    ulp = torch.ldexp(torch.ones_like(big), torch.frexp(big)[1] - 8)
+    diff = (out.float() - ref.float()).abs()
+    K = 2 * x2.shape[2]
+    if (diff > ulp + 2 * K * 2.0 ** -24 * sabs).any():
+        raise AssertionError(f"w4_matmul beyond 1 bf16 ulp at "
+                             f"{(x2.shape[1], K, packed.shape[1])}")
+    return diff.max().item(), ref
 
 
 def phase_w4_matmul(torch, device, res):
     """Kernel #11 against its plain version at the TPU status note's decode
-    shape, the prefill's rows and a ragged case.  No path launches it, so
-    its sums are one call at each of the first two shapes."""
+    shape, the prefill's rows and a ragged case (timed; the decode shape
+    also with its weights cold in L2), and at W4MM_EDGES.  No path launches
+    it, so its sums are one call at each of the first two shapes.  Returns
+    the decode shape's cold time."""
+    from lavida_mod_tpu_torch.kernel_times import (W4MM_CASES,
+                                                    W4MM_COLD_BYTES,
+                                                    int4pack_library)
     from lavida_mod_tpu_torch.ops import w4_matmul as t4
 
     gen = torch.Generator(device=device).manual_seed(3)
-    for T, K, N, weight in [(32, 4096, 12288, 1), (1056, 4096, 12288, 1),
-                            (5, 4304, 1000, 0)]:
-        x = torch.randn(T, K, device=device, generator=gen).bfloat16()
-        codes = torch.randint(-8, 8, (K, N), device=device, generator=gen)
-        packed = ((codes[1::2] & 0xF) << 4 | (codes[0::2] & 0xF)).to(
-            torch.uint8).view(torch.int8).contiguous()
-        scale = torch.rand(N, device=device, generator=gen) * 0.01 + 0.005
+    cold = None
+    for name, T, K, N in W4MM_CASES:
+        x, codes, packed, scale = _w4mm_inputs(torch, device, gen, T, K, N)
         x2 = t4.split_even_odd(x)
         out = t4.w4_matmul(x2, packed, scale)
         torch.cuda.synchronize()
-        ref = t4.w4_matmul_reference(x2, packed, scale)
-        # one bf16 ulp of the larger side, plus the bound on two f32 orders
-        # of the same dot (2 K 2^-24 sum|x w| scale) for near-cancelling
-        # outputs: the kernel sums the lo and hi products in one accumulator
-        lo, hi = t4.unpack_nibbles(packed)
-        sabs = (x2[0].float().abs() @ lo.abs().float()
-                + x2[1].float().abs() @ hi.abs().float()) * scale
-        big = torch.maximum(out.float().abs(), ref.float().abs())
-        ulp = torch.ldexp(torch.ones_like(big), torch.frexp(big)[1] - 8)
-        diff = (out.float() - ref.float()).abs()
-        if (diff > ulp + 2 * K * 2.0 ** -24 * sabs).any():
-            raise AssertionError(f"w4_matmul beyond 1 bf16 ulp at {(T, K, N)}")
-        del lo, hi, sabs
-        lib_ms, note = None, " (within 1 bf16 ulp)"
-        if weight:
-            fn, got = _int4pack_library(torch, x, codes, scale)
-            if fn is None:
-                note += f"; library none: {got}"
+        err, ref = _w4mm_check(torch, t4, out, x2, packed, scale)
+        p = t4.plan(T, K // 2, N, torch.cuda.get_device_properties(
+            device).multi_processor_count)
+        note = (f" (within 1 bf16 ulp; plan {p.regime}, {p.bt} rows x "
+                f"{p.row_blocks}, {p.splits} K splits, {p.ctas} CTAs)")
+        lib_ms = None
+        fn, got, _ = int4pack_library(torch, x, codes, scale)
+        if fn is None:
+            note += f"; library none: {got}"
+        else:
+            lib_err = _rel(got, ref)
+            if lib_err < 2e-2:   # its bf16 scale rounds: not exact
+                lib_ms = cuda_ms(fn)
+                note += f"; library relative err {lib_err:.2e}"
             else:
-                lib_err = _rel(got, ref)
-                if lib_err < 2e-2:   # its bf16 scale rounds: not exact
-                    lib_ms = cuda_ms(fn)
-                    note += f"; library relative err {lib_err:.2e}"
-                else:
-                    note += (f"; library none: tinygemm's layout gave "
-                             f"relative err {lib_err:.2e}")
-        res.add("w4_matmul", f"[{T},{K}]x[{K},{N}]", 0, diff.max().item(),
+                note += (f"; library none: tinygemm's layout gave "
+                         f"relative err {lib_err:.2e}")
+        del got
+        if name == "decode":   # weight copies cycled past the 50 MB L2
+            n = max(3, -(-int(W4MM_COLD_BYTES) // (packed.numel() + 4 * N)))
+            ws = [(packed, scale)] + [(packed.clone(), scale.clone())
+                                      for _ in range(n - 1)]
+            it = iter(range(1 << 62))
+            cold = cuda_ms(lambda: t4.w4_matmul(x2, *ws[next(it) % n]))
+            note += f"; cold in L2 ({n} weight copies) {cold:.4f} ms"
+            del ws
+        res.add("w4_matmul", f"[{T},{K}]x[{K},{N}]", 0, err,
                 lambda: t4.w4_matmul(x2, packed, scale),
                 cuda_ms(lambda: t4.w4_matmul_reference(x2, packed, scale), 5),
                 lib_ms, 2 * T * K * N, 2 * T * K + K * N // 2 + 4 * N + 2 * T * N,
-                note=note, weight=weight)
-        del codes
+                note=note, weight=int(name != "ragged"))
+        del codes, ref
+    for T, K, N in W4MM_EDGES:
+        x, codes, packed, scale = _w4mm_inputs(torch, device, gen, T, K, N)
+        x2 = t4.split_even_odd(x)
+        out = t4.w4_matmul(x2, packed, scale)
+        torch.cuda.synchronize()
+        err, _ = _w4mm_check(torch, t4, out, x2, packed, scale)
+        p = t4.plan(T, K // 2, N, torch.cuda.get_device_properties(
+            device).multi_processor_count)
+        print(f"[kernels] w4_matmul [{T},{K}]x[{K},{N}]: err {err:.3e} "
+              f"(within 1 bf16 ulp; plan {p.regime}, {p.bt} rows x "
+              f"{p.row_blocks}, {p.splits} K splits, {p.ctas} CTAs)")
+    return cold
 
 
 # #8's int4 instance: (B, T, H, Hkv, hd, S, row 0's pad), launches per run
@@ -4025,7 +4050,7 @@ def main() -> None:
     with torch.no_grad():
         phase_kernels(torch, device, res)
         phase_quant_kernels(torch, device, res)
-        phase_w4_matmul(torch, device, res)
+        w4mm_cold = phase_w4_matmul(torch, device, res)
         phase_batch_kernels(torch, device, res)
         phase_train_kernels(torch, device, res)
     res.summary("short_attention", "one mixed request (26 SigLIP + 32 "
@@ -4207,7 +4232,8 @@ def main() -> None:
         entry("prefix_flash_dkv", "prefix_flash.cu", "prefix_flash.py:179",
               train_counts["prefix_flash_dkv"],
               launches_train_cli=cli_counts["prefix_flash_dkv"]),
-        entry("w4_matmul", "w4_matmul.cu", "pallas_w4.py:49", 0),
+        entry("w4_matmul", "w4_matmul.cu", "pallas_w4.py:49", 0,
+              ms_decode_cold=w4mm_cold),
     ]
     for e in entries:
         e["launches_dream_path"] = dream_counts.get(e["name"], 0)

@@ -3,13 +3,14 @@
 call that computes the same function:
 
     python3 lavida_mod_tpu_torch/kernel_times.py [CHECKOUT]
-        [--only w4_grouped|kv8|vit_mlp|short_f32]
+        [--only w4_grouped|kv8|vit_mlp|short_f32|w4_matmul]
 
 CHECKOUT is the root of a tree whose `lavida_mod_tpu_torch` package is
 timed (default: the tree holding this file), so two versions of the
 kernels can be timed in turns on one card, one process each.  It times
 five groups (`--only w4_grouped` the last alone), and with `--only kv8`,
-`--only vit_mlp` or `--only short_f32` a sixth, seventh or eighth alone:
+`--only vit_mlp`, `--only short_f32` or `--only w4_matmul` a sixth,
+seventh, eighth or ninth alone:
 
   short_attention  per shape of one mixed request (26 SigLIP + 32 prefill
                    launches), against SDPA with the same mask;
@@ -77,6 +78,19 @@ five groups (`--only w4_grouped` the last alone), and with `--only kv8`,
                    version and two bounds: the 3xTF32 floor (3 x 4 B H T
                    keys hd operations at 495 TFLOP/s, or the bytes) and
                    the FFMA figure (4 B H T keys hd at 67 TFLOP/s).
+  w4_matmul        #11 (per-channel int4, no path launches it) at the TPU
+                   status note's decode shape ([32, 4096] x 12288), the
+                   prefill's rows ([1056, 4096] x 12288) and a ragged
+                   [5, 4304] x 1000, each cold in L2 (cycled through
+                   weight copies of 100 MB or more) and warm, with its
+                   bound by bytes and by operations, its largest error
+                   against the plain version and the plain version's
+                   time; beside it tinygemm (torch._weight_int4pack_mm on
+                   the same codes, scale in bf16), cold and warm, or the
+                   error with which it refuses the shape, and, as a
+                   yardstick of the same shape and not the same function,
+                   dense bf16 torch.matmul over the dequantized weights
+                   (four times the weight bytes).
 
 Each is timed three ways:
 
@@ -174,9 +188,10 @@ def main(argv: list[str]) -> None:
         i = argv.index("--only")
         only = argv[i + 1]
         argv = argv[:i] + argv[i + 2:]
-        if only not in ("w4_grouped", "kv8", "vit_mlp", "short_f32"):
+        if only not in ("w4_grouped", "kv8", "vit_mlp", "short_f32",
+                        "w4_matmul"):
             raise ValueError(f"--only {only}: the groups are w4_grouped, "
-                             f"kv8, vit_mlp and short_f32")
+                             f"kv8, vit_mlp, short_f32 and w4_matmul")
     tree = os.path.abspath(argv[0] if argv else os.path.dirname(here))
     # import the checkout's package, not a sibling of this file
     sys.path[:] = [tree] + [p for p in sys.path
@@ -230,6 +245,11 @@ def main(argv: list[str]) -> None:
         out = time_vit_mlp(torch, dev, gen, record, name)
         print(json.dumps({"tree": tree, "device": name, "shapes": rows,
                           "vit_mlp": out}))
+        return
+    if only == "w4_matmul":
+        out = time_w4_matmul(torch, dev, gen, record, name)
+        print(json.dumps({"tree": tree, "device": name, "shapes": rows,
+                          "w4_matmul": out}))
         return
     if only == "short_f32":
         out = time_short_f32(torch, dev, gen, record, name)
@@ -830,6 +850,127 @@ def time_short_f32(torch, dev, gen, record, card) -> dict:
                       f"launches): {per * ms:.2f} ms, SDPA "
                       f"{per * lib['ms']:.2f} ms, 3xTF32 floor "
                       f"{per * tc:.2f} ms ({card})")
+    return out
+
+
+
+# #11: (name, T, K, N)
+W4MM_CASES = [("decode", 32, 4096, 12288), ("prefill", 1056, 4096, 12288),
+              ("ragged", 5, 4304, 1000)]
+W4MM_COLD_BYTES = 100e6   # weight copies cycled past the 50 MB L2 (3 or more)
+
+
+def int4pack_library(torch, x, codes, scale):
+    """torch._weight_int4pack_mm (tinygemm) on #11's codes [K, N] and per-
+    channel scale: q = code + 8, the scale repeated over 128-row groups in
+    bf16, zero points 0, so that (q - 8) * scale is the weight.  Returns
+    (fn, its output, the packed weights) or (None, the reason there is no
+    such call, None): the error it raises where it refuses the shape."""
+    K, N = codes.shape
+    if not hasattr(torch, "_weight_int4pack_mm"):
+        return None, "torch has no _weight_int4pack_mm", None
+    try:
+        q = (codes.t() + 8).to(torch.int32)
+        wpack = torch._convert_weight_to_int4pack(
+            (q[:, ::2] << 4 | q[:, 1::2]).to(torch.uint8).contiguous(), 8)
+        sz = torch.zeros(-(-K // 128), N, 2, dtype=torch.bfloat16,
+                         device=x.device)
+        sz[..., 0] = scale.bfloat16()
+
+        def fn(w=wpack):
+            return torch._weight_int4pack_mm(x, w, 128, sz)
+
+        out = fn()
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        return None, (f"torch._weight_int4pack_mm refused: "
+                      f"{str(e).splitlines()[0][:200]}"), None
+    return fn, out, wpack
+
+
+def w4mm_bounds_ms(T, K, N):
+    """(bytes, operations) bounds in ms of one #11 call: x, the packed
+    weights, the scales and out once each at 3.35 TB/s; 2 T K N bf16
+    operations at 989 TFLOP/s."""
+    nbytes = 2 * T * K + K * N // 2 + 4 * N + 2 * T * N
+    return nbytes / 3.35e12 * 1e3, 2 * T * K * N / 989e12 * 1e3
+
+
+def time_w4_matmul(torch, dev, gen, record, card) -> dict:
+    """#11 at W4MM_CASES (module note): device time per call cold and
+    warm, the bounds, the error, the plain version, tinygemm and the dense
+    bf16 yardstick."""
+    from lavida_mod_tpu_torch.ops import w4_matmul as t4
+
+    out = {"calls": []}
+    with torch.no_grad():
+        for name, T, K, N in W4MM_CASES:
+            x = torch.randn(T, K, device=dev, generator=gen).bfloat16()
+            codes = torch.randint(-8, 8, (K, N), device=dev, generator=gen)
+            packed = ((codes[1::2] & 0xF) << 4 | (codes[0::2] & 0xF)).to(
+                torch.uint8).view(torch.int8).contiguous()
+            scale = torch.rand(N, device=dev, generator=gen) * 0.01 + 0.005
+            x2 = t4.split_even_odd(x)
+            copies = max(3, -(-int(W4MM_COLD_BYTES) // (packed.numel() + 4 * N)))
+            ws = [(packed, scale)] + [(packed.clone(), scale.clone())
+                                      for _ in range(copies - 1)]
+            ref = t4.w4_matmul_reference(x2, packed, scale).float()
+            err = (t4.w4_matmul(x2, packed, scale).float() - ref).abs().max().item()
+            shape = f"{name} [{T},{K}]x[{K},{N}]"
+            times = {}
+            for temp, n in (("cold", copies), ("warm", 1)):
+                def call(n=n, it=iter(range(1 << 62))):
+                    return t4.w4_matmul(x2, *ws[next(it) % n])
+
+                times[temp] = three_times(call)
+                record("w4_matmul", f"{shape} {temp} ({n} weight copies)", 0,
+                       times[temp], None)
+            times["plain_ms"] = cuda_ms(
+                lambda: t4.w4_matmul_reference(x2, packed, scale), 5)
+            fn, lib, wpack = int4pack_library(torch, x, codes, scale)
+            lib_note = lib if fn is None else None
+            if fn is not None:
+                rel = ((lib.float() - ref).norm() / ref.norm()).item()
+                if rel < 2e-2:    # its bf16 scale rounds: not exact
+                    lcopies = [wpack] + [wpack.clone() for _ in range(copies - 1)]
+
+                    def lcall(it=iter(range(1 << 62))):
+                        return fn(lcopies[next(it) % copies])
+
+                    times["tinygemm_cold"] = three_times(lcall)
+                    times["tinygemm_warm"] = three_times(fn)
+                    lib_note = f"relative err {rel:.2e}"
+                    del lcopies
+                else:
+                    lib_note = (f"tinygemm's layout gave relative err "
+                                f"{rel:.2e}")
+            # the yardstick: dense bf16 weights, four times the bytes (one
+            # copy already 100 MB at the decode and prefill shapes)
+            wdeq = (codes.float() * scale).bfloat16()
+            times["dense_bf16"] = three_times(lambda: x @ wdeq)
+            bb, bo = w4mm_bounds_ms(T, K, N)
+            b = max(bb, bo)
+            lib_text = (f"tinygemm cold {times['tinygemm_cold']['ms']:.4f} ms, "
+                        f"warm {times['tinygemm_warm']['ms']:.4f} ms "
+                        f"({lib_note})" if "tinygemm_cold" in times
+                        else f"tinygemm none: {lib_note}")
+            print(f"[times] w4_matmul {shape}: device cold "
+                  f"{times['cold']['ms']:.4f} ms, warm "
+                  f"{times['warm']['ms']:.4f} ms, back to back cold "
+                  f"{times['cold']['ms_back_to_back']:.4f} ms; bound "
+                  f"{b:.4f} ms ({'bytes' if bb > bo else 'operations'}; "
+                  f"bytes {bb:.4f}, operations {bo:.4f}; cold at "
+                  f"{100 * b / times['cold']['ms']:.1f} %, warm at "
+                  f"{100 * b / times['warm']['ms']:.1f} %); max err "
+                  f"{err:.3e}; plain {times['plain_ms']:.4f} ms; {lib_text};"
+                  f" yardstick the path never calls: dense bf16 matmul "
+                  f"{times['dense_bf16']['ms']:.4f} ms ({card})")
+            out["calls"].append({"name": name, "shape": [T, K, N],
+                                 "copies": copies, "bound_ms": b,
+                                 "bound_bytes_ms": bb, "bound_ops_ms": bo,
+                                 "max_abs_err": err, "library": lib_note,
+                                 **times})
+            del ws, wdeq, codes, packed, lib, wpack
     return out
 
 

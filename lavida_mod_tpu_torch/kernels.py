@@ -41,14 +41,16 @@ NVCC_FLAGS = (
 # three prefix_flash kernels, of w4_matmul_grouped's prefill kernel and of
 # fused_vit_mlp's GEMM drops to 24 (`setmaxnreg.dec`) and their two consumer
 # warpgroups rise to 240 (`setmaxnreg.inc`), and 128 x 24 + 256 x 240 =
-# 384 x 168.  With fewer at entry the pool is short and `setmaxnreg.inc`
+# 384 x 168; w4_matmul's producer keeps 56 and its consumers take 224
+# (128 x 56 + 256 x 224 = 384 x 168).  With fewer at entry the pool is short and `setmaxnreg.inc`
 # waits for ever.
 REGISTERS_AT_ENTRY = {"short_attention_kernel": 168,
                       "prefix_flash_fwd_kernel": 168,
                       "prefix_flash_dq_kernel": 168,
                       "prefix_flash_dkv_kernel": 168,
                       "w4_prefill_kernel": 168,
-                      "mlp_gemm_kernel": 168}
+                      "mlp_gemm_kernel": 168,
+                      "w4_matmul_kernel": 168}
 
 
 def _sources() -> list[Path]:
@@ -165,7 +167,7 @@ def library() -> ctypes.CDLL:
     lib.lavida_prefix_flash_fwd.argtypes = [vp] * 7 + [ci] * 6 + [cf, vp]
     lib.lavida_prefix_flash_dq.argtypes = [vp] * 9 + [ci] * 6 + [cf, vp]
     lib.lavida_prefix_flash_dkv.argtypes = [vp] * 10 + [ci] * 6 + [cf, vp]
-    lib.lavida_w4_matmul.argtypes = [vp] * 4 + [ci] * 3 + [vp]
+    lib.lavida_w4_matmul.argtypes = [vp] * 6 + [ci] * 10 + [vp]
     for fn in (lib.lavida_w8a8_matmul, lib.lavida_act_quant,
                lib.lavida_w4_qkv_norm, lib.lavida_w4_qkv_norm_bias,
                lib.lavida_w4_matmul_res,

@@ -152,12 +152,13 @@ def test_no_grad_call_skips_the_autograd_function():
 
 
 def _ptxas_log(regs, prefix_regs=(168, 168, 168), prefill_regs=(168,),
-               mlp_regs=(168, 168)):
+               mlp_regs=(168, 168), w4mm_regs=(168,) * 6):
     """A build log in ptxas -v's format: one short_attention instance per
     register count in `regs`, between two other kernels, then one instance
     of each prefix_flash kernel (fwd, dq, dkv) with `prefix_regs`, one
-    w4_matmul_grouped prefill kernel per count in `prefill_regs` and one
-    fused_vit_mlp GEMM instance (fc1, fc2) per count in `mlp_regs`."""
+    w4_matmul_grouped prefill kernel per count in `prefill_regs`, one
+    fused_vit_mlp GEMM instance (fc1, fc2) per count in `mlp_regs` and one
+    w4_matmul instance (by row block) per count in `w4mm_regs`."""
     lines = ["== short_attention.cu",
              "ptxas info    : Compiling entry function '_Z5otherv' for "
              "'sm_90a'", "ptxas info    : Used 96 registers, used 1 "
@@ -187,6 +188,10 @@ def _ptxas_log(regs, prefix_regs=(168, 168, 168), prefill_regs=(168,),
     for epi, n in enumerate(mlp_regs):
         lines += instance(f"_ZN12_GLOBAL__N_115mlp_gemm_kernelILi{epi}EEEv14"
                           f"CUtensorMap_stS1_PK13__nv_bfloat16S4_PS2_iii", n)
+    lines.append("== w4_matmul.cu")
+    for bt, n in zip((256, 128, 64, 32, 16, 8), w4mm_regs):
+        lines += instance(f"_ZN12_GLOBAL__N_116w4_matmul_kernelILi{bt}EEEv14"
+                          f"CUtensorMap_stS1_PKhS3_PKfP13__nv_bfloat16PfPiiiiiiiiiii", n)
     return "\n".join(lines)
 
 
@@ -238,6 +243,20 @@ def test_register_check_covers_the_vit_mlp_gemm(mlp_regs):
 
     with pytest.raises(RuntimeError, match="mlp_gemm_kernel"):
         kernels.check_registers(_ptxas_log((168, 168, 168), mlp_regs=mlp_regs))
+
+
+@pytest.mark.parametrize("w4mm_regs", [(168, 168, 168, 168, 168, 160),
+                                       (160,), ()])
+def test_register_check_covers_the_w4_matmul_kernel(w4mm_regs):
+    """#11's kernel hands its producer warpgroup's registers over with
+    setmaxnreg (56 / 224) too: every row block's instance must be in the
+    log at 168."""
+    from lavida_mod_tpu_torch import kernels
+
+    assert kernels.REGISTERS_AT_ENTRY["w4_matmul_kernel"] == 168
+    with pytest.raises(RuntimeError, match="w4_matmul_kernel"):
+        kernels.check_registers(_ptxas_log((168, 168, 168),
+                                           w4mm_regs=w4mm_regs))
 
 
 @pytest.fixture
