@@ -113,6 +113,21 @@ exits non-zero and never prints the final line:
      predict_fim runs on it (LaViDa.load, the weight-only int8 layout, the
      trained tokenizer, the default draft, G = 256): the drafted positions
      kept, wall, peak and launches (the prefill's 32 short_attention).
+ 7a. the eval CLI (lavida_mod_tpu_torch/eval, `python -m
+     lavida_mod_tpu_torch.eval`) in process through its `main` on 7's
+     checkpoint: --quant mixed --gen-kwargs prefix_lm=True (eval_main.sh's
+     gen kwargs) --tasks pope,textvqa_val,hellaswag,videomme --limit 2
+     --output --output-dir, on the documents of tools/eval_smoke_all.py
+     (schema-exact jsonl, seeded PNGs, and for videomme a 32-frame
+     seeded GIF each) in a temporary directory deleted after: every task's
+     results finite and in range with JAX's result keys, the tracker's
+     results and sample files, and per document the launches of every
+     kernel (an image document 26 + 32 short_attention, 1 gather_rows, 128
+     w8a8_matmul, 16 x 33 w4_qkv_norm, 16 x 32 w4_matmul_res and
+     w4_ffn_fused; a hellaswag ending 2 x 32 short_attention, four per
+     document; the video document 26 + 32 short_attention, no gather,
+     the same w8a8 and int4 decode launches); load wall, walls per
+     document and per task, peak memory and the video prefix's length.
  7b. the server (lavida_mod_tpu_torch/serve): the port's controller and a
      worker built from its CLI flags (--model-path <7's checkpoint> --mixed
      --kv4 --decode-batch 4: the mixed layout with fuse=False, the int4 KV
@@ -199,7 +214,10 @@ exits non-zero and never prints the final line:
      peak, the busy share of the profiled microsteps.  T2, every part
      tunable at --geometry 457m, --precision bf16 --remat nested
      --ce-chunk 512 --grad-accum 2: run A (one update, a full async
-     save), run B restoring it bit-equal to A's final state (checksums of
+     save; the in-training eval hook once, --eval-tasks pope --eval-every
+     1 --eval-limit 2: its eval/pope rows in metrics.jsonl, the training
+     state's checksums equal before and after it, its launches asserted),
+     run B restoring it bit-equal to A's final state (checksums of
      every tensor and count), run C resuming for a second update (finite
      losses, every group moved, the tower's #1 VJP run); save, commit and
      restore walls.  T3, the remat ladder at 457m (whole_layer, nested,
@@ -325,17 +343,20 @@ class Results:
 
     def add(self, name, shape, per, err, kernel, plain_ms, library_ms, ops,
             nbytes, int8=False, note="", weight=None, library_b2b=None,
-            f32=False):
+            f32=False, per_video=0):
         """`kernel` calls the kernel's wrapper: timed on the device alone
         (`ms`) and back to back as the host issues it (`ms_back_to_back`,
         the larger of the host's and the card's time per call; the library
         call's, `library_b2b`, where it is given).  `per` is
         the launches of one main-path run at this shape; the sums weigh
-        the shape by `weight` (default `per`)."""
+        the shape by `weight` (default `per`); `per_video`, its launches
+        per video document of the eval phase (7a)."""
         ms, b2b = cuda_ms(kernel), cuda_ms(kernel, hold=False)
         b, by = bound_ms(ops, nbytes, int8, f32)
         lib = "none" if library_ms is None else (
             f"{library_ms:.4f} ms (kernel {ms / library_ms:.2f}x its time)")
+        if per_video:
+            note += f"; {per_video} launches per eval video document"
         print(f"[kernels] {name} {shape}: err {err:.3e}{note}, kernel "
               f"{ms:.4f} ms (back to back {b2b:.4f} ms), plain "
               f"{plain_ms:.4f} ms, library {lib}, bound {b:.4f} ms ({by}; "
@@ -361,7 +382,9 @@ class Results:
         r["per_shape"].append({"shape": shape, "per_run": per, "ms": ms,
                                "ms_back_to_back": b2b, "plain_ms": plain_ms,
                                "library_ms": library_ms,
-                               "bound_ms": b, "err": err})
+                               "bound_ms": b, "err": err,
+                               **({"per_video_doc": per_video} if per_video
+                                  else {})})
 
     def get(self, name):
         r = dict(self.k[name])
@@ -425,9 +448,16 @@ def phase_kernels(torch, device, res):
         padded tail); "pad": that, and the last 5 query rows match no key
         (a finite average over the S keys); "late": every query's first 260
         keys (two whole 128-key tiles and more) are masked, and every 5th
-        query sees only those."""
+        query sees only those; "front": a bucketed prefill's ids
+        (diffusion._prefill_into): the T - VIDEO_PREFIX front-pad rows 0,
+        the prefix and the S - T answer rows of the cache 1."""
         if kind is None:
             return None, None
+        if kind == "front":
+            sq = (torch.arange(T, device=device) >= T - VIDEO_PREFIX).to(
+                torch.int32)[None].expand(B, T).contiguous()
+            kv = torch.cat([sq, sq.new_ones(B, S - T)], dim=1)
+            return sq, kv
         sq = torch.ones(B, T, dtype=torch.int32, device=device)
         if kind == "late":
             kv = torch.arange(S, device=device) >= 260
@@ -438,12 +468,13 @@ def phase_kernels(torch, device, res):
                 sq[:, -5:] = 2
         return sq, kv.to(torch.int32)[None].expand(B, S).contiguous()
 
-    # (name, q shape, kv shape, segments, launches per request); after the
-    # two main shapes the edges of the wgmma design: S = 1, S shorter than
-    # one 128-key stage, S one past a tile multiple, hd 16 / 48 / 72 / 80 /
-    # 96 / 128 (16, 80 and 96 end in a narrow box, 72 and 48 are padded in
-    # shared memory), G = 1, 4 and 7, rows whose first K/V tiles are all
-    # masked
+    # (name, q shape, kv shape, segments, launches per request[, launches
+    # per video document of phase 7a]); after the two main shapes the edges
+    # of the wgmma design: S = 1, S shorter than one 128-key stage, S one
+    # past a tile multiple, hd 16 / 48 / 72 / 80 / 96 / 128 (16, 80 and 96
+    # end in a narrow box, 72 and 48 are padded in shared memory), G = 1, 4
+    # and 7, rows whose first K/V tiles are all masked; last the eval
+    # phase's video document, weighed 0 in the bench request's sums
     cases = [
         ("siglip", (5, 729, 16, 72), (5, 729, 16, 72), None, SIGLIP_LAYERS),
         ("prefill", (1, 1056, 32, 128), (1, 1088, 32, 128), "valid",
@@ -461,8 +492,13 @@ def phase_kernels(torch, device, res):
         # SHIRG's two 448^2 views (32 x 32 patches), timed beside SDPA but
         # weighed 0 in the bench request's sums
         ("shirg_views", (2, 1024, 16, 72), (2, 1024, 16, 72), None, 0),
+        ("video_tower", (EVAL_FRAMES, 729, 16, 72),
+         (EVAL_FRAMES, 729, 16, 72), None, 0, SIGLIP_LAYERS),
+        ("video_prefill", (1, VIDEO_PREFIX_ROWS, 32, 128),
+         (1, VIDEO_PREFIX_ROWS + EVAL_G, 32, 128), "front", 0, LLADA_LAYERS),
     ]
-    for name, qs, ks, kind, per_request in cases:
+    for name, qs, ks, kind, per_request, *per_video in cases:
+        per_video = per_video[0] if per_video else 0
         q, k, v = randn(*qs), randn(*ks), randn(*ks)
         sq, skv = segments(kind, qs[0], qs[1], ks[1])
         out = short_attention(q, k, v, sq, skv)
@@ -481,7 +517,7 @@ def phase_kernels(torch, device, res):
         plain_ms = cuda_ms(
             lambda: short_attention_reference(q, k, v, sq, skv))
         lib_ms = lib_b2b = None
-        if per_request or name == "shirg_views":
+        if per_request or per_video or name == "shirg_views":
             # one library call of the same function on the same inputs:
             # SDPA with the segment mask as a boolean attention mask
             mask = None if sq is None else (
@@ -505,7 +541,7 @@ def phase_kernels(torch, device, res):
                 lambda: short_attention(q, k, v, sq, skv), plain_ms, lib_ms,
                 4 * B * H * T * keys * hd,
                 2 * (q.numel() + k.numel() + v.numel() + q.numel()),
-                note=note, library_b2b=lib_b2b)
+                note=note, library_b2b=lib_b2b, per_video=per_video)
     _short_attention_f32(torch, device, res)
 
     ids, views, size = bench_request(48, (640, 640),
@@ -730,13 +766,20 @@ def phase_quant_kernels(torch, device, res):
 
     # w8a8: the prefill's four linears at T = 1056, 32 layers; bit-exact;
     # then the wgmma tiles' edges: one row, one 16-byte K slice, ragged K
-    # (4304 = 33 slices + 80 bytes), ragged and odd N
-    for T, K, N, per in [(1056, 4096, 12288, LLADA_LAYERS),
-                         (1056, 4096, 4096, LLADA_LAYERS),
-                         (1056, 4096, 24576, LLADA_LAYERS),
-                         (1056, 12288, 4096, LLADA_LAYERS),
-                         (77, 4304, 1000, 0), (1, 4096, 4096, 0),
-                         (7, 16, 24, 0), (33, 4304, 1001, 0), (1, 16, 1, 0)]:
+    # (4304 = 33 slices + 80 bytes), ragged and odd N; last the four at the
+    # eval phase's video prefill (T = VIDEO_PREFIX_ROWS, 32 launches each
+    # per video document), weighed 0 in the request's sums
+    video = [(VIDEO_PREFIX_ROWS, K, N, 0, LLADA_LAYERS)
+             for K, N in ((4096, 12288), (4096, 4096), (4096, 24576),
+                          (12288, 4096))]
+    for T, K, N, per, *per_video in [
+            (1056, 4096, 12288, LLADA_LAYERS),
+            (1056, 4096, 4096, LLADA_LAYERS),
+            (1056, 4096, 24576, LLADA_LAYERS),
+            (1056, 12288, 4096, LLADA_LAYERS),
+            (77, 4304, 1000, 0), (1, 4096, 4096, 0),
+            (7, 16, 24, 0), (33, 4304, 1001, 0), (1, 16, 1, 0), *video]:
+        per_video = per_video[0] if per_video else 0
         x = randn(T, K).bfloat16()
         q, sc = tq.quantize_linear(randn(N, K, scale=0.02))
         x8, sx = t8.act_quant(x, t8.ACT_FORMULA_W8)
@@ -746,7 +789,7 @@ def phase_quant_kernels(torch, device, res):
         if not torch.equal(out, ref):
             raise AssertionError(f"w8a8_matmul differs at {(T, K, N)}")
         lib_ms, lib_b2b, note = None, None, " (exact)"
-        if per:
+        if per or per_video:
             # the int8 product in one library call (cuBLASLt through
             # torch._int_mm), then the f32 scale epilogue as a second op
             qt = q.t()
@@ -769,7 +812,8 @@ def phase_quant_kernels(torch, device, res):
                 lambda: t8.w8a8_matmul(x8, sx, q, sc),
                 cuda_ms(lambda: t8.w8a8_matmul_reference(x8, sx, q, sc), 5),
                 lib_ms, 2 * T * K * N, T * K + N * K + 4 * (T + N) + 2 * T * N,
-                int8=True, note=note, library_b2b=lib_b2b)
+                int8=True, note=note, library_b2b=lib_b2b,
+                per_video=per_video)
 
     # w4_qkv_norm: [q|k|v] per layer per step and the head per step
     # (mixed path, 32 rows), the batched path's fused head (128 rows)
@@ -2009,6 +2053,274 @@ def phase_fim(torch, card, path):
     return got, wall, peak
 
 
+# the eval phase (7a): tasks of an image, a log-likelihood and a video
+# family, and the result keys of JAX's evaluate for each
+EVAL_TASKS = ("pope", "textvqa_val", "hellaswag", "videomme")
+EVAL_KEYS = {
+    "pope": ["accuracy", "precision", "recall", "f1", "yes_ratio",
+             "avg_latency_s", "wall_s", "n_docs"],
+    "textvqa_val": ["exact_match", "avg_latency_s", "wall_s", "n_docs"],
+    "hellaswag": ["acc", "avg_latency_s", "wall_s", "n_docs"],
+    "videomme": ["acc", "avg_latency_s", "wall_s", "n_docs"]}
+EVAL_LIMIT = 2
+EVAL_FRAMES = 32
+EVAL_G = 16          # the four tasks' max_new_tokens: 16 steps of 1 token
+FRAME_TOKENS = 196   # a frame's pooled 14 x 14 grid
+# the videomme documents' prefix (32 x 196 + 1 video rows and the prompt's
+# text; phase 7a asserts it) and the rows it prefills at, bucketed to 128
+VIDEO_PREFIX = 6646
+VIDEO_PREFIX_ROWS = -(-VIDEO_PREFIX // 128) * 128
+IMAGE_TOKEN = -200
+# the video block through #1 against the plain tower, max|diff| / max|ref|
+EVAL_BLOCK_LIMIT = 5e-2
+
+
+def _eval_want(kind):
+    """Launches of one eval request on the mixed 8B (fused layout): an
+    image document through generate_fused, a video document through
+    encode_video + generate (no splice gather), one log-likelihood
+    ending (mc_num 16 in two forward chunks of 8 rows on the int8 tree,
+    weight-only)."""
+    if kind == "loglik":
+        return _want(short_attention=2 * LLADA_LAYERS)
+    return _want(short_attention=SIGLIP_LAYERS + LLADA_LAYERS,
+                 gather_rows=1 if kind == "image" else 0,
+                 w8a8_matmul=4 * LLADA_LAYERS,
+                 w4_qkv_norm=(LLADA_LAYERS + 1) * EVAL_G,
+                 w4_matmul_res=LLADA_LAYERS * EVAL_G,
+                 w4_ffn_fused=LLADA_LAYERS * EVAL_G)
+
+
+def eval_documents(root, tasks=EVAL_TASKS, video_frames=EVAL_FRAMES):
+    """tools/eval_smoke_all.py's documents of each task under root: jsonl
+    with seeded PNGs, and a seeded GIF per video document.  Returns the
+    --data-path value."""
+    from lavida_mod_tpu_torch.tools import eval_smoke_all as smoke
+
+    os.makedirs(root, exist_ok=True)
+    imgs = smoke.write_images(root)
+    return ",".join(f"{t}=" + smoke.write_docs(
+        t, root, imgs, video_frames if t == "videomme" else 0)
+        for t in tasks)
+
+
+def phase_eval(torch, card, path):
+    """python -m lavida_mod_tpu_torch.eval on phase 7's 8B checkpoint in
+    process: the mixed layout, eval_main.sh's gen kwargs, two documents
+    of an image, a second image, the log-likelihood and the video family;
+    every request's launches asserted, the results, the --output keys
+    and the tracker's files checked; then the route's outputs
+    (_check_eval_route)."""
+    import tempfile
+
+    from lavida_mod_tpu_torch.eval import __main__ as eval_cli
+    from lavida_mod_tpu_torch.eval.adapter import LavidaEvalModel
+
+    t_phase = time.perf_counter()
+    ops = _batch_ops()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    # (kind, wall, launches, adapter, args, kwargs, answer) per request
+    reqs = []
+    orig = {n: getattr(LavidaEvalModel, n)
+            for n in ("generate_until", "loglikelihood")}
+
+    def counted(name):
+        def run(self, *a, **kw):
+            torch.cuda.synchronize()
+            before = {k: op.launches for k, op in ops.items()}
+            t0 = time.perf_counter()
+            out = orig[name](self, *a, **kw)
+            torch.cuda.synchronize()
+            kind = ("loglik" if name == "loglikelihood" else "video"
+                    if kw.get("video") or (len(a) > 3 and a[3]) else "image")
+            reqs.append((kind, time.perf_counter() - t0,
+                         {k: op.launches - before[k]
+                          for k, op in ops.items()}, self, a, kw, out))
+            return out
+        return run
+
+    try:
+        data = eval_documents(tmp)
+        for name in orig:
+            setattr(LavidaEvalModel, name, counted(name))
+        argv = ["--model-path", str(path), "--quant", "mixed",
+                "--gen-kwargs", "prefix_lm=True",
+                "--tasks", ",".join(EVAL_TASKS), "--data-path", data,
+                "--limit", str(EVAL_LIMIT),
+                "--output", os.path.join(tmp, "results.json"),
+                "--output-dir", os.path.join(tmp, "tracker")]
+        for op in ops.values():
+            op.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eval_cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: op.launches for k, op in ops.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for name, fn in orig.items():
+            setattr(LavidaEvalModel, name, fn)
+        out = json.load(open(os.path.join(tmp, "results.json")))
+        trk = os.path.join(tmp, "tracker", str(path).replace("/", "__")
+                           .replace(" ", "_"))
+        files = sorted(os.listdir(trk))
+    finally:
+        for name, fn in orig.items():
+            setattr(LavidaEvalModel, name, fn)
+        shutil.rmtree(tmp, ignore_errors=True)
+    if list(out) != list(EVAL_TASKS):
+        raise AssertionError(f"--output tasks {list(out)}")
+    for t in EVAL_TASKS:
+        r = out[t]["results"]
+        if set(out[t]) != {"task", "results", "samples"} \
+                or list(r) != EVAL_KEYS[t] or r["n_docs"] != EVAL_LIMIT \
+                or len(out[t]["samples"]) != EVAL_LIMIT:
+            raise AssertionError(f"{t}: --output {out[t]}")
+        for k, v in r.items():
+            hi = float("inf") if k in ("avg_latency_s", "wall_s",
+                                       "n_docs") else 1.0
+            if not (isinstance(v, (int, float)) and np.isfinite(v)
+                    and 0 <= v <= hi):
+                raise AssertionError(f"{t}: {k} = {v}")
+        if res[t]["results"]["n_docs"] != EVAL_LIMIT:
+            raise AssertionError(f"{t}: {res[t]['results']}")
+    want_files = ["results"] + [f"samples_{t}" for t in sorted(EVAL_TASKS)]
+    if [f.rsplit("_", 1)[0] for f in files] != want_files:
+        raise AssertionError(f"tracker files {files}")
+    kinds = [r[0] for r in reqs]
+    want_kinds = (["image"] * 4 + ["loglik"] * 4 * EVAL_LIMIT
+                  + ["video"] * EVAL_LIMIT)
+    if kinds != want_kinds:
+        raise AssertionError(f"requests {kinds}, want {want_kinds}")
+    for i, (kind, _, got, *_) in enumerate(reqs):
+        _check(f"eval request {i} ({kind})", got, _eval_want(kind))
+    total = {k: sum(r[2][k] for r in reqs) for k in ops}
+    if counts != total:
+        raise AssertionError(f"eval launches {counts} are not the "
+                             f"requests' {total}")
+    route = _check_eval_route(torch, reqs)
+    docs = {"pope": reqs[0:2], "textvqa_val": reqs[2:4],
+            "hellaswag": [reqs[4 + 4 * i:8 + 4 * i] for i in range(2)],
+            "videomme": reqs[12:14]}
+    per_doc = {t: [round(sum(x[1] for x in d) if t == "hellaswag"
+                         else d[1], 3) for d in v] for t, v in docs.items()}
+    task_wall = {t: round(out[t]["results"]["wall_s"], 3)
+                 for t in EVAL_TASKS}
+    # the CLI's wall less its tasks': the checkpoint's load, the mixed
+    # layout and the tokenizer
+    setup = wall - sum(out[t]["results"]["wall_s"] for t in EVAL_TASKS)
+    print(f"[eval] python -m lavida_mod_tpu_torch.eval --model-path <7's "
+          f"checkpoint> --quant mixed --gen-kwargs prefix_lm=True --tasks "
+          f"{','.join(EVAL_TASKS)} --limit {EVAL_LIMIT} (videomme: "
+          f"{EVAL_FRAMES}-frame GIFs): wall {wall:.2f} s, of it set-up "
+          f"(load, mixed layout, tokenizer) {setup:.2f} s, peak "
+          f"{peak:.2f} GiB; walls per document (s) {per_doc}, per task "
+          f"(evaluate's wall_s) {task_wall}; video prefix "
+          f"{route['video_prefix']} rows ({EVAL_FRAMES} x {FRAME_TOKENS} + 1 "
+          f"video tokens + text, bucketed to {VIDEO_PREFIX_ROWS} in "
+          f"generate); scores "
+          + "; ".join(f"{t} " + ", ".join(
+              f"{k} {v:.3f}" for k, v in out[t]["results"].items()
+              if k not in ("avg_latency_s", "wall_s", "n_docs"))
+              for t in EVAL_TASKS)
+          + f"; launches {_nonzero(counts)} ({card})")
+    print(f"[eval] launches per request: image "
+          f"{_nonzero(_eval_want('image'))}, log-likelihood ending "
+          f"{_nonzero(_eval_want('loglik'))}, video "
+          f"{_nonzero(_eval_want('video'))}; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return counts, {"wall": wall, "setup": setup, "peak": peak,
+                    "per_doc": per_doc, "task_wall": task_wall, **route}
+
+
+def _check_eval_route(torch, reqs):
+    """The eval route's outputs on the card, beyond their ranges: the
+    first image document's request generated twice more gives the same
+    tokens, which decode to the eval's answer; the first
+    video document's block (encode_video: the 32 frames in one tower
+    batch through #1) against the frames one at a time through the plain
+    tower (short_attention_reference), concatenated in order, and the
+    newline row; that block spliced at the <image> marker of the prompt
+    the route prefills, between the text's embeddings; and every video
+    prefix VIDEO_PREFIX rows, the shape phase_kernels checks #1 and #3
+    at."""
+    from lavida_mod_tpu_torch.eval.adapter import gen_kwargs_to_config
+    from lavida_mod_tpu_torch.models import multimodal, siglip
+    from lavida_mod_tpu_torch.ops.short_attention import \
+        short_attention_reference
+
+    # generate_until's image route (generate_fused), its tokens kept
+    _, _, _, adapter, (text, images, gen_kwargs), _, answer = reqs[0]
+    ids, views, sizes, model = adapter._build_inputs(text, images)
+    gen = gen_kwargs_to_config(gen_kwargs, model.lm_family)
+    toks = [model.generate_fused(ids, views, sizes, gen,
+                                 prefix_bucket=adapter.prefix_bucket,
+                                 kv8=adapter.kv8) for _ in range(2)]
+    said = model.decode_output(toks[0], adapter.tokenizer,
+                               adapter._stop_ids())
+    if not np.array_equal(*toks) or said != answer:
+        raise AssertionError(f"image document 0: tokens {toks[0].tolist()}"
+                             f", then {toks[1].tolist()}, decoded {said!r};"
+                             f" the eval answered {answer!r}")
+    videos = [r for r in reqs if r[0] == "video"]
+    adapter, model = videos[0][3], videos[0][3].model
+    lens = []
+    for _, _, _, _, (text, frames, *_), _, _ in videos:
+        ids, _ = adapter.video_inputs(text, frames)
+        lens.append(len(ids) - 1 + len(frames) * FRAME_TOKENS + 1)
+    if lens != [VIDEO_PREFIX] * len(videos):
+        raise AssertionError(f"video prefixes {lens} rows: phase_kernels "
+                             f"checks #1 and #3 at {VIDEO_PREFIX}")
+    text, frames = videos[0][4][:2]
+    ids, views = adapter.video_inputs(text, frames)
+    ids = np.asarray(ids)
+    v = torch.as_tensor(views, device=model.device)
+    with torch.no_grad():
+        block = multimodal.encode_video(model, v)
+        kernel_attention = siglip.vision_attention
+        siglip.vision_attention = short_attention_reference
+        try:
+            ref = torch.cat([multimodal.encode_views(model, v[i:i + 1])[0]
+                             for i in range(len(v))])
+        finally:
+            siglip.vision_attention = kernel_attention
+        prefix = model.encode_prompt(ids, image_features=[block])[0]
+        m = int(np.where(ids == IMAGE_TOKEN)[0][0])
+        text_rows = model.llada.embed_tokens(torch.as_tensor(
+            np.delete(ids, m), dtype=torch.long, device=model.device))
+    newline = torch.equal(block[-1], model.image_newline.to(block.dtype))
+    if block.shape != (EVAL_FRAMES * FRAME_TOKENS + 1, ref.shape[-1]) \
+            or not newline:
+        raise AssertionError(f"video block {tuple(block.shape)}, its last "
+                             f"row the newline: {newline}")
+    err = _rel(block[:-1], ref)
+    # 26 layers of bf16 rounding, in other orders (the kernel's streamed
+    # softmax; one tower batch of 32 frames against 32 of one)
+    if not err < EVAL_BLOCK_LIMIT:
+        raise AssertionError(f"video block vs the plain tower: {err:.3e}")
+    R = block.shape[0]
+    if prefix.shape[0] != len(ids) - 1 + R \
+            or not torch.equal(prefix[m:m + R], block) \
+            or not torch.equal(torch.cat([prefix[:m], prefix[m + R:]]),
+                               text_rows):
+        raise AssertionError(f"video prefix {tuple(prefix.shape)} is not "
+                             f"the text with the block at row {m}")
+    print(f"[eval] route checks: image document 0 generated twice more, "
+          f"the same tokens {toks[0].tolist()} decoding to the eval's "
+          f"answer {answer!r}; video document 0: block {tuple(block.shape)} "
+          f"through #1 (one batch of {len(v)} frames) vs the plain tower "
+          f"frame by frame max|diff|/max|ref| {err:.3e} (limit "
+          f"{EVAL_BLOCK_LIMIT}), newline row last, spliced at row {m} "
+          f"between the text's embeddings (bit-equal); video prefixes "
+          f"{lens} rows")
+    return {"video_prefix": lens, "block_err": err}
+
+
+def _nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
 class _CharTokenizer:
     """One id per character (3 + its code point mod 400)."""
 
@@ -3134,10 +3446,55 @@ def phase_train_cli_457m(torch, device, card):
             "--geometry", "457m", "--precision", "bf16", "--tunable",
             TUNABLE_ALL, "--remat", "nested", "--ce-chunk", "512",
             "--grad-accum", "2", "--log-every", "1", "--seed", "1"]
-    a = _cli(torch, argv + ["--steps", "1"])
+    # the in-training eval hook once, after run A's one update
+    from lavida_mod_tpu_torch.train import cli
+
+    pope = eval_documents(os.path.join(TRAIN_ROOT, "eval"), ("pope",), 0)
+    hook = []
+    run_eval = cli.run_eval
+
+    def checked_eval(args, cfg, state, tokenizer):
+        ops = _batch_ops()
+        torch.cuda.synchronize()
+        before = _state_sums(torch, state)
+        n0 = {k: op.launches for k, op in ops.items()}
+        t0 = time.perf_counter()
+        scores = run_eval(args, cfg, state, tokenizer)
+        torch.cuda.synchronize()
+        hook.append((time.perf_counter() - t0,
+                     {k: op.launches - n0[k] for k, op in ops.items()},
+                     _same_sums(_state_sums(torch, state), before), scores))
+        return scores
+
+    cli.run_eval = checked_eval
+    try:
+        a = _cli(torch, argv + ["--steps", "1", "--eval-tasks", "pope",
+                                "--eval-every", "1", "--eval-limit", "2",
+                                "--eval-data-path", pope])
+    finally:
+        cli.run_eval = run_eval
+    rows = [json.loads(line) for line in open(os.path.join(
+        out, "metrics.jsonl"))]
+    evals = [r for r in rows if "eval/pope/n_docs" in r]
+    if len(hook) != 1 or not hook[0][2]:
+        raise AssertionError(f"the eval hook ran {len(hook)} times; state "
+                             f"unchanged across it: "
+                             f"{[h[2] for h in hook]}")
+    if len(evals) != 1 or evals[0]["step"] != 1 \
+            or evals[0]["eval/pope/n_docs"] != 2.0 \
+            or {k: v for k, v in evals[0].items()
+                if k.startswith("eval/")} != hook[0][3]:
+        raise AssertionError(f"eval rows {evals}, hook {hook[0][3]}")
+    # two pope documents through generate_fused on the bf16 457m: the
+    # tower's 26 and the LM's 6 layers of #1 and one splice gather each
+    _check("T2 eval hook", hook[0][1], _want(
+        short_attention=2 * (SIGLIP_LAYERS + 6), gather_rows=2))
     final = _state_sums(torch, a["state"])
     gb = _dir_gb(os.path.join(out, "checkpoint-2"))
-    info = {"a_wall": a["wall_s"], "a_peak": a["peak_gib"],
+    # run A's wall less the eval call's, as in the runs without the hook
+    info = {"a_wall": a["wall_s"] - hook[0][0], "a_peak": a["peak_gib"],
+            "eval_wall": hook[0][0], "eval_launches": hook[0][1],
+            "eval_rows": hook[0][3],
             "staged": a["saves"][-1][1], "commit": a["commit_s"],
             "a_losses": a["losses"], "init": a["init_s"]}
     masters = list(a["state"].masters)
@@ -3184,10 +3541,16 @@ def phase_train_cli_457m(torch, device, card):
     print(f"[train_cli] --geometry 457m (6 llama layers d 2048, tied head, "
           f"square so400m views; {n_params / 1e9:.3f} B params), --precision "
           f"bf16, every part tunable, --remat nested --ce-chunk 512 "
-          f"--grad-accum 2: run A (2 microsteps, init {info['init']:.2f} s) "
-          f"wall {info['a_wall']:.2f} s, losses "
+          f"--grad-accum 2: run A (2 microsteps, init {info['init']:.2f} s, "
+          f"the eval hook after its update: --eval-tasks pope --eval-limit 2 "
+          f"in {info['eval_wall']:.2f} s, launches "
+          f"{_nonzero(info['eval_launches'])}, the state's checksums equal "
+          f"before and after it, rows "
+          f"{ {k: round(v, 4) for k, v in info['eval_rows'].items()} }) "
+          f"wall {info['a_wall']:.2f} s without the eval call, losses "
           f"{[round(x, 4) for x in info['a_losses']]}, peak "
-          f"{info['a_peak']:.2f} GiB, full async save of checkpoint-2 "
+          f"{info['a_peak']:.2f} GiB (the eval call's included), full "
+          f"async save of checkpoint-2 "
           f"({gb:.3f} GB) staged in {info['staged']:.2f} s and committed "
           f"{info['commit']:.2f} s later; run B restored it in "
           f"{info['restore']:.2f} s, every tensor and count bit-equal to run "
@@ -4082,6 +4445,8 @@ def main() -> None:
 
     fim_counts, fim_wall, fim_peak = phase_fim(torch, card, DEFAULT_PATH)
     torch.cuda.empty_cache()
+    eval_counts, ev = phase_eval(torch, card, DEFAULT_PATH)
+    torch.cuda.empty_cache()
     server_counts, server_walls, server_peak, server_share = phase_server(
         torch, device, card, DEFAULT_PATH)
     torch.cuda.empty_cache()
@@ -4162,7 +4527,8 @@ def main() -> None:
               launches_train_cli=cli_counts["short_attention"],
               launches_shirg_bf16=sh16["short_attention"],
               launches_shirg_mixed=shmx["short_attention"],
-              launches_shirg_lora=shl["short_attention"]),
+              launches_shirg_lora=shl["short_attention"],
+              launches_eval=eval_counts["short_attention"]),
         entry("short_attention_f32", "short_attention.cu",
               "short_attention.py:78", shl["short_attention_f32"],
               launches_per_harness_step=SIGLIP_LAYERS),
@@ -4170,29 +4536,34 @@ def main() -> None:
               counts["gather_rows"],
               launches_mixed_path=mixed_counts["gather_rows"],
               launches_checkpoint_path=ckpt_counts["gather_rows"],
-              launches_train_cli=cli_counts["gather_rows"]),
+              launches_train_cli=cli_counts["gather_rows"],
+              launches_eval=eval_counts["gather_rows"]),
         entry("w8a8_matmul", "w8a8_matmul.cu", "pallas_w8.py:53",
               mixed_counts["w8a8_matmul"],
               launches_checkpoint_path=ckpt_counts["w8a8_matmul"],
               launches_server_b4=server_counts["batch4"]["w8a8_matmul"],
               launches_loglik=ll_w["w8a8_matmul"],
               launches_loglik_act_int8=ll_a["w8a8_matmul"],
-              launches_shirg_mixed=shmx["w8a8_matmul"]),
+              launches_shirg_mixed=shmx["w8a8_matmul"],
+              launches_eval=eval_counts["w8a8_matmul"]),
         entry("w4_qkv_norm", "w4_fused.cu", "w4_fused.py:80",
               mixed_counts["w4_qkv_norm"],
               launches_batch_b4=b4["w4_qkv_norm"],
               launches_checkpoint_path=ckpt_counts["w4_qkv_norm"],
               launches_dllm_gen32=d32["w4_qkv_norm"],
               launches_dllm_gen256=d256["w4_qkv_norm"],
-              launches_shirg_mixed=shmx["w4_qkv_norm"]),
+              launches_shirg_mixed=shmx["w4_qkv_norm"],
+              launches_eval=eval_counts["w4_qkv_norm"]),
         entry("w4_matmul_res", "w4_fused.cu", "w4_fused.py:250",
               mixed_counts["w4_matmul_res"],
               launches_checkpoint_path=ckpt_counts["w4_matmul_res"],
-              launches_shirg_mixed=shmx["w4_matmul_res"]),
+              launches_shirg_mixed=shmx["w4_matmul_res"],
+              launches_eval=eval_counts["w4_matmul_res"]),
         entry("w4_ffn_fused", "w4_fused.cu", "w4_fused.py:322",
               mixed_counts["w4_ffn_fused"],
               launches_checkpoint_path=ckpt_counts["w4_ffn_fused"],
-              launches_shirg_mixed=shmx["w4_ffn_fused"]),
+              launches_shirg_mixed=shmx["w4_ffn_fused"],
+              launches_eval=eval_counts["w4_ffn_fused"]),
         entry("w4_matmul_grouped_decode", "w4_grouped.cu",
               "pallas_w4.py:129", b4["w4_matmul_grouped_decode"],
               launches_batch_b8=b8["w4_matmul_grouped_decode"],
@@ -4307,6 +4678,11 @@ def main() -> None:
           f"steps 32 --dllm 64 {br4['dllm256'][1] * 1e3:.1f} / "
           f"{br4['dllm256'][2]:.2f} vs without --dllm "
           f"{br4['cached256'][1] * 1e3:.1f} / {br4['cached256'][2]:.2f}; "
+          f"eval CLI (8B checkpoint, mixed, {len(EVAL_TASKS)} tasks x "
+          f"{EVAL_LIMIT} documents) {ev['wall']:.2f} s (set-up "
+          f"{ev['setup']:.2f} s), peak "
+          f"{ev['peak']:.2f} GiB, per document {ev['per_doc']} s, video "
+          f"prefix {ev['video_prefix']}; "
           f"FIM (8B checkpoint, weight-only int8, G 256) {fim_wall:.2f} s "
           f"with the load / {fim_peak:.2f}; log-likelihood (mixed, MMMU "
           f"geometry) weight-only {loglik[False][1] * 1e3:.1f} / "

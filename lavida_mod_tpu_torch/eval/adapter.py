@@ -20,9 +20,13 @@ continuation (truncated to 300 tokens) with the MC estimator
 (generation/log_likelihood.py, `mc_num` 16) over the prompt's prefix, in
 the mixed layout on the int8 prefill tree, weight-only unless
 `loglik_act_int8` (adapter.py:202-223); it raises for Dream as the JAX
-adapter does (its AR-shifted head has no MC estimator).  Not ported yet:
-video requests (data/video.py and the video encode, ROADMAP.md Queue 1
-item 9): they raise.
+adapter does (its AR-shifted head has no MC estimator).  A video request
+(`generate_until(video=True)`, the eval's is_video documents) goes through
+`_generate_video` (adapter.py:165-199): the frames behind ONE <image>
+placeholder, each a square view in the "pad" aspect mode, encoded by
+`multimodal.encode_video` (per-frame encode and pool, flattened, one
+newline row) and spliced as one block by `LaViDa.generate(image_features=
+[block])`.
 
 The serve worker (serve/worker.py) answers its requests through this
 class: one request through `generate_until`, a merged batch through
@@ -59,6 +63,7 @@ from ..data.conversation import get_conv_template
 from ..data.prompts import tokenizer_image_token
 from ..generation import diffusion
 from ..generation.log_likelihood import get_log_likelihood
+from ..models import multimodal
 
 
 def gen_kwargs_to_config(gen_kwargs: dict, lm_family: str = "llada"):
@@ -196,10 +201,9 @@ class LavidaEvalModel:
     def generate_until(self, text: str, images: Sequence,
                        gen_kwargs: Optional[dict] = None,
                        video: bool = False) -> str:
-        if video and images:
-            raise NotImplementedError("video requests are not in the port "
-                                      "yet (ROADMAP.md Queue 1 item 9)")
         gen = gen_kwargs_to_config(gen_kwargs or {}, self.model.lm_family)
+        if video and images:
+            return self._generate_video(text, images, gen)
         dream = isinstance(gen, DreamGenerationConfig)
         input_ids, views, sizes, model = self._build_inputs(text, images)
         t0 = time.perf_counter()
@@ -214,6 +218,43 @@ class LavidaEvalModel:
                 prefix_bucket=None if dream else self.prefix_bucket)
         self.latencies.append(time.perf_counter() - t0)
         return model.decode_output(out, self.tokenizer, self._stop_ids())
+
+    def video_inputs(self, text: str, frames: Sequence):
+        """A video request's prompt ids (one <image> placeholder) and its
+        frames as square views [F, C, S, S] (the "pad" mode: no anyres
+        tiling per frame)."""
+        conv = get_conv_template(self.conv_template)
+        if getattr(self.tokenizer, "chat_template", None):
+            conv.tokenizer = self.tokenizer
+        conv.append_message(conv.roles[0], "<image>\n" + text)
+        input_ids = tokenizer_image_token(conv.get_prompt(), self.tokenizer)
+        pad_cfg = self.model.cfg.vision.replace(image_aspect_ratio="pad")
+        views = np.concatenate(
+            process_images(list(frames), self.processor, pad_cfg), axis=0)
+        return input_ids, views
+
+    @torch.no_grad()
+    def _generate_video(self, text: str, frames: Sequence, gen) -> str:
+        """Video request: all frames behind ONE <image> placeholder,
+        encoded by the video path (per-frame encode + 2x2 pool, frames
+        flattened, one newline token -- multimodal.encode_video,
+        llava_arch.py:600-610).  The reference eval model does the same
+        for "video" modality visuals (llava_llada.py:327-345) instead of
+        the multi-image pad mode.  The latency counts the generation, not
+        the encode (as adapter.py:190-198)."""
+        input_ids, views = self.video_inputs(text, frames)
+        block = multimodal.encode_video(
+            self.model, torch.as_tensor(views, device=self.model.device))
+        t0 = time.perf_counter()
+        out = self.model.generate(
+            input_ids, gen=gen, image_features=[block],
+            prefix_bucket=(self.prefix_bucket
+                           if not isinstance(gen, DreamGenerationConfig)
+                           else None),
+            kv8=self.kv8)
+        self.latencies.append(time.perf_counter() - t0)
+        return self.model.decode_output(out, self.tokenizer,
+                                        self._stop_ids())
 
     def loglikelihood(self, text: str, images: Sequence,
                       continuation: str) -> float:

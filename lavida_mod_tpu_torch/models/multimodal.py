@@ -19,6 +19,8 @@ ported too: `encode_image` (multimodal.py:122-144) encodes one image and
 merges its views (`merge_anyres`, :89-119), and `splice_embeddings`
 (:162-210) concatenates text embeddings and image blocks at the -200
 markers; tests/test_torch_batch.py holds the two paths equal.
+`encode_video` (:147-159) is the video block a video request splices at
+its one -200 marker.
 
 `multimodal_embeds` is the splice of the training step too: it is
 differentiable from the tower through the projector, the pool and
@@ -57,6 +59,16 @@ def encode_views(model, pixel_values: torch.Tensor, pool: bool = True,
         return feats
     vcfg = model.cfg.vision
     return pool_2d(feats, vcfg.spatial_pool_mode, vcfg.spatial_pool_stride)
+
+
+def encode_video(model, frame_views: torch.Tensor) -> torch.Tensor:
+    """The video path (multimodal.py:147-159): frames [F, C, S, S] each
+    encoded and pooled as a view (the plain tower MLP: JAX passes no
+    fused_mlp there), flattened to [F*T, D], and ONE image_newline row
+    appended (llava_arch.py:600-610, mm_newline_position="one_token")."""
+    feats = encode_views(model, frame_views)               # [F, T, D]
+    flat = feats.reshape(-1, feats.shape[-1])
+    return torch.cat([flat, model.image_newline[None].to(flat.dtype)])
 
 
 def merge_anyres(features: torch.Tensor, image_size: tuple[int, int],

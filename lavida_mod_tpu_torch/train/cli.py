@@ -42,15 +42,21 @@ train.py's order:
     microstep always saves (adapter-only or a full async save), and the
     saves are committed before exit; `--profile DIR` traces microsteps 2-4
     of the run (utils/profiling.py).
+  - `--eval-tasks` (train.py:454-475): every `--eval-every` optimizer
+    steps `train.eval_hook.run_in_training_eval` scores the tasks
+    (`--eval-limit` documents each, `--eval-data-path` task=path pairs)
+    on the compute model itself -- bf16 under "mixed" (JAX's bf16 cast of
+    its masters), its parameters shared, nothing copied back -- with
+    `--style` as the template and LM family; the rows {"eval/<task>/
+    <metric>": value} go to the metrics logger and are printed.
 Refused: `--dp`, `--fsdp` or `--tp` above 1 (sharded training, ROADMAP.md
-Queue 1 item 9) and `--eval-tasks` (the in-training eval needs the eval
-tasks, item 10).  `--remat` also takes `one_in_N` (the model API's
+Queue 1 item 9).  `--remat` also takes `one_in_N` (the model API's
 strategy) beside train.py's choices.  Dropped: JAX's platform switch and
 its compile cache.
 
-`main(argv)` returns what the run did (losses, logged rows, the train
-state, walls, the profile) for callers in process, chip_smoke.py among
-them.
+`main(argv)` returns what the run did (losses, logged rows, eval rows,
+the train state, walls, the profile) for callers in process,
+chip_smoke.py among them.
 """
 
 from __future__ import annotations
@@ -69,9 +75,6 @@ REMATS = ("whole_layer", "nested", "dots", "dots_nobatch", "none")
 NOT_PORTED = {
     "sharding": "sharded training (--dp / --fsdp / --tp above 1) is not in "
                 "the port yet (ROADMAP.md Queue 1 item 9)",
-    "--eval-tasks": "the in-training eval (--eval-tasks) needs the eval "
-                    "tasks, which are not in the port yet (ROADMAP.md Queue "
-                    "1 item 10)",
 }
 
 
@@ -147,10 +150,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--adapter-only-save", action="store_true")
     ap.add_argument("--eval-tasks", default=None,
-                    help="not in the port yet (ROADMAP.md Queue 1 item 10)")
+                    help="comma-separated lite tasks run every --eval-every "
+                         "steps against live params (LLaVAEvalTrainer "
+                         "analogue); needs --tokenizer-path + task data")
     ap.add_argument("--eval-every", type=int, default=500)
     ap.add_argument("--eval-limit", type=int, default=32)
-    ap.add_argument("--eval-data-path", default=None)
+    ap.add_argument("--eval-data-path", default=None,
+                    help="task=path jsonl overrides, comma-separated")
     ap.add_argument("--wandb", action="store_true")
     ap.add_argument("--tokenizer-path", default=None)
     ap.add_argument("--remat", default="whole_layer", type=_remat,
@@ -402,6 +408,21 @@ def _load_tokenizer(args):
     return ByteTokenizer()
 
 
+def run_eval(args, cfg, state, tokenizer) -> dict:
+    """The in-training eval of train.py:454-475 on the state's compute
+    model: under "mixed" it is the bf16 cast of the masters JAX evaluates,
+    and under "bf16" the parameters themselves; shared, never copied
+    back."""
+    from ..eval.__main__ import parse_data_paths
+    from .eval_hook import run_in_training_eval
+
+    return run_in_training_eval(
+        cfg, state.model, tokenizer, args.eval_tasks.split(","),
+        parse_data_paths(args.eval_data_path) or None,
+        limit=args.eval_limit, conv_template=args.style,
+        lm_family=args.style)
+
+
 def _build_model(args, cfg, device):
     import torch
 
@@ -423,8 +444,6 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     if args.dp > 1 or (args.fsdp or 1) > 1 or args.tp > 1:
         ap.error(NOT_PORTED["sharding"])
-    if args.eval_tasks:
-        ap.error(NOT_PORTED["--eval-tasks"])
 
     import torch
 
@@ -518,7 +537,7 @@ def main(argv=None) -> dict:
     from ..utils.profiling import trace
 
     profile_ctx = prof = None
-    all_metrics, logged, saves = [], [], []
+    all_metrics, logged, saves, evals = [], [], [], []
     window: list = []
     tokens_since_log = 0
     if device.type == "cuda":
@@ -559,6 +578,12 @@ def main(argv=None) -> dict:
                             f"{m['tokens_per_s']:.0f} tok/s)")
             if on_update:
                 window = []
+            if args.eval_tasks and on_update \
+                    and opt_step % args.eval_every == 0:
+                scores = run_eval(args, cfg, state, tokenizer)
+                logger.log(opt_step, scores)
+                evals.append({"step": opt_step, **scores})
+                rank0_print(f"[train] eval @ {opt_step}: {scores}")
             if (on_update and args.save_every > 0
                     and opt_step % args.save_every == 0) \
                     or step + 1 == total_iters:
@@ -591,6 +616,7 @@ def main(argv=None) -> dict:
     result.update(
         start_step=start_step,
         losses=[float(m["loss"]) for m in all_metrics], logged=logged,
+        evals=evals,
         saves=saves, profile=prof, attention_impl=attn_impl,
         peak_gib=(torch.cuda.max_memory_allocated(device) / 2**30
                   if device.type == "cuda" else None))

@@ -29,8 +29,12 @@ Every flag of the script, plus `--device` (default `cuda`; the tests pass
     `split_lora_state` under `checkpoint-N` of `--output-dir`
     (utils/checkpoint.py; JAX's `/` in the paths stored as `.`), reloaded
     by `load_adapters`.
-`--eval-every` with `--eval-tasks` exits: the in-training eval needs the
-eval tasks (ROADMAP.md Queue 1 item 10).
+  - with `--eval-every` and `--eval-tasks`, every `--eval-every` steps
+    `run_in_training_eval` on the live model, as the script calls it
+    (:178-185): no tokenizer, no data paths (each task's documents from
+    its HF dataset through `datasets`), `--eval-limit` documents.  Without
+    `datasets` that load raises ModuleNotFoundError, as the script's does
+    (ROADMAP.md Queue 3).
 
 Before the first step the peak device memory is reckoned and printed
 (`reckon_peak`): the weights, the LoRA factors' gradient and Adam state,
@@ -117,15 +121,11 @@ def main(argv=None, on_ready=None) -> dict:
     ap.add_argument("--shirg-method", default="full")
     ap.add_argument("--save-every", type=int, default=500)
     ap.add_argument("--eval-every", type=int, default=0)
-    ap.add_argument("--eval-tasks", default=None,
-                    help="not in the port yet (ROADMAP.md Queue 1 item 10)")
+    ap.add_argument("--eval-tasks", default=None)
     ap.add_argument("--eval-limit", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.eval_every and args.eval_tasks:
-        ap.error("--eval-tasks: the in-training eval is not in the port yet "
-                 "(ROADMAP.md Queue 1 item 10)")
 
     import torch
     from PIL import Image
@@ -245,6 +245,14 @@ def main(argv=None, on_ready=None) -> dict:
                   f"grad_norm={norms[-1]:.4f} "
                   f"({n / (time.perf_counter() - t_log):.2f} it/s)")
             t_log = time.perf_counter()
+        if args.eval_every and (step + 1) % args.eval_every == 0 \
+                and args.eval_tasks:
+            from .train.eval_hook import run_in_training_eval
+
+            scores = run_in_training_eval(
+                cfg, model, None, args.eval_tasks.split(","),
+                None, limit=args.eval_limit)
+            print(f"[shirg-lora] eval @ {step + 1}: {scores}")
         if (step + 1) % args.save_every == 0 or step + 1 == args.steps:
             path = save_checkpoint(
                 args.output_dir, step + 1,

@@ -122,7 +122,7 @@ def test_anyres_geometry_equals_jax():
 # packages the port imports only inside the functions that use them: no
 # module of the port, nor chip_smoke, needs one to import
 OPTIONAL = ("safetensors", "tokenizers", "transformers", "jinja2", "PIL",
-            "ml_dtypes", "regex")
+            "ml_dtypes", "regex", "datasets", "wandb", "av")
 
 
 def test_port_imports_without_jax_or_the_jax_package():
@@ -284,3 +284,42 @@ def test_import_scans_cover_the_shirg_slice():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip() == "PIL needed when called"
+
+
+EVAL = ("eval/__init__.py", "eval/__main__.py", "eval/adapter.py",
+        "eval/evaluator.py", "eval/filters.py", "eval/ifeval.py",
+        "eval/metrics.py", "eval/tasks.py", "eval/tasks_ext.py",
+        "eval/tracker.py", "data/video.py", "train/eval_hook.py",
+        "tools/eval_smoke_all.py")
+
+
+def test_import_scans_cover_the_eval_slice():
+    """The scans above walk the eval slice's modules too, and importing
+    the eval package, its CLI, the registry and the hook (and building
+    the 131 tasks) pulls in neither jax, nor lavida_mod_tpu, nor datasets,
+    wandb or av: each is imported where it is used."""
+    files = {f.relative_to(REPO / "lavida_mod_tpu_torch").as_posix()
+             for f in (REPO / "lavida_mod_tpu_torch").rglob("*.py")}
+    assert set(EVAL) <= files
+    import pkgutil
+
+    import lavida_mod_tpu_torch as p
+    names = {m.name for m in pkgutil.walk_packages(
+        p.__path__, "lavida_mod_tpu_torch.")}
+    assert {"lavida_mod_tpu_torch." + f[:-3].replace("/", ".")
+            for f in EVAL if not f.endswith("__init__.py")} <= names
+    code = (
+        "import sys\n"
+        "import lavida_mod_tpu_torch.eval as e\n"
+        "import lavida_mod_tpu_torch.eval.__main__, "
+        "lavida_mod_tpu_torch.eval.tasks, lavida_mod_tpu_torch.eval.tasks_ext\n"
+        "import lavida_mod_tpu_torch.train.eval_hook\n"
+        "import lavida_mod_tpu_torch.train.cli, "
+        "lavida_mod_tpu_torch.train_shirg_lora\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'lavida_mod_tpu', 'datasets', 'wandb', 'av'))\n"
+        "print(len(e.list_tasks()), bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip() == "131 []"

@@ -24,6 +24,7 @@ Extra-LoRA harness against the JAX package on the CPU, f32.
 
 import json
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -394,7 +395,7 @@ def synthetic(tmp_path_factory):
     return d
 
 
-def test_harness_tiny_saves_and_reloads(synthetic, tmp_path):
+def test_harness_tiny_saves_and_reloads(synthetic, tmp_path, monkeypatch):
     from lavida_mod_tpu_torch import train_shirg_lora as h
 
     argv = ["--tiny", "--device", "cpu", "--data-path",
@@ -419,8 +420,11 @@ def test_harness_tiny_saves_and_reloads(synthetic, tmp_path):
     # SigLIP's B left zero; the projector's do not act (as in JAX)
     assert all(live[k]["lora_b"].any() == k.startswith("siglip")
                for k in live)
-    with pytest.raises(SystemExit):
-        h.main(argv + ["--eval-every", "2", "--eval-tasks", "mmmu"])
+    # the in-training eval runs as the script's: no data paths, so the
+    # documents need `datasets` (tests/test_torch_eval_hook.py)
+    monkeypatch.setitem(sys.modules, "datasets", None)
+    with pytest.raises(ModuleNotFoundError):
+        h.main(argv + ["--eval-every", "2", "--eval-tasks", "mmmu_val"])
 
 
 def h_tiny_cfg():

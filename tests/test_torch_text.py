@@ -445,5 +445,6 @@ def test_generate_until_batch_decodes_generate_batch(tok_dirs, image,
     assert len(ev.latencies) == 3
     ll = ev.loglikelihood("q", [img], "a")     # the MC estimator
     assert np.isfinite(ll) and ll < 0
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ev.generate_until("q", [img, img], GEN_KW, video=True)
+    # two frames through the video route (encode_video, one block)
+    out = ev.generate_until("q", [img, img], GEN_KW, video=True)
+    assert isinstance(out, str) and len(ev.latencies) == 4

@@ -15,7 +15,8 @@ repository's train.py and the JAX package's utils:
     saves commit in order and the newest wins, a killed temporary
     directory is never a resume point, the adapter-only layout and its
     resume failure are JAX's;
-  - sharding and --eval-tasks exit naming their ROADMAP items.
+  - sharding exits naming its ROADMAP item (--eval-tasks runs the
+    in-training eval: tests/test_torch_eval_hook.py).
 The card case (`-k cuda`) runs the tiny CLI on the card with a resume.
 """
 
@@ -257,7 +258,7 @@ def test_cli_module_runs_logs_and_saves(data, tmp_path):
 
 @pytest.mark.parametrize("argv,item", [
     (["--dp", "2"], "item 9"), (["--fsdp", "2"], "item 9"),
-    (["--tp", "2"], "item 9"), (["--eval-tasks", "pope"], "item 10")])
+    (["--tp", "2"], "item 9")])
 def test_refusals_name_their_item(data, tmp_path, capsys, argv, item):
     with pytest.raises(SystemExit):
         cli.main(_argv(data, tmp_path, *argv))
