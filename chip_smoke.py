@@ -277,10 +277,35 @@ bit-unchanged, the inert factors (SigLIP's gated ones and the projector's,
 which the projector never reads) with B still zero and A decayed by
 weight decay alone, the adapter save reloaded bit-equal, the step walls
 and the peak beside the reckoned one and the card's memory.
+After the Dream phases, the rest of training and sharding (phases 16-18):
+one stage-1 step of LaViDa-Dream at full Dream-7B width through
+make_freeze_optimizer("mm_mlp_adapter") and make_multimodal_train_step
+(B = 4 bench-shaped samples, as phase 11): the launches per step (#10 2 x
+28 forward with the remat recompute, 28 dq, 28 dkv; #1 2 x 26; #2 1), a
+finite loss, the projector moved, every LLaDA and SigLIP weight
+bit-unchanged, the step wall and peak; three diffusion DPO steps at full
+LaViDa-LLaDA-8B (LoRA rank 64 on the LM's seven linears,
+make_lora_optimizer, the reference the frozen base with the factors off;
+one pair of a bench-shaped image, a 48-token prompt and 32-token answers
+embedded on the card through the tower and the splice): the first loss
+log 2, finite losses and grad norms, #10's launches per step (the
+policy's passes forward + remat + dq + dkv, the reference's forward) and
+#1 / #2 per built pair, every base weight bit-unchanged, the B factors
+moved, the wall and peak beside the reckoned memory; then, on a
+one-rank NCCL process group, the same 8B model (its factors dropped)
+under LaViDa.shard serving one bench request -- tokens bit-equal to the
+unsharded request's, #1 and #2 launches equal, and its encode_prompt
+bit-equal with #9's 26 launches in both -- and one stage-1 step at the
+457m geometry under the one-rank mesh whose loss and grad_norm equal the
+unsharded step's bit for bit (two unsharded steps first show the step
+itself repeats; where it does not, both must lie within their spread).  Phase 10 also holds #10 at the Dream step's shape
+([8, 1152, 28 / 4 heads, 128]) against its plain versions and SDPA.
 Then the card's name and power limit, one JSON line of per-kernel results
 (each entry with `launches_dream_path`, and `dream_path`, its sums at the
 Dream shapes, where phase 14 measured it; #1, #2 and #10 with
-`launches_train_cli`, T1's; the SHIRG paths' launches; #1's f32 instance
+`launches_train_cli`, T1's, and `launches_dream_train_step` /
+`launches_dpo_step`, per step of phases 16 / 17; the SHIRG paths'
+launches; #1's f32 instance
 as `short_attention_f32`, its launches the harness run's), and as the
 last line
 {"ok": true, "device": {...}}.
@@ -2845,6 +2870,10 @@ def phase_train_kernels(torch, device, res):
     plen1 = [1010 - 9 * i for i in range(4)] * 2
     cases = [("stage1", 8, 1152, 32, 32, plen1, [p + 48 for p in plen1],
               (2 * LLADA_LAYERS, LLADA_LAYERS, LLADA_LAYERS)),
+             # the Dream-7B stage-1 step (phase 16): B = 4 doubled, GQA
+             # 28 / 4; weighed 0 in the stage-1 sums
+             ("dream_step", 8, 1152, DREAM_LAYERS, 4, plen1,
+              [p + 48 for p in plen1], (0, 0, 0)),
              ("gqa_ragged", 2, 200, 28, 4, [0, 250], [193, 200], (0, 0, 0))]
     hd = 128
     for name, B, T, Hq, Hkv, plen, nvalid, per in cases:
@@ -2957,6 +2986,25 @@ def prefix_flash_summary(res, card):
     for name in ("prefix_flash_fwd", "prefix_flash_dq", "prefix_flash_dkv"):
         res.summary(name, "one stage-1 step (64 fwd with the remat "
                     "recompute, 32 dq, 32 dkv)", card)
+    dfwd, ddq, ddkv = (next(r for r in res.get(n)["per_shape"]
+                            if r["shape"].startswith("dream_step"))
+                       for n in ("prefix_flash_fwd", "prefix_flash_dq",
+                                 "prefix_flash_dkv"))
+    step = (2 * DREAM_LAYERS * dfwd["ms"]
+            + DREAM_LAYERS * (ddq["ms"] + ddkv["ms"]))
+    bound = (2 * DREAM_LAYERS * dfwd["bound_ms"]
+             + DREAM_LAYERS * (ddq["bound_ms"] + ddkv["bound_ms"]))
+    lib = (2 * DREAM_LAYERS * dfwd["library_ms"]
+           + DREAM_LAYERS * ddq["library_ms"])
+    print(f"[kernels] prefix_flash at the Dream step's shape [8,1152,28/4,"
+          f"128]: fwd {dfwd['ms']:.4f} ms (SDPA {dfwd['library_ms']:.4f}, "
+          f"bound {dfwd['bound_ms']:.4f}), dq + dkv "
+          f"{ddq['ms'] + ddkv['ms']:.4f} ms (SDPA's backward "
+          f"{ddq['library_ms']:.4f}, bound "
+          f"{ddq['bound_ms'] + ddkv['bound_ms']:.4f}); per Dream step (56 "
+          f"fwd, 28 dq, 28 dkv) {step:.2f} ms against SDPA's {lib:.2f} ms "
+          f"and the bound {bound:.2f} ms ({100 * bound / step:.1f} %) "
+          f"({card})")
 
 
 TRAIN_TEXT, TRAIN_CAPTION = 8, 40
@@ -4382,6 +4430,382 @@ def phase_shirg_lora_harness(torch, device, card):
     return {"walls": run["walls"], "peak": peak, "plan": plan["total"],
             "wall": wall, "losses": run["losses"], "counts": counts}
 
+# ---------------------------------------------------------------------------
+# the rest of training and sharding: Dream-geometry training, diffusion DPO,
+# LaViDa.shard on a one-rank NCCL mesh (phases 16-18)
+# ---------------------------------------------------------------------------
+
+def _step_launches(torch, ops, run):
+    """run() with every count of `ops` set to 0 just before it; (its
+    result, the launches by kernel)."""
+    for op in ops.values():
+        op.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    return out, {k: op.launches for k, op in ops.items()}
+
+
+def phase_dream_train(torch, device, card):
+    """One stage-1 step of LaViDa-Dream at full Dream-7B width (28 layers,
+    d 3584, 28 / 4 heads, the QKV bias; SigLIP's 26), B = 4 bench-shaped
+    samples as phase 11, after a warm-up step at LR 0."""
+    from lavida_mod_tpu_torch.config import LaViDaConfig, dream_7b_config
+    from lavida_mod_tpu_torch.models.lavida import LaViDa
+    from lavida_mod_tpu_torch.train.step import (init_train_state,
+                                                 make_freeze_optimizer,
+                                                 make_multimodal_train_step)
+
+    cfg = LaViDaConfig(llada=dream_7b_config())
+    t0 = time.perf_counter()
+    model = LaViDa.random_init(cfg, 0, torch.bfloat16, device,
+                               lm_family="dream")
+    opt = make_freeze_optimizer("mm_mlp_adapter", lr=1e-3, warmup_steps=3,
+                                total_steps=STAGE1_STEPS)
+    state = init_train_state(model, opt, torch.bfloat16)
+    step = make_multimodal_train_step(
+        cfg, opt, remat="whole_layer", ce_chunk=512,
+        attention_impl="prefix_flash")
+    torch.cuda.synchronize()
+    print(f"[dream-train] Dream-7B LaViDa bf16 random init + train state in "
+          f"{time.perf_counter() - t0:.2f} s: "
+          f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params "
+          f"({card})")
+    batch = train_batch(cfg, BATCH_SIZES, np.random.default_rng(10))
+    B, T = batch["labels"].shape
+    gen = torch.Generator(device=device).manual_seed(0)
+    frozen = [model.llada, model.siglip]
+    sums0 = _checksums(torch, frozen)
+    tunable = {n: m.clone() for n, m in state.masters.items()}
+    ops = _train_ops()
+    want = {"prefix_flash_fwd": 2 * DREAM_LAYERS,
+            "prefix_flash_dq": DREAM_LAYERS,
+            "prefix_flash_dkv": DREAM_LAYERS, "gather_rows": 1,
+            "short_attention": 2 * SIGLIP_LAYERS}
+    step(state, batch, gen)                     # warm-up: the LR is 0 here
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m, got = _step_launches(torch, ops, lambda: step(state, batch, gen))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    loss = m["loss"].item()
+    print(f"[dream-train] one step, B={B} T={T}: wall {wall * 1e3:.1f} ms, "
+          f"{B * T / wall:.0f} data tokens/s, peak {peak:.2f} GiB, loss "
+          f"{loss:.4f}, grad_norm {m['grad_norm'].item():.4e}, launches "
+          f"{got} ({card})")
+    if got != want:
+        raise AssertionError(f"Dream step launches {got}, want {want}")
+    if not np.isfinite([loss, m["grad_norm"].item()]).all():
+        raise AssertionError(f"Dream step loss {loss}")
+    moved = {n.split(".")[0] for n, t in tunable.items()
+             if not torch.equal(state.masters[n], t)}
+    if moved != {"projector", "image_newline"}:
+        raise AssertionError(f"only {moved} moved")
+    if not torch.equal(_checksums(torch, frozen), sums0):
+        raise AssertionError("a frozen LLaDA or SigLIP weight changed")
+    if model.llada.blocks[0].k_proj.bias is None:
+        raise AssertionError("the Dream LM has no QKV bias")
+    del state, model, step
+    torch.cuda.empty_cache()
+    return got, {"wall_ms": wall * 1e3, "peak_gib": peak, "B": B, "T": T,
+                 "loss": loss}
+
+
+DPO_STEPS = 3
+DPO_TARGETS = (r"llada/blocks/(q_proj|k_proj|v_proj|attn_out|ff_proj|"
+               r"up_proj|ff_out)")
+
+
+def dpo_pair(torch, model, cfg, rng):
+    """A chosen / rejected pair of one bench-shaped image, a 48-token
+    prompt and 32-token answers, embedded on the card through the tower
+    and the splice (#1 x 26, #2 x 1): the DPO batch and the launches."""
+    from lavida_mod_tpu_torch.models.multimodal import (build_gather_plan,
+                                                        multimodal_embeds)
+
+    ids, views, size = bench_request(48, (640, 640), rng)
+    rows, labels = [], []
+    for _ in range(2):
+        answer = rng.integers(3, min(30000, cfg.llada.mask_token_id), 32)
+        row = np.concatenate([ids, answer])
+        lab = np.concatenate([np.full(len(ids), -100), answer])
+        rows.append(row)
+        labels.append(lab)
+    T = build_gather_plan(cfg, rows, [[views.shape[0]]] * 2,
+                          [[size]] * 2)[0].shape[1]
+    gather_idx, text_ids, _, labs = build_gather_plan(
+        cfg, rows, [[views.shape[0]]] * 2, [[size]] * 2, labels,
+        pad_to=-(-T // 128) * 128)
+    pix = torch.from_numpy(np.concatenate([views, views])).to(
+        device=model.device, dtype=torch.bfloat16)
+    ops = _train_ops()
+    with torch.no_grad():
+        emb, got = _step_launches(torch, ops, lambda: multimodal_embeds(
+            model, pix, text_ids, gather_idx))
+    labs = torch.from_numpy(labs).to(model.device)
+    return ({"chosen_embeds": emb[:1], "chosen_labels": labs[:1],
+             "rejected_embeds": emb[1:], "rejected_labels": labs[1:]},
+            got)
+
+
+def phase_dpo(torch, device, card):
+    """Three diffusion DPO steps at full LaViDa-LLaDA-8B: LoRA rank 64 on
+    the LM's seven linears trained by make_lora_optimizer, the reference
+    the policy with its factors off (one frozen base for both).  Returns
+    (the launches of a step, of the pair's build, the results, the model
+    with its factors dropped: phase 18's)."""
+    from lavida_mod_tpu_torch.config import LaViDaConfig
+    from lavida_mod_tpu_torch.models.lavida import LaViDa
+    from lavida_mod_tpu_torch.ops.quant import detach_lora, has_lora
+    from lavida_mod_tpu_torch.train.dpo import make_dpo_train_step
+    from lavida_mod_tpu_torch.train.lora import add_lora, make_lora_optimizer
+    from lavida_mod_tpu_torch.train.step import init_train_state
+
+    cfg = LaViDaConfig()
+    model = LaViDa.random_init(cfg, 0, torch.bfloat16, device)
+    base = _checksums(torch, [model.llada, model.siglip])
+    batch, build = dpo_pair(torch, model, cfg, np.random.default_rng(24))
+    want_build = {"prefix_flash_fwd": 0, "prefix_flash_dq": 0,
+                  "prefix_flash_dkv": 0, "gather_rows": 1,
+                  "short_attention": SIGLIP_LAYERS}
+    if build != want_build:
+        raise AssertionError(f"pair build launches {build}, want "
+                             f"{want_build}")
+    add_lora(model, seed=1, rank=64, target_re=DPO_TARGETS)
+    lm = model.llada
+    opt = make_lora_optimizer(lr=1e-4, warmup_steps=0, total_steps=10)
+    state = init_train_state(lm, opt)
+    n_lora = sum(t.numel() for t in state.masters.values())
+    step = make_dpo_train_step(None, opt, None, beta=0.1,
+                               remat="whole_layer",
+                               attention_impl="prefix_flash")
+    L = LLADA_LAYERS
+    # the policy's two passes: forward + the remat recompute, dq, dkv;
+    # the reference's two: forward only
+    want = {"prefix_flash_fwd": 2 * 2 * L + 2 * L,
+            "prefix_flash_dq": 2 * L, "prefix_flash_dkv": 2 * L,
+            "gather_rows": 0, "short_attention": 0}
+    weights = sum(p.numel() * p.element_size() for p in model.parameters()
+                  if p.dtype == torch.bfloat16)
+    T = batch["chosen_labels"].shape[1]
+    V = cfg.llada.vocab_size
+    # reckoned: the bf16 weights, the f32 factors with their gradients and
+    # two Adam moments, two passes' f32 logits and log-softmax, and the
+    # largest frozen gradient (the head's) alive at once
+    reckoned = (weights + 16 * n_lora + 2 * 2 * 4 * T * V
+                + 2 * V * cfg.llada.d_model)
+    gen = torch.Generator(device=device).manual_seed(0)
+    ops = _train_ops()
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses, norms, launches = [], [], [], []
+    for i in range(DPO_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m, got = _step_launches(torch, ops, lambda: step(state, batch, gen))
+        walls.append(time.perf_counter() - t0)
+        losses.append(m["dpo_loss"].item())
+        norms.append(m["grad_norm"].item())
+        launches.append(got)
+        print(f"[dpo] step {i + 1}: T={T}: wall {walls[-1] * 1e3:.1f} ms, "
+              f"loss {losses[-1]:.6f}, margin "
+              f"{m['reward_margin'].item():.3e}, grad_norm {norms[-1]:.4e},"
+              f" launches {got} ({card})")
+        if got != want:
+            raise AssertionError(f"DPO step launches {got}, want {want}")
+    peak = torch.cuda.max_memory_allocated()
+    if abs(losses[0] - float(np.log(2.0))) > 1e-6:
+        raise AssertionError(f"first DPO loss {losses[0]}, want log 2 "
+                             f"(policy == reference at init)")
+    if not np.isfinite(losses + norms).all():
+        raise AssertionError(f"losses {losses}, norms {norms}")
+    params = dict(lm.named_parameters())
+    if not all(params[n].abs().max().item() > 0 for n in state.masters
+               if n.endswith("lora_b")):
+        raise AssertionError("a LoRA B factor did not move")
+    for m_ in model.modules():
+        if has_lora(m_):
+            detach_lora(m_)
+    if not torch.equal(_checksums(torch, [model.llada, model.siglip]), base):
+        raise AssertionError("a base weight changed")
+    print(f"[dpo] {DPO_STEPS} steps at 8B (LoRA rank 64 on "
+          f"{sum(1 for n in state.masters if n.endswith('lora_a'))} linears, "
+          f"{n_lora / 1e6:.1f} M factors): walls "
+          f"{[round(w * 1e3, 1) for w in walls]} ms, first loss "
+          f"{losses[0]:.7f} (log 2 = {np.log(2.0):.7f}), peak "
+          f"{peak / 1e9:.2f} GB against {reckoned / 1e9:.2f} GB reckoned "
+          f"(bf16 weights {weights / 1e9:.2f} GB); base weights "
+          f"bit-unchanged, every B factor moved ({card})")
+    del state, step, batch
+    model.eval()
+    torch.cuda.empty_cache()
+    return launches[0], build, {"walls": walls, "losses": losses,
+                                "peak": peak, "reckoned": reckoned}, model
+
+
+def _train_457m(torch, device, cfg, batch, mesh):
+    """One stage-1 microstep of the 457m geometry from seed 0 (mixed
+    precision, #10, whole-layer remat), on `mesh` when given: its
+    metrics and the launches."""
+    from lavida_mod_tpu_torch.models.lavida import LaViDa
+    from lavida_mod_tpu_torch.train.step import (init_train_state,
+                                                 make_freeze_optimizer,
+                                                 make_multimodal_train_step)
+
+    model = LaViDa.random_init(cfg, 0, torch.float32, device)
+    if mesh is not None:
+        model.shard(mesh=mesh)
+    opt = make_freeze_optimizer("mm_mlp_adapter", lr=1e-3, warmup_steps=0,
+                                total_steps=10)
+    state = init_train_state(model, opt, torch.bfloat16)
+    step = make_multimodal_train_step(cfg, opt, remat="whole_layer",
+                                      attention_impl="prefix_flash",
+                                      mesh=mesh)
+    gen = torch.Generator(device=device).manual_seed(5)
+    m, got = _step_launches(torch, _train_ops(),
+                            lambda: step(state, batch, gen))
+    del state, model, step
+    torch.cuda.empty_cache()
+    return m, got
+
+
+def phase_sharded(torch, device, card, model):
+    """LaViDa.shard on a one-rank NCCL process group: phase 17's 8B bf16
+    model serves one bench request before and after it is sharded, and a
+    457m stage-1 step runs without and with the mesh."""
+    import torch.distributed as dist
+
+    from lavida_mod_tpu_torch.config import GenerationConfig
+    from lavida_mod_tpu_torch.ops import vit_mlp as tv
+    from lavida_mod_tpu_torch.parallel import make_mesh
+    from lavida_mod_tpu_torch.parallel.sharding import is_dtensor
+    from lavida_mod_tpu_torch.train.cli import geometry_config
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", world_size=1, rank=0,
+                            device_id=device)
+    try:
+        mesh = make_mesh(1, 1, 1)
+        gen = GenerationConfig(**GEN)
+        ids, views, size = bench_requests(np.random.default_rng(0))[0]
+        serve = (lambda: model.generate_fused(ids, [views], [size], gen))
+        # encode_prompt (the bf16 `generate`'s prefix) runs the tower's MLP
+        # through #9, with whole fc1 / fc2 weights under a mesh
+        encode = (lambda: model.encode_prompt(ids, [views], [size]))
+        ops = dict(_train_ops(), fused_vit_mlp=tv.fused_vit_mlp)
+        outs, counts, walls, prefixes = [], [], [], []
+        for sharded in (False, True):
+            if sharded:
+                model.shard(mesh=mesh)
+            serve()                                 # warm-up
+            # three timed requests a side: one wall alone moved 1.04x-1.30x
+            # between two runs of this phase
+            walls.append([])
+            for _ in range(SHARD_REPEATS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out, got = _step_launches(torch, ops, serve)
+                walls[-1].append(time.perf_counter() - t0)
+            outs.append(out)
+            prefix, vit = _step_launches(torch, ops, encode)
+            prefixes.append(prefix)
+            counts.append({"short_attention": got["short_attention"],
+                           "gather_rows": got["gather_rows"],
+                           "fused_vit_mlp": got["fused_vit_mlp"],
+                           "fused_vit_mlp_prompt": vit["fused_vit_mlp"]})
+        n_dt = sum(is_dtensor(p) for p in model.parameters())
+        host = _sharded_host_cost(torch, model, serve)
+        print(f"[shard] 8B bf16 bench request, unsharded then under "
+              f"LaViDa.shard on a one-rank NCCL mesh ({n_dt} DTensor "
+              f"parameters): walls "
+              f"{[[round(w * 1e3, 1) for w in ws] for ws in walls]} ms; "
+              f"{host['calls']} sharded weight reads per request at "
+              f"{host['us_dtensor']:.2f} us each on the host against "
+              f"{host['us_plain']:.2f} us for a plain weight ("
+              f"{host['calls'] * (host['us_dtensor'] - host['us_plain']) / 1e3:.1f}"
+              f" ms a request), "
+              f"launches {counts}, tokens equal "
+              f"{bool(np.array_equal(outs[0], outs[1]))}, encode_prompt "
+              f"bit-equal {bool(torch.equal(prefixes[0], prefixes[1]))} "
+              f"({card})")
+        if not np.array_equal(outs[0], outs[1]):
+            raise AssertionError(f"sharded tokens {outs[1]} vs {outs[0]}")
+        if not torch.equal(prefixes[0], prefixes[1]):
+            raise AssertionError("the sharded encode_prompt differs")
+        if counts[0] != counts[1] or counts[0] != {
+                "short_attention": SIGLIP_LAYERS + LLADA_LAYERS,
+                "gather_rows": 1, "fused_vit_mlp": 0,
+                "fused_vit_mlp_prompt": SIGLIP_LAYERS}:
+            raise AssertionError(f"launches {counts}")
+        del model
+        torch.cuda.empty_cache()
+        cfg = geometry_config("457m")
+        batch = train_batch(cfg, BATCH_SIZES, np.random.default_rng(18))
+        runs = [_train_457m(torch, device, cfg, batch, m)
+                for m in (None, None, mesh)]
+        vals = [(r[0]["loss"].item(), r[0]["grad_norm"].item())
+                for r in runs]
+        repeat = (torch.equal(runs[0][0]["loss"], runs[1][0]["loss"])
+                  and torch.equal(runs[0][0]["grad_norm"],
+                                  runs[1][0]["grad_norm"]))
+        equal = (torch.equal(runs[0][0]["loss"], runs[2][0]["loss"])
+                 and torch.equal(runs[0][0]["grad_norm"],
+                                 runs[2][0]["grad_norm"]))
+        print(f"[shard] 457m stage-1 step (loss, grad_norm): unsharded "
+              f"{vals[0]}, again {vals[1]} (repeats bit for bit: {repeat}),"
+              f" one-rank mesh {vals[2]} (bit-equal: {equal}); launches "
+              f"{runs[0][1]} / {runs[2][1]} ({card})")
+        if repeat and not equal:
+            raise AssertionError("the sharded 457m step differs")
+        # where the unsharded step does not repeat bit for bit, the
+        # sharded one's loss and grad_norm must both lie within the
+        # spread of its two runs
+        if not repeat and not all(abs(vals[2][i] - vals[0][i])
+                                  <= abs(vals[1][i] - vals[0][i])
+                                  for i in (0, 1)):
+            raise AssertionError("the sharded 457m step is outside the "
+                                 "unsharded step's repeat spread")
+        if runs[0][1] != runs[2][1]:
+            raise AssertionError(f"457m launches {runs[0][1]} vs "
+                                 f"{runs[2][1]}")
+    finally:
+        dist.destroy_process_group()
+    return {"walls": walls, "counts": counts[1], "train": vals,
+            "repeat": repeat, "equal": equal, "host": host}
+
+
+SHARD_REPEATS = 3
+
+
+def _sharded_host_cost(torch, model, serve):
+    """The host's side of a sharded linear: how many weight reads
+    (`compute_weight`) one request makes, and the host time of one read
+    with its tp lookup on a DTensor weight against a plain one."""
+    from lavida_mod_tpu_torch.parallel import sharding as shd
+
+    calls = [0]
+    orig = shd.compute_weight
+
+    def counting(p, whole=False):
+        calls[0] += 1
+        return orig(p, whole)
+
+    shd.compute_weight = counting
+    try:
+        serve()
+    finally:
+        shd.compute_weight = orig
+    w = model.llada.blocks[0].q_proj.weight
+    n = 2000
+    us = []
+    for t in (w, w.to_local()):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            shd.compute_weight(t)
+            shd.tp_split(t)
+        us.append((time.perf_counter() - t0) / n * 1e6)
+    return {"calls": calls[0], "us_dtensor": us[0], "us_plain": us[1]}
+
+
 
 def main() -> None:
     import torch
@@ -4490,6 +4914,11 @@ def main() -> None:
     dream_counts, dream = phase_dream_path(torch, device, card)
     torch.cuda.empty_cache()
     phase_small_dream(torch, device)
+    dream_train_counts, dream_train = phase_dream_train(torch, device, card)
+    dpo_counts, dpo_build, dpo, dpo_model = phase_dpo(torch, device, card)
+    shard = phase_sharded(torch, device, card, dpo_model)
+    del dpo_model
+    torch.cuda.empty_cache()
     print(f"[batch] #4 design point, one decode layer at B = 1, device "
           f"time: fused plan {fused_layer_ms[1]:.4f} ms vs unfused grouped "
           f"int4 {unfused_layer_ms[1]:.4f} ms; back to back "
@@ -4528,7 +4957,11 @@ def main() -> None:
               launches_shirg_bf16=sh16["short_attention"],
               launches_shirg_mixed=shmx["short_attention"],
               launches_shirg_lora=shl["short_attention"],
-              launches_eval=eval_counts["short_attention"]),
+              launches_eval=eval_counts["short_attention"],
+              launches_dream_train_step=dream_train_counts["short_attention"],
+              launches_dpo_step=dpo_counts["short_attention"],
+              launches_dpo_pair_build=dpo_build["short_attention"],
+              launches_sharded_request=shard["counts"]["short_attention"]),
         entry("short_attention_f32", "short_attention.cu",
               "short_attention.py:78", shl["short_attention_f32"],
               launches_per_harness_step=SIGLIP_LAYERS),
@@ -4537,7 +4970,11 @@ def main() -> None:
               launches_mixed_path=mixed_counts["gather_rows"],
               launches_checkpoint_path=ckpt_counts["gather_rows"],
               launches_train_cli=cli_counts["gather_rows"],
-              launches_eval=eval_counts["gather_rows"]),
+              launches_eval=eval_counts["gather_rows"],
+              launches_dream_train_step=dream_train_counts["gather_rows"],
+              launches_dpo_step=dpo_counts["gather_rows"],
+              launches_dpo_pair_build=dpo_build["gather_rows"],
+              launches_sharded_request=shard["counts"]["gather_rows"]),
         entry("w8a8_matmul", "w8a8_matmul.cu", "pallas_w8.py:53",
               mixed_counts["w8a8_matmul"],
               launches_checkpoint_path=ckpt_counts["w8a8_matmul"],
@@ -4593,16 +5030,27 @@ def main() -> None:
               launches_server_b4=server_counts["batch4"]["fused_vit_mlp"],
               launches_nocache_int4=nc4["fused_vit_mlp"],
               launches_loglik=ll_w["fused_vit_mlp"],
-              launches_shirg_mixed_fused_vit=shfv["fused_vit_mlp"]),
+              launches_shirg_mixed_fused_vit=shfv["fused_vit_mlp"],
+              launches_sharded_prompt=shard["counts"][
+                  "fused_vit_mlp_prompt"]),
         entry("prefix_flash_fwd", "prefix_flash.cu", "prefix_flash.py:53",
               train_counts["prefix_flash_fwd"],
-              launches_train_cli=cli_counts["prefix_flash_fwd"]),
+              launches_train_cli=cli_counts["prefix_flash_fwd"],
+              launches_dream_train_step=dream_train_counts[
+                  "prefix_flash_fwd"],
+              launches_dpo_step=dpo_counts["prefix_flash_fwd"]),
         entry("prefix_flash_dq", "prefix_flash.cu", "prefix_flash.py:143",
               train_counts["prefix_flash_dq"],
-              launches_train_cli=cli_counts["prefix_flash_dq"]),
+              launches_train_cli=cli_counts["prefix_flash_dq"],
+              launches_dream_train_step=dream_train_counts[
+                  "prefix_flash_dq"],
+              launches_dpo_step=dpo_counts["prefix_flash_dq"]),
         entry("prefix_flash_dkv", "prefix_flash.cu", "prefix_flash.py:179",
               train_counts["prefix_flash_dkv"],
-              launches_train_cli=cli_counts["prefix_flash_dkv"]),
+              launches_train_cli=cli_counts["prefix_flash_dkv"],
+              launches_dream_train_step=dream_train_counts[
+                  "prefix_flash_dkv"],
+              launches_dpo_step=dpo_counts["prefix_flash_dkv"]),
         entry("w4_matmul", "w4_matmul.cu", "pallas_w4.py:49", 0,
               ms_decode_cold=w4mm_cold),
     ]
@@ -4699,6 +5147,18 @@ def main() -> None:
           f"B = 2) step walls {[round(w, 3) for w in shirg_lora['walls']]} "
           f"s, peak {shirg_lora['peak'] / 1e9:.2f} GB (reckoned "
           f"{shirg_lora['plan'] / 1e9:.2f} GB); "
+          f"Dream-7B stage-1 step (B = {dream_train['B']}, T = "
+          f"{dream_train['T']}) {dream_train['wall_ms']:.1f} ms, peak "
+          f"{dream_train['peak_gib']:.2f} GiB; DPO at 8B (LoRA rank 64) step "
+          f"walls {[round(w * 1e3, 1) for w in dpo['walls']]} ms, peak "
+          f"{dpo['peak'] / 1e9:.2f} GB (reckoned {dpo['reckoned'] / 1e9:.2f}"
+          f" GB); one-rank LaViDa.shard request walls unsharded / sharded "
+          f"{[[round(w * 1e3, 1) for w in ws] for ws in shard['walls']]} "
+          f"ms, {shard['host']['calls']} sharded weight reads a request at "
+          f"{shard['host']['us_dtensor']:.2f} us (plain "
+          f"{shard['host']['us_plain']:.2f}), 457m step "
+          f"(loss, grad_norm) {shard['train']} (bit-equal "
+          f"{shard['equal']}); "
           f"whole script {time.perf_counter() - t_start:.1f} s on {card}")
     print(card)
     print(json.dumps({"kernels": entries}))

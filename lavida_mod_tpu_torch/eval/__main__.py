@@ -14,8 +14,12 @@ config.json) in bf16 on the device and put in the `--quant` serving layout
 there (int4 and mixed fused, as the JAX CLI does); the tokenizer is
 `load_hf_or_offline`'s.  `--tiny` serves a seeded f32 toy model (the
 JAX CLI's geometry, `predict.tiny_config`) with the JAX CLI's toy
-tokenizer.  `--tp` above 1 exits: tensor-parallel serving is not in the
-port (ROADMAP.md Queue 1 item 9).  `main(argv)` returns {task:
+tokenizer.  `--tp N` with --model-path evaluates the bf16 checkpoint
+tensor-parallel over N ranks (`LaViDa.shard`; --quant none and no --kv8,
+the JAX CLI's refusals in its words): run it under torchrun with N
+processes; the documents are shared out over the mesh's dp groups, so
+the ranks of one tensor-parallel group score the same documents
+together, and rank 0 writes the outputs.  `main(argv)` returns {task:
 evaluate()'s output} for callers in process.
 """
 
@@ -95,8 +99,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "quantization's logit error can flip close "
                          "multiple-choice rankings")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel bf16 serving over N devices: not "
-                         "in the port (ROADMAP.md Queue 1 item 9)")
+                    help="tensor-parallel bf16 serving over N ranks "
+                         "(torchrun; with --model-path, --quant none)")
     ap.add_argument("--quant", choices=["none", "int8", "int4", "mixed"],
                     default="int8",
                     help="LM serving layout for real checkpoints: int8 "
@@ -120,26 +124,37 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> dict:
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.tp > 1:
-        ap.error("--tp: tensor-parallel serving (ROADMAP.md Queue 1 item 9) "
-                 "is not in the port yet")
 
     import torch
 
     from ..models.lavida import LaViDa
     from .adapter import LavidaEvalModel
-    from .evaluator import simple_evaluate
+    from .evaluator import dp_groups, simple_evaluate
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         ap.error("no CUDA device: pass --device cpu to evaluate on the CPU")
     if args.model_path:
+        if args.tp > 1 and args.quant != "none":
+            raise SystemExit("--tp is bf16 serving; use --quant none")
+        if args.tp > 1 and args.kv8:
+            raise SystemExit("--tp is bf16 serving; drop --kv8")
+        if args.tp > 1:
+            from ..parallel import maybe_init_distributed
+
+            maybe_init_distributed(device)
+            if device.type == "cuda":
+                device = torch.device("cuda", torch.cuda.current_device())
         model = LaViDa.load(args.model_path, lm_family=args.lm_family,
                             device=device)
-        # fuse=True: eval generation lengths are task-dependent and
-        # unknown up-front; the fused layout is token-exact (adapter.py)
-        model.to_serving_layout(quant=args.quant,
-                                fuse=args.quant in ("int4", "mixed"))
+        if args.tp > 1:
+            model.shard(tp=args.tp)
+        else:
+            # fuse=True: eval generation lengths are task-dependent and
+            # unknown up-front; the fused layout is token-exact
+            # (adapter.py)
+            model.to_serving_layout(quant=args.quant,
+                                    fuse=args.quant in ("int4", "mixed"))
         from ..data.tokenizer import load_hf_or_offline
 
         tokenizer = load_hf_or_offline(args.model_path)
@@ -158,23 +173,28 @@ def main(argv=None) -> dict:
         mc_num=args.mc_num, kv8=args.kv8,
         loglik_act_int8=args.loglik_act_int8,
     )
+    mesh = getattr(model, "mesh", None)
+    lead = mesh is None or mesh.get_rank() == 0
     tracker = None
-    if args.output_dir:
+    if args.output_dir and lead:
         from .tracker import EvaluationTracker
 
         tracker = EvaluationTracker(
             args.output_dir,
             model_name=args.model_path or "tiny",
         )
-    results = simple_evaluate(
-        adapter, args.tasks.split(","), parse_data_paths(args.data_path),
-        limit=args.limit, gen_kwargs=parse_kv(args.gen_kwargs),
-        log_samples=args.log_samples or bool(tracker),
-        output_path=args.output, tracker=tracker,
-    )
-    print(json.dumps(
-        {t: r["results"] for t, r in results.items()}, indent=2, default=str
-    ))
+    with dp_groups(mesh):
+        results = simple_evaluate(
+            adapter, args.tasks.split(","),
+            parse_data_paths(args.data_path), limit=args.limit,
+            gen_kwargs=parse_kv(args.gen_kwargs),
+            log_samples=args.log_samples or bool(args.output_dir),
+            output_path=args.output if lead else None, tracker=tracker,
+        )
+    if lead:
+        print(json.dumps(
+            {t: r["results"] for t, r in results.items()}, indent=2,
+            default=str))
     return results
 
 

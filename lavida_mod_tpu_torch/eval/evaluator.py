@@ -6,11 +6,13 @@ The port of lavida_mod_tpu/eval/evaluator.py: `evaluate`,
 `allgather_rows` take the rank and world size of the torch.distributed
 process group instead of JAX's processes (strided shards; rows gathered
 with `all_gather_object`, in rank order), and are the identity when no
-group is initialised or it has one rank.
+group is initialised or it has one rank.  Inside `dp_groups(mesh)` they
+share documents over a sharded model's dp groups instead of raw ranks.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import time
 from typing import Optional, Sequence
@@ -127,11 +129,39 @@ def evaluate(
     return out
 
 
+# the mesh of the sharded model under evaluation, set only inside
+# `dp_groups`
+_MESH: list = [None]
+
+
+@contextlib.contextmanager
+def dp_groups(mesh):
+    """Within the block, `rank_and_world`, `shard_docs` and
+    `allgather_rows` share documents out over `mesh`'s dp groups (None:
+    over the ranks of the default group): the ranks of one tensor-parallel
+    / fsdp group run the model together, so they must score the same
+    documents.  `evaluate` and `simple_evaluate` are the JAX package's
+    code, which calls those three with no mesh; the block hands them the
+    sharded model's for one call and restores the previous one on
+    leaving."""
+    prev = _MESH[0]
+    _MESH[0] = mesh
+    try:
+        yield
+    finally:
+        _MESH[0] = prev
+
+
 def rank_and_world() -> tuple[int, int]:
     """(rank, world size) of the default torch.distributed group; (0, 1)
-    when none is initialised."""
+    when none is initialised.  Inside `dp_groups`, this rank's dp
+    coordinate and the dp size."""
     import torch.distributed as dist
 
+    mesh = _MESH[0]
+    if mesh is not None:
+        i = mesh.mesh_dim_names.index("dp")
+        return mesh.get_coordinate()[i], mesh.size(i)
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     return 0, 1
@@ -142,14 +172,18 @@ def allgather_rows(rows: list) -> list:
     dist.all_gather_object merge, llava_eval_trainer.py:268-292): each
     rank's rows travel as json (default=str, as the JAX package sends
     them) and are deserialized in rank order, the same on every rank, so
-    every rank aggregates the same rows.  One process: identity."""
+    every rank aggregates the same rows.  One process: identity.  Inside
+    `dp_groups`, over the mesh's dp group."""
     _, n = rank_and_world()
     if n <= 1:
         return list(rows)
     import torch.distributed as dist
 
     gathered: list = [None] * n
-    dist.all_gather_object(gathered, json.dumps(rows, default=str))
+    mesh = _MESH[0]
+    dist.all_gather_object(gathered, json.dumps(rows, default=str),
+                           group=None if mesh is None
+                           else mesh.get_group("dp"))
     out: list = []
     for part in gathered:
         out.extend(json.loads(part))
@@ -177,7 +211,8 @@ def shard_docs(docs: Sequence[dict]) -> Sequence[dict]:
     """Data-parallel eval: each rank scores a strided shard (the
     reference's 8-proc accelerate DDP loop, eval adapter
     llava_llada.py:174-198).  One process: identity.  Metric aggregation
-    across ranks is the caller's job (allgather_rows)."""
+    across ranks is the caller's job (allgather_rows).  Inside
+    `dp_groups`, the shards go to the mesh's dp groups."""
     rank, n = rank_and_world()
     if n <= 1:
         return docs

@@ -171,7 +171,7 @@ def prefill_cache(model: LLaDA, prefix_embeds: torch.Tensor, G: int,
     rows are identical).  Returns the per-layer cache list."""
     B, P, _ = prefix_embeds.shape
     cfg = model.cfg
-    shape = (B, P + G, cfg.effective_n_kv_heads, cfg.head_dim)
+    shape = (B, P + G, model.kv_heads, cfg.head_dim)
     cache = [(prefix_embeds.new_zeros(shape), prefix_embeds.new_zeros(shape))
              for _ in model.blocks]
     c = min(chunk or B, B)

@@ -187,7 +187,7 @@ def _prefill(model: LLaDA, prefix: torch.Tensor, G: int, use_flash: bool,
     (x [B, G]: the prefill's argmax first, masks after it, the cache)."""
     B, P, _ = prefix.shape
     cfg = model.cfg
-    shape = (B, P + G, cfg.effective_n_kv_heads, cfg.head_dim)
+    shape = (B, P + G, model.kv_heads, cfg.head_dim)
     cache = [(prefix.new_zeros(shape), prefix.new_zeros(shape))
              for _ in model.blocks]
     logits, cache = model(prefix, kv_cache=cache, kv_write_index=0,

@@ -424,6 +424,13 @@ class LaViDa(nn.Module):
             lm_family = lm_family or sfam or "llada"
         cfg = as_port_config(cfg) or LaViDaConfig()
         state = open_checkpoint(path, base)
+        if lm_family == "dream" and not cfg.llada.include_qkv_bias and any(
+                k.endswith("self_attn.q_proj.bias") for k in state):
+            # JAX's converter keeps a Dream checkpoint's q/k/v biases
+            # whatever the given config says, and its linears add a bias
+            # that the params hold (train.py --style dream passes its own
+            # geometry, which has none)
+            cfg = cfg.replace(llada=cfg.llada.replace(include_qkv_bias=True))
         try:
             model = cls(cfg, "meta", dtype, lm_family).to_empty(
                 device=device)
@@ -462,6 +469,28 @@ class LaViDa(nn.Module):
         self.llada.quantize(4 if quant in ("int4", "mixed") else 8)
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
+        return self
+
+    def shard(self, tp: int = 1, dp: int = 1, fsdp: int = 1,
+              mesh=None) -> "LaViDa":
+        """Multi-card bf16 serving (lavida.py:335-360): the parameters
+        placed on a (dp, fsdp, tp) mesh by parallel/sharding's col / row
+        rules, in place; the same `generate` then runs with each linear
+        gathered over fsdp and split over tp, one all-reduce per
+        row-parallel linear.  The mesh takes the first dp * fsdp * tp ranks
+        of the process group (a `--tp 2` run needs no more).  The float
+        llama layout only: the quantized and fused serving layouts have no
+        rules (the CLIs refuse --tp with them, as the JAX ones do)."""
+        from ..parallel import make_mesh, shard_params
+
+        if self.llada.cfg.block_type != "llama":
+            raise ValueError("shard the llama layout: the fused serving "
+                             "layout has no sharding rules")
+        if mesh is None:
+            mesh = make_mesh(dp=dp, fsdp=fsdp, tp=tp,
+                             devices=range(dp * fsdp * tp),
+                             device_type=self.device.type)
+        shard_params(self, mesh)
         return self
 
     @property

@@ -103,6 +103,8 @@ from ..ops.quant import (Int4Linear, Int8Linear, has_lora, lora_term,
                          quantize_module)
 from ..ops.rope import apply_rope, rope_tables
 from ..ops.w4_fused import w4_ffn_fused, w4_matmul_res, w4_qkv_norm
+from ..parallel.sharding import (ParallelLinear, embedding, is_dtensor,
+                                 vocab_logits)
 
 _LAYOUTS = {"llama": "silu", "sequential": "swiglu"}
 _LINEARS = {"llama": ("q_proj", "k_proj", "v_proj", "attn_out", "ff_proj",
@@ -233,7 +235,10 @@ def _run_linear(m: nn.Module, x: torch.Tensor, act_int8: bool = False,
     """`linear` / `linear_act_int8` (quant.py:170-230) on any linear kind.
     A float linear's LoRA term and bias are added to the rounded product,
     in its dtype (quant.py:182-186), never fused into the product's
-    accumulation."""
+    accumulation.  A sharded linear runs its parallel form
+    (parallel/sharding.py)."""
+    if isinstance(m, ParallelLinear):
+        return m.linear(x)
     if isinstance(m, nn.Linear):
         y = lora_term(m, x, torch.nn.functional.linear(x, m.weight))
         return y if m.bias is None else y + m.bias
@@ -337,7 +342,7 @@ class LLaDABlock(nn.Module):
         only under act_int8 (weight-only otherwise)."""
         cfg = self.cfg
         B, T, D = x.shape
-        Hq, Hkv, hd = cfg.n_heads, cfg.effective_n_kv_heads, cfg.head_dim
+        Hkv, hd = cfg.effective_n_kv_heads, cfg.head_dim
         eps = cfg.rms_norm_eps
         fused = self.fused_plan(B * T, act_int8 or prefill_tree)
 
@@ -355,11 +360,12 @@ class LLaDABlock(nn.Module):
         else:
             qkv = lin("att_proj", self.attn_norm(x))
             q, k, v = qkv.split([D, Hkv * hd, Hkv * hd], dim=-1)
-        q = apply_rope(q.reshape(B, T, Hq, hd), positions, sin, cos,
+        # -1 heads: a tensor-parallel rank holds its own heads
+        q = apply_rope(q.reshape(B, T, -1, hd), positions, sin, cos,
                        cfg.rope_full_precision)
-        k = apply_rope(k.reshape(B, T, Hkv, hd), positions, sin, cos,
+        k = apply_rope(k.reshape(B, T, -1, hd), positions, sin, cos,
                        cfg.rope_full_precision)
-        v = v.reshape(B, T, Hkv, hd)
+        v = v.reshape(B, T, -1, hd)
         if layer_past is not None and len(layer_past) == 4:
             if kv_write_index is None or use_flash:
                 raise ValueError("the quantized KV cache is a decode cache:"
@@ -398,7 +404,7 @@ class LLaDABlock(nn.Module):
                              self.ff_proj.scales, self.ff_out.packed,
                              self.ff_out.scales, eps).view(B, T, D)
             return x, present
-        x = x + lin("attn_out", att.reshape(B, T, D))
+        x = x + lin("attn_out", att.reshape(B, T, -1))
         h2 = self.ff_norm(x)
         if cfg.block_type == "llama":
             # jax.nn.silu's op order (ops/activations.py): in bf16 it
@@ -438,8 +444,18 @@ class LLaDA(nn.Module):
         """The float head's [E, D] weight: ff_out's, or wte's when tied."""
         return self.wte.weight if self.ff_out is None else self.ff_out.weight
 
+    @property
+    def kv_heads(self) -> int:
+        """The KV heads of this rank's cache: the config's, or its share
+        under tensor parallelism (parallel.shard_params)."""
+        return getattr(self, "_kv_heads", None) or \
+            self.cfg.effective_n_kv_heads
+
     def embed_tokens(self, ids: torch.Tensor) -> torch.Tensor:
-        """wte lookup (modeling_llada.py:1283)."""
+        """wte lookup (modeling_llada.py:1283); vocab-parallel when wte is
+        sharded."""
+        if is_dtensor(self.wte.weight):
+            return embedding(ids, self.wte.weight)
         return self.wte(ids)
 
     def _rope_tables(self, length: int, device: torch.device):
@@ -476,7 +492,8 @@ class LLaDA(nn.Module):
         if head is None or isinstance(head, nn.Linear):
             w = self.wte.weight if head is None else head.weight
             lead, D = x.shape[:-1], x.shape[-1]
-            y = bmm_f32(x.reshape(1, -1, D), w.t()[None]).view(*lead, -1)
+            y = vocab_logits(lambda wl: bmm_f32(
+                x.reshape(1, -1, D), wl.t()[None]).view(*lead, -1), w)
             return y if head is None else lora_term(head, x, y)
         return _run_linear(head, x, preferred=torch.float32)
 

@@ -58,6 +58,8 @@ from ..ops.attention import vision_attention
 from ..ops.activations import gelu_tanh
 from ..ops.norms import layer_norm
 from ..ops.vit_mlp import fused_vit_mlp
+from ..ops.quant import has_lora
+from ..parallel.sharding import ParallelLinear, compute_weight
 
 
 def bicubic_weights(n_in: int, n_out: int) -> np.ndarray:
@@ -104,6 +106,16 @@ class LayerNorm(nn.Module):
         return layer_norm(x, self.weight, self.bias, self.eps)
 
 
+def _plain_linear(m: nn.Module) -> bool:
+    """A float nn.Linear without LoRA factors: plain, or a sharded one,
+    whose whole weight the fused MLP gathers over fsdp and tp (as GSPMD
+    hands the JAX kernel whole fc1 / fc2 weights)."""
+    if type(m) is nn.Linear:
+        return True
+    return (type(m) is ParallelLinear and m.base_cls is nn.Linear
+            and not has_lora(m))
+
+
 class SigLIPLayer(nn.Module):
     def __init__(self, cfg: SigLIPConfig, device, dtype=None):
         super().__init__()
@@ -121,21 +133,23 @@ class SigLIPLayer(nn.Module):
 
     def forward(self, h: torch.Tensor, fused_mlp: bool = False
                 ) -> torch.Tensor:
-        N, T, D = h.shape
-        nh, hd = self.cfg.num_attention_heads, self.cfg.head_dim
+        N, T, _ = h.shape
+        hd = self.cfg.head_dim
         z = self.ln1(h)
-        att = vision_attention(self.q_proj(z).view(N, T, nh, hd),
-                               self.k_proj(z).view(N, T, nh, hd),
-                               self.v_proj(z).view(N, T, nh, hd))
-        h = h + self.out_proj(att.reshape(N, T, D))
+        # -1 heads: a tensor-parallel rank holds its own heads
+        att = vision_attention(self.q_proj(z).view(N, T, -1, hd),
+                               self.k_proj(z).view(N, T, -1, hd),
+                               self.v_proj(z).view(N, T, -1, hd))
+        h = h + self.out_proj(att.reshape(N, T, -1))
         if fused_mlp:
-            if not all(type(fc) is nn.Linear for fc in (self.fc1, self.fc2)):
+            if not all(_plain_linear(fc) for fc in (self.fc1, self.fc2)):
                 raise ValueError("fused_mlp takes plain float fc1 / fc2 "
                                  "only: no LoRA factors, no int8 layout")
             return fused_vit_mlp(h, self.ln2.weight, self.ln2.bias,
-                                 self.fc1.weight, self.fc1.bias,
-                                 self.fc2.weight, self.fc2.bias,
-                                 self.cfg.layer_norm_eps)
+                                 compute_weight(self.fc1.weight, whole=True),
+                                 self.fc1.bias,
+                                 compute_weight(self.fc2.weight, whole=True),
+                                 self.fc2.bias, self.cfg.layer_norm_eps)
         z = gelu_tanh(self.fc1(self.ln2(h)))
         return h + self.fc2(z)
 
@@ -168,7 +182,7 @@ class SigLIP(nn.Module):
         """siglip.py:84-100: the fused MLP kernel takes a plain bf16 tower
         (fc1/fc2 with their biases, no LoRA, no quantized layout) whose
         width is lane-aligned (128 | D)."""
-        return all(type(fc) is nn.Linear and fc.bias is not None
+        return all(_plain_linear(fc) and fc.bias is not None
                    and fc.weight.dtype == torch.bfloat16
                    for layer in self.layers for fc in (layer.fc1, layer.fc2)
                    ) and self.cfg.hidden_size % 128 == 0

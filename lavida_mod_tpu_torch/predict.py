@@ -37,9 +37,12 @@ replaces the anyres encode by SHIRG's 2-view selection
 (models/shirg.py): the image (--image, else a seeded one of the request's
 size) goes through `process_shirg_2view` and `shirg_encode` to a
 980-token block, spliced by `LaViDa.generate(image_features=...)`, one
-request (no --batch).  The repo's --tp N (N > 1) is not in the port: it
-exits with an error.  Prints the answers and the latency, timed after a
-warm-up run.
+request (no --batch).  --tp N serves the bf16 model tensor-parallel
+over N ranks (`LaViDa.shard(tp=N)`): run it under torchrun with N
+processes, one card each (gloo on the CPU); rank 0 owns the requests and
+broadcasts them, every rank generates, rank 0 prints.  As the repo's
+predict.py, --tp refuses the quantized layouts and the quantized KV
+caches.  Prints the answers and the latency, timed after a warm-up run.
 """
 
 from __future__ import annotations
@@ -145,11 +148,20 @@ def main(argv=None) -> None:
     ap.add_argument("--shirg-method", default="base")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--tp", type=int, default=1, help=argparse.SUPPRESS)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel bf16 serving over N ranks (run "
+                         "under torchrun with N processes)")
     args = ap.parse_args(argv)
     if args.tp > 1:
-        ap.error("--tp: tensor-parallel serving (ROADMAP.md Queue 1 item 9) "
-                 "is not in the port yet")
+        # predict.py:126-140's refusals, in its words
+        if args.int4 or args.mixed:
+            raise SystemExit(
+                "--tp is bf16 serving (quantized layouts have custom leaf "
+                "structures the sharding rules don't cover); drop "
+                "--int4/--mixed — tp>=2 fits the bf16 8B without them")
+        if args.kv8 or args.kv4:
+            raise SystemExit("--tp is bf16 serving; drop --kv8/--kv4 "
+                             "(tp>=2 has the HBM headroom kv8 buys)")
     if args.shirg and args.batch != 1:
         ap.error("--shirg serves one request (predict.py's generate with "
                  "image_features); drop --batch")
@@ -167,7 +179,14 @@ def main(argv=None) -> None:
     from .eval.adapter import generate_batch
     from .models.lavida import LaViDa
 
+    from .parallel import maybe_init_distributed
+    from .parallel.lockstep import broadcast, rank
+
     device = torch.device(args.device)
+    if args.tp > 1:
+        maybe_init_distributed(device)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
     dtype = getattr(torch, args.dtype)
     tokenizer = None
     if args.model_path:
@@ -181,9 +200,11 @@ def main(argv=None) -> None:
             cfg = (tiny_mixed_config() if args.mixed or args.int4
                    else tiny_config())
         model = LaViDa.random_init(cfg, args.seed, dtype, device)
+    if args.tp > 1:
+        model.shard(tp=args.tp)
     cfg = model.cfg
     layout = ("mixed" if args.mixed else "int4" if args.int4
-              else args.dtype)
+              else args.dtype) + (f", tp {args.tp}" if args.tp > 1 else "")
     if args.mixed or args.int4:
         # the fused decode plan takes <= 32 rows: predict.py:177 fuses for
         # 32 tokens or fewer, the worker's --int4 for one request only
@@ -215,6 +236,7 @@ def main(argv=None) -> None:
                                 size=24)
             ids = np.concatenate([text[:4], [-200], text[4:]])
         requests.append((ids, [views], [size]))
+    requests = broadcast(requests)      # rank 0's requests on every rank
     gen = GenerationConfig(
         max_new_tokens=args.max_new_tokens,
         block_length=min(128, args.max_new_tokens),
@@ -248,6 +270,8 @@ def main(argv=None) -> None:
     t0 = time.perf_counter()
     out = run()
     dt = time.perf_counter() - t0
+    if rank() != 0:
+        return
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
     cache = (", no prefix cache" if args.no_prefix_cache else

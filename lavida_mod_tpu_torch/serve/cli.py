@@ -11,8 +11,11 @@ With --model-path the checkpoint is loaded onto --device (the card unless
 `--device cpu`) and put in the --quant serving layout (weight-only int8 by
 default; int4 and mixed take the fused decode layout for 32 new tokens or
 fewer), and its tokenizer answers in text.  --tiny (or no --model-path)
-chats with a random 2-layer toy model in ids.  --tp exits with an error:
-sharded serving is not in the port.
+chats with a random 2-layer toy model in ids.  --tp N with --model-path
+serves the bf16 checkpoint tensor-parallel over N ranks (cli.py:59-65,
+`LaViDa.shard`; --quant must be none, as the JAX chat requires): run it
+under torchrun with N processes; rank 0 reads each line and broadcasts
+it, every rank generates, rank 0 prints.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ def main(argv=None):
     ap.add_argument("--max-new-tokens", type=int, default=64)
     ap.add_argument("--tiny", action="store_true")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel serving: not in the port")
+                    help="tensor-parallel bf16 serving over N ranks "
+                         "(torchrun; with --model-path and --quant none)")
     ap.add_argument("--quant", choices=["none", "int8", "int4", "mixed"],
                     default="int8",
                     help="LM serving layout: weight-only int8 (default), "
@@ -37,9 +41,6 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="where the model runs: the card unless 'cpu'")
     args = ap.parse_args(argv)
-    if args.tp > 1:
-        ap.error("--tp: tensor-parallel serving is not in the port yet "
-                 "(ROADMAP.md Queue 1 item 9)")
 
     import numpy as np
     import torch
@@ -50,6 +51,7 @@ def main(argv=None):
     from ..data.prompts import tokenizer_image_token
     from ..data.tokenizer import load_hf_or_offline
     from ..models.lavida import LaViDa
+    from ..parallel.lockstep import broadcast, rank
     from ..predict import tiny_config
 
     device = torch.device(args.device)
@@ -57,6 +59,17 @@ def main(argv=None):
         model = LaViDa.random_init(tiny_config(), 0, torch.float32, device)
         tokenizer = None
         print("[cli] tiny random model (no checkpoint)")
+    elif args.tp > 1:
+        if args.quant != "none":
+            raise SystemExit("--tp is bf16 serving; use --quant none")
+        from ..parallel import maybe_init_distributed
+
+        maybe_init_distributed(device)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        model = LaViDa.load(args.model_path, None, torch.bfloat16,
+                            device=device).shard(tp=args.tp)
+        tokenizer = load_hf_or_offline(args.model_path)
     else:
         model = LaViDa.load(args.model_path, None, torch.bfloat16,
                             device=device)
@@ -85,11 +98,15 @@ def main(argv=None):
         max_new_tokens=args.max_new_tokens,
         block_length=min(128, args.max_new_tokens),
     )
+    lead = rank() == 0
     while True:
-        try:
-            user = input("USER: ").strip()
-        except EOFError:
-            break
+        user = None
+        if lead:
+            try:
+                user = input("USER: ").strip()
+            except EOFError:
+                user = None
+        user = broadcast(user)      # rank 0's line on every --tp rank
         if not user or user in ("exit", "quit"):
             break
         msg = ("<image>\n" + user) if (first and images) else user
@@ -109,7 +126,8 @@ def main(argv=None):
         reply = (model.decode_output(out, tokenizer) if tokenizer is not None
                  else " ".join(map(str, out[:16])))
         conv.append_message(conv.roles[1], reply)
-        print("ASSISTANT:", reply)
+        if lead:
+            print("ASSISTANT:", reply)
 
 
 if __name__ == "__main__":

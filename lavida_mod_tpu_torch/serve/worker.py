@@ -26,8 +26,13 @@ unfused, every int4 linear on kernel #4.  --kv8 decodes over the int8 KV
 cache, --kv4 over the int4 one (it wins over --kv8, as in the JAX worker).
 The model is loaded onto --device (the card unless `--device cpu`, where
 every kernel runs its plain version).  --tiny (or no --model-path) serves
-a random 2-layer toy model without a tokenizer.  --tp exits with an error:
-sharded serving is not in the port.
+a random 2-layer toy model without a tokenizer.  --tp N with --model-path
+serves the bf16 checkpoint tensor-parallel over N ranks (worker.py:
+391-402, `LaViDa.shard`): run it under torchrun with N processes, one
+card each; rank 0 serves HTTP and the heartbeat, and each of its model
+calls is broadcast and made by every rank together
+(parallel/lockstep.py).  As the JAX worker, --tp refuses --int4 /
+--mixed and --kv8 / --kv4.
 """
 
 from __future__ import annotations
@@ -357,7 +362,8 @@ def parse_args(argv=None):
     ap.add_argument("--kv4", action="store_true",
                     help="int4 KV cache (#8 over int4 codes)")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel serving: not in the port")
+                    help="tensor-parallel bf16 serving over N ranks "
+                         "(torchrun; with --model-path, as LaViDa.shard)")
     ap.add_argument("--gen-len-hint", type=int, default=32,
                     help="expected max_new_tokens of the serving traffic; "
                          "the fused int4 decode layout is applied only "
@@ -367,18 +373,14 @@ def parse_args(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="where the model runs: the card unless 'cpu'")
     args = ap.parse_args(argv)
-    if args.tp > 1:
-        ap.error("--tp: tensor-parallel serving is not in the port yet "
-                 "(ROADMAP.md Queue 1 item 9)")
     if args.mixed:
         args.int4 = True  # the mixed split rides the int4 decode tree
     return args
 
 
-def build_worker(args) -> ModelWorker:
-    """The model of `args` on its device in its serving layout, its
-    tokenizer and a LavidaEvalModel, wrapped in a ModelWorker (registered
-    with the controller when both addresses are given)."""
+def build_eval_model(args):
+    """The model of `args` on its device in its serving layout (or sharded
+    under --tp), its tokenizer, as a LavidaEvalModel."""
     import torch
 
     from ..eval.adapter import LavidaEvalModel
@@ -390,6 +392,20 @@ def build_worker(args) -> ModelWorker:
         model = LaViDa.random_init(tiny_config(), 0, torch.float32, device)
         tokenizer = None
         print("[worker] tiny random model (no checkpoint)")
+    elif args.tp > 1:
+        # worker.py:391-402: multi-card bf16 serving, in its words
+        if args.int4 or args.mixed:
+            raise SystemExit("--tp is bf16 serving; drop --int4/--mixed")
+        if args.kv8 or args.kv4:
+            raise SystemExit("--tp is bf16 serving; drop --kv8/--kv4")
+        from ..parallel import maybe_init_distributed
+
+        maybe_init_distributed(device)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        model = LaViDa.load(args.model_path, None, torch.bfloat16,
+                            device=device).shard(tp=args.tp)
+        tokenizer = _load_tokenizer(args.model_path)
     else:
         model = LaViDa.load(args.model_path, None, torch.bfloat16,
                             device=device)
@@ -402,9 +418,19 @@ def build_worker(args) -> ModelWorker:
                   and args.gen_len_hint <= 32),
         )
         tokenizer = _load_tokenizer(args.model_path)
-    eval_model = LavidaEvalModel(model, tokenizer,
-                                 conv_template=args.conv_template,
-                                 kv8=(4 if args.kv4 else args.kv8))
+    return LavidaEvalModel(model, tokenizer,
+                           conv_template=args.conv_template,
+                           kv8=(4 if args.kv4 else args.kv8))
+
+
+MODEL_CALLS = ("generate_until", "generate_until_batch")
+
+
+def build_worker(args, eval_model=None) -> ModelWorker:
+    """A ModelWorker over `eval_model` (default: `build_eval_model(args)`),
+    registered with the controller when both addresses are given."""
+    if eval_model is None:
+        eval_model = build_eval_model(args)
     return ModelWorker(
         eval_model, args.model_name,
         controller_addr=args.controller_address,
@@ -421,8 +447,19 @@ def main(argv=None):
     --host/--port/--controller-address/--worker-address/--model-path/
     --limit-model-concurrency), plus the micro-batching and layout
     flags."""
+    from ..parallel.lockstep import Lockstep, follow, is_distributed, rank
+
     args = parse_args(argv)
-    build_worker(args).serve(args.host, args.port)
+    eval_model = build_eval_model(args)
+    if rank() != 0:         # a --tp rank: rank 0's model calls, replayed
+        follow(eval_model)
+        return
+    lock = Lockstep(eval_model, MODEL_CALLS) if is_distributed() else None
+    try:
+        build_worker(args, lock or eval_model).serve(args.host, args.port)
+    finally:
+        if lock is not None:
+            lock.close()
 
 
 if __name__ == "__main__":

@@ -49,9 +49,18 @@ train.py's order:
     its masters), its parameters shared, nothing copied back -- with
     `--style` as the template and LM family; the rows {"eval/<task>/
     <metric>": value} go to the metrics logger and are printed.
-Refused: `--dp`, `--fsdp` or `--tp` above 1 (sharded training, ROADMAP.md
-Queue 1 item 9).  `--remat` also takes `one_in_N` (the model API's
-strategy) beside train.py's choices.  Dropped: JAX's platform switch and
+  - `--dp / --fsdp / --tp` (train.py:240-254): under torchrun with
+    dp x fsdp x tp ranks (fsdp absorbs the ranks left when not given), the
+    process group comes up from the environment (NCCL on `cuda`, each rank
+    on its LOCAL_RANK card; gloo on the CPU), the model is placed on the
+    (dp, fsdp, tp) mesh by parallel/sharding's rules and the step takes
+    each rank's rows of the global batch over dp x fsdp
+    (train/step.py).  Every rank builds the same batches from `--seed`.
+    Rank 0 alone logs and writes checkpoints; a checkpoint holds whole
+    tensors, gathered from the shards, so a sharded run's checkpoint
+    resumes an unsharded run and back.
+`--remat` also takes `one_in_N` (the model API's strategy) beside
+train.py's choices.  Dropped: JAX's platform switch and
 its compile cache.
 
 `main(argv)` returns what the run did (losses, logged rows, eval rows,
@@ -72,10 +81,16 @@ import numpy as np
 
 GEOMETRIES = ("tiny", "457m", "913m", "8b")
 REMATS = ("whole_layer", "nested", "dots", "dots_nobatch", "none")
-NOT_PORTED = {
-    "sharding": "sharded training (--dp / --fsdp / --tp above 1) is not in "
-                "the port yet (ROADMAP.md Queue 1 item 9)",
-}
+
+
+class _NoLogger:
+    """The metrics logger of a rank other than 0."""
+
+    def log(self, step: int, metrics: dict) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 def pad_to_bucket(n: int, bucket: int) -> int:
@@ -96,7 +111,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m lavida_mod_tpu_torch.train",
         description="LaViDa training: masked-diffusion loss, AdamW, "
-                    "checkpoints and resume, on one card.")
+                    "checkpoints and resume, on one card or sharded over "
+                    "the ranks of torchrun (--dp / --fsdp / --tp).")
     ap.add_argument("--data-path", required=True)
     ap.add_argument("--image-folder", default="")
     ap.add_argument("--output-dir", required=True)
@@ -130,9 +146,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-prefix-lm", action="store_true")
     ap.add_argument("--fim", action="store_true",
                     help="stage-3 FIM corruption of assistant turns")
-    ap.add_argument("--dp", type=int, default=1)
-    ap.add_argument("--fsdp", type=int, default=None)
-    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data-parallel ranks of the (dp, fsdp, tp) mesh")
+    ap.add_argument("--fsdp", type=int, default=None,
+                    help="parameter-sharding ranks (default: the ranks "
+                         "dp x tp leave)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel ranks (heads / MLP hidden)")
     ap.add_argument("--decode-workers", type=int, default=4,
                     help="threads for the rng-free image decode inside "
                          "make_batch (0 = sequential); the batches are "
@@ -359,8 +379,11 @@ def adapter_params(state) -> dict:
 
 def _assign(dst: dict, src: dict, path: str = "") -> None:
     """Copy a restored payload into the live one in place (tensors by
-    copy_, scalars by item), the keys and shapes checked."""
+    copy_, a sharded one its shard; scalars by item), the keys and shapes
+    checked."""
     import torch
+
+    from ..parallel.sharding import copy_full_
 
     if set(dst) != set(src):
         raise ValueError(f"checkpoint entry {path or '/'!r}: keys "
@@ -376,14 +399,14 @@ def _assign(dst: dict, src: dict, path: str = "") -> None:
                                  f"{tuple(v.shape)}, the run's "
                                  f"{tuple(d.shape)}")
             with torch.no_grad():
-                d.copy_(v)
+                copy_full_(d, v)
         else:
             dst[k] = v
 
 
 def restore_train_state(path: str, state) -> int:
-    """Load the checkpoint at `path` into `state` in place; returns its
-    microstep."""
+    """Load the checkpoint at `path` into `state` in place (a sharded
+    state takes each tensor's shard); returns its microstep."""
     import torch
 
     from ..utils.checkpoint import restore_checkpoint
@@ -439,16 +462,35 @@ def _build_model(args, cfg, device):
     return LaViDa.random_init(cfg, args.seed, torch.float32, device)
 
 
+def _mesh(args, ap, device):
+    """The (dp, fsdp, tp) mesh over the torchrun ranks (train.py:240-243),
+    or None for one unsharded process."""
+    import torch.distributed as dist
+
+    from ..parallel import make_mesh, maybe_init_distributed
+
+    maybe_init_distributed(device)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world == 1 and args.dp * (args.fsdp or 1) * args.tp == 1:
+        return None
+    if world % (args.dp * args.tp) or (
+            args.fsdp and args.dp * args.fsdp * args.tp != world):
+        ap.error(f"--dp {args.dp} --fsdp {args.fsdp} --tp {args.tp} does "
+                 f"not factor the {world} ranks: run under torchrun with "
+                 f"--nproc-per-node dp x fsdp x tp")
+    return make_mesh(dp=args.dp, fsdp=args.fsdp, tp=args.tp,
+                     device_type=device.type)
+
+
 def main(argv=None) -> dict:
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.dp > 1 or (args.fsdp or 1) > 1 or args.tp > 1:
-        ap.error(NOT_PORTED["sharding"])
 
     import torch
 
     from ..constants import LLADA_FIM_ID
     from ..data.dataset import SupervisedDataset
+    from ..parallel.sharding import full_tree
     from ..utils.checkpoint import (latest_checkpoint, save_adapter_only,
                                     save_checkpoint, wait_for_saves)
     from ..utils.logging import MetricsLogger, rank0_print
@@ -458,6 +500,10 @@ def main(argv=None) -> dict:
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         ap.error("no CUDA device: pass --device cpu to train on the CPU")
+    mesh = _mesh(args, ap, device)
+    if mesh is not None and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    rank0 = mesh is None or mesh.get_rank() == 0
     geometry = args.geometry or ("tiny" if args.tiny else "8b")
     cfg = geometry_config(geometry)
     tokenizer = _load_tokenizer(args)
@@ -470,17 +516,22 @@ def main(argv=None) -> dict:
 
     t_init = time.perf_counter()
     model = _build_model(args, cfg, device)
+    if args.precision != "mixed":
+        model.to(torch.bfloat16)
+    if mesh is not None:
+        from ..parallel import shard_params
+
+        shard_params(model, mesh)
+        rank0_print(f"[train] mesh: dp {args.dp} x fsdp "
+                    f"{mesh.size(1)} x tp {args.tp}")
     opt = make_freeze_optimizer(
         args.tunable, lr=args.lr, projector_lr=args.projector_lr,
         vision_tower_lr=args.vision_tower_lr,
         warmup_steps=int(args.warmup_ratio * args.steps),
         total_steps=args.steps, grad_accum=args.grad_accum,
         accum_dtype=torch.float32 if args.precision == "bf16" else None)
-    if args.precision == "mixed":
-        state = init_train_state(model, opt, torch.bfloat16)
-    else:
-        model.to(torch.bfloat16)
-        state = init_train_state(model, opt)
+    state = init_train_state(
+        model, opt, torch.bfloat16 if args.precision == "mixed" else None)
     if device.type == "cuda":
         torch.cuda.synchronize()
     result = {"init_s": time.perf_counter() - t_init, "state": state,
@@ -504,9 +555,10 @@ def main(argv=None) -> dict:
         cfg, opt, prefix_lm=not args.no_prefix_lm, policy=args.t_policy,
         fim_id=LLADA_FIM_ID if args.fim else None,
         remat=False if args.remat == "none" else args.remat,
-        attention_impl=attn_impl, ce_chunk=args.ce_chunk)
+        attention_impl=attn_impl, ce_chunk=args.ce_chunk, mesh=mesh)
 
-    logger = MetricsLogger(args.output_dir, use_wandb=args.wandb)
+    logger = (MetricsLogger(args.output_dir, use_wandb=args.wandb) if rank0
+              else _NoLogger())
     rng = np.random.default_rng(args.seed)
     decode_pool = (ThreadPoolExecutor(max_workers=args.decode_workers)
                    if args.decode_workers > 0 else None)
@@ -590,13 +642,17 @@ def main(argv=None) -> dict:
                 # the payload's step is the MICROSTEP, so a resume replays
                 # the exact microbatch position
                 t_s = time.perf_counter()
+                p = None
                 if args.adapter_only_save:
-                    p = save_adapter_only(args.output_dir, step + 1,
-                                          adapter_params(state))
+                    if rank0:
+                        p = save_adapter_only(args.output_dir, step + 1,
+                                              adapter_params(state))
                 else:
-                    params, opt_state = train_payload(state)
-                    p = save_checkpoint(args.output_dir, step + 1, params,
-                                        opt_state, async_save=True)
+                    # the whole tensors, gathered by every rank
+                    payload = [full_tree(x) for x in train_payload(state)]
+                    if rank0:
+                        p = save_checkpoint(args.output_dir, step + 1,
+                                            *payload, async_save=True)
                 saves.append((p, time.perf_counter() - t_s))
                 rank0_print(f"[train] saved {p} (staged in "
                             f"{saves[-1][1]:.1f}s)")
@@ -611,6 +667,10 @@ def main(argv=None) -> dict:
         wait_for_saves()    # commit in-flight async saves before exit
         result["commit_s"] = time.perf_counter() - t_w
         logger.close()
+        if mesh is not None:
+            import torch.distributed as dist
+
+            dist.barrier()      # every rank sees rank 0's checkpoints
     if result["commit_s"] > 0.1:
         rank0_print(f"[train] final save commit: {result['commit_s']:.1f}s")
     result.update(

@@ -21,7 +21,8 @@ from typing import Optional, Sequence
 
 from ..config import LaViDaConfig, as_port_config
 from ..eval.adapter import LavidaEvalModel
-from ..eval.evaluator import evaluate, rank_and_world, shard_docs
+from ..eval.evaluator import (dp_groups, evaluate, rank_and_world,
+                              shard_docs)
 from ..eval.tasks import get_task
 
 
@@ -49,26 +50,29 @@ def run_in_training_eval(
     gen_kwargs: Optional[dict] = None,
 ) -> dict:
     """params: the training `LaViDa` (its parameters are shared, not
-    copied).  Returns {f"eval/{task}/{metric}": float} for the metrics
+    copied); a sharded one's documents go out over its mesh's dp
+    groups.  Returns {f"eval/{task}/{metric}": float} for the metrics
     logger."""
     model = eval_view(params, cfg, lm_family)
     adapter = LavidaEvalModel(model, tokenizer, conv_template=conv_template)
-    distributed = rank_and_world()[1] > 1
-    flat = {}
-    for name in tasks:
-        task = get_task(name)
-        # each rank scores a strided shard; rows are gathered and (for
-        # mme) pair-deduped before aggregation -- the reference's
-        # all_gather_object merge loop (llava_eval_trainer.py:232-292)
-        docs = shard_docs(task.load_docs(
-            (data_paths or {}).get(name), limit=limit
-        ))
-        out = evaluate(
-            adapter, task, docs,
-            gen_kwargs={**DEFAULT_GEN_KWARGS, **(gen_kwargs or {})},
-            distributed=distributed,
-        )
-        for k, v in out["results"].items():
-            if isinstance(v, (int, float)):
-                flat[f"eval/{name}/{k}"] = float(v)
-    return flat
+    # a sharded model's tp / fsdp groups score the same documents
+    with dp_groups(getattr(params, "mesh", None)):
+        distributed = rank_and_world()[1] > 1
+        flat = {}
+        for name in tasks:
+            task = get_task(name)
+            # each rank scores a strided shard; rows are gathered and (for
+            # mme) pair-deduped before aggregation -- the reference's
+            # all_gather_object merge loop (llava_eval_trainer.py:232-292)
+            docs = shard_docs(task.load_docs(
+                (data_paths or {}).get(name), limit=limit
+            ))
+            out = evaluate(
+                adapter, task, docs,
+                gen_kwargs={**DEFAULT_GEN_KWARGS, **(gen_kwargs or {})},
+                distributed=distributed,
+            )
+            for k, v in out["results"].items():
+                if isinstance(v, (int, float)):
+                    flat[f"eval/{name}/{k}"] = float(v)
+        return flat

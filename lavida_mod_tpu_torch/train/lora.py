@@ -42,7 +42,7 @@ from torch import nn
 
 from ..ops.quant import (Int4Linear, Int8Linear, attach_lora, detach_lora,
                          has_lora)
-from .step import Optimizer, _adamw_builder, _microstep, _no_sharding
+from .step import Optimizer, _adamw_builder, _DataShard, _microstep
 
 DEFAULT_TARGETS = r"(projector|q_proj|k_proj|v_proj|attn_out)"
 _STACKED = (("llada.blocks.", "llada/blocks/"),
@@ -231,11 +231,12 @@ def make_shirg_lora_train_step(cfg, optimizer: Optimizer, *,
     draws the diffusion mask and the `random` method's scores;
     `masked_indices` [B, L] and `noise` [B, N] replace them (test
     injection).  grad_norm covers every leaf, the frozen 8 B included,
-    each frozen gradient freed as it is taken (train/step.py)."""
+    each frozen gradient freed as it is taken (train/step.py).  `mesh`:
+    the model is sharded on it and the loss takes this rank's rows over
+    dp x fsdp (train/step.py's sharded step)."""
     from ..models.shirg import shirg_encode
-    from .loss import diffusion_loss
 
-    _no_sharding(mesh, None)
+    shard = _DataShard(mesh, None)
 
     def train_step(state, batch: dict,
                    generator: Optional[torch.Generator] = None,
@@ -251,11 +252,10 @@ def make_shirg_lora_train_step(cfg, optimizer: Optimizer, *,
                                generator=generator, noise=noise)
             text = model.llada.embed_tokens(ids)
             embeds = torch.cat([img.to(text.dtype), text], dim=1)
-            return diffusion_loss(
-                model.llada, embeds, torch.as_tensor(batch["labels"]),
-                generator, prefix_lm=prefix_lm,
-                masked_indices=masked_indices, remat=remat)
+            return shard.loss(model.llada, embeds, batch["labels"],
+                              generator, masked_indices, "uniform", None,
+                              prefix_lm=prefix_lm, remat=remat)
 
-        return _microstep(state, optimizer, forward)
+        return _microstep(state, optimizer, forward, mesh)
 
     return train_step

@@ -27,6 +27,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.sharding import vocab_logits
+
 
 def sample_t(generator: torch.Generator, b: int, policy: str = "uniform",
              policy_args: Optional[dict] = None) -> torch.Tensor:
@@ -60,8 +62,10 @@ def forward_process(generator: torch.Generator, b: int, l: int,
 
 def _head_chunk(h_c, weight, t_c, s_c):
     """One ce_chunk of the head: a dot in the hidden state's dtype, then f32
-    (loss.py:182-190).  -> (sum of nll over supervised rows, hits)."""
-    lg = (h_c @ weight.to(h_c.dtype).t()).float()          # [2B, c, V]
+    (loss.py:182-190).  -> (sum of nll over supervised rows, hits).  A
+    vocab-sharded head's logits are gathered over tp."""
+    lg = vocab_logits(lambda w: h_c @ w.to(h_c.dtype).t(),
+                      weight).float()                      # [2B, c, V]
     nll = -torch.log_softmax(lg, dim=-1).gather(-1, t_c[..., None])[..., 0]
     hit = (lg.argmax(dim=-1) == t_c) & s_c
     return torch.where(s_c, nll, 0.0).sum(), hit.sum()
@@ -83,6 +87,7 @@ def diffusion_loss(
     use_flash: bool = False,
     attention_impl: str = "dense",
     ce_chunk: Optional[int] = None,
+    data_reduce=None,
 ):
     """(loss, metrics) of the port's `LLaDA` `lm` on spliced embeddings
     [B, L, D] with labels [B, L] (-100 = not supervised); the batch is
@@ -90,7 +95,10 @@ def diffusion_loss(
     (test injection).  `ce_chunk`: the head and its cross-entropy in
     checkpointed chunks of that many positions, so the f32 [2B, L, V]
     logits never exist whole.  Metrics: loss, acc_mask, num_supervised
-    (0-d tensors)."""
+    (0-d tensors).  `data_reduce(t)`: the sum of t over the data ranks of
+    a sharded step (train/step.py), the rows here being this rank's: the
+    denominator is the whole batch's, the returned loss this rank's share
+    of the whole batch's, and the metrics the whole batch's."""
     B, L, D = inputs_embeds.shape
     device = inputs_embeds.device
     labels = labels.to(device)
@@ -131,7 +139,9 @@ def diffusion_loss(
         positions = offset.to(device) + torch.arange(L, device=device)
     sup = labels2 != -100
     tgt = torch.where(sup, labels2, 0)
-    denom = sup.sum().clamp(min=1)
+    n_sup = sup.sum() if data_reduce is None else data_reduce(sup.sum())
+    denom = n_sup.clamp(min=1)
+    total = (lambda t: t) if data_reduce is None else data_reduce
     fwd = dict(positions=positions, prefix_lengths=prefix_lengths,
                remat=remat, use_flash=use_flash,
                attention_impl=attention_impl)
@@ -151,12 +161,13 @@ def diffusion_loss(
                     if record else _head_chunk(*args))
             nll_sum, hits = nll_sum + n, hits + h
         loss = nll_sum / denom
-        return loss, {"loss": loss, "acc_mask": hits / denom,
-                      "num_supervised": sup.sum()}
+        return loss, {"loss": total(loss), "acc_mask": total(hits) / denom,
+                      "num_supervised": n_sup}
 
     logits, _ = lm(embeds2, **fwd)
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, tgt[..., None])[..., 0]
     loss = torch.where(sup, nll, 0.0).sum() / denom
-    acc = (sup & (logits.argmax(dim=-1) == tgt)).sum() / denom
-    return loss, {"loss": loss, "acc_mask": acc, "num_supervised": sup.sum()}
+    acc = total((sup & (logits.argmax(dim=-1) == tgt)).sum()) / denom
+    return loss, {"loss": total(loss), "acc_mask": acc,
+                  "num_supervised": n_sup}

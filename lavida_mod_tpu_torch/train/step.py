@@ -35,7 +35,20 @@ backward, so a frozen tower runs under autograd as in JAX), and a hook
 takes each frozen leaf's f32 norm as soon as its gradient is accumulated
 and frees that gradient, so no more than a few are held at once (8.45 B
 frozen f32 leaves would double the SHIRG-LoRA step's memory); they do
-not reach the optimizer.  Sharding (`mesh`, `batch_axes`) is not ported.
+not reach the optimizer.
+
+Sharded training (`mesh`, `batch_axes`; parallel/sharding.py): the model
+is placed by `parallel.shard_params` (DTensor weights) and every rank
+gets the same global batch.  The tower and the splice run on all of it;
+the LM and the loss take this rank's rows over `batch_axes` (dp x fsdp by
+default, the counterpart of the JAX step's `_batch_constraint`), the mask
+drawn for the whole batch first, so the draws are the unsharded step's.
+The loss's denominator and metrics are summed over the data ranks, each
+rank differentiates its share (its rows' loss over tp), each gradient is
+summed over the mesh dims its parameter is replicated on, and grad_norm
+and the clip's norms sum the squares over the dims that shard each leaf.
+The masters and Adam moments are DTensors with their parameters'
+placements; the update runs on the local shards.
 """
 
 from __future__ import annotations
@@ -48,7 +61,10 @@ import numpy as np
 import torch
 
 from ..models.multimodal import multimodal_embeds
-from .loss import diffusion_loss
+from ..parallel.sharding import (data_groups, data_rank, distribute,
+                                 is_dtensor, local, reduce_sum, sharded_norm,
+                                 sharded_sum, sync_grad, tp_size)
+from .loss import diffusion_loss, forward_process
 
 
 # ---------------------------------------------------------------------------
@@ -100,8 +116,10 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
 # ---------------------------------------------------------------------------
 
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares over every tensor, f32 (0-d)."""
-    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+    """sqrt of the sum of squares over every tensor, f32 (0-d); over the
+    whole of each sharded (DTensor) one."""
+    return torch.sqrt(sum(sharded_sum(t, local(t).float().square().sum())
+                          for t in tensors))
 
 
 @dataclass
@@ -134,8 +152,9 @@ class AdamW:
         step = -float(np.float32(self.lr(count)))
         b1, b2 = self.b1, self.b2
         for name, g in grads.items():
-            p, mu, nu = params[name], state["mu"][name], state["nu"][name]
-            g = g.to(p.dtype)
+            p, mu, nu = (local(t) for t in (params[name], state["mu"][name],
+                                            state["nu"][name]))
+            g = local(g).to(p.dtype)
             g = torch.where(clip, g, (g / norm.to(g.dtype)) * self.grad_clip)
             mu.copy_((1 - b1) * g + b1 * mu)
             nu.copy_((1 - b2) * (g * g) + b2 * nu)
@@ -289,7 +308,7 @@ class TrainState:
         params = dict(self.model.named_parameters())
         with torch.no_grad():
             for n, m in self.masters.items():
-                p = params[n]
+                p, m = local(params[n].data), local(m)
                 if p.data_ptr() != m.data_ptr():
                     p.copy_(m)
 
@@ -316,26 +335,87 @@ def init_train_state(model: torch.nn.Module, optimizer: Optimizer,
         masters = {}
         for n in names:
             src = params[n] if given is None else given[n]
+            if is_dtensor(params[n]) and not is_dtensor(src):
+                src = distribute(src.to(params[n].device),
+                                 params[n].placements,
+                                 params[n].device_mesh)
             masters[n] = src.detach().to(device=params[n].device,
                                          dtype=torch.float32, copy=True)
-        with torch.no_grad():
-            for p in params.values():
-                if p.is_floating_point():
-                    p.data = p.data.to(compute_dtype)
+        cast_floating_(model, compute_dtype)
     return TrainState(model, masters, optimizer.init(masters), compute_dtype)
 
 
-def _no_sharding(mesh, batch_axes) -> None:
-    if mesh is not None or batch_axes is not None:
-        raise NotImplementedError("sharded training (mesh, batch_axes) is "
-                                  "not ported")
+@torch.no_grad()
+def cast_floating_(model: torch.nn.Module, dtype: torch.dtype) -> None:
+    """Every floating parameter of `model` in `dtype`, in place; a sharded
+    (DTensor) one is replaced by a parameter holding its cast shard."""
+    from torch.distributed.tensor import DTensor
+
+    for name, p in list(model.named_parameters()):
+        if not p.is_floating_point():
+            continue
+        if is_dtensor(p):
+            mod_name, _, leaf = name.rpartition(".")
+            setattr(model.get_submodule(mod_name), leaf, torch.nn.Parameter(
+                DTensor.from_local(p.to_local().to(dtype), p.device_mesh,
+                                   p.placements, run_check=False),
+                requires_grad=p.requires_grad))
+        else:
+            p.data = p.data.to(dtype)
 
 
-def _microstep(state: TrainState, optimizer: Optimizer, forward) -> dict:
+class _DataShard:
+    """This rank's rows of a global batch over the mesh's `batch_axes` and
+    the sums over those data ranks (`diffusion_loss`'s data_reduce); with
+    no mesh, every row and no sum."""
+
+    def __init__(self, mesh, batch_axes):
+        self.mesh = mesh
+        self.axes = tuple(batch_axes or ("dp", "fsdp"))
+        self.groups = [] if mesh is None else data_groups(mesh, self.axes)
+
+    def rows(self, B: int) -> slice:
+        if self.mesh is None:
+            return slice(0, B)
+        idx, n = data_rank(self.mesh, self.axes)
+        if B % n:
+            raise ValueError(f"a batch of {B} rows over {n} data ranks")
+        return slice(idx * (B // n), (idx + 1) * (B // n))
+
+    def reduce(self, t: torch.Tensor) -> torch.Tensor:
+        return reduce_sum(t, self.groups)
+
+    def loss(self, lm, embeds, labels, generator, masked_indices, policy,
+             policy_args, **kw):
+        """diffusion_loss on this rank's rows, the mask drawn for the whole
+        batch (as the unsharded loss draws it) unless given."""
+        labels = torch.as_tensor(labels).to(embeds.device)
+        B, L = labels.shape
+        if masked_indices is None:
+            if generator is None:
+                raise ValueError("diffusion_loss draws its mask from a "
+                                 "generator: give one, or masked_indices")
+            masked_indices, _ = forward_process(generator, B, L,
+                                                policy=policy,
+                                                policy_args=policy_args)
+        r = self.rows(B)
+        return diffusion_loss(
+            lm, embeds[r], labels[r], generator,
+            masked_indices=masked_indices[r], policy=policy,
+            policy_args=policy_args,
+            data_reduce=None if self.mesh is None else self.reduce, **kw)
+
+
+def _microstep(state: TrainState, optimizer: Optimizer, forward,
+               mesh=None) -> dict:
     """forward() -> (loss, metrics); backward, grad_norm over every leaf,
     one optimizer microstep on the masters.  The frozen leaves require a
     gradient for this forward and backward only: each one's gradient
-    enters the norm as it is accumulated and is freed there."""
+    enters the norm as it is accumulated and is freed there.  With a
+    `mesh` the loss is this rank's share of the global one: the backward
+    seeds it over tp, each gradient is summed over the mesh dims its
+    parameter is replicated on, and each leaf's squares are summed over
+    the ranks that shard it (all identities with no mesh)."""
     params = dict(state.model.named_parameters())
     frozen = [p for n, p in params.items() if n not in state.masters
               and p.is_floating_point() and not p.requires_grad]
@@ -343,7 +423,7 @@ def _microstep(state: TrainState, optimizer: Optimizer, forward) -> dict:
 
     def take(p):
         # f32 norm of the bf16 or f32 gradient, no f32 copy of it
-        norms.append(torch.linalg.vector_norm(p.grad, dtype=torch.float32))
+        norms.append(sharded_norm(p, sync_grad(p, mesh)))
         p.grad = None
 
     hooks = []
@@ -352,7 +432,8 @@ def _microstep(state: TrainState, optimizer: Optimizer, forward) -> dict:
         hooks.append(p.register_post_accumulate_grad_hook(take))
     try:
         loss, metrics = forward()
-        loss.backward()
+        tp = tp_size(mesh)
+        (loss if tp == 1 else loss / tp).backward()
     finally:
         for p, h in zip(frozen, hooks):
             h.remove()
@@ -361,11 +442,13 @@ def _microstep(state: TrainState, optimizer: Optimizer, forward) -> dict:
     grads = {}
     for n in state.masters:
         p = params[n]
-        grads[n] = (p.grad if p.grad is not None
-                    else torch.zeros_like(p))
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        sync_grad(p, mesh)
+        grads[n] = p.grad
         p.grad = None
-    sq = sum((g.float().square().sum() for g in grads.values()),
-             torch.zeros((), device=loss.device))
+    sq = sum((sharded_sum(g, local(g).float().square().sum())
+              for g in grads.values()), torch.zeros((), device=loss.device))
     if norms:
         sq = sq + torch.stack(norms).square().sum()
     metrics["grad_norm"] = torch.sqrt(sq)
@@ -381,8 +464,10 @@ def make_train_step(cfg, optimizer: Optimizer, *, prefix_lm: bool = True,
     """The LM-only step (step.py:195-250): train_step(state, batch,
     generator, masked_indices=None) -> metrics with batch =
     {"inputs_embeds" [B, L, D] (cast to the compute dtype), "labels"
-    [B, L]}; the state's model is a LaViDa or a bare LLaDA."""
-    _no_sharding(mesh, batch_axes)
+    [B, L]}; the state's model is a LaViDa or a bare LLaDA.  `mesh`: the
+    model is sharded on it (parallel.shard_params) and the global batch's
+    rows over `batch_axes` (default dp, fsdp) are this rank's."""
+    shard = _DataShard(mesh, batch_axes)
 
     def train_step(state: TrainState, batch: dict,
                    generator: Optional[torch.Generator] = None,
@@ -391,11 +476,11 @@ def make_train_step(cfg, optimizer: Optimizer, *, prefix_lm: bool = True,
         model = state.model
         lm = getattr(model, "llada", model)
         embeds = batch["inputs_embeds"].to(lm.wte.weight.dtype)
-        return _microstep(state, optimizer, lambda: diffusion_loss(
-            lm, embeds, batch["labels"], generator, prefix_lm=prefix_lm,
-            policy=policy, policy_args=policy_args,
-            masked_indices=masked_indices, remat=remat, use_flash=use_flash,
-            attention_impl=attention_impl, ce_chunk=ce_chunk))
+        return _microstep(state, optimizer, lambda: shard.loss(
+            lm, embeds, batch["labels"], generator, masked_indices, policy,
+            policy_args, prefix_lm=prefix_lm, remat=remat,
+            use_flash=use_flash, attention_impl=attention_impl,
+            ce_chunk=ce_chunk), mesh)
 
     return train_step
 
@@ -419,8 +504,9 @@ def make_multimodal_train_step(cfg, optimizer: Optimizer, *,
     `masked_indices` [B, T] bool replaces it (test injection).  `remat`
     reaches the LM blocks and the tower's layers.  The mixed-precision
     policy (the JAX step's `compute_dtype`) is the state's
-    (`init_train_state`)."""
-    _no_sharding(mesh, batch_axes)
+    (`init_train_state`).  `mesh` / `batch_axes`: as make_train_step's; the
+    tower and the splice run on the whole batch on every rank."""
+    shard = _DataShard(mesh, batch_axes)
 
     def train_step(state: TrainState, batch: dict,
                    generator: Optional[torch.Generator] = None,
@@ -432,13 +518,13 @@ def make_multimodal_train_step(cfg, optimizer: Optimizer, *,
         def forward():
             embeds = multimodal_embeds(model, pix, batch["text_ids"],
                                        batch["gather_idx"], remat=remat)
-            return diffusion_loss(
-                model.llada, embeds, torch.as_tensor(batch["labels"]),
-                generator, prefix_lm=prefix_lm, policy=policy,
-                policy_args=policy_args, masked_indices=masked_indices,
-                fim_id=fim_id, remat=remat, use_flash=use_flash,
-                attention_impl=attention_impl, ce_chunk=ce_chunk)
+            return shard.loss(model.llada, embeds, batch["labels"],
+                              generator, masked_indices, policy, policy_args,
+                              prefix_lm=prefix_lm, fim_id=fim_id,
+                              remat=remat, use_flash=use_flash,
+                              attention_impl=attention_impl,
+                              ce_chunk=ce_chunk)
 
-        return _microstep(state, optimizer, forward)
+        return _microstep(state, optimizer, forward, mesh)
 
     return train_step

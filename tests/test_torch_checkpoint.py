@@ -583,13 +583,16 @@ def test_predict_cli_answers_from_a_checkpoint(rehearsed):
     assert out.returncode == 0, out.stderr[-3000:]
     assert "[predict] layout: mixed (fused)" in out.stdout
     assert "[predict] answer:" in out.stdout
-    # --tp is still refused; --shirg runs (SHIRG's 2-view selection on the
-    # checkpoint's model and tokenizer)
+    # --tp is bf16 serving: with --mixed it exits in the JAX predict's
+    # words (sharded serving itself: tests/test_torch_parallel.py); --shirg
+    # runs (SHIRG's 2-view selection on the checkpoint's model and
+    # tokenizer)
     bad = subprocess.run([sys.executable, "-m",
-                          "lavida_mod_tpu_torch.predict", "--tp", "2"],
+                          "lavida_mod_tpu_torch.predict", "--tp", "2",
+                          "--mixed"],
                          cwd=REPO, env=env, capture_output=True, text=True,
                          timeout=300)
-    assert bad.returncode != 0 and "not in the port" in bad.stderr
+    assert bad.returncode != 0 and "--tp is bf16 serving" in bad.stderr
     shirg = subprocess.run(
         [sys.executable, "-c", code.replace("'--mixed', ", "'--shirg', ")],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)

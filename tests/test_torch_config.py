@@ -323,3 +323,38 @@ def test_import_scans_cover_the_eval_slice():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip() == "131 []"
+
+
+SHARDING_AND_DPO = ("parallel/__init__.py", "parallel/mesh.py",
+                    "parallel/sharding.py", "parallel/lockstep.py",
+                    "train/dpo.py")
+
+
+def test_import_scans_cover_the_sharding_and_dpo_slice():
+    """The scans above walk parallel/ and train/dpo.py too; importing them
+    (and the model, which uses the sharding helpers) pulls in neither jax
+    nor lavida_mod_tpu, and brings up no process group."""
+    files = {f.relative_to(REPO / "lavida_mod_tpu_torch").as_posix()
+             for f in (REPO / "lavida_mod_tpu_torch").rglob("*.py")}
+    assert set(SHARDING_AND_DPO) <= files
+    import pkgutil
+
+    import lavida_mod_tpu_torch as p
+    names = {m.name for m in pkgutil.walk_packages(
+        p.__path__, "lavida_mod_tpu_torch.")}
+    assert {"lavida_mod_tpu_torch." + f[:-3].replace("/", ".")
+            for f in SHARDING_AND_DPO
+            if not f.endswith("__init__.py")} <= names
+    code = (
+        "import sys\n"
+        "import torch.distributed as dist\n"
+        "import lavida_mod_tpu_torch.parallel, "
+        "lavida_mod_tpu_torch.parallel.lockstep, "
+        "lavida_mod_tpu_torch.train.dpo, lavida_mod_tpu_torch.models.lavida\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'lavida_mod_tpu'))\n"
+        "print(bad, dist.is_initialized())\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip() == "[] False"

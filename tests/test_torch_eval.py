@@ -25,7 +25,8 @@ package's (lavida_mod_tpu.eval) on the CPU:
     over a two-process gloo group give strided shards and the rows in
     rank order; `mme_dedup_rows` is JAX's;
   - the CLI takes every flag of JAX's with its default (plus --device,
-    default cuda), `--tp 2` exits naming ROADMAP Queue 1 item 9, and
+    default cuda), `--tp 2` with a quantized layout or --kv8 exits in
+    the JAX CLI's words, and
     `--tiny --device cpu` runs end to end, writing --output and the
     tracker's files.
 """
@@ -41,6 +42,8 @@ import zlib
 from pathlib import Path
 
 import numpy as np
+import re
+
 import pytest
 
 from lavida_mod_tpu.eval import evaluator as jev
@@ -634,12 +637,20 @@ def test_cli_takes_every_jax_flag_with_its_default():
     assert acts["--mc-num"].default == 16
 
 
-def test_cli_tp_exits_naming_the_item(capsys):
+@pytest.mark.parametrize("extra,words", [
+    ([], "--tp is bf16 serving; use --quant none"),
+    (["--quant", "int4"], "--tp is bf16 serving; use --quant none"),
+    (["--quant", "none", "--kv8"], "--tp is bf16 serving; drop --kv8")])
+def test_cli_tp_exits_naming_the_item(tmp_path, extra, words):
+    """--tp is bf16 serving: with a quantized layout or the int8 KV cache
+    the CLI exits in the JAX CLI's words (eval/__main__.py:96-101), before
+    it reads the checkpoint or any document (sharded eval itself:
+    tests/test_torch_parallel.py)."""
     from lavida_mod_tpu_torch.eval.__main__ import main
 
-    with pytest.raises(SystemExit):
-        main(["--tiny", "--device", "cpu", "--tasks", "pope", "--tp", "2"])
-    assert "item 9" in capsys.readouterr().err
+    with pytest.raises(SystemExit, match=re.escape(words)):
+        main(["--model-path", str(tmp_path / "none"), "--device", "cpu",
+              "--tasks", "pope", "--tp", "2", *extra])
 
 
 def test_cli_tiny_runs_on_the_cpu(smoke_dir, tmp_path):

@@ -474,11 +474,21 @@ def test_tiny_worker_answers_http_as_the_eval_model(tiny_checkpoint):
             s.server_close()
 
 
-def test_worker_cli_flags():
+def test_worker_cli_flags(tmp_path):
+    """The flags; --tp is bf16 serving, refused with a quantized layout
+    or KV cache in the JAX worker's words (worker.py:391-400) before the
+    checkpoint is read."""
     args = tw.parse_args(["--mixed", "--kv8"])
     assert args.int4 and args.mixed and args.device == "cuda"
-    with pytest.raises(SystemExit):
-        tw.parse_args(["--tp", "2"])
+    assert tw.parse_args(["--tp", "2"]).tp == 2
+    ckpt = str(tmp_path / "none")
+    for extra, words in ((["--int4"], "drop --int4/--mixed"),
+                         (["--mixed"], "drop --int4/--mixed"),
+                         (["--kv4"], "drop --kv8/--kv4")):
+        with pytest.raises(SystemExit, match=words):
+            tw.build_eval_model(tw.parse_args(
+                ["--model-path", ckpt, "--tp", "2", "--device", "cpu",
+                 *extra]))
 
 
 def test_terminal_chat_answers_a_turn(capsys):
@@ -496,5 +506,7 @@ def test_terminal_chat_answers_a_turn(capsys):
         cli.main(["--tiny", "--device", "cpu", "--max-new-tokens", "8"])
     out = capsys.readouterr().out
     assert "ASSISTANT:" in out and "tiny random model" in out
-    with pytest.raises(SystemExit):
-        cli.main(["--tp", "2"])
+    # --tp is bf16 serving (the JAX chat's refusal, cli.py:59-60)
+    with pytest.raises(SystemExit, match="--tp is bf16 serving; use "
+                       "--quant none"):
+        cli.main(["--model-path", "none", "--device", "cpu", "--tp", "2"])

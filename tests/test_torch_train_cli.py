@@ -15,7 +15,8 @@ repository's train.py and the JAX package's utils:
     saves commit in order and the newest wins, a killed temporary
     directory is never a resume point, the adapter-only layout and its
     resume failure are JAX's;
-  - sharding exits naming its ROADMAP item (--eval-tasks runs the
+  - a mesh the process group cannot hold exits naming torchrun (the
+    sharded CLI: tests/test_torch_parallel.py; --eval-tasks runs the
     in-training eval: tests/test_torch_eval_hook.py).
 The card case (`-k cuda`) runs the tiny CLI on the card with a resume.
 """
@@ -257,9 +258,12 @@ def test_cli_module_runs_logs_and_saves(data, tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--dp", "2"], "item 9"), (["--fsdp", "2"], "item 9"),
-    (["--tp", "2"], "item 9")])
+    (["--dp", "2"], "torchrun"), (["--fsdp", "2"], "torchrun"),
+    (["--tp", "2"], "torchrun")])
 def test_refusals_name_their_item(data, tmp_path, capsys, argv, item):
+    """A mesh of more ranks than the process group has (one process, no
+    torchrun) exits naming the launcher; the sharded CLI itself runs in
+    tests/test_torch_parallel.py."""
     with pytest.raises(SystemExit):
         cli.main(_argv(data, tmp_path, *argv))
     assert item in capsys.readouterr().err
