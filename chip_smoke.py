@@ -300,12 +300,37 @@ bit-equal with #9's 26 launches in both -- and one stage-1 step at the
 unsharded step's bit for bit (two unsharded steps first show the step
 itself repeats; where it does not, both must lie within their spread).  Phase 10 also holds #10 at the Dream step's shape
 ([8, 1152, 28 / 4 heads, 128]) against its plain versions and SDPA.
+The other towers, resamplers and projector kinds (models/clip.py,
+open_clip.py, mlcd.py, eva_clip.py, qformer.py, resampler.py,
+projector.py): phase 3 also checks and times #1 at each tower's layer
+shape (TOWER_SHAPES: [4, 577, 16, 64] CLIP-L and MLCD-L, [2, 730, 16, 80]
+ViT-H-14-378, [4, 257, 16, 80] ImageBind, [2, 257, 32, 128] EVA-CLIP-8B)
+beside SDPA, weighed 0 in the bench request's sums; after phase 4, its
+bf16 8B model serves the first bench request once with a "linear" and
+once with an "mlp2x_res2x_gelu" projector of seeded weights in place of
+its own (phase 4's checks and launches), which it gets back after; and
+last, after the sharded phase has freed the card,
+ 19. every other tower at its published width through build_vision_tower
+     in bf16 (TOWER_RUNS: CLIP ViT-L/14-336 on 4 images, the same with S2
+     at 336 / 672 / 1008 on 2 images of 1008^2, open_clip ViT-H-14-378 on
+     4, imagebind_huge on 4 of 224^2, MLCD ViT-L-336 on 4, EVA-CLIP-8B on
+     2 of 224^2; 23, 69, 31, 32, 23 and 31 #1 launches a forward,
+     asserted): shape, finite, within TOWER_LIMIT of the forward through
+     the plain attention, each #1 call within ATTN_CALL_LIMIT x max|v| of
+     the plain version on its own q, k and v (two wrong attentions, heads
+     rolled and q / k swapped, shown outside it), wall per image, peak
+     memory and weight bytes; then masked_drop on the card in its fixed and range
+     modes, equal to its CPU run of the same draws, the Q-Former
+     (BERT-base, 32 queries) over the CLIP-L features and the perceiver
+     (dim 1152) over SigLIP-shaped features, each within RESAMPLER_LIMIT
+     of its CPU run of the same weights.
 Then the card's name and power limit, one JSON line of per-kernel results
 (each entry with `launches_dream_path`, and `dream_path`, its sums at the
 Dream shapes, where phase 14 measured it; #1, #2 and #10 with
 `launches_train_cli`, T1's, and `launches_dream_train_step` /
 `launches_dpo_step`, per step of phases 16 / 17; the SHIRG paths'
-launches; #1's f32 instance
+launches; #1 and #2's per projector kind request, and #1's per forward of
+each tower of phase 19 (`launches_towers`); #1's f32 instance
 as `short_attention_f32`, its launches the harness run's), and as the
 last line
 {"ok": true, "device": {...}}.
@@ -329,6 +354,41 @@ from lavida_mod_tpu_torch.kernel_times import (KV8_CASES, SHORT_F32_CASES,
 from lavida_mod_tpu_torch.step_times import print_by_kind
 
 SIGLIP_LAYERS = 26   # so400m's 27 layers less the dropped last one
+# phase 19: each tower of models/tower_builder.py at its published width,
+# in bf16 through build_vision_tower: (label, name, build kwargs, images,
+# side, #1 launches of one forward, the output's shape).  The launches are
+# the layers each forward runs (clip.py:111, :221 of eva_clip.py): CLIP-L
+# and MLCD-L select -2 of 24 layers, S2 runs CLIP-L at three scales,
+# ViT-H -2 of 32, ImageBind -1 of 32, EVA-CLIP-8B all but the last of 32
+TOWER_RUNS = [
+    ("clip", "clip", {}, 4, 336, 23, (4, 576, 1024)),
+    ("clip_s2", "clip", {"s2": True}, 2, 1008, 69, (2, 576, 3072)),
+    ("open_clip", "open_clip", {}, 4, 378, 31, (4, 729, 1280)),
+    ("imagebind", "imagebind", {}, 4, 224, 32, (4, 256, 1280)),
+    ("mlcd", "mlcd", {}, 4, 336, 23, (4, 576, 1024)),
+    ("eva", "eva", {}, 2, 224, 31, (2, 256, 4096)),
+]
+# #1's shape in each tower's layer: [images, tokens, heads, head dim]
+TOWER_SHAPES = {"tower_clip_mlcd": (4, 577, 16, 64),
+                "tower_vit_h": (2, 730, 16, 80),
+                "tower_imagebind": (4, 257, 16, 80),
+                "tower_eva_8b": (2, 257, 32, 128)}
+# a tower through #1 against the same tower through the plain attention
+# (phase 19): 23 - 32 bf16 layers, the eval block's limit for SigLIP's 26
+TOWER_LIMIT = 5e-2
+# each #1 call inside a tower forward against short_attention_reference on
+# the same q, k and v: max|diff| over max|v| (phase 3's limit).  The output
+# is a convex combination of v's rows, so its rounding scales with |v|;
+# with seeded weights of std 0.02 the softmax is nearly flat and the
+# output is some 20 times smaller than v, where one bf16 ulp of max|out|
+# already reads 2^-7 of it.  The whole-tower check alone is weak for the
+# same reason (each layer's attention adds little to the residual), so
+# phase 19 takes this reading too and shows that it fails for two wrong
+# attentions
+ATTN_CALL_LIMIT = 8e-3
+# the resamplers on the card against their CPU run of the same weights,
+# both f32 (TF32 off)
+RESAMPLER_LIMIT = 1e-4
 LLADA_LAYERS = 32
 LLADA_LINEARS = 7    # q, k, v, attn_out, ff_proj, up_proj, ff_out
 # fused_vit_mlp's largest error against its plain version at phase 3's
@@ -521,7 +581,8 @@ def phase_kernels(torch, device, res):
          (EVAL_FRAMES, 729, 16, 72), None, 0, SIGLIP_LAYERS),
         ("video_prefill", (1, VIDEO_PREFIX_ROWS, 32, 128),
          (1, VIDEO_PREFIX_ROWS + EVAL_G, 32, 128), "front", 0, LLADA_LAYERS),
-    ]
+    ] + [(name, shape, shape, None, 0)   # phase 19's towers, timed beside
+         for name, shape in TOWER_SHAPES.items()]     # SDPA, weighed 0
     for name, qs, ks, kind, per_request, *per_video in cases:
         per_video = per_video[0] if per_video else 0
         q, k, v = randn(*qs), randn(*ks), randn(*ks)
@@ -542,7 +603,8 @@ def phase_kernels(torch, device, res):
         plain_ms = cuda_ms(
             lambda: short_attention_reference(q, k, v, sq, skv))
         lib_ms = lib_b2b = None
-        if per_request or per_video or name == "shirg_views":
+        if per_request or per_video or name == "shirg_views" \
+                or name in TOWER_SHAPES:
             # one library call of the same function on the same inputs:
             # SDPA with the segment mask as a boolean attention mask
             mask = None if sq is None else (
@@ -717,6 +779,59 @@ def phase_main_path(torch, device, card):
     counts = {"short_attention": short_attention.launches,
               "gather_rows": gather_rows.launches}
     return model, requests, counts, walls
+
+
+PROJECTOR_KINDS = ("linear", "mlp2x_res2x_gelu")
+
+
+def phase_projector_kinds(torch, model, requests, card):
+    """Phase 4's bf16 8B model with its projector replaced by each other
+    kind that keeps the token count (models/projector.py), seeded random
+    weights drawn on the card, phase 4's LLaDA and SigLIP kept: the first
+    bench request through generate_fused, checked as phase 4 checks it
+    (no mask token left, 26 + 32 short_attention and 1 gather_rows, no
+    other launch); the model's own projector restored after."""
+    from lavida_mod_tpu_torch.config import GenerationConfig
+    from lavida_mod_tpu_torch.models.projector import Projector
+    from lavida_mod_tpu_torch.models.siglip import LayerNorm
+
+    cfg0, proj0 = model.cfg, model.projector
+    D, mm = cfg0.llada.d_model, cfg0.vision.mm_hidden_size
+    gen = GenerationConfig(**GEN)
+    ids, views, size = requests[0]
+    out = {}
+    try:
+        for i, kind in enumerate(PROJECTOR_KINDS):
+            g = torch.Generator(device=model.device).manual_seed(100 + i)
+            proj = Projector(kind, mm, D, model.device, torch.bfloat16)
+            with torch.no_grad():
+                for m in proj.modules():
+                    if isinstance(m, torch.nn.Linear):
+                        m.weight.normal_(0.0, 0.02, generator=g)
+                        m.bias.zero_()
+                    elif isinstance(m, LayerNorm):
+                        m.weight.fill_(1.0)
+                        m.bias.zero_()
+            model.projector = proj
+            model.cfg = cfg0.replace(vision=cfg0.vision.replace(
+                projector_type=kind))
+            toks, wall, peak, counts = _counted(
+                torch, lambda: model.generate_fused(ids, [views], [size],
+                                                    gen))
+            _check(f"projector {kind}", counts, _want(
+                short_attention=SIGLIP_LAYERS + LLADA_LAYERS,
+                gather_rows=1), toks, mask_id=cfg0.llada.mask_token_id)
+            n = sum(p.numel() for p in proj.parameters())
+            print(f"[projector] {kind} ({n / 1e6:.1f} M params, "
+                  f"{len(proj.res_blocks)} residual blocks) on phase 4's "
+                  f"bf16 8B: request 0 wall {wall * 1e3:.1f} ms, peak "
+                  f"{peak:.2f} GiB, launches {_nonzero(counts)} ({card}); "
+                  f"tokens {toks.tolist()}")
+            out[kind] = {"wall": wall, "peak": peak,
+                         "counts": _nonzero(counts)}
+    finally:
+        model.projector, model.cfg = proj0, cfg0
+    return out
 
 
 def phase_small_reference(torch, device):
@@ -4807,6 +4922,196 @@ def _sharded_host_cost(torch, model, serve):
 
 
 
+def phase_towers(torch, device, card):
+    """Phase 19: every other vision tower at its published width, built by
+    build_vision_tower in bf16 with seeded weights drawn on the card
+    (TOWER_RUNS), on seeded pixels: a warm-up forward, then three timed
+    ones, each with the counts set to 0 just before and #1's launches read
+    just after (the layers the forward runs, asserted); the output's shape,
+    finite, and within TOWER_LIMIT of the same forward with the module's
+    `vision_attention` swapped for short_attention_reference; every #1 call
+    of a forward within ATTN_CALL_LIMIT x max|v| of the plain version on
+    the same q, k and v, and two wrong attentions (a control: #1's output with its
+    heads rolled by one, and #1 with q and k swapped) outside it, their
+    whole-tower errors printed; the wall per image (median of the three),
+    peak memory and weight bytes.  Then, over the CLIP-L run's features on
+    the card, masked_drop through build_resampler in its fixed and range
+    modes, equal to its CPU run of the same draws; and the resamplers at
+    real widths in f32: the Q-Former (BERT-base, 32 queries,
+    build_resampler's defaults) over the CLIP-L features and the perceiver
+    (dim 1152, its defaults) over SigLIP-shaped features [4, 729, 1152],
+    each against its CPU run of the same weights."""
+    from lavida_mod_tpu_torch.models import clip, eva_clip, mlcd
+    from lavida_mod_tpu_torch.models.resampler import (build_resampler,
+                                                       masked_drop)
+    from lavida_mod_tpu_torch.models.tower_builder import build_vision_tower
+    from lavida_mod_tpu_torch.ops.short_attention import (
+        short_attention, short_attention_reference)
+
+    swapped = (clip, mlcd, eva_clip)    # the modules whose attention runs
+    controls = {
+        "heads_rolled": lambda q, k, v: short_attention(q, k, v).roll(
+            1, dims=2),
+        "q_k_swapped": lambda q, k, v: short_attention(k, q, v)}
+
+    def forward_with(tower, pix, attn):
+        """tower(pix) with every module's vision_attention = attn, and the
+        largest error of attn's calls against the plain version on the
+        same q, k and v (max|diff| / max|v|)."""
+        errs = [0.0]
+
+        def checked(q, k, v):
+            o = attn(q, k, v)
+            if attn is not short_attention_reference:
+                r = short_attention_reference(q, k, v)
+                errs.append(((o.float() - r.float()).abs().max()
+                             / v.float().abs().max()).item())
+            return o
+
+        kernel_attention = [m.vision_attention for m in swapped]
+        for m in swapped:
+            m.vision_attention = checked
+        try:
+            return tower(pix), max(errs)
+        finally:
+            for m, f in zip(swapped, kernel_attention):
+                m.vision_attention = f
+
+    out, clip_feats = {}, None
+    for label, name, kw, n, side, want, shape in TOWER_RUNS:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        cfg, tower = build_vision_tower(
+            name, device=device, dtype=torch.bfloat16,
+            generator=torch.Generator(device=device).manual_seed(0), **kw)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        wbytes = _tree_bytes([tower])
+        pix = torch.randn(n, 3, side, side, device=device,
+                          generator=torch.Generator(device=device)
+                          .manual_seed(1))
+        walls = []
+        with torch.no_grad():
+            tower(pix)
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(3):
+                short_attention.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                feats = tower(pix)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                launches = short_attention.launches
+                if launches != want:
+                    raise AssertionError(
+                        f"tower {label}: {launches} short_attention "
+                        f"launches, want {want}")
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            ref, _ = forward_with(tower, pix, short_attention_reference)
+            _, call_err = forward_with(tower, pix, short_attention)
+            control_call, control_tower = {}, {}
+            for c, attn in controls.items():
+                y, control_call[c] = forward_with(tower, pix, attn)
+                control_tower[c] = _rel(y, ref)
+        err = _rel(feats, ref)
+        if tuple(feats.shape) != shape or not torch.isfinite(feats).all() \
+                or not err < TOWER_LIMIT or not call_err < ATTN_CALL_LIMIT:
+            raise AssertionError(f"tower {label}: output {tuple(feats.shape)}"
+                                 f" (want {shape}), finite "
+                                 f"{bool(torch.isfinite(feats).all())}, vs "
+                                 f"the plain attention {err:.3e}, its "
+                                 f"calls {call_err:.3e}")
+        blind = [c for c, e in control_call.items()
+                 if not e > ATTN_CALL_LIMIT]
+        if blind:
+            raise AssertionError(f"tower {label}: the per-call check passes "
+                                 f"the wrong attentions {blind} "
+                                 f"({control_call})")
+        wall = sorted(walls)[1]
+        print(f"[towers] {label} ({type(tower).__name__}, "
+              f"{n} x {side}^2 images): wall {wall * 1e3:.2f} ms "
+              f"({wall * 1e3 / n:.2f} ms per image; three runs "
+              f"{[round(w * 1e3, 2) for w in walls]} ms), peak {peak:.2f} "
+              f"GiB, weights {wbytes / 1e9:.3f} GB bf16 (built in "
+              f"{build_s:.2f} s), {launches} short_attention launches, "
+              f"output {tuple(feats.shape)} {str(feats.dtype)[6:]}, vs the "
+              f"plain attention max|diff|/max|ref| {err:.3e} (limit "
+              f"{TOWER_LIMIT}), #1's calls against the plain version on "
+              f"their q, k, v at most {call_err:.3e} of max|v| (limit "
+              f"{ATTN_CALL_LIMIT}) ({card})")
+        for c in controls:
+            print(f"[towers] {label} control {c}: its calls "
+                  f"{control_call[c]:.3e} (fails {ATTN_CALL_LIMIT}), the "
+                  f"whole tower {control_tower[c]:.3e} ("
+                  f"{'fails' if not control_tower[c] < TOWER_LIMIT else 'passes'}"
+                  f" TOWER_LIMIT {TOWER_LIMIT})")
+        out[label] = {"wall_ms": wall * 1e3, "ms_per_image": wall * 1e3 / n,
+                      "peak_gib": peak, "weight_gb": wbytes / 1e9,
+                      "launches": launches, "err": err, "call_err": call_err,
+                      "control_call_err": control_call,
+                      "control_tower_err": control_tower}
+        if label == "clip":
+            clip_feats = feats.float()
+        del tower, feats, ref, y
+    torch.cuda.empty_cache()
+
+    for mode in ("fixed", "range"):
+        g = torch.Generator(device=device).manual_seed(3)
+        state = g.get_state()
+        y = build_resampler("masked_drop", mode=mode)(clip_feats, g,
+                                                      training=True)
+        # the same draws again, in masked_drop's order, on the CPU
+        g.set_state(state)
+        draws = {}
+        if mode == "range":
+            draws["ratio"] = 0.25 + (0.75 - 0.25) * torch.rand(
+                (), generator=g, device=device)
+        draws["noise"] = torch.rand(clip_feats.shape[:2], generator=g,
+                                    device=device)
+        want = masked_drop(clip_feats.cpu(), mode=mode,
+                           draws={k: v.cpu() for k, v in draws.items()})
+        if y.device != clip_feats.device or not torch.equal(y.cpu(), want):
+            raise AssertionError(f"masked_drop {mode} on the card: "
+                                 f"{tuple(y.shape)} on {y.device}, not its "
+                                 f"CPU run of the same draws "
+                                 f"{tuple(want.shape)}")
+        print(f"[towers] resampler masked_drop {mode} over "
+              f"{tuple(clip_feats.shape)} on the card -> {tuple(y.shape)}, "
+              f"equal to its CPU run of the same draws")
+        out[f"masked_drop_{mode}"] = {"kept": y.shape[1]}
+
+    gen = torch.Generator(device=device).manual_seed(2)
+    siglip_feats = torch.randn(4, 729, 1152, device=device, generator=gen)
+    for name, dim, x in (("qformer", clip_feats.shape[-1], clip_feats),
+                         ("perceiver", 1152, siglip_feats)):
+        m = build_resampler(name, dim=dim, generator=gen, device=device)
+        cpu = type(m)(m.cfg, "cpu") if name == "qformer" else type(m)(
+            dim, device="cpu")
+        cpu.load_state_dict(m.state_dict())
+        with torch.no_grad():
+            m(x)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = m(x)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            y_cpu = cpu(x.cpu())
+            cpu_s = time.perf_counter() - t0
+        err = _rel(y.cpu(), y_cpu)
+        if not torch.isfinite(y).all() or not err < RESAMPLER_LIMIT:
+            raise AssertionError(f"resampler {name}: {tuple(y.shape)} vs "
+                                 f"its CPU run {err:.3e}")
+        n = sum(p.numel() for p in m.parameters())
+        print(f"[towers] resampler {name} ({n / 1e6:.1f} M params f32) over "
+              f"{tuple(x.shape)} -> {tuple(y.shape)}: wall "
+              f"{wall * 1e3:.2f} ms ({card}), vs its CPU run of the same "
+              f"weights ({cpu_s:.2f} s) max|diff|/max|ref| {err:.3e} "
+              f"(limit {RESAMPLER_LIMIT})")
+        out[name] = {"wall_ms": wall * 1e3, "err": err}
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -4848,6 +5153,7 @@ def main() -> None:
     prefix_flash_summary(res, card)
     torch.cuda.empty_cache()
     model, requests, counts, walls = phase_main_path(torch, device, card)
+    proj_kinds = phase_projector_kinds(torch, model, requests, card)
     br16 = phase_branches_bf16(torch, model, requests, card)
     shirg16 = phase_shirg_bf16(torch, model, card)
     mixed_counts, mixed_walls, peaks, fused_layer_ms = phase_mixed_path(
@@ -4919,6 +5225,10 @@ def main() -> None:
     shard = phase_sharded(torch, device, card, dpo_model)
     del dpo_model
     torch.cuda.empty_cache()
+    t_towers = time.perf_counter()
+    towers = phase_towers(torch, device, card)
+    t_towers = time.perf_counter() - t_towers
+    torch.cuda.empty_cache()
     print(f"[batch] #4 design point, one decode layer at B = 1, device "
           f"time: fused plan {fused_layer_ms[1]:.4f} ms vs unfused grouped "
           f"int4 {unfused_layer_ms[1]:.4f} ms; back to back "
@@ -4961,7 +5271,11 @@ def main() -> None:
               launches_dream_train_step=dream_train_counts["short_attention"],
               launches_dpo_step=dpo_counts["short_attention"],
               launches_dpo_pair_build=dpo_build["short_attention"],
-              launches_sharded_request=shard["counts"]["short_attention"]),
+              launches_sharded_request=shard["counts"]["short_attention"],
+              launches_projector_kinds={k: v["counts"]["short_attention"]
+                                        for k, v in proj_kinds.items()},
+              launches_towers={k: v["launches"] for k, v in towers.items()
+                               if "launches" in v}),
         entry("short_attention_f32", "short_attention.cu",
               "short_attention.py:78", shl["short_attention_f32"],
               launches_per_harness_step=SIGLIP_LAYERS),
@@ -4974,7 +5288,9 @@ def main() -> None:
               launches_dream_train_step=dream_train_counts["gather_rows"],
               launches_dpo_step=dpo_counts["gather_rows"],
               launches_dpo_pair_build=dpo_build["gather_rows"],
-              launches_sharded_request=shard["counts"]["gather_rows"]),
+              launches_sharded_request=shard["counts"]["gather_rows"],
+              launches_projector_kinds={k: v["counts"]["gather_rows"]
+                                        for k, v in proj_kinds.items()}),
         entry("w8a8_matmul", "w8a8_matmul.cu", "pallas_w8.py:53",
               mixed_counts["w8a8_matmul"],
               launches_checkpoint_path=ckpt_counts["w8a8_matmul"],
@@ -5159,6 +5475,12 @@ def main() -> None:
           f"{shard['host']['us_plain']:.2f}), 457m step "
           f"(loss, grad_norm) {shard['train']} (bit-equal "
           f"{shard['equal']}); "
+          f"projector kinds on the bf16 8B (wall ms / peak GiB) "
+          f"{ {k: (round(v['wall'] * 1e3, 1), round(v['peak'], 2)) for k, v in proj_kinds.items()} }; "
+          f"towers (ms per image, peak GiB, weight GB) "
+          f"{ {k: (round(v['ms_per_image'], 3), round(v['peak_gib'], 2), round(v['weight_gb'], 3)) for k, v in towers.items() if 'ms_per_image' in v} }, "
+          f"resamplers (ms) { {k: round(towers[k]['wall_ms'], 3) for k in ('qformer', 'perceiver')} }, "
+          f"tower phase {t_towers:.1f} s; "
           f"whole script {time.perf_counter() - t_start:.1f} s on {card}")
     print(card)
     print(json.dumps({"kernels": entries}))

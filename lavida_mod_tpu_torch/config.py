@@ -1,8 +1,10 @@
 """Typed configuration tree of the port: a copy of the model and generation
 configs of lavida_mod_tpu/config.py (LLaDAConfig, SigLIPConfig,
 VisionConfig, LaViDaConfig, GenerationConfig, DreamGenerationConfig, the
-tiny fixtures and the default anyres pinpoints), so the port imports
-nothing of the JAX package.
+tiny fixtures and the default anyres pinpoints), and of the two configs
+that the JAX package keeps beside their models (EVAConfig,
+models/eva_clip.py:40-68; QformerConfig, models/qformer.py:35-43), so the
+port imports nothing of the JAX package.
 tests/test_torch_config.py holds every default equal to the original, field
 for field.
 
@@ -227,6 +229,61 @@ def dream_7b_config(**kw) -> LLaDAConfig:
     return LLaDAConfig(**base)
 
 
+@dataclass(frozen=True)
+class EVAConfig:
+    """EVA-CLIP vision tower (models/eva_clip.py; eva_vit.py:501-856); the
+    defaults are EVA-CLIP-8B's geometry."""
+
+    image_size: int = 224
+    patch_size: int = 14
+    width: int = 4096
+    layers: int = 32
+    head_width: int = 128
+    mlp_ratio: float = 5.0
+    qkv_bias: bool = False
+    subln: bool = False
+    naiveswiglu: bool = False
+    rope: bool = False
+    postnorm: bool = False
+    ls_init_value: Optional[float] = None
+    layer_norm_eps: float = 1e-6
+    rope_theta: float = 10000.0
+    pt_hw_seq_len: int = 16
+
+    @property
+    def n_heads(self) -> int:
+        return self.width // self.head_width
+
+    @property
+    def grid(self) -> int:
+        return self.image_size // self.patch_size
+
+    @property
+    def mlp_hidden(self) -> int:
+        return int(self.width * self.mlp_ratio)
+
+    def replace(self, **kw) -> "EVAConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class QformerConfig:
+    """BLIP-2 Q-Former resampler (models/qformer.py): bert-base geometry,
+    cross-attention every `cross_attention_freq` layers."""
+
+    hidden_size: int = 768
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    intermediate_size: int = 3072
+    layer_norm_eps: float = 1e-12
+    encoder_width: int = 1152          # vision feature dim
+    num_query_tokens: int = 32
+    cross_attention_freq: int = 2
+
+    def replace(self, **kw) -> "QformerConfig":
+        return dataclasses.replace(self, **kw)
+
+
 def _sniff_llada(cj: dict) -> LLaDAConfig:
     """Flat OLMo-style fields (configuration_llada.py:130-384 ModelConfig,
     serialized flat by the HF LLaDAConfig wrapper :398-414)."""
@@ -329,7 +386,8 @@ def config_from_checkpoint(path: str):
 
 _CLASSES = {c.__name__: c for c in (LLaDAConfig, SigLIPConfig, VisionConfig,
                                     LaViDaConfig, GenerationConfig,
-                                    DreamGenerationConfig)}
+                                    DreamGenerationConfig, EVAConfig,
+                                    QformerConfig)}
 
 
 def as_port_config(cfg):

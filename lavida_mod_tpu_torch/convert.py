@@ -34,7 +34,17 @@ factors whose shapes do not chain [in, r] -> [r, out] over the linear's
 widths, raises and names the leaf.
 
 Every other leaf is mapped or the conversion raises: a quantized leaf
-outside the LM or any unknown name is an error, never dropped.
+outside the LM or any unknown name is an error, never dropped.  The
+projector's leaves of every kind map by name (models/projector.py):
+`layers`, the pooler's `conv` and `proj`, the res kind's `res_blocks`.
+
+The other vision towers (CLIP, open_clip, ImageBind, MLCD, EVA-CLIP), the
+Q-Former and the perceiver convert with `module_from_jax(module, params)`:
+their modules name their parameters as JAX's params name their leaves
+(a stacked `layers` tree unstacked, kernels transposed to `.weight`, the
+Q-Former's "self" / "cross" attention as `self_attn` / `cross_attn` and
+its query FFN's leaves on the layer), and the module loads the result
+strictly, so every leaf and every parameter is matched.
 
 Training: the JAX package's f32 tree (`multimodal.init_params` after
 `cast_floating(f32)`) becomes the compute model through `LaViDa.from_jax`
@@ -43,6 +53,8 @@ Training: the JAX package's f32 tree (`multimodal.init_params` after
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -230,6 +242,11 @@ def state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
         elif top == "projector" and n == 4 and path[1] == "layers":
             _linear_leaf(f"projector.layers.{path[2]}", path[3], arr, path,
                          out)
+        elif top == "projector" and n == 3 and path[1] in ("conv", "proj"):
+            _linear_leaf(f"projector.{path[1]}", path[2], arr, path, out)
+        elif top == "projector" and n == 5 and path[1] == "res_blocks":
+            _layer_leaf("projector.res_blocks", path[2], path[3], path[4],
+                        arr, ("fc1", "fc2"), ("pre_norm",), path, out)
         else:
             raise _unmapped(path)
     _check_lora(out)
@@ -272,3 +289,72 @@ def prefill_state_from_jax(prefill: dict, llada: dict) -> dict:
         else:
             raise _unmapped(("prefill",) + path)
     return out
+
+
+_QFORMER = {"self": "self_attn", "cross": "cross_attn"}
+
+
+def _module_name(path) -> list[str]:
+    """A leaf path of a tower's / resampler's JAX params -> the parts of
+    the module's parameter name (the Q-Former's renames applied)."""
+    parts = [str(p) for p in path]
+    if len(parts) > 3 and parts[0] == "layers":
+        if parts[2] == "ffn_q":     # layers[i]["ffn_q"][fc1 | fc2 | ln]
+            parts = parts[:2] + [{"ln": "ffn_ln"}.get(parts[3], parts[3])] \
+                + parts[4:]
+        elif parts[2] in _QFORMER:
+            parts[2] = _QFORMER[parts[2]]
+    return parts
+
+
+def module_state_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The JAX params of a vision tower, the Q-Former or the perceiver
+    (numpy leaves) -> the port module's state dict: a stacked `layers`
+    dict [L, ...] unstacked, `kernel` [in, out] -> `weight` [out, in], a
+    None leaf (ImageBind's pre_ln) and the perceiver's int hyperparameters
+    left out."""
+    out = {}
+    for path, arr in _flatten(params):
+        if arr is None or isinstance(arr, (int, float)):
+            continue
+        if path[0] == "layers" and isinstance(path[1], str):
+            rows = [(("layers", i) + path[1:], a)
+                    for i, a in enumerate(np.asarray(arr))]
+        else:
+            rows = [(path, arr)]
+        for p, a in rows:
+            parts = _module_name(p)
+            if parts[-1] == "kernel":
+                out[".".join(parts[:-1] + ["weight"])] = _linear_weight(a)
+            else:
+                out[".".join(parts)] = _tensor(a)
+    return out
+
+
+def module_from_jax(module: torch.nn.Module, params: dict, device="cuda",
+                    dtype: Optional[torch.dtype] = None) -> torch.nn.Module:
+    """`module` (built on "meta" or anywhere) with the JAX params' weights,
+    strictly matched, on `device` (the card unless the caller asks for the
+    CPU), its parameters in the params' dtype unless `dtype` is given."""
+    module.load_state_dict(module_state_from_jax(params), strict=True,
+                           assign=True)
+    module.to(device=device)
+    if dtype is not None:
+        for p in module.parameters():
+            p.data = p.data.to(dtype)
+    return module.eval()
+
+
+def perceiver_from_jax(params: dict, device="cuda",
+                       dtype: Optional[torch.dtype] = None):
+    """The JAX `init_perceiver` params -> the port's Perceiver, its
+    geometry read from the params' shapes and ints."""
+    from .models.resampler import Perceiver
+
+    num_latents, dim = np.shape(params["latents"])
+    module = Perceiver(dim, depth=len(params["layers"]),
+                       dim_head=params["dim_head"], heads=params["heads"],
+                       num_latents=num_latents,
+                       ff_mult=np.shape(params["layers"][0]["ff1"]["kernel"]
+                                        )[1] // dim, device="meta")
+    return module_from_jax(module, params, device, dtype)

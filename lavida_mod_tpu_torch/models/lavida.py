@@ -83,6 +83,8 @@ from .projector import Projector
 from .siglip import LayerNorm, SigLIP
 
 SIGLIP_PREFIX = "vision_tower.vision_tower.vision_model."
+# the convs kept as Linears: flattened when they are loaded
+CONVS = (siglip.PATCH_CONV, "mm_projector.conv_pool.weight")
 
 
 class _BinFile:
@@ -268,8 +270,10 @@ def checkpoint_plan(state, cfg: LaViDaConfig, lm_family: str = "llada"
             if name is not None:
                 llada_loader.plan_put(plan, "siglip." + name, key)
         elif k.startswith("mm_projector."):
-            llada_loader.plan_put(plan, "projector." + projector.port_name(
-                k[len("mm_projector."):], cfg.vision.projector_type), key)
+            name = projector.port_name(k[len("mm_projector."):],
+                                       cfg.vision.projector_type)
+            if name is not None:
+                llada_loader.plan_put(plan, "projector." + name, key)
         else:
             raise ValueError(f"checkpoint key {key!r} maps to nothing in "
                              f"the port's LaViDa")
@@ -284,7 +288,8 @@ def fill_module(module: nn.Module, state: dict, plan: dict,
     of `state`, each dropped (and unmapped) once copied.  A parameter in `optional`
     that the plan lacks is zeroed; any other missing one raises before
     anything is read.  A weight of another shape raises, except the
-    SigLIP patch conv [D, C, p, p], which is flattened to [D, C*p*p]."""
+    SigLIP patch conv [D, C, p, p] and the pooler projector's conv [O, D,
+    r, r], which are flattened to [D, C*p*p] and [O, D*r*r]."""
     params = dict(module.named_parameters())
     unknown = set(plan) - set(params)
     if unknown:
@@ -301,8 +306,7 @@ def fill_module(module: nn.Module, state: dict, plan: dict,
         if name is None:
             continue
         p, t = params[name], _read(ref)
-        if t.shape != p.shape and key.endswith(siglip.PATCH_CONV) \
-                and t.dim() == 4:
+        if t.shape != p.shape and key.endswith(CONVS) and t.dim() == 4:
             t = t.reshape(t.shape[0], -1)
         if t.shape != p.shape:
             raise ValueError(f"{key}: shape {tuple(t.shape)}, the port's "
@@ -382,6 +386,8 @@ class LaViDa(nn.Module):
         trims = {k[:-len(".__trim__")]: int(state.pop(k))
                  for k in [k for k in state if k.endswith(".__trim__")]}
         model = cls(cfg, "meta", lm_family=lm_family)
+        if "res_blocks" not in params.get("projector", {}):
+            model.projector.drop_res_blocks()
         model.llada.adopt_layout({k[len("llada."):]: v
                                   for k, v in state.items()
                                   if k.startswith("llada.")})
@@ -432,8 +438,9 @@ class LaViDa(nn.Module):
             # geometry, which has none)
             cfg = cfg.replace(llada=cfg.llada.replace(include_qkv_bias=True))
         try:
-            model = cls(cfg, "meta", dtype, lm_family).to_empty(
-                device=device)
+            model = cls(cfg, "meta", dtype, lm_family)
+            model.projector.drop_res_blocks()
+            model.to_empty(device=device)
             fill_module(model, state, checkpoint_plan(state, cfg, lm_family),
                         optional=("image_newline",))
         finally:

@@ -22,6 +22,11 @@ markers; tests/test_torch_batch.py holds the two paths equal.
 `encode_video` (:147-159) is the video block a video request splices at
 its one -200 marker.
 
+The one-gather splice plans ceil(g / stride)^2 rows per view (g the
+tower's patch grid), so a projector that changes the token count (the
+"pooler") runs on the multi-dispatch path only: `multimodal_embeds` refuses
+it, where JAX's gather clamps its indices and splices other rows.
+
 `multimodal_embeds` is the splice of the training step too: it is
 differentiable from the tower through the projector, the pool and
 `image_newline` to the gathered rows (gather_rows' scatter-add VJP), with
@@ -264,8 +269,18 @@ def multimodal_embeds(
     nl = model.image_newline
     D = nl.shape[-1]
     if pixel_values.shape[0] > 0:
-        flat = encode_views(model, pixel_values, fused_mlp=fused_mlp,
-                            remat=remat).reshape(-1, D)
+        feats = encode_views(model, pixel_values, fused_mlp=fused_mlp,
+                             remat=remat)
+        vcfg = model.cfg.vision
+        g = -(-vcfg.siglip.num_patches_per_side // vcfg.spatial_pool_stride)
+        if feats.shape[1] != g * g:
+            # the plan indexes g * g rows per view (JAX's gather would
+            # clamp the indices and splice other rows)
+            raise ValueError(
+                f"the {vcfg.projector_type} projector gives "
+                f"{feats.shape[1]} tokens per view, the one-gather splice "
+                f"plans {g * g}: encode_prompt's splice takes any count")
+        flat = feats.reshape(-1, D)
     else:
         flat = nl.new_zeros((0, D))
     text = torch.as_tensor(np.asarray(text_ids), device=nl.device)

@@ -57,6 +57,7 @@ from ..config import SigLIPConfig, as_port_config
 from ..ops.attention import vision_attention
 from ..ops.activations import gelu_tanh
 from ..ops.norms import layer_norm
+from ..ops.pooling import resize_weights
 from ..ops.vit_mlp import fused_vit_mlp
 from ..ops.quant import has_lora
 from ..parallel.sharding import ParallelLinear, compute_weight
@@ -66,20 +67,7 @@ def bicubic_weights(n_in: int, n_out: int) -> np.ndarray:
     """[n_out, n_in] f32 weights of jax.image.resize's bicubic rule along
     one axis (jax/_src/image/scale.py compute_weight_mat with scale
     n_out / n_in, no translation, antialias on)."""
-    f32 = np.float32
-    inv = f32(1.0 / (n_out / n_in))
-    kscale = max(inv, f32(1.0))
-    sample = (np.arange(n_out, dtype=f32) + f32(0.5)) * inv - f32(0.5)
-    x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None]) / kscale
-    w = ((f32(1.5) * x - f32(2.5)) * x) * x + f32(1.0)
-    w = np.where(x >= 1.0, ((f32(-0.5) * x + f32(2.5)) * x - f32(4.0)) * x
-                 + f32(2.0), w)
-    w = np.where(x >= 2.0, f32(0.0), w).astype(f32)
-    total = w.sum(axis=0, keepdims=True)
-    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
-                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
-    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
-    return np.where(inside[None, :], w, f32(0.0)).T.astype(f32)
+    return resize_weights(n_in, n_out, "bicubic")
 
 
 def interp_pos_embed(pos_embed: torch.Tensor, grid: int) -> torch.Tensor:

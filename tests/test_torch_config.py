@@ -358,3 +358,63 @@ def test_import_scans_cover_the_sharding_and_dpo_slice():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip() == "[] False"
+
+
+TOWERS_AND_RESAMPLERS = (
+    "models/clip.py", "models/open_clip.py", "models/mlcd.py",
+    "models/eva_clip.py", "models/qformer.py", "models/resampler.py",
+    "models/tower_builder.py", "models/projector.py", "utils/debug.py",
+    "ops/pooling.py")
+
+
+def test_import_scans_cover_the_towers_and_resamplers():
+    """The scans above walk the other towers, the resamplers, the
+    projector kinds and utils/debug.py; importing them pulls in neither
+    jax nor lavida_mod_tpu."""
+    files = {f.relative_to(REPO / "lavida_mod_tpu_torch").as_posix()
+             for f in (REPO / "lavida_mod_tpu_torch").rglob("*.py")}
+    assert set(TOWERS_AND_RESAMPLERS) <= files
+    import pkgutil
+
+    import lavida_mod_tpu_torch as p
+    names = {m.name for m in pkgutil.walk_packages(
+        p.__path__, "lavida_mod_tpu_torch.")}
+    mods = {"lavida_mod_tpu_torch." + f[:-3].replace("/", ".")
+            for f in TOWERS_AND_RESAMPLERS}
+    assert mods <= names
+    code = (
+        "import sys\n"
+        f"for m in {sorted(mods)!r}:\n"
+        "    __import__(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'lavida_mod_tpu'))\n"
+        "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip() == "[]"
+
+
+def test_eva_and_qformer_configs_equal_jax():
+    """The copies of the two configs the JAX package keeps beside their
+    models: fields, defaults, properties, the fixtures, as_port_config."""
+    from lavida_mod_tpu.models import eva_clip as jeva
+    from lavida_mod_tpu.models import qformer as jqf
+    from lavida_mod_tpu_torch.models import eva_clip as teva
+
+    for jcls, tcls in ((jeva.EVAConfig, tc.EVAConfig),
+                       (jqf.QformerConfig, tc.QformerConfig)):
+        assert [f.name for f in dataclasses.fields(tcls)] == \
+            [f.name for f in dataclasses.fields(jcls)]
+        assert _flat(tcls()) == _flat(jcls())
+        assert tcls.__dataclass_params__.frozen
+    for fn, kw in (("eva_clip_8b_config", {}), ("tiny_eva_config", {}),
+                   ("tiny_eva_config", dict(rope=True, width=96))):
+        t, j = getattr(teva, fn)(**kw), getattr(jeva, fn)(**kw)
+        assert _flat(t) == _flat(j)
+        for p in ("n_heads", "grid", "mlp_hidden"):
+            assert getattr(t, p) == getattr(j, p)
+    t = tc.as_port_config(jeva.tiny_eva_config(subln=True))
+    assert type(t) is tc.EVAConfig and _flat(t) == _flat(
+        jeva.tiny_eva_config(subln=True))
+    assert type(tc.as_port_config(jqf.QformerConfig())) is tc.QformerConfig

@@ -321,6 +321,10 @@ def test_row_that_sees_no_key_on_cuda(cuda):
     (1, 70, 90, 2, 1, 96, "pad"),       # hd 96
     (1, 33, 520, 4, 1, 112, "late"),    # hd 112, G = 4
     (1, 129, 300, 4, 4, 128, "late"),   # hd 128, G = 1
+    (4, 577, 577, 16, 16, 64, None),    # CLIP ViT-L/14-336, MLCD-L
+    (2, 730, 730, 16, 16, 80, None),    # open_clip ViT-H-14-378
+    (4, 257, 257, 16, 16, 80, None),    # ImageBind huge
+    (2, 257, 257, 32, 32, 128, None),   # EVA-CLIP-8B
 ])
 def test_kernel_matches_plain_on_cuda(cuda, B, T, S, Hq, Hkv, hd, kind):
     g = torch.Generator(device=cuda).manual_seed(0)
