@@ -324,6 +324,35 @@ last, after the sharded phase has freed the card,
      (BERT-base, 32 queries) over the CLIP-L features and the perceiver
      (dim 1152) over SigLIP-shaped features, each within RESAMPLER_LIMIT
      of its CPU run of the same weights.
+The AR baselines and the int8 tower (models/ar_models.py, models/moe.py,
+generation/ar_sampler.py, SigLIP.quantize_tower): before phase 5's model
+is freed,
+ 23. its 5-view request's tower in bf16, then the int8 tower
+     (quantize_tower) with int8 activations: 156 w8a8_matmul launches (6
+     linears x 26 layers at T = 3645) and 26 short_attention asserted, the
+     first and last layers' six #3 calls bit-exact to the plain version on
+     the inputs they had (the three shapes timed beside torch._int_mm +
+     epilogue, weighed 0 in the request's sums), the features within
+     TOWER_INT8_LIMIT of the bf16 tower's; then one default mixed request
+     with that tower (multimodal_embeds(vision_act_int8=True) and the
+     mixed cached generation), every launch asserted.
+And after phase 19:
+ 20. bench.py --ar's layout: Vicuna-7B (MHA, FF 11008, vocab 32000) in
+     grouped int4, fused [q|k|v] / [up|gate], with SigLIP so400m, seed 0:
+     one HD request (base + 4 tiles, 48 text tokens) encoded with the
+     fused ViT MLP and decoded 32 tokens by ar_generate_fused at B = 1;
+     launches reckoned before the run and asserted (26 #1, 26 #9, 1 #2,
+     #4's prefill kernel 128, its decode kernel 31 x 129 + 1); #4 at each
+     new shape (one row and P rows of the four linears, the padded head)
+     bit-exact and timed, weighed 0 in the sums; the tokens held to a
+     full causal recompute (AR_RECOMPUTE_LIMIT: within twice the
+     recompute's distance from a shorter one, near-ties counted).
+ 21. Llama-3-8B (GQA 32 / 8, vocab 128256) at full width and depth in
+     bf16: a 128-token prompt, 32 greedy tokens, held to a recompute.
+ 22. Mixtral-8x7B at full width cut to MIXTRAL_LAYERS layers: one block's
+     moe_ff within MOE_LOOP_LIMIT of a loop over its experts, then a
+     64-token prompt decoded 16 tokens and held to a recompute, in bf16
+     and on an f32 copy (AR_F32_LIMIT, every token the recompute's).
 Then the card's name and power limit, one JSON line of per-kernel results
 (each entry with `launches_dream_path`, and `dream_path`, its sums at the
 Dream shapes, where phase 14 measured it; #1, #2 and #10 with
@@ -331,7 +360,9 @@ Dream shapes, where phase 14 measured it; #1, #2 and #10 with
 `launches_dpo_step`, per step of phases 16 / 17; the SHIRG paths'
 launches; #1 and #2's per projector kind request, and #1's per forward of
 each tower of phase 19 (`launches_towers`); #1's f32 instance
-as `short_attention_f32`, its launches the harness run's), and as the
+as `short_attention_f32`, its launches the harness run's; the AR and
+int8-tower launches as `launches_ar_vicuna`, `launches_int8_tower` and
+`launches_int8_tower_request`), and as the
 last line
 {"ok": true, "device": {...}}.
 """
@@ -5112,6 +5143,405 @@ def phase_towers(torch, device, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the AR baselines and the int8 tower (phases 20-23)
+# ---------------------------------------------------------------------------
+
+AR_G = 32            # bench.py --ar's --gen-len
+# the cached decode against a full causal recompute on the card: each
+# token the recompute's argmax but where its top two are within 2 x the
+# step's largest logit difference, and the logits within twice the
+# recompute's own distance from a recompute 8 rows shorter on their
+# common rows (max |diff| over max |logit|; cuBLAS's products of other
+# shapes sum in other orders, and 32 seeded layers carry the difference
+# to 2.9e-2 in bf16 and 7.5e-2 in int4 on an NVIDIA H100 80GB HBM3), or
+# within AR_RECOMPUTE_LIMIT where that distance is smaller
+AR_RECOMPUTE_LIMIT = 2e-2
+# the same check in f32 (TF32 off): Mixtral's top-2 routing turns a bf16
+# rounding into another expert, so its cached decode is also held to the
+# recompute on an f32 copy of the 4 layers, where no rounding moves a
+# choice: logits within AR_F32_LIMIT, tokens equal
+AR_F32_LIMIT = 1e-3
+# the int8 tower (int8 weights and activations, #3) against the bf16 tower
+# on the same request: max |diff| over max |bf16 feature|, the eval
+# block's limit for SigLIP's 26 layers (TOWER_LIMIT)
+TOWER_INT8_LIMIT = 5e-2
+# moe_ff's batched experts against a loop over the experts on the same
+# operands, bf16: max |diff| over max |loop output|
+MOE_LOOP_LIMIT = 2e-2
+MIXTRAL_LAYERS = 4   # Mixtral-8x7B cut to 4 of its 32 layers (93 GB bf16)
+
+
+def vicuna_config():
+    """bench.py --ar's LM: the Vicuna-7B geometry (LLaVA-1.6-7B's
+    backbone, bench.py:194-199): MHA 32 / 32 heads, FF 11008, vocab 32000,
+    the other fields LLaDAConfig's defaults but the embedding: bench.py
+    leaves embedding_size at LLaDAConfig's 126464 (a head 3.95x
+    Vicuna's); this phase gives it Vicuna's 32000 rows."""
+    from lavida_mod_tpu_torch.config import LLaDAConfig
+
+    return LLaDAConfig(vocab_size=32000, embedding_size=32000, d_model=4096,
+                       n_layers=32, n_heads=32, n_kv_heads=32,
+                       mlp_hidden_size=11008, block_type="llama",
+                       activation="silu", max_sequence_length=4096)
+
+
+def _ar_recompute(torch, lm, prefix, out, logits, tag, limit=None):
+    """Hold a cached AR decode (tokens out [1, G], the logits each was
+    drawn from [1, G, V]) to one full causal forward over [prefix, out[:-1]]
+    on the card (see AR_RECOMPUTE_LIMIT; `limit`: a fixed limit instead):
+    returns (max relative logit difference, the recompute's own distance
+    from a shorter one, near-ties)."""
+    G = out.shape[1]
+    P = prefix.shape[1]
+    seq = torch.cat([prefix, lm.embed_tokens(out[:, :-1])], dim=1)
+    full, _ = lm(seq, causal=True, logits_from=P - 1)
+    short, _ = lm(seq[:, :-8], causal=True, logits_from=P - 1)
+    scale = full.abs().max()
+    rel = ((full - logits).abs().max() / scale).item()
+    floor = ((full[:, :short.shape[1]] - short).abs().max() / scale).item()
+    bound = limit if limit is not None else max(AR_RECOMPUTE_LIMIT,
+                                                2 * floor)
+    if not rel < bound:
+        raise AssertionError(f"{tag}: cached decode vs recompute {rel:.3e}"
+                             f" (limit {bound:.3e}; the recompute against "
+                             f"a shorter one {floor:.3e})")
+    ties = 0
+    for t in range(G):
+        if int(full[0, t].argmax()) == int(out[0, t]):
+            continue
+        delta = (full[0, t] - logits[0, t]).abs().max().item()
+        top2 = torch.topk(full[0, t], 2).values
+        if (top2[0] - top2[1]).item() > 2 * delta:
+            raise AssertionError(f"{tag}: token {t} is not the recompute's")
+        ties += 1
+    return rel, floor, ties
+
+
+def _ar_run(torch, lm, prefix, G):
+    from lavida_mod_tpu_torch.generation.ar_sampler import ar_generate_fused
+
+    return ar_generate_fused(lm, prefix, G, return_logits=True)
+
+
+def phase_ar_vicuna(torch, device, card, res):
+    """Phase 20, bench.py --ar's layout: LaViDaConfig(llada=Vicuna-7B) from
+    seed 0, the LM through to_serving_layout("int4", fuse=True) (the fused
+    [q|k|v] / [up|gate] layout in grouped int4), one HD request at B = 1
+    (640 x 640: base + 4 tiles of 384^2, a 48-token prompt) encoded with
+    the fused ViT MLP, spliced, and decoded 32 tokens by ar_generate_fused
+    (a causal prefill, then one row a step).  Launches reckoned before the
+    run: 26 #1 and 26 #9 (the tower), 1 #2, #4's prefill kernel 4 linears
+    x 32 layers over the P > 256 prefill rows, its decode kernel the 128
+    linears and the head for each of the 31 one-row steps plus the
+    prefill's last-row head (4000).  #4 at each new shape bit-exact to its
+    plain version; the tokens held to a full causal recompute."""
+    from lavida_mod_tpu_torch.config import LaViDaConfig
+    from lavida_mod_tpu_torch.models import multimodal
+    from lavida_mod_tpu_torch.models.lavida import LaViDa
+    from lavida_mod_tpu_torch.ops import w4_grouped as tg
+
+    t_phase = time.perf_counter()
+    cfg = LaViDaConfig(llada=vicuna_config())
+    model = LaViDa.random_init(cfg, 0, torch.bfloat16, device)
+    model.to_serving_layout("int4", fuse=True)
+    lm = model.llada
+    ids, views, size = bench_request(48, (640, 640),
+                                     np.random.default_rng(20))
+    idx, text_ids, _, _ = multimodal.build_gather_plan(
+        model.cfg, [ids], [[views.shape[0]]], [[size]])
+    P = idx.shape[1]
+    pix = torch.as_tensor(views, device=device)
+
+    def request():
+        prefix = multimodal.multimodal_embeds(model, pix, text_ids, idx,
+                                              fused_mlp=True)
+        return prefix, _ar_run(torch, lm, prefix, AR_G)
+
+    request()                                       # warm-up
+    want = _want(short_attention=SIGLIP_LAYERS, fused_vit_mlp=SIGLIP_LAYERS,
+                 gather_rows=1,
+                 w4_matmul_grouped_prefill=4 * LLADA_LAYERS,
+                 w4_matmul_grouped_decode=(AR_G - 1) * (4 * LLADA_LAYERS + 1)
+                 + 1)
+    (prefix, (out, logits)), wall, peak, got = _counted(torch, request)
+    _check("AR Vicuna int4", got, want)
+    if out.shape != (1, AR_G) or int(out.max()) >= cfg.llada.vocab_size:
+        raise AssertionError(f"AR Vicuna tokens {out}")
+    rel, floor, ties = _ar_recompute(torch, lm, prefix, out, logits,
+                                     "AR Vicuna")
+
+    # #4 at the path's new shapes, each bit-exact: the one-row decode and
+    # the P-row prefill of the four fused linears (ff_out's K 11008 padded
+    # to 12288), the head's 32000 columns padded to 32256
+    gen = torch.Generator(device=device).manual_seed(20)
+    blk = lm.blocks[0]
+    shapes = [(n, getattr(blk, n)) for n in ("att_proj", "attn_out",
+                                              "ff_proj", "ff_out")]
+    shapes.append(("head", lm.ff_out))
+    for T in (1, P):
+        for name, lin in shapes:
+            if name == "head" and T > 1:
+                continue
+            K = lin.packed.shape[1] * 128
+            N = lin.scales.shape[1]
+            x = (torch.randn(T, K, device=device, generator=gen)
+                 .bfloat16())
+            if K != lin.in_features:
+                x[:, lin.in_features:] = 0
+            outk = tg.w4_matmul_grouped(x, lin.packed, lin.scales)
+            torch.cuda.synchronize()
+            ref = tg.w4_matmul_grouped_reference(x, lin.packed, lin.scales)
+            if not torch.equal(outk, ref):
+                raise AssertionError(f"w4_matmul_grouped differs at AR "
+                                     f"{name} [{T},{K}]x{N}")
+            per = (AR_G - 1 if T == 1 else 1) * (
+                1 if name == "head" else LLADA_LAYERS) + (
+                1 if name == "head" else 0)
+            res.add(f"w4_matmul_grouped_{tg.regime(T)}",
+                    f"AR Vicuna {name} [{T},{K}]x[{K},{N}]", per, 0.0,
+                    lambda: tg.w4_matmul_grouped(x, lin.packed, lin.scales),
+                    cuda_ms(lambda: tg.w4_matmul_grouped_reference(
+                        x, lin.packed, lin.scales), 3), None,
+                    2 * T * K * N, 2 * T * K + _w4_bytes(K, N) + 2 * T * N,
+                    int8=True, note=" (exact)", weight=0)
+    weights = _tree_bytes([lm]) / 1e9
+    del model, lm, prefix, logits
+    torch.cuda.empty_cache()
+    r = {"wall": wall, "peak": peak, "P": P, "ties": ties, "rel": rel,
+         "floor": floor, "weight_gb": weights, "tokens": out[0].tolist(),
+         "phase_s": time.perf_counter() - t_phase}
+    print(f"[ar] bench --ar layout (Vicuna-7B int4 fused, B = 1, P = {P}, "
+          f"G = {AR_G}): request wall {wall * 1e3:.1f} ms, peak {peak:.2f} "
+          f"GiB, LM weights {weights:.2f} GB; launches {got} (reckoned "
+          f"{want}); cached decode vs full causal recompute: logits within "
+          f"{rel:.3e} of max |logit| (the recompute vs one 8 rows shorter "
+          f"{floor:.3e}), {ties} near-tie tokens; tokens "
+          f"{r['tokens']}; phase {r['phase_s']:.1f} s ({card})")
+    return got, r
+
+
+def phase_ar_llama3(torch, device, card):
+    """Phase 21: Llama-3-8B (GQA 32 / 8, vocab 128256) at full width and
+    depth in bf16 from seed 0, a 128-token text prompt, 32 greedy tokens
+    by ar_generate_fused, held to a full causal recompute.  No kernel of
+    the port runs (bf16 linears and the causal attention are dense)."""
+    from lavida_mod_tpu_torch.models.ar_models import (llama3_8b_config,
+                                                       random_ar_model)
+
+    t_phase = time.perf_counter()
+    cfg = llama3_8b_config()
+    lm = random_ar_model(cfg, 0, torch.bfloat16, device)
+    ids = torch.as_tensor(np.random.default_rng(21).integers(
+        3, cfg.vocab_size, size=(1, 128)), device=device)
+
+    def request():
+        prefix = lm.embed_tokens(ids)
+        return prefix, _ar_run(torch, lm, prefix, AR_G)
+
+    request()
+    (prefix, (out, logits)), wall, peak, got = _counted(torch, request)
+    _check("AR Llama-3 bf16", got, _want())
+    if out.shape != (1, AR_G) or int(out.max()) >= cfg.vocab_size:
+        raise AssertionError(f"AR Llama-3 tokens {out}")
+    rel, floor, ties = _ar_recompute(torch, lm, prefix, out, logits,
+                                     "AR Llama-3")
+    weights = _tree_bytes([lm]) / 1e9
+    del lm, prefix, logits
+    torch.cuda.empty_cache()
+    r = {"wall": wall, "peak": peak, "ties": ties, "rel": rel,
+         "floor": floor, "weight_gb": weights,
+         "phase_s": time.perf_counter() - t_phase}
+    print(f"[ar] Llama-3-8B bf16 (P = 128, G = {AR_G}): request wall "
+          f"{wall * 1e3:.1f} ms, peak {peak:.2f} GiB, weights {weights:.2f} "
+          f"GB; recompute: logits within {rel:.3e} (its own distance from a "
+          f"shorter one {floor:.3e}), {ties} near-tie tokens; "
+          f"tokens {out[0].tolist()}; phase {r['phase_s']:.1f} s ({card})")
+    return got, r
+
+
+def phase_ar_mixtral(torch, device, card):
+    """Phase 22: Mixtral-8x7B at full width (8 experts of 14336, top-2)
+    cut to MIXTRAL_LAYERS layers (its 32 hold ~93 GB of bf16, over the
+    card's 80), seed 0: one block's moe_ff held to a loop over the experts
+    on the same operands, then a 64-token prompt decoded 16 tokens, held
+    to a full causal recompute, in bf16 and on an f32 copy (AR_F32_LIMIT:
+    there no rounding moves a top-2 choice)."""
+    from lavida_mod_tpu_torch.models.ar_models import (mixtral_8x7b_config,
+                                                       random_ar_model)
+    from lavida_mod_tpu_torch.models.moe import top_k_gate
+    from lavida_mod_tpu_torch.ops.activations import silu
+
+    t_phase = time.perf_counter()
+    cfg = mixtral_8x7b_config(n_layers=MIXTRAL_LAYERS)
+    lm = random_ar_model(cfg, 0, torch.bfloat16, device,
+                         moe=(8, cfg.hidden_size))
+    ids = torch.as_tensor(np.random.default_rng(22).integers(
+        3, cfg.vocab_size, size=(1, 64)), device=device)
+    moe = lm.blocks[0].moe
+    x = lm.blocks[0].ff_norm(lm.embed_tokens(ids))
+    got_ff, load = moe(x)
+    probs = torch.softmax((x @ moe.router).float(), dim=-1)
+    gate = top_k_gate(probs, 2).to(x.dtype)
+    loop = torch.zeros_like(x)
+    for e in range(moe.n_experts):
+        y = (silu(x @ moe.ff_proj[e]) * (x @ moe.up_proj[e])) @ moe.ff_out[e]
+        loop = loop + y * gate[..., e:e + 1]
+    moe_rel = ((got_ff.float() - loop.float()).abs().max()
+               / loop.float().abs().max()).item()
+    if not moe_rel < MOE_LOOP_LIMIT:
+        raise AssertionError(f"moe_ff vs the expert loop: {moe_rel:.3e}")
+    G = 16
+
+    def request():
+        prefix = lm.embed_tokens(ids)
+        return prefix, _ar_run(torch, lm, prefix, G)
+
+    request()
+    (prefix, (out, logits)), wall, peak, got = _counted(torch, request)
+    _check("AR Mixtral", got, _want())
+    rel, floor, ties = _ar_recompute(torch, lm, prefix, out, logits,
+                                     "AR Mixtral")
+    weights = _tree_bytes([lm]) / 1e9
+    del moe, prefix, logits, x
+    # the f32 copy: the cached decode against the recompute where no
+    # rounding moves a routing choice
+    lm.float()
+    prefix = lm.embed_tokens(ids)
+    out32, logits32 = _ar_run(torch, lm, prefix, G)
+    rel32, floor32, ties32 = _ar_recompute(torch, lm, prefix, out32,
+                                           logits32, "AR Mixtral f32",
+                                           limit=AR_F32_LIMIT)
+    if ties32:
+        raise AssertionError(f"AR Mixtral f32: {ties32} tokens differ")
+    del lm, prefix, logits32
+    torch.cuda.empty_cache()
+    r = {"wall": wall, "peak": peak, "ties": ties, "rel": rel,
+         "floor": floor, "rel32": rel32, "moe_rel": moe_rel,
+         "weight_gb": weights, "load_max": float(load.max()),
+         "phase_s": time.perf_counter() - t_phase}
+    print(f"[ar] Mixtral-8x7B at {MIXTRAL_LAYERS} of 32 layers bf16 (P = 64, "
+          f"G = {G}): moe_ff vs the expert loop {moe_rel:.3e} (limit "
+          f"{MOE_LOOP_LIMIT}); request wall {wall * 1e3:.1f} ms, peak "
+          f"{peak:.2f} GiB, weights {weights:.2f} GB; recompute: logits "
+          f"within {rel:.3e} (its own distance from a shorter one "
+          f"{floor:.3e}), {ties} near-tie tokens, in f32 {rel32:.3e} with "
+          f"every token the recompute's; tokens "
+          f"{out[0].tolist()}; phase {r['phase_s']:.1f} s ({card})")
+    return got, r
+
+
+def phase_int8_tower(torch, model, requests, card, res):
+    """Phase 23, on phase 5's mixed model: the first request's 5-view
+    tower in bf16 (plain MLP), then SigLIP.quantize_tower and the same
+    views with vision_act_int8 (156 #3 launches: 6 linears x 26 layers at
+    T = 3645), the first and last layers' six #3 calls held bit-exact to
+    the plain version and timed per shape, the features held to the bf16
+    tower's (TOWER_INT8_LIMIT); then one default mixed request through
+    that tower (its splice by multimodal_embeds(vision_act_int8=True), the
+    mixed cached generation).  The tower stays int8 afterwards."""
+    from lavida_mod_tpu_torch.config import GenerationConfig
+    from lavida_mod_tpu_torch.generation.diffusion import (
+        build_control_table, generate_cached_fused)
+    from lavida_mod_tpu_torch.models import multimodal
+    from lavida_mod_tpu_torch.ops import w8a8 as t8
+
+    t_phase = time.perf_counter()
+    device = model.device
+    ids, views, size = requests[0]
+    pix = torch.as_tensor(views, device=device)
+    ref = model.siglip(pix)
+    model.siglip.quantize_tower()
+    torch.cuda.empty_cache()
+    names = ("q_proj", "k_proj", "v_proj", "out_proj", "fc1", "fc2")
+    layers = model.siglip.layers
+    inputs = {}
+    hooks = [getattr(layers[i], n).register_forward_hook(
+        lambda m, args, out, key=(i, n): inputs.__setitem__(key, args[0]))
+        for i in (0, len(layers) - 1) for n in names]
+    try:
+        feats, wall, peak, got = _counted(
+            torch, lambda: model.siglip(pix, act_int8=True))
+    finally:
+        for h in hooks:
+            h.remove()
+    _check("int8 tower", got, _want(short_attention=SIGLIP_LAYERS,
+                                    w8a8_matmul=6 * SIGLIP_LAYERS))
+    rel = ((feats.float() - ref.float()).abs().max()
+           / ref.float().abs().max()).item()
+    if not rel < TOWER_INT8_LIMIT:
+        raise AssertionError(f"int8 tower vs bf16 tower: {rel:.3e}")
+    # the first and the last layer's six calls, on the inputs they had
+    for (i, n), x in inputs.items():
+        lin = getattr(layers[i], n)
+        x8, sx = t8.act_quant(x.reshape(-1, x.shape[-1]).contiguous(),
+                              t8.ACT_FORMULA_W8)
+        w8, scale, bias = lin.weight_q, lin.scale, lin.bias
+        out = t8.w8a8_matmul(x8, sx, w8, scale, bias)
+        torch.cuda.synchronize()
+        if not torch.equal(out, t8.w8a8_matmul_reference(x8, sx, w8, scale,
+                                                         bias)):
+            raise AssertionError(f"w8a8_matmul differs at the tower's {n}, "
+                                 f"layer {i}")
+        if i or n in ("k_proj", "v_proj", "out_proj"):
+            continue        # q's shape is timed once for the four
+        T, K = x8.shape
+        N = w8.shape[0]
+        qt = w8.t()
+        try:
+            torch._int_mm(x8, qt)
+        except RuntimeError:
+            qt = qt.contiguous()
+        res.add("w8a8_matmul", f"int8 tower {n} [{T},{K}]x[{K},{N}] + bias",
+                (4 if n == "q_proj" else 1) * SIGLIP_LAYERS, 0.0,
+                lambda: t8.w8a8_matmul(x8, sx, w8, scale, bias),
+                cuda_ms(lambda: t8.w8a8_matmul_reference(
+                    x8, sx, w8, scale, bias), 3),
+                cuda_ms(lambda: (torch._int_mm(x8, qt).float() * sx * scale
+                                 + bias.float()).bfloat16()),
+                2 * T * K * N, T * K + N * K + 4 * (T + N) + 2 * T * N
+                + 2 * N, int8=True, note=" (exact)", weight=0)
+    del inputs, ref, feats
+
+    gen = GenerationConfig(**GEN)
+    idx, text_ids, _, _ = multimodal.build_gather_plan(
+        model.cfg, [ids], [[views.shape[0]]], [[size]])
+    G, mask_id = gen.max_new_tokens, model.cfg.llada.mask_token_id
+    k_table, block_end = build_control_table(
+        np.full((1, G), mask_id, np.int64), 0, G, gen, mask_id)
+    k_table = torch.as_tensor(k_table, device=device)
+    block_end = torch.as_tensor(block_end, device=device)
+
+    def request():
+        prefix = multimodal.multimodal_embeds(model, pix, text_ids, idx,
+                                              vision_act_int8=True)
+        x = torch.full((1, G), mask_id, dtype=torch.long, device=device)
+        return generate_cached_fused(
+            model.llada, x, prefix, k_table, block_end, None,
+            torch.Generator(device=device).manual_seed(0), gen.temperature,
+            gen.remasking, act_int8_prefill=True)
+
+    request()
+    out, req_wall, req_peak, req_got = _counted(torch, request)
+    _check("mixed request with the int8 tower", req_got, _want(
+        short_attention=SIGLIP_LAYERS + LLADA_LAYERS, gather_rows=1,
+        w8a8_matmul=6 * SIGLIP_LAYERS + 4 * LLADA_LAYERS,
+        w4_qkv_norm=(LLADA_LAYERS + 1) * STEPS,
+        w4_matmul_res=LLADA_LAYERS * STEPS,
+        w4_ffn_fused=LLADA_LAYERS * STEPS), out[0], G, mask_id)
+    r = {"tower_wall": wall, "tower_peak": peak, "rel": rel,
+         "request_wall": req_wall, "request_peak": req_peak,
+         "phase_s": time.perf_counter() - t_phase}
+    print(f"[int8 tower] SigLIP so400m int8 (weights and activations, #3) "
+          f"on {views.shape[0]} views: tower wall {wall * 1e3:.1f} ms, peak "
+          f"{peak:.2f} GiB, features within {rel:.3e} of the bf16 tower's "
+          f"(limit {TOWER_INT8_LIMIT}); tower launches {got}; mixed 8B "
+          f"request with it: wall {req_wall * 1e3:.1f} ms, peak "
+          f"{req_peak:.2f} GiB, launches {req_got}, tokens "
+          f"{out[0].tolist()}; phase {r['phase_s']:.1f} s ({card})")
+    return got, req_got, r
+
+
 def main() -> None:
     import torch
 
@@ -5162,6 +5592,7 @@ def main() -> None:
                                                        requests, card)
     loglik = phase_loglik(torch, model, card)
     shirg_mx = phase_shirg_mixed(torch, model, card)
+    int8_tower = phase_int8_tower(torch, model, requests, card, res)
     del model
     torch.cuda.empty_cache()
     phase_small_reference(torch, device)
@@ -5229,6 +5660,11 @@ def main() -> None:
     towers = phase_towers(torch, device, card)
     t_towers = time.perf_counter() - t_towers
     torch.cuda.empty_cache()
+    with torch.no_grad():
+        ar_counts, ar_vicuna = phase_ar_vicuna(torch, device, card, res)
+        _, ar_llama = phase_ar_llama3(torch, device, card)
+        _, ar_mixtral = phase_ar_mixtral(torch, device, card)
+    torch.cuda.empty_cache()
     print(f"[batch] #4 design point, one decode layer at B = 1, device "
           f"time: fused plan {fused_layer_ms[1]:.4f} ms vs unfused grouped "
           f"int4 {unfused_layer_ms[1]:.4f} ms; back to back "
@@ -5275,7 +5711,10 @@ def main() -> None:
               launches_projector_kinds={k: v["counts"]["short_attention"]
                                         for k, v in proj_kinds.items()},
               launches_towers={k: v["launches"] for k, v in towers.items()
-                               if "launches" in v}),
+                               if "launches" in v},
+              launches_ar_vicuna=ar_counts["short_attention"],
+              launches_int8_tower=int8_tower[0]["short_attention"],
+              launches_int8_tower_request=int8_tower[1]["short_attention"]),
         entry("short_attention_f32", "short_attention.cu",
               "short_attention.py:78", shl["short_attention_f32"],
               launches_per_harness_step=SIGLIP_LAYERS),
@@ -5290,7 +5729,9 @@ def main() -> None:
               launches_dpo_pair_build=dpo_build["gather_rows"],
               launches_sharded_request=shard["counts"]["gather_rows"],
               launches_projector_kinds={k: v["counts"]["gather_rows"]
-                                        for k, v in proj_kinds.items()}),
+                                        for k, v in proj_kinds.items()},
+              launches_ar_vicuna=ar_counts["gather_rows"],
+              launches_int8_tower_request=int8_tower[1]["gather_rows"]),
         entry("w8a8_matmul", "w8a8_matmul.cu", "pallas_w8.py:53",
               mixed_counts["w8a8_matmul"],
               launches_checkpoint_path=ckpt_counts["w8a8_matmul"],
@@ -5298,7 +5739,9 @@ def main() -> None:
               launches_loglik=ll_w["w8a8_matmul"],
               launches_loglik_act_int8=ll_a["w8a8_matmul"],
               launches_shirg_mixed=shmx["w8a8_matmul"],
-              launches_eval=eval_counts["w8a8_matmul"]),
+              launches_eval=eval_counts["w8a8_matmul"],
+              launches_int8_tower=int8_tower[0]["w8a8_matmul"],
+              launches_int8_tower_request=int8_tower[1]["w8a8_matmul"]),
         entry("w4_qkv_norm", "w4_fused.cu", "w4_fused.py:80",
               mixed_counts["w4_qkv_norm"],
               launches_batch_b4=b4["w4_qkv_norm"],
@@ -5325,14 +5768,16 @@ def main() -> None:
               launches_nocache_int4=nc4["w4_matmul_grouped_decode"],
               launches_dllm_gen32=d32["w4_matmul_grouped_decode"],
               launches_dllm_gen256=d256["w4_matmul_grouped_decode"],
-              launches_cached_gen256=c256["w4_matmul_grouped_decode"]),
+              launches_cached_gen256=c256["w4_matmul_grouped_decode"],
+              launches_ar_vicuna=ar_counts["w4_matmul_grouped_decode"]),
         entry("w4_matmul_grouped_prefill", "w4_grouped.cu",
               "pallas_w4.py:129", b4["w4_matmul_grouped_prefill"],
               launches_batch_b8=b8["w4_matmul_grouped_prefill"],
               launches_nocache_int4=nc4["w4_matmul_grouped_prefill"],
               launches_dllm_gen32=d32["w4_matmul_grouped_prefill"],
               launches_dllm_gen256=d256["w4_matmul_grouped_prefill"],
-              launches_cached_gen256=c256["w4_matmul_grouped_prefill"]),
+              launches_cached_gen256=c256["w4_matmul_grouped_prefill"],
+              launches_ar_vicuna=ar_counts["w4_matmul_grouped_prefill"]),
         entry("kv8_decode_attention", "kv8_attention.cu",
               "kv8_attention.py:98", b4k["kv8_decode_attention"]),
         entry("kv8_decode_attention_int4", "kv8_attention.cu",
@@ -5348,7 +5793,8 @@ def main() -> None:
               launches_loglik=ll_w["fused_vit_mlp"],
               launches_shirg_mixed_fused_vit=shfv["fused_vit_mlp"],
               launches_sharded_prompt=shard["counts"][
-                  "fused_vit_mlp_prompt"]),
+                  "fused_vit_mlp_prompt"],
+              launches_ar_vicuna=ar_counts["fused_vit_mlp"]),
         entry("prefix_flash_fwd", "prefix_flash.cu", "prefix_flash.py:53",
               train_counts["prefix_flash_fwd"],
               launches_train_cli=cli_counts["prefix_flash_fwd"],
@@ -5481,6 +5927,17 @@ def main() -> None:
           f"{ {k: (round(v['ms_per_image'], 3), round(v['peak_gib'], 2), round(v['weight_gb'], 3)) for k, v in towers.items() if 'ms_per_image' in v} }, "
           f"resamplers (ms) { {k: round(towers[k]['wall_ms'], 3) for k in ('qformer', 'perceiver')} }, "
           f"tower phase {t_towers:.1f} s; "
+          f"AR (request wall ms / peak GiB / phase s): bench --ar Vicuna-7B "
+          f"int4 {ar_vicuna['wall'] * 1e3:.1f} / {ar_vicuna['peak']:.2f} / "
+          f"{ar_vicuna['phase_s']:.1f}, Llama-3-8B bf16 "
+          f"{ar_llama['wall'] * 1e3:.1f} / {ar_llama['peak']:.2f} / "
+          f"{ar_llama['phase_s']:.1f}, Mixtral-8x7B {MIXTRAL_LAYERS} layers "
+          f"{ar_mixtral['wall'] * 1e3:.1f} / {ar_mixtral['peak']:.2f} / "
+          f"{ar_mixtral['phase_s']:.1f}; int8 tower {int8_tower[2]['tower_wall'] * 1e3:.1f} "
+          f"ms (features within {int8_tower[2]['rel']:.3e} of bf16), its "
+          f"mixed request {int8_tower[2]['request_wall'] * 1e3:.1f} ms / "
+          f"{int8_tower[2]['request_peak']:.2f} GiB, phase "
+          f"{int8_tower[2]['phase_s']:.1f} s; "
           f"whole script {time.perf_counter() - t_start:.1f} s on {card}")
     print(card)
     print(json.dumps({"kernels": entries}))

@@ -10,6 +10,13 @@ projector's layer list, `image_newline`, `wte` and the `ff_out` head
 JAX linear kernels are [in, out]; nn.Linear weights are [out, in], the HF
 checkpoint layout, so every kernel is transposed here.
 
+A block's "moe" entry (models/moe.py: the router [D, E] and the experts'
+stacked [E, in, out] kernels) maps to `blocks.i.moe.{router, ff_proj,
+up_proj, ff_out}` in the JAX orientation, and `q_norm` / `k_norm` map as
+the other norms.  The int8 SigLIP tower (`quantize_tower`, siglip.py:
+69-81) maps its per-layer `{kernel_q [L, K, N], scale [L, N]}` as the
+LM's int8 linears.
+
 The LM's linears may be quantized (`quantize_params`, llada.py:807-866):
   - int8 `{kernel_q [K, N] int8, scale [N] f32}` -> `.weight_q` [N, K]
     (transposed: the W8A8 kernel reads K-major operands) and `.scale`;
@@ -63,7 +70,7 @@ from .ops.quant import w4_from_jax_packed
 
 _LLADA_LINEARS = ("q_proj", "k_proj", "v_proj", "att_proj", "attn_out",
                   "ff_proj", "up_proj", "ff_out")
-_LLADA_NORMS = ("attn_norm", "ff_norm")
+_LLADA_NORMS = ("attn_norm", "ff_norm", "q_norm", "k_norm")
 _SIGLIP_LINEARS = ("q_proj", "k_proj", "v_proj", "out_proj", "fc1", "fc2")
 _SIGLIP_NORMS = ("ln1", "ln2")
 
@@ -114,8 +121,8 @@ def _unmapped(path) -> Exception:
     leaf = path[-1]
     if isinstance(leaf, str) and (leaf.startswith(("kernel_", "scale"))
                                   or leaf.startswith("__trim_")):
-        why = "a quantized leaf outside the LM's linears (only they are"
-        why += " quantized in the port)"
+        why = "a quantized leaf outside the LM's and the SigLIP tower's"
+        why += " linears (only they are quantized in the port)"
     elif isinstance(leaf, str) and leaf.startswith("lora_"):
         why = "a LoRA factor outside the linears that carry one"
     else:
@@ -129,7 +136,8 @@ LORA_LEAVES = ("lora_a", "lora_b", "lora_scale")
 
 def _linear_leaf(name, leaf, arr, path, out, quantized=False):
     """A linear's kernel (transposed to .weight), bias or LoRA factor;
-    with `quantized` also its int8 or int4 leaves."""
+    with `quantized` also its int8 leaves, and its int4 ones unless
+    `quantized` is "int8"."""
     if leaf == "kernel":
         out[f"{name}.weight"] = _linear_weight(arr)
     elif leaf == "bias":
@@ -147,11 +155,12 @@ def _linear_leaf(name, leaf, arr, path, out, quantized=False):
         out[f"{name}.weight_q"] = _linear_weight(arr)
     elif quantized and leaf == "scale":
         out[f"{name}.scale"] = _tensor(np.asarray(arr, np.float32))
-    elif quantized and leaf == "kernel_p4":
+    elif quantized is True and leaf == "kernel_p4":
         out[f"{name}.packed"] = w4_from_jax_packed(np.asarray(arr))
-    elif quantized and leaf == "scales4":
+    elif quantized is True and leaf == "scales4":
         out[f"{name}.scales"] = _tensor(np.asarray(arr, np.float32))
-    elif quantized and isinstance(leaf, str) and leaf.startswith("__trim_"):
+    elif quantized is True and isinstance(leaf, str) \
+            and leaf.startswith("__trim_"):
         out[f"{name}.__trim__"] = torch.tensor(int(leaf[7:-2]))
     else:
         raise _unmapped(path)
@@ -170,6 +179,19 @@ def _layer_leaf(prefix, layer, mod, leaf, arr, linears, norms, path, out,
 
 
 _LORA_PATHS = "__lora_paths__"
+_MOE_LEAVES = {("router", "kernel"): "router",
+               ("experts", "ff_proj", "kernel"): "ff_proj",
+               ("experts", "up_proj", "kernel"): "up_proj",
+               ("experts", "ff_out", "kernel"): "ff_out"}
+
+
+def _moe_leaf(layer, rest, arr, path, out):
+    """One leaf of a block's "moe" entry (moe.py:27-50) ->
+    `llada.blocks.<layer>.moe.<name>`, in the JAX orientation."""
+    name = _MOE_LEAVES.get(tuple(rest))
+    if name is None:
+        raise _unmapped(path)
+    out[f"llada.blocks.{layer}.moe.{name}"] = _tensor(arr)
 
 
 def _in_out(out: dict, name: str):
@@ -221,6 +243,13 @@ def state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
             out["llada.ln_f.weight"] = _tensor(arr)
         elif top == "llada" and n == 3 and path[1] == "ff_out":
             _linear_leaf("llada.ff_out", path[2], arr, path, out, True)
+        elif top == "llada" and n > 4 and path[1] == "blocks" \
+                and isinstance(path[2], int) and path[3] == "moe":
+            _moe_leaf(path[2], path[4:], arr, path, out)
+        elif top == "llada" and n > 3 and path[1] == "blocks" \
+                and path[2] == "moe":
+            for i, a in enumerate(np.asarray(arr)):
+                _moe_leaf(i, path[3:], a, path, out)
         elif top == "llada" and n == 5 and path[1] == "blocks" \
                 and isinstance(path[2], int):
             # unstacked: blocks[i][mod][leaf]
@@ -236,9 +265,11 @@ def state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
         elif path == ("siglip", "pos_embed"):
             out["siglip.pos_embed"] = _tensor(arr)
         elif top == "siglip" and n == 4 and path[1] == "layers":
+            # the int8 tower's per-(layer, out) scales (quantize_tower)
             for i, a in enumerate(np.asarray(arr)):
                 _layer_leaf("siglip.layers", i, path[2], path[3], a,
-                            _SIGLIP_LINEARS, _SIGLIP_NORMS, path, out)
+                            _SIGLIP_LINEARS, _SIGLIP_NORMS, path, out,
+                            "int8")
         elif top == "projector" and n == 4 and path[1] == "layers":
             _linear_leaf(f"projector.layers.{path[2]}", path[3], arr, path,
                          out)

@@ -78,7 +78,7 @@ from ..generation.diffusion import build_control_table, generate_cached_fused
 from ..generation.dream_sampler import dream_generate
 from ..ops.quant import attach_lora
 from . import dream, llada_loader, multimodal, projector, siglip
-from .llada import LLaDA, RMSNorm
+from .llada import LLaDA, Norm
 from .projector import Projector
 from .siglip import LayerNorm, SigLIP
 
@@ -349,7 +349,7 @@ class LaViDa(nn.Module):
         model = cls(cfg, "meta", dtype, lm_family).to_empty(device=device)
         gen = torch.Generator(device=device).manual_seed(seed)
         for m in model.modules():
-            if isinstance(m, (RMSNorm, LayerNorm)):
+            if isinstance(m, (Norm, LayerNorm)):
                 m.weight.fill_(1.0)
                 if isinstance(m, LayerNorm):
                     m.bias.zero_()
@@ -372,7 +372,8 @@ class LaViDa(nn.Module):
         int4) on `device`, its float parameters in the params' dtype unless
         `dtype` is given.  LoRA factors in `params` go onto their linears
         (ops/quant.attach_lora).  `prefill_params`: the JAX model's int8
-        prefill tree of the mixed layout (`LaViDa.prefill_params`).  `cfg` is the
+        prefill tree of the mixed layout (`LaViDa.prefill_params`).  An
+        int8 tower (`siglip.quantize_tower`) comes as the port's.  `cfg` is the
         JAX model's config after `to_serving_layout` (the sequential
         block layout when it fused), the JAX dataclass or the port's."""
         from ..convert import prefill_state_from_jax, state_dict_from_jax
@@ -391,6 +392,8 @@ class LaViDa(nn.Module):
         model.llada.adopt_layout({k[len("llada."):]: v
                                   for k, v in state.items()
                                   if k.startswith("llada.")})
+        if "siglip.layers.0.fc1.weight_q" in state:     # quantize_tower's
+            model.siglip.adopt_int8()
         for name, n in trims.items():
             if model.get_submodule(name).out_features != n:
                 raise ValueError(f"{name}: __trim_{n}__ disagrees with the "

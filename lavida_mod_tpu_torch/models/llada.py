@@ -29,6 +29,17 @@ forward paths the slices run:
     rows, the MC estimator's chunks).
 The cache holds keys rotated once at write time, as in the JAX package.
 
+Every option the JAX forward runs: the "default" / "low_precision"
+LayerNorm and "gemma_rms" norms (`Norm`, norms.py:44-55), the sequential
+block with the silu / gelu / relu activations (ff_out then takes the
+whole hidden width), `rope=False`, `attention_layer_norm` (q_norm / k_norm
+over the flattened projections, cast back to x's dtype, llada.py:
+269-274), `input_emb_norm` (:479-480) and `scale_logits` (:709-710); the
+fused W4 plans stay on the sequential/swiglu rms block.  `causal=True`
+is the AR baselines' mask (llada.py:532-535, models/ar_models.py), and a
+block may carry a mixture of experts in place of its FF linears
+(models/moe.py, llada.py:350-356; no fused plan, no quantized layout).
+
 Quantized serving (`quantize`, `add_prefill_tree`; llada.py:807-866): a
 linear may be an `Int8Linear` or an `Int4Linear` (ops/quant.py).  With
 `act_int8` the blocks run their int8 prefill tree, when one is attached,
@@ -84,6 +95,7 @@ it in bf16 as the JAX package keeps its einsum with wte.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Optional
 
 import torch
@@ -93,11 +105,11 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..config import LLaDAConfig, as_port_config
 
-from ..ops.activations import silu
-from ..ops.attention import (blockwise_attention, bmm_f32, dense_attention,
-                             flash_attention, make_bias)
+from ..ops.activations import gelu_erf, silu
+from ..ops.attention import (NEG_INF, blockwise_attention, bmm_f32,
+                             dense_attention, flash_attention, make_bias)
 from ..ops.kv8_attention import kv8_decode_attention, write_rows
-from ..ops.norms import rms_norm
+from ..ops.norms import NORM_TYPES, apply_norm
 from ..ops.prefix_flash import prefix_flash_attention
 from ..ops.quant import (Int4Linear, Int8Linear, has_lora, lora_term,
                          quantize_module)
@@ -105,30 +117,46 @@ from ..ops.rope import apply_rope, rope_tables
 from ..ops.w4_fused import w4_ffn_fused, w4_matmul_res, w4_qkv_norm
 from ..parallel.sharding import (ParallelLinear, embedding, is_dtensor,
                                  vocab_logits)
+from .moe import TOP_K, MoE
 
-_LAYOUTS = {"llama": "silu", "sequential": "swiglu"}
 _LINEARS = {"llama": ("q_proj", "k_proj", "v_proj", "attn_out", "ff_proj",
                       "up_proj", "ff_out"),
             "sequential": ("att_proj", "attn_out", "ff_proj", "ff_out")}
+_FF_LINEARS = ("ff_proj", "up_proj", "ff_out")
+_ACTIVATIONS = ("silu", "gelu", "relu", "swiglu")
 
 
 def check_supported(cfg: LLaDAConfig) -> None:
-    """Raise NotImplementedError for a config outside the port."""
+    """Raise NotImplementedError for a config the JAX forward cannot run
+    either: another block type, activation or norm type (llada.py:112-125,
+    norms.py:44-55), or swiglu on the llama block, whose halved ff_proj
+    cannot multiply up_proj."""
     unsupported = {
-        "block_type": cfg.block_type not in _LAYOUTS,
-        "activation": _LAYOUTS.get(cfg.block_type) != cfg.activation,
-        "layer_norm_type": cfg.layer_norm_type != "rms",
-        "rope": not cfg.rope,
-        "attention_layer_norm": cfg.attention_layer_norm,
-        "input_emb_norm": cfg.input_emb_norm,
-        "scale_logits": cfg.scale_logits,
+        "block_type": cfg.block_type not in _LINEARS,
+        "activation": cfg.activation not in _ACTIVATIONS or (
+            cfg.block_type == "llama" and cfg.activation == "swiglu"),
+        "layer_norm_type": cfg.layer_norm_type not in NORM_TYPES,
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
-            f"LLaDA port covers the llama/silu and sequential/swiglu rms "
-            f"blocks (optionally with Qwen2's QKV bias) with rope only; "
-            f"unsupported: {bad}")
+            f"LLaDA runs the llama and sequential blocks with the silu, "
+            f"gelu, relu (and, sequential only, swiglu) activations and the "
+            f"{NORM_TYPES} norms; unsupported: {bad}")
+
+
+def activation(cfg: LLaDAConfig, x: torch.Tensor) -> torch.Tensor:
+    """`_act` (llada.py:112-125) in jax.nn's op order; swiglu chunks (x,
+    gate) and returns silu(gate) * x."""
+    a = cfg.activation
+    if a == "silu":
+        return silu(x)
+    if a == "gelu":
+        return gelu_erf(x)
+    if a == "relu":
+        return torch.relu(x)
+    xx, gate = x.chunk(2, dim=-1)
+    return silu(gate) * xx
 
 
 def remat_plan(remat) -> tuple[str, int]:
@@ -245,22 +273,29 @@ def _run_linear(m: nn.Module, x: torch.Tensor, act_int8: bool = False,
     return m(x, act_int8=act_int8, preferred=preferred)
 
 
-class RMSNorm(nn.Module):
-    def __init__(self, dim: int, eps: float, device, dtype=None):
+class Norm(nn.Module):
+    """The LM's norm of `cfg.layer_norm_type` (`apply_norm`, norms.py:
+    44-55), weight only."""
+
+    def __init__(self, dim: int, cfg: LLaDAConfig, device, dtype=None):
         super().__init__()
-        self.eps = eps
+        self.kind = cfg.layer_norm_type
+        self.rms_eps, self.ln_eps = cfg.rms_norm_eps, cfg.layer_norm_eps
         self.weight = nn.Parameter(torch.ones(dim, device=device,
                                               dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return rms_norm(x, self.weight, self.eps)
+        return apply_norm(x, self.weight, self.kind, self.rms_eps,
+                          self.ln_eps)
 
 
 class LLaDABlock(nn.Module):
     """One block (llada.py:219-362) in the llama or the sequential layout.
     `prefill`, when set, is a ModuleDict of the int8 twins of the linears
     that `act_int8` forwards use (the mixed layout's prefill tree); the
-    norms are shared with the decode linears."""
+    norms are shared with the decode linears.  With `attention_layer_norm`
+    the block has `q_norm` [D] and `k_norm` [kvD] (llada.py:94-96).  `moe`
+    (`set_moe`) replaces the FF linears by a mixture of experts."""
 
     def __init__(self, cfg: LLaDAConfig, device, dtype=None):
         super().__init__()
@@ -271,8 +306,11 @@ class LLaDABlock(nn.Module):
         # att_proj in the fused layout
         qkv = dict(lin, bias=cfg.include_qkv_bias)
         self.cfg = cfg
-        self.attn_norm = RMSNorm(D, cfg.rms_norm_eps, device, dtype)
-        self.ff_norm = RMSNorm(D, cfg.rms_norm_eps, device, dtype)
+        self.attn_norm = Norm(D, cfg, device, dtype)
+        self.ff_norm = Norm(D, cfg, device, dtype)
+        if cfg.attention_layer_norm:
+            self.q_norm = Norm(D, cfg, device, dtype)
+            self.k_norm = Norm(kvD, cfg, device, dtype)
         self.attn_out = nn.Linear(D, D, **lin)
         if cfg.block_type == "llama":
             self.q_proj = nn.Linear(D, D, **qkv)
@@ -284,12 +322,29 @@ class LLaDABlock(nn.Module):
         else:
             self.att_proj = nn.Linear(D, D + 2 * kvD, **qkv)
             self.ff_proj = nn.Linear(D, H, **lin)         # [up | gate]
-            self.ff_out = nn.Linear(H // 2, D, **lin)
+            ff_in = H // 2 if cfg.activation == "swiglu" else H
+            self.ff_out = nn.Linear(ff_in, D, **lin)
         self.prefill: Optional[nn.ModuleDict] = None
+        self.moe: Optional[MoE] = None
+
+    def set_moe(self, n_experts: int, hidden: int, device=None,
+                dtype=None) -> MoE:
+        """Replace the FF linears by `n_experts` experts of width `hidden`
+        (uninitialised; the JAX block's "moe" entry, llada.py:350-356)."""
+        w = self.attn_out.weight
+        for n in _FF_LINEARS:
+            if hasattr(self, n):
+                delattr(self, n)
+        self.moe = MoE(self.cfg.d_model, hidden, n_experts,
+                       device or w.device, dtype or w.dtype)
+        return self.moe
 
     @property
     def linear_names(self) -> tuple[str, ...]:
-        return _LINEARS[self.cfg.block_type]
+        names = _LINEARS[self.cfg.block_type]
+        if self.moe is not None:
+            return tuple(n for n in names if n not in _FF_LINEARS)
+        return names
 
     def _lin(self, name: str, x: torch.Tensor, act_int8: bool,
              prefill_tree: bool = False):
@@ -304,7 +359,9 @@ class LLaDABlock(nn.Module):
         att_proj only (w4_qkv_norm adds it in its epilogue), no LoRA
         factors (llada.py:177: the kernels would drop them)."""
         cfg = self.cfg
-        if act_int8 or cfg.block_type != "sequential":
+        if act_int8 or self.moe is not None or not (
+                cfg.block_type == "sequential" and cfg.activation == "swiglu"
+                and cfg.layer_norm_type == "rms"):
             return False
         if rows > 32 or rows % 8:
             return False
@@ -360,11 +417,16 @@ class LLaDABlock(nn.Module):
         else:
             qkv = lin("att_proj", self.attn_norm(x))
             q, k, v = qkv.split([D, Hkv * hd, Hkv * hd], dim=-1)
+        if cfg.attention_layer_norm:
+            # over the flattened projections, cast back to x's dtype
+            # (llada.py:269-274)
+            q = self.q_norm(q).to(x.dtype)
+            k = self.k_norm(k).to(x.dtype)
         # -1 heads: a tensor-parallel rank holds its own heads
-        q = apply_rope(q.reshape(B, T, -1, hd), positions, sin, cos,
-                       cfg.rope_full_precision)
-        k = apply_rope(k.reshape(B, T, -1, hd), positions, sin, cos,
-                       cfg.rope_full_precision)
+        q, k = q.reshape(B, T, -1, hd), k.reshape(B, T, -1, hd)
+        if cfg.rope:
+            q = apply_rope(q, positions, sin, cos, cfg.rope_full_precision)
+            k = apply_rope(k, positions, sin, cos, cfg.rope_full_precision)
         v = v.reshape(B, T, -1, hd)
         if layer_past is not None and len(layer_past) == 4:
             if kv_write_index is None or use_flash:
@@ -406,23 +468,25 @@ class LLaDABlock(nn.Module):
             return x, present
         x = x + lin("attn_out", att.reshape(B, T, -1))
         h2 = self.ff_norm(x)
+        if self.moe is not None:
+            return x + self.moe(h2, TOP_K)[0], present
+        # jax.nn's op order (ops/activations.py): in bf16 it rounds where
+        # PyTorch's fused F.silu does not
+        ff = activation(cfg, lin("ff_proj", h2))
         if cfg.block_type == "llama":
-            # jax.nn.silu's op order (ops/activations.py): in bf16 it
-            # rounds where PyTorch's fused F.silu does not
-            ff = silu(lin("ff_proj", h2)) * lin("up_proj", h2)
-        else:
-            # swiglu chunks (xx, gate) and returns silu(gate) * xx
-            xx, gate = lin("ff_proj", h2).chunk(2, dim=-1)
-            ff = silu(gate) * xx
+            ff = ff * lin("up_proj", h2)
         x = x + lin("ff_out", ff)
         return x, present
 
 
 class LLaDA(nn.Module):
-    """Embedding, blocks, final RMSNorm and the logits head (wte's
-    transpose when the config ties them)."""
+    """Embedding, blocks, final norm and the logits head (wte's transpose
+    when the config ties them).  `moe` = (n_experts, hidden) gives every
+    block a mixture of experts in place of its FF linears (the Mixtral
+    layout, models/ar_models.py)."""
 
-    def __init__(self, cfg: LLaDAConfig, device, dtype=None):
+    def __init__(self, cfg: LLaDAConfig, device, dtype=None,
+                 moe: Optional[tuple[int, int]] = None):
         super().__init__()
         cfg = as_port_config(cfg)
         check_supported(cfg)
@@ -431,7 +495,10 @@ class LLaDA(nn.Module):
         self.wte = nn.Embedding(E, D, device=device, dtype=dtype)
         self.blocks = nn.ModuleList(
             LLaDABlock(cfg, device, dtype) for _ in range(cfg.n_layers))
-        self.ln_f = RMSNorm(D, cfg.rms_norm_eps, device, dtype)
+        if moe is not None:
+            for b in self.blocks:
+                b.set_moe(*moe, device=device, dtype=dtype)
+        self.ln_f = Norm(D, cfg, device, dtype)
         self.ff_out: Optional[nn.Module] = None if cfg.weight_tying else \
             nn.Linear(D, E, bias=False, device=device, dtype=dtype)
         # the mixed layout's int8 head, the prefill tree's (add_prefill_tree)
@@ -472,6 +539,7 @@ class LLaDA(nn.Module):
         bias or LoRA factors over d_model <= 4096 and decode-sized rows."""
         head, D = self.ff_out, self.cfg.d_model
         return (isinstance(head, Int4Linear) and head.bias is None
+                and self.cfg.layer_norm_type == "rms"
                 and not has_lora(head)
                 and rows <= 128
                 and rows % 8 == 0 and head.scales.shape[0] * 128 == D
@@ -535,6 +603,7 @@ class LLaDA(nn.Module):
         return_logits: bool = True,
         last_logits_only: bool = False,
         logits_from: int = 0,
+        causal: bool = False,
         use_flash: bool = False,
         act_int8: bool = False,
         prefill_tree: bool = False,
@@ -565,6 +634,13 @@ class LLaDA(nn.Module):
           row-wise: the values of the full forward's rows, the fused-head
           choice made on all of them, B * T or, with last_logits_only,
           B, as llada.py:679-684 makes it).
+        causal: the causal mask of the AR baselines (llada.py:532-535):
+          query row q sees key rows <= q, over the SEQUENCE indices of the
+          mask (the buffer rows of this call; never the RoPE positions),
+          added to the other masks; dense attention only (not with
+          use_flash, blockwise or prefix_flash, as the JAX asserts).  A
+          quantized cache's decode attends by its filled-rows mask alone,
+          as the JAX kv8 branch does.
         use_flash: attention through the short-attention kernel, masked by
           segment ids; otherwise attention_impl's.
         act_int8: per-token int8 activations on int8 linears, through the
@@ -596,6 +672,9 @@ class LLaDA(nn.Module):
         if attention_impl not in ("dense", "blockwise", "prefix_flash"):
             raise ValueError(f"attention_impl {attention_impl!r}: dense, "
                              f"blockwise, prefix_flash or auto")
+        if causal and (use_flash or attention_impl != "dense"):
+            raise ValueError("the causal mask takes dense attention: no "
+                             "use_flash, blockwise or prefix_flash")
         if not torch.is_grad_enabled() or remat_plan(remat)[0] == "none":
             remat = False
         if remat and use_cache:
@@ -622,8 +701,10 @@ class LLaDA(nn.Module):
             S, start = past + T, past
         if positions is None:
             positions = torch.arange(start, start + T, device=device)
-        sin, cos = self._rope_tables(max(self.cfg.max_sequence_length, S),
-                                     device)
+        sin = cos = None
+        if self.cfg.rope:
+            sin, cos = self._rope_tables(
+                max(self.cfg.max_sequence_length, S), device)
 
         valid = self_valid
         if kv_scatter_idx is not None:
@@ -666,20 +747,31 @@ class LLaDA(nn.Module):
                 sv = (self_valid if self_valid is not None
                       else torch.ones(B, T, dtype=torch.bool, device=device))
                 q_seg = sv.to(torch.int32).contiguous()
-        elif (valid is not None or prefix_lengths is not None) and not kv8:
-            # the prefix-LM mask is about SEQUENCE structure: sequence
-            # indices, not the RoPE positions (llada.py:496-504)
-            prefix = prefix_lengths is not None
+        elif (valid is not None or prefix_lengths is not None
+              or causal) and not kv8:
+            # the prefix-LM and causal masks are about SEQUENCE structure:
+            # sequence indices, not the RoPE positions (llada.py:496-504);
             # the mask's query rows in the buffer (llada.py:499-504)
-            q_rows = None if not prefix else (
-                kv_scatter_idx if kv_scatter_idx is not None
-                else torch.arange(start, start + T, device=device))
+            prefix = prefix_lengths is not None
+            q_rows = (kv_scatter_idx if kv_scatter_idx is not None
+                      else torch.arange(start, start + T, device=device))
+            kv_rows = torch.arange(S, device=device)
             bias = make_bias(
                 kv_valid=valid, prefix_lengths=prefix_lengths,
                 q_positions=q_rows if prefix else None,
-                kv_positions=torch.arange(S, device=device) if prefix else None)
+                kv_positions=kv_rows if prefix else None)
+            if causal:
+                cbias = torch.where(q_rows[:, None] >= kv_rows[None], 0.0,
+                                    NEG_INF)[None, None]
+                bias = cbias if bias is None else torch.clamp(
+                    bias + cbias, min=NEG_INF)
 
         x = embeds
+        if self.cfg.input_emb_norm:
+            # llada.py:479-480: the constant in x's dtype, as JAX's weak
+            # Python float becomes
+            x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype,
+                                 device=device)
         presents = []
         kw = dict(sin=sin, cos=cos, positions=positions, bias=bias,
                   kv_write_index=kv_write_index, use_flash=use_flash,
@@ -703,8 +795,11 @@ class LLaDA(nn.Module):
             return self.ln_f(x), new_cache
         if last_logits_only:
             x = x[:, -1:]
-        return self.logits(x[:, logits_from:], act_int8 or prefill_tree,
-                           rows=x.shape[0] * x.shape[1]), new_cache
+        logits = self.logits(x[:, logits_from:], act_int8 or prefill_tree,
+                             rows=x.shape[0] * x.shape[1])
+        if self.cfg.scale_logits:           # llada.py:709-710
+            logits = logits * (1.0 / math.sqrt(self.cfg.d_model))
+        return logits, new_cache
 
     # ------------------------------------------------------------------
     # serving layouts
@@ -715,10 +810,13 @@ class LLaDA(nn.Module):
         """llada.py:719-752 in place: each llama block becomes a sequential
         block with att_proj = [q|k|v] and ff_proj = [up|gate] (swiglu
         chunking gives silu(gate) * up), the old linears freed block by
-        block.  Returns (and takes) the sequential config."""
+        block; q_norm / k_norm and a block's experts stay as they are (a
+        block with `moe` fuses q|k|v only).  Returns (and takes) the
+        sequential config."""
         cfg = self.cfg
-        if cfg.block_type != "llama":
-            raise ValueError("to_fused_layout needs llama-layout blocks")
+        if cfg.block_type != "llama" or cfg.activation != "silu":
+            raise ValueError("to_fused_layout needs llama-layout silu "
+                             "blocks (swiglu chunking is silu(gate) * up)")
         new_cfg = cfg.replace(block_type="sequential", activation="swiglu",
                               mlp_hidden_size=2 * cfg.hidden_size)
         D = cfg.d_model
@@ -727,12 +825,17 @@ class LLaDA(nn.Module):
                        for n in b.linear_names):
                 raise ValueError("fuse before quantization")
             qkv = [b.q_proj.weight, b.k_proj.weight, b.v_proj.weight]
-            upgate = [b.up_proj.weight, b.ff_proj.weight]
+            upgate = (None if b.moe is not None
+                      else [b.up_proj.weight, b.ff_proj.weight])
             qkv_bias = (None if b.q_proj.bias is None else torch.cat(
                 [b.q_proj.bias, b.k_proj.bias, b.v_proj.bias]))
-            del b.q_proj, b.k_proj, b.v_proj, b.up_proj, b.ff_proj
+            del b.q_proj, b.k_proj, b.v_proj
+            if upgate is not None:
+                del b.up_proj, b.ff_proj
             for name, parts, bias in (("att_proj", qkv, qkv_bias),
                                       ("ff_proj", upgate, None)):
+                if parts is None:
+                    continue
                 w = torch.cat(parts)
                 m = nn.Linear(D, w.shape[0], bias=False, device="meta")
                 m.weight = nn.Parameter(w)
@@ -764,7 +867,11 @@ class LLaDA(nn.Module):
         every linear of the blocks and the head becomes int8 (bits 8) or
         grouped int4 (bits 4; int8 where K breaks the 128-group), each bf16
         weight freed as soon as its quantized twin exists.  Norms and the
-        embedding stay as they are."""
+        embedding stay as they are.  A block with experts has no quantized
+        layout (the JAX moe_ff reads float kernels) and raises."""
+        if any(b.moe is not None for b in self.blocks):
+            raise ValueError("the MoE block has no quantized layout: serve "
+                             "it in bf16")
         for b in self.blocks:
             for n in b.linear_names:
                 setattr(b, n, quantize_module(getattr(b, n), bits))
@@ -774,8 +881,10 @@ class LLaDA(nn.Module):
     def adopt_layout(self, state: dict) -> None:
         """Swap each linear for the kind `state` holds (keys of a quantized
         state dict: `.weight_q` int8, `.packed` int4, `blocks.i.prefill.*`
-        an int8 prefill tree), as meta modules for load_state_dict(assign=
-        True); the true widths come from this model's config."""
+        an int8 prefill tree; `blocks.i.moe.*` experts in place of the FF
+        linears), as meta modules for load_state_dict(assign=True); the
+        true widths come from this model's config (the experts' from their
+        shapes)."""
         def kind(prefix, lin, cls=None):
             cls = cls or (Int4Linear if prefix + "packed" in state else
                           Int8Linear if prefix + "weight_q" in state else
@@ -787,6 +896,10 @@ class LLaDA(nn.Module):
 
         for i, b in enumerate(self.blocks):
             pre = f"blocks.{i}."
+            router = state.get(pre + "moe.router")
+            if router is not None and b.moe is None:
+                b.set_moe(router.shape[1], state[pre + "moe.ff_proj"].shape[2],
+                          device="meta")
             if any(k.startswith(pre + "prefill.") for k in state):
                 b.prefill = nn.ModuleDict({
                     n: kind(f"{pre}prefill.{n}.", getattr(b, n), Int8Linear)

@@ -8,6 +8,7 @@ the HF wrapper's "model." prefix:
   transformer.ff_out.weight                    [E, D]   (absent when tied)
   transformer.blocks.<i>.attn_norm.weight      [D]
   transformer.blocks.<i>.ff_norm.weight        [D]
+  transformer.blocks.<i>.{q,k}_norm.weight     [D], [kvD] (attention_layer_norm)
   llama block:  q_proj/k_proj/v_proj/attn_out/ff_proj/up_proj/ff_out .weight
   sequential:   att_proj/attn_out/ff_proj/ff_out .weight
 
@@ -32,7 +33,7 @@ import torch
 from ..config import LLaDAConfig, as_port_config
 from .llada import _LINEARS, LLaDA
 
-_NORMS = ("attn_norm", "ff_norm")
+_NORMS = ("attn_norm", "ff_norm", "q_norm", "k_norm")
 _BLOCK = re.compile(r"blocks\.(\d+)\.(\w+)\.(weight|bias)")
 
 

@@ -49,16 +49,19 @@ from ..ops.pooling import pool_2d
 
 
 def encode_views(model, pixel_values: torch.Tensor, pool: bool = True,
-                 fused_mlp: bool = False, remat: bool = False
-                 ) -> torch.Tensor:
+                 fused_mlp: bool = False, remat: bool = False,
+                 act_int8: bool = False) -> torch.Tensor:
     """[V, C, S, S] -> projected (and pooled) features [V, T', D_lm].
     `model` is a `LaViDa` (its siglip, projector and cfg are used);
     fused_mlp runs the tower's MLP halves through `fused_vit_mlp`; remat
-    checkpoints the tower's layers.  A frozen tower is not recorded."""
+    checkpoints the tower's layers; act_int8 runs an int8 tower's linears
+    with int8 activations (multimodal.py:56-81).  A frozen tower is not
+    recorded."""
     tower_grad = torch.is_grad_enabled() and any(
         p.requires_grad for p in model.siglip.parameters())
     with torch.set_grad_enabled(tower_grad):
-        feats = model.siglip(pixel_values, fused_mlp=fused_mlp, remat=remat)
+        feats = model.siglip(pixel_values, fused_mlp=fused_mlp, remat=remat,
+                             act_int8=act_int8)
     feats = model.projector(feats)
     if not pool:
         return feats
@@ -261,16 +264,19 @@ def multimodal_embeds(
     gather_idx: np.ndarray,
     fused_mlp: bool = False,
     remat: bool = False,
+    vision_act_int8: bool = False,
 ) -> torch.Tensor:
     """Encode all views [N, C, S, S], build the flat table and splice it
     with ONE gather_rows call at the host plan gather_idx [B, T].  text_ids
     [B, T_text] is the plan's text table.  Returns [B, T, D_lm] on the
-    model's device, differentiable (multimodal.py:346-410)."""
+    model's device, differentiable (multimodal.py:346-410).
+    vision_act_int8: the int8 tower with int8 activations (`encode_views`'
+    act_int8, multimodal.py:353, :373)."""
     nl = model.image_newline
     D = nl.shape[-1]
     if pixel_values.shape[0] > 0:
         feats = encode_views(model, pixel_values, fused_mlp=fused_mlp,
-                             remat=remat)
+                             remat=remat, act_int8=vision_act_int8)
         vcfg = model.cfg.vision
         g = -(-vcfg.siglip.num_patches_per_side // vcfg.spatial_pool_stride)
         if feats.shape[1] != g * g:

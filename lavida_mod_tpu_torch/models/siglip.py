@@ -31,7 +31,17 @@ kernel widened by the shrink factor (antialiasing).  `bicubic_weights`
 builds that rule's [out, in] matrix on the host in numpy f32, and the table
 is `W @ grid @ W^T` per channel in f32, cast back to the table's dtype.
 The result is cached by grid size while the table does not change and no
-gradient is wanted of it.  Not ported: int8 towers.
+gradient is wanted of it.
+
+The int8 tower (`SigLIP.quantize_tower`, siglip.py:69-81): per-channel
+int8 weights on every layer's q/k/v/out/fc1/fc2 (`Int8Linear`, per-(layer,
+out) scales, the biases kept), the patch and position embeddings and the
+norms in the float dtype.  Its linears run weight-only, or with
+`act_int8` per-token int8 activations through the W8A8 kernel #3 (JAX's
+`linear_act_int8`, siglip.py:160-178; the bias added in f32 before the
+one rounding, as JAX's CPU path adds it).  `act_int8` on a float linear
+is the plain linear, as in the JAX package, and `act_int8` with
+`fused_mlp` raises, as JAX's assert does.
 
 `port_name` maps the reference checkpoint's tower names (siglip_base.py:
 576-627, below "vision_model.") onto this module's, as
@@ -59,7 +69,7 @@ from ..ops.activations import gelu_tanh
 from ..ops.norms import layer_norm
 from ..ops.pooling import resize_weights
 from ..ops.vit_mlp import fused_vit_mlp
-from ..ops.quant import has_lora
+from ..ops.quant import Int8Linear, has_lora
 from ..parallel.sharding import ParallelLinear, compute_weight
 
 
@@ -119,16 +129,21 @@ class SigLIPLayer(nn.Module):
         self.fc1 = nn.Linear(D, I, **kw)
         self.fc2 = nn.Linear(I, D, **kw)
 
-    def forward(self, h: torch.Tensor, fused_mlp: bool = False
-                ) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, fused_mlp: bool = False,
+                act_int8: bool = False) -> torch.Tensor:
         N, T, _ = h.shape
         hd = self.cfg.head_dim
+
+        def lin(m, x):
+            return m(x, act_int8=act_int8) if isinstance(m, Int8Linear) \
+                else m(x)
+
         z = self.ln1(h)
         # -1 heads: a tensor-parallel rank holds its own heads
-        att = vision_attention(self.q_proj(z).view(N, T, -1, hd),
-                               self.k_proj(z).view(N, T, -1, hd),
-                               self.v_proj(z).view(N, T, -1, hd))
-        h = h + self.out_proj(att.reshape(N, T, -1))
+        att = vision_attention(lin(self.q_proj, z).view(N, T, -1, hd),
+                               lin(self.k_proj, z).view(N, T, -1, hd),
+                               lin(self.v_proj, z).view(N, T, -1, hd))
+        h = h + lin(self.out_proj, att.reshape(N, T, -1))
         if fused_mlp:
             if not all(_plain_linear(fc) for fc in (self.fc1, self.fc2)):
                 raise ValueError("fused_mlp takes plain float fc1 / fc2 "
@@ -138,8 +153,8 @@ class SigLIPLayer(nn.Module):
                                  self.fc1.bias,
                                  compute_weight(self.fc2.weight, whole=True),
                                  self.fc2.bias, self.cfg.layer_norm_eps)
-        z = gelu_tanh(self.fc1(self.ln2(h)))
-        return h + self.fc2(z)
+        z = gelu_tanh(lin(self.fc1, self.ln2(h)))
+        return h + lin(self.fc2, z)
 
 
 def patchify(pixel_values: torch.Tensor, patch: int) -> torch.Tensor:
@@ -175,13 +190,37 @@ class SigLIP(nn.Module):
                    for layer in self.layers for fc in (layer.fc1, layer.fc2)
                    ) and self.cfg.hidden_size % 128 == 0
 
+    LINEARS = ("q_proj", "k_proj", "v_proj", "out_proj", "fc1", "fc2")
+
+    @torch.no_grad()
+    def quantize_tower(self) -> None:
+        """siglip.py:69-81 in place: every layer's linears int8 per
+        channel (`Int8Linear`, biases kept), each float weight freed as its
+        twin exists; the embeddings and norms stay float."""
+        for layer in self.layers:
+            for n in self.LINEARS:
+                setattr(layer, n, Int8Linear.from_linear(getattr(layer, n)))
+
+    def adopt_int8(self) -> None:
+        """The int8 tower's modules on "meta" (for load_state_dict(assign=
+        True) of a state holding `.weight_q` / `.scale`)."""
+        for layer in self.layers:
+            for n in self.LINEARS:
+                m = getattr(layer, n)
+                setattr(layer, n, Int8Linear(m.in_features, m.out_features,
+                                             "meta", bias=True))
+
     def forward(self, pixel_values: torch.Tensor, fused_mlp: bool = False,
-                remat: bool = False) -> torch.Tensor:
+                remat: bool = False, act_int8: bool = False) -> torch.Tensor:
         """[N, C, H, W] preprocessed pixels -> raw features [N, tokens, D]
         after the tower's layers.  Pixels are cast to the tower's dtype
         first (the reference's images.to(dtype), llava_arch.py:700): f32
         pixels must not promote a bf16 tower to f32.  `remat`: checkpoint
-        each layer when autograd records."""
+        each layer when autograd records.  `act_int8`: per-token int8
+        activations on the int8 tower's linears (kernel #3 on the card)."""
+        if act_int8 and fused_mlp:
+            raise ValueError("fused_mlp supports plain bf16 fc1/fc2 only: "
+                             "no act_int8 (siglip.py:174-178)")
         x = pixel_values.to(self.patch_embed.weight.dtype)
         # the patch embedding reads weight and bias only, as JAX's
         # (siglip.py:151-152)
@@ -192,9 +231,10 @@ class SigLIP(nn.Module):
         remat = remat and torch.is_grad_enabled()
         for layer in self.layers:
             if remat:
-                x = checkpoint(layer, x, fused_mlp, use_reentrant=False)
+                x = checkpoint(layer, x, fused_mlp, act_int8,
+                               use_reentrant=False)
             else:
-                x = layer(x, fused_mlp)
+                x = layer(x, fused_mlp, act_int8)
         return x
 
     def pos_table(self, n_tokens: int) -> torch.Tensor:

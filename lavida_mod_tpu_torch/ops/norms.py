@@ -9,12 +9,15 @@ import torch
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor | None,
-             eps: float = 1e-5) -> torch.Tensor:
-    """RMSNorm (modeling_llada.py:339-353 via norms.py:14-26)."""
+             eps: float = 1e-5, gemma: bool = False) -> torch.Tensor:
+    """RMSNorm (modeling_llada.py:339-353 via norms.py:14-26); `gemma`:
+    the affine is (1 + weight) (modeling_llada.py:370-384)."""
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     out = (xf * torch.rsqrt(var + eps)).to(x.dtype)
-    return out if weight is None else out * weight
+    if weight is None:
+        return out
+    return out * ((1.0 + weight) if gemma else weight)
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor | None,
@@ -29,3 +32,20 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor | None,
     if bias is not None:
         out = out + bias
     return out
+
+
+NORM_TYPES = ("rms", "gemma_rms", "default", "low_precision")
+
+
+def apply_norm(x: torch.Tensor, weight: torch.Tensor | None, norm_type: str,
+               rms_eps: float = 1e-5, ln_eps: float = 1e-5) -> torch.Tensor:
+    """`apply_norm` (norms.py:44-55): the LM's norm by LayerNormType,
+    weight only (the LM's norms carry no bias); "default" and
+    "low_precision" are the same LayerNorm there."""
+    if norm_type == "rms":
+        return rms_norm(x, weight, rms_eps)
+    if norm_type == "gemma_rms":
+        return rms_norm(x, weight, rms_eps, gemma=True)
+    if norm_type in ("default", "low_precision"):
+        return layer_norm(x, weight, None, ln_eps)
+    raise NotImplementedError(norm_type)

@@ -31,13 +31,15 @@ ACT_FORMULA_W4_RECIP = 2
 
 def w8a8_matmul_reference(x8: torch.Tensor, sx: torch.Tensor,
                           w8: torch.Tensor, scale: torch.Tensor,
-                          bias=None) -> torch.Tensor:
+                          bias=None, out_dtype=torch.bfloat16
+                          ) -> torch.Tensor:
     """Plain version: exact integer product, then the epilogue (the bias
-    added in f32 before the bf16 rounding)."""
+    added in f32 before the one rounding, to bf16 as the kernel's, or to
+    `out_dtype`)."""
     y = int_matmul(x8, w8).float() * sx.float() * scale.float()
     if bias is not None:
         y = y + bias.float()
-    return y.to(torch.bfloat16)
+    return y.to(out_dtype)
 
 
 def _check(x8, sx, w8, scale):
@@ -109,15 +111,21 @@ def linear_w8a8(x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor,
                 preferred=None, bias=None) -> torch.Tensor:
     """`linear_act_int8` on an int8 linear (pallas_w8.py:216-237 /
     quant.py:195-230): per-token A8 codes, the W8A8 matmul, the result in
-    `preferred` or x's dtype.  On the CPU the bf16 rounding of the kernel's
-    epilogue is kept, so a bf16 model computes what the TPU kernel and
-    the JAX CPU fallback both compute.  A bias is added in f32 before that
-    one rounding, in the epilogue, as the JAX CPU fallback adds it
-    (quant.py:226-230; the TPU wrapper adds it to the bf16 result)."""
+    `preferred` or x's dtype.  On the card #3's epilogue rounds to bf16;
+    on the CPU the JAX CPU fallback's f32 epilogue is rounded once to the
+    result's dtype (quant.py:224-230), so a bf16 model computes what the
+    kernel and both JAX paths compute, and an f32 one what JAX's CPU path
+    does.  A bias is added in f32 before that one rounding, in the
+    epilogue, as the JAX CPU fallback adds it (quant.py:226-230; the TPU
+    wrapper adds it to the bf16 result)."""
     lead = x.shape[:-1]
     x2d = x.reshape(-1, x.shape[-1])
     if x.is_cuda:
         x2d = x2d.contiguous()
     x8, sx = act_quant(x2d, ACT_FORMULA_W8)
-    y = w8a8_matmul(x8, sx, w8, scale, bias)
+    if x.is_cuda:
+        y = w8a8_matmul(x8, sx, w8, scale, bias)
+    else:
+        y = w8a8_matmul_reference(x8, sx, w8, scale, bias,
+                                  preferred or x.dtype)
     return y.reshape(*lead, y.shape[-1]).to(preferred or x.dtype)

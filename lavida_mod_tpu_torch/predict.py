@@ -5,7 +5,10 @@ Usage:
   python -m lavida_mod_tpu_torch.predict [--model-path DIR] [--tiny]
       [--prompt TEXT] [--conv-template llada] [--dtype bfloat16]
       [--mixed | --int4] [--kv8 | --kv4] [--batch N] [--image PATH]
-      [--max-new-tokens 32] [--step-per-block 16] [--no-prefix-cache]
+      [--max-new-tokens 32] [--steps N] [--step-per-block 16]
+      [--step-ratio R] [--block-length N] [--schedule shift]
+      [--schedule-shift 3.0] [--remasking low_confidence]
+      [--aspect anyres|square|pad] [--no-prefix-cache]
       [--shirg [--shirg-method base]] [--seed 0] [--device cuda]
 
 With --model-path the model is `LaViDa.load` of that checkpoint directory
@@ -42,7 +45,13 @@ over N ranks (`LaViDa.shard(tp=N)`): run it under torchrun with N
 processes, one card each (gloo on the CPU); rank 0 owns the requests and
 broadcasts them, every rank generates, rank 0 prints.  As the repo's
 predict.py, --tp refuses the quantized layouts and the quantized KV
-caches.  Prints the answers and the latency, timed after a warm-up run.
+caches.  The generation flags (--steps, --step-per-block, --step-ratio,
+--block-length, --schedule, --schedule-shift, --remasking) make the
+GenerationConfig as predict.py:225-239 makes it (`generation_config`),
+and --aspect sets the vision config's image_aspect_ratio, over the
+checkpoint's (predict.py:115, :123, :150-152): "square" or "pad" encode
+one view per image.  Prints the answers and the latency, timed after a
+warm-up run.
 """
 
 from __future__ import annotations
@@ -53,7 +62,7 @@ import time
 import numpy as np
 
 
-def tiny_config():
+def tiny_config(aspect: str = "anyres"):
     """The 2-layer toy geometry of the tests (tests/test_bucketing.py)."""
     from .config import (LaViDaConfig, VisionConfig, tiny_llada_config,
                          tiny_siglip_config)
@@ -62,7 +71,35 @@ def tiny_config():
         llada=tiny_llada_config(),
         vision=VisionConfig(siglip=tiny_siglip_config(), mm_hidden_size=32,
                             grid_pinpoints=((56, 112), (112, 56),
-                                            (112, 112))))
+                                            (112, 112)),
+                            image_aspect_ratio=aspect))
+
+
+def with_aspect(cfg, aspect):
+    """`cfg` with the vision config's image_aspect_ratio set to `aspect`
+    (predict.py:150-152), or as it is when aspect is None."""
+    if not aspect:
+        return cfg
+    return cfg.replace(vision=cfg.vision.replace(image_aspect_ratio=aspect))
+
+
+def generation_config(args):
+    """The GenerationConfig of the flags, as predict.py:225-239 builds it:
+    block_length defaults to min(128, max_new_tokens)."""
+    from .config import GenerationConfig
+
+    return GenerationConfig(
+        max_new_tokens=args.max_new_tokens,
+        block_length=(args.block_length if args.block_length
+                      else min(128, args.max_new_tokens)),
+        steps=args.steps,
+        step_per_block=args.step_per_block,
+        step_ratio=args.step_ratio,
+        schedule=args.schedule,
+        schedule_shift=args.schedule_shift,
+        remasking=args.remasking,
+        prefix_lm=not args.no_prefix_cache,
+    )
 
 
 def tiny_mixed_config():
@@ -95,8 +132,11 @@ def _views(args, cfg, rng, i=0):
     sizes = TINY_SIZES if args.tiny else SIZES
     size = sizes[i % len(sizes)]
     S = cfg.vision.siglip.image_size
-    nw, nh = anyres_grid_shape(size, cfg.vision.grid_pinpoints, S)
-    views = rng.uniform(-1, 1, (1 + nw * nh, 3, S, S)).astype(np.float32)
+    n = 1
+    if cfg.vision.image_aspect_ratio.startswith("anyres"):
+        nw, nh = anyres_grid_shape(size, cfg.vision.grid_pinpoints, S)
+        n += nw * nh
+    views = rng.uniform(-1, 1, (n, 3, S, S)).astype(np.float32)
     return views, size
 
 
@@ -114,7 +154,7 @@ def _shirg_image(args, rng, i=0):
     return Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
 
 
-def main(argv=None) -> None:
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model-path", default=None,
                     help="a reference-layout checkpoint directory")
@@ -139,7 +179,16 @@ def main(argv=None) -> None:
                     help="requests served together (generate_batch)")
     ap.add_argument("--image", default=None)
     ap.add_argument("--max-new-tokens", type=int, default=32)
+    ap.add_argument("--steps", type=int, default=None)
     ap.add_argument("--step-per-block", type=int, default=None)
+    ap.add_argument("--step-ratio", type=float, default=None)
+    ap.add_argument("--block-length", type=int, default=None)
+    ap.add_argument("--schedule", default=None)
+    ap.add_argument("--schedule-shift", type=float, default=3.0)
+    ap.add_argument("--remasking", default="low_confidence")
+    ap.add_argument("--aspect", default=None,
+                    help="anyres|square|pad; default: the checkpoint's "
+                         "image_aspect_ratio (anyres without one)")
     ap.add_argument("--no-prefix-cache", action="store_true",
                     help="generate without the prefix KV cache")
     ap.add_argument("--shirg", action="store_true",
@@ -151,6 +200,11 @@ def main(argv=None) -> None:
     ap.add_argument("--tp", type=int, default=1,
                     help="tensor-parallel bf16 serving over N ranks (run "
                          "under torchrun with N processes)")
+    return ap
+
+
+def main(argv=None) -> None:
+    ap = parser()
     args = ap.parse_args(argv)
     if args.tp > 1:
         # predict.py:126-140's refusals, in its words
@@ -172,7 +226,7 @@ def main(argv=None) -> None:
 
     import torch
 
-    from .config import GenerationConfig, LaViDaConfig
+    from .config import LaViDaConfig
     from .data.conversation import get_conv_template
     from .data.prompts import tokenizer_image_token
     from .data.tokenizer import load_hf_or_offline
@@ -189,17 +243,21 @@ def main(argv=None) -> None:
             device = torch.device("cuda", torch.cuda.current_device())
     dtype = getattr(torch, args.dtype)
     tokenizer = None
+    aspect = args.aspect or "anyres"
     if args.model_path:
         model = LaViDa.load(args.model_path,
-                            tiny_config() if args.tiny else None, dtype,
+                            tiny_config(aspect) if args.tiny else None, dtype,
                             device=device)
+        # an explicit --aspect beats the checkpoint's (predict.py:150-152)
+        model.cfg = with_aspect(model.cfg, args.aspect)
         tokenizer = load_hf_or_offline(args.model_path)
     else:
         cfg = LaViDaConfig()
         if args.tiny:
             cfg = (tiny_mixed_config() if args.mixed or args.int4
                    else tiny_config())
-        model = LaViDa.random_init(cfg, args.seed, dtype, device)
+        model = LaViDa.random_init(with_aspect(cfg, aspect), args.seed,
+                                   dtype, device)
     if args.tp > 1:
         model.shard(tp=args.tp)
     cfg = model.cfg
@@ -237,11 +295,7 @@ def main(argv=None) -> None:
             ids = np.concatenate([text[:4], [-200], text[4:]])
         requests.append((ids, [views], [size]))
     requests = broadcast(requests)      # rank 0's requests on every rank
-    gen = GenerationConfig(
-        max_new_tokens=args.max_new_tokens,
-        block_length=min(128, args.max_new_tokens),
-        step_per_block=args.step_per_block,
-        prefix_lm=not args.no_prefix_cache)
+    gen = generation_config(args)
 
     kv8 = 4 if args.kv4 else args.kv8
 

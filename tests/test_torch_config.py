@@ -418,3 +418,35 @@ def test_eva_and_qformer_configs_equal_jax():
     assert type(t) is tc.EVAConfig and _flat(t) == _flat(
         jeva.tiny_eva_config(subln=True))
     assert type(tc.as_port_config(jqf.QformerConfig())) is tc.QformerConfig
+
+
+AR_SLICE = ("models/ar_models.py", "models/moe.py",
+            "generation/ar_sampler.py", "tools/eval_regression.py")
+
+
+def test_import_scans_cover_the_ar_slice():
+    """The scans above walk the AR baselines, the MoE block, the AR
+    sampler and the eval regression tool; importing them pulls in neither
+    jax nor lavida_mod_tpu."""
+    files = {f.relative_to(REPO / "lavida_mod_tpu_torch").as_posix()
+             for f in (REPO / "lavida_mod_tpu_torch").rglob("*.py")}
+    assert set(AR_SLICE) <= files
+    import pkgutil
+
+    import lavida_mod_tpu_torch as p
+    names = {m.name for m in pkgutil.walk_packages(
+        p.__path__, "lavida_mod_tpu_torch.")}
+    mods = {"lavida_mod_tpu_torch." + f[:-3].replace("/", ".")
+            for f in AR_SLICE}
+    assert mods <= names
+    code = (
+        "import sys\n"
+        f"for m in {sorted(mods)!r}:\n"
+        "    __import__(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'lavida_mod_tpu'))\n"
+        "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip() == "[]"

@@ -264,10 +264,14 @@ def test_convert_raises_on_unmapped_leaves(leaf):
         state_dict_from_jax(p)
 
 
-@pytest.mark.parametrize("kw", [dict(block_type="sequential"),
-                                dict(input_emb_norm=True),
-                                dict(attention_layer_norm=True)])
+@pytest.mark.parametrize("kw", [dict(block_type="parallel"),
+                                dict(activation="tanh"),
+                                dict(layer_norm_type="batch")])
 def test_unsupported_llada_configs_raise(kw):
+    """The port refuses what the JAX forward cannot run either (another
+    block type, activation or norm type); the options it does run (the
+    sequential block with any activation, input_emb_norm,
+    attention_layer_norm, ...) are held to it in test_torch_ar.py."""
     with pytest.raises(NotImplementedError):
         LLaDA(tiny_llada_config(**kw), device="meta")
 
