@@ -64,6 +64,7 @@ from ..data.prompts import tokenizer_image_token
 from ..generation import diffusion
 from ..generation.log_likelihood import get_log_likelihood
 from ..models import multimodal
+from ..utils.profiling import span
 
 
 def gen_kwargs_to_config(gen_kwargs: dict, lm_family: str = "llada"):
@@ -122,34 +123,38 @@ def generate_batch(
     in a device synchronize."""
     gen = as_port_config(gen) or GenerationConfig()
     device = model.device
-    t0 = time.perf_counter()
-    prefixes = [(r[3] if len(r) > 3 else model).encode_prompt(*r[:3])[0]
-                for r in requests]
-    _sync(device)
-    t_enc = time.perf_counter()
-    bucket = prefix_bucket or 128
-    Pb = max(-(-p.shape[0] // bucket) * bucket for p in prefixes)
-    B, D = len(prefixes), prefixes[0].shape[-1]
-    batch = prefixes[0].new_zeros(B, Pb, D)
-    valid = torch.zeros(B, Pb, dtype=torch.bool, device=device)
-    for b, p in enumerate(prefixes):
-        batch[b, Pb - p.shape[0]:] = p          # front-pad (masked)
-        valid[b, Pb - p.shape[0]:] = True
-    del prefixes
-    if model.mixed and not gen.prefix_lm:
-        raise NotImplementedError(
-            "mixed decode_params needs the prefix-cache mode "
-            "(prefix_lm=True) — the no-cache path has no "
-            "prefill/decode split; drop --mixed or prefix_lm=False")
-    kw = dict(prefix_valid=valid, generator=generator,
-              act_int8_prefill=model.mixed, kv8=kv8)
-    if B > 4 and gen.prefix_lm:
-        out = diffusion.generate_chunked_prefill(model.llada, batch, gen,
-                                                 chunk=2, **kw)
-    else:
-        out = diffusion.generate(model.llada, batch, gen, **kw)
-    out = out.cpu().numpy()
-    t_gen = time.perf_counter()
+    with span("serve.batch"):
+        t0 = time.perf_counter()
+        prefixes = [(r[3] if len(r) > 3 else model).encode_prompt(
+            *r[:3], row=b)[0] for b, r in enumerate(requests)]
+        with span("serve.sync"):
+            _sync(device)
+        t_enc = time.perf_counter()
+        with span("serve.pack"):
+            bucket = prefix_bucket or 128
+            Pb = max(-(-p.shape[0] // bucket) * bucket for p in prefixes)
+            B, D = len(prefixes), prefixes[0].shape[-1]
+            batch = prefixes[0].new_zeros(B, Pb, D)
+            valid = torch.zeros(B, Pb, dtype=torch.bool, device=device)
+            for b, p in enumerate(prefixes):
+                batch[b, Pb - p.shape[0]:] = p          # front-pad (masked)
+                valid[b, Pb - p.shape[0]:] = True
+        del prefixes
+        if model.mixed and not gen.prefix_lm:
+            raise NotImplementedError(
+                "mixed decode_params needs the prefix-cache mode "
+                "(prefix_lm=True) — the no-cache path has no "
+                "prefill/decode split; drop --mixed or prefix_lm=False")
+        kw = dict(prefix_valid=valid, generator=generator,
+                  act_int8_prefill=model.mixed, kv8=kv8)
+        if B > 4 and gen.prefix_lm:
+            out = diffusion.generate_chunked_prefill(model.llada, batch, gen,
+                                                     chunk=2, **kw)
+        else:
+            out = diffusion.generate(model.llada, batch, gen, **kw)
+        with span("serve.readback"):
+            out = out.cpu().numpy()
+        t_gen = time.perf_counter()
     return out, {"encode": t_enc - t0, "generate": t_gen - t_enc}
 
 

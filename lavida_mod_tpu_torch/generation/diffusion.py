@@ -59,6 +59,7 @@ from ..models.llada import LLaDA
 from ..ops import sampling
 from ..ops.kv8_attention import quantize_kv
 from ..ops.schedules import num_transfer_tokens_scheduled, resolve_steps
+from ..utils.profiling import span
 
 
 def build_control_table(
@@ -120,14 +121,19 @@ def denoise_cached(
         kv_valid = torch.cat([prefix_valid, torch.ones(
             B, G, dtype=torch.bool, device=x.device)], dim=1)
     mask_id = model.cfg.mask_token_id
-    for i in range(k_table.shape[0]):
-        logits, _ = model(
-            model.embed_tokens(x), positions=positions, kv_cache=cache,
-            kv_valid=kv_valid, kv_write_index=P, use_cache=True)
-        x = sampling.denoise_commit(
-            x, logits, x == mask_id, k_table[i], block_end[i],
-            temperature=temperature, remasking=remasking,
-            generator=generator)
+    with span("lm.denoise"):
+        for i in range(k_table.shape[0]):
+            with span("lm.step", device=True):
+                with span("lm.forward"):
+                    logits, _ = model(
+                        model.embed_tokens(x), positions=positions,
+                        kv_cache=cache, kv_valid=kv_valid, kv_write_index=P,
+                        use_cache=True)
+                with span("lm.commit"):
+                    x = sampling.denoise_commit(
+                        x, logits, x == mask_id, k_table[i], block_end[i],
+                        temperature=temperature, remasking=remasking,
+                        generator=generator)
     return x
 
 
@@ -172,19 +178,21 @@ def prefill_cache(model: LLaDA, prefix_embeds: torch.Tensor, G: int,
     B, P, _ = prefix_embeds.shape
     cfg = model.cfg
     shape = (B, P + G, model.kv_heads, cfg.head_dim)
-    cache = [(prefix_embeds.new_zeros(shape), prefix_embeds.new_zeros(shape))
-             for _ in model.blocks]
-    c = min(chunk or B, B)
-    starts = list(range(0, B - c + 1, c))
-    if starts[-1] + c < B:
-        starts.append(B - c)
-    for lo in starts:
-        _prefill_into(model, cache, prefix_embeds[lo:lo + c],
-                      None if prefix_valid is None
-                      else prefix_valid[lo:lo + c], lo, act_int8)
-    if not kv8:
-        return cache
-    return quantize_cache(cache, 4 if kv8 == 4 else 8)
+    with span("lm.prefill", device=True):
+        cache = [(prefix_embeds.new_zeros(shape),
+                  prefix_embeds.new_zeros(shape)) for _ in model.blocks]
+        c = min(chunk or B, B)
+        starts = list(range(0, B - c + 1, c))
+        if starts[-1] + c < B:
+            starts.append(B - c)
+        for lo in starts:
+            with span("lm.prefill.chunk"):
+                _prefill_into(model, cache, prefix_embeds[lo:lo + c],
+                              None if prefix_valid is None
+                              else prefix_valid[lo:lo + c], lo, act_int8)
+        if not kv8:
+            return cache
+        return quantize_cache(cache, 4 if kv8 == 4 else 8)
 
 
 def _prefill_into(model: LLaDA, cache: list, embeds: torch.Tensor,
@@ -219,8 +227,9 @@ def prefill(model: LLaDA, prefix_embeds: torch.Tensor,
     prefill convention, the JAX package's use_flash_prefill): the
     per-layer (k, v) [B, P, Hkv, hd] with rotated keys, read by the
     concat mode of `LLaDA.forward`."""
-    _, cache = model(prefix_embeds, self_valid=prefix_valid, use_cache=True,
-                     return_logits=False, use_flash=True)
+    with span("lm.prefill", device=True):
+        _, cache = model(prefix_embeds, self_valid=prefix_valid,
+                         use_cache=True, return_logits=False, use_flash=True)
     return cache
 
 
@@ -242,13 +251,18 @@ def denoise_readonly(
     P = cache[0][0].shape[1]
     positions = torch.arange(P, P + G, device=x.device)
     mask_id = model.cfg.mask_token_id
-    for i in range(k_table.shape[0]):
-        logits, _ = model(model.embed_tokens(x), positions=positions,
-                          kv_cache=cache, kv_valid=prefix_valid)
-        x = sampling.denoise_commit(
-            x, logits, x == mask_id, k_table[i], block_end[i],
-            temperature=temperature, remasking=remasking,
-            generator=generator)
+    with span("lm.denoise"):
+        for i in range(k_table.shape[0]):
+            with span("lm.step", device=True):
+                with span("lm.forward"):
+                    logits, _ = model(model.embed_tokens(x),
+                                      positions=positions, kv_cache=cache,
+                                      kv_valid=prefix_valid)
+                with span("lm.commit"):
+                    x = sampling.denoise_commit(
+                        x, logits, x == mask_id, k_table[i], block_end[i],
+                        temperature=temperature, remasking=remasking,
+                        generator=generator)
     return x
 
 
@@ -279,15 +293,20 @@ def denoise_full(
     if prefix_valid is not None:
         sv = torch.cat([prefix_valid, torch.ones(
             B, G, dtype=torch.bool, device=x.device)], dim=1)
-    for i in range(k_table.shape[0]):
-        embeds = torch.cat([prefix_embeds,
-                            model.embed_tokens(x).to(prefix_embeds.dtype)],
-                           dim=1)
-        logits, _ = model(embeds, self_valid=sv, logits_from=P)
-        x = sampling.denoise_commit(
-            x, logits, x == mask_id, k_table[i], block_end[i] - P,
-            temperature=temperature, remasking=remasking,
-            generator=generator)
+    with span("lm.denoise"):
+        for i in range(k_table.shape[0]):
+            with span("lm.step", device=True):
+                with span("lm.forward"):
+                    embeds = torch.cat(
+                        [prefix_embeds,
+                         model.embed_tokens(x).to(prefix_embeds.dtype)],
+                        dim=1)
+                    logits, _ = model(embeds, self_valid=sv, logits_from=P)
+                with span("lm.commit"):
+                    x = sampling.denoise_commit(
+                        x, logits, x == mask_id, k_table[i], block_end[i] - P,
+                        temperature=temperature, remasking=remasking,
+                        generator=generator)
     return x
 
 
@@ -326,10 +345,12 @@ def generate_dllm(
         raise ValueError("dLLM cache path is the B=1 serving latency path")
     r = min(recompute, x.shape[1])
     state, cache, kv_valid = dllm_init(model, x, prefix_embeds, prefix_valid)
-    for i in range(k_table.shape[0]):
-        state = dllm_step(model, *state, cache, kv_valid, k_table[i],
-                          block_end[i], r, generator, temperature,
-                          remasking)
+    with span("lm.denoise"):
+        for i in range(k_table.shape[0]):
+            with span("lm.step", device=True):
+                state = dllm_step(model, *state, cache, kv_valid, k_table[i],
+                                  block_end[i], r, generator, temperature,
+                                  remasking)
     return state[0]
 
 
@@ -371,14 +392,16 @@ def dllm_step(model: LLaDA, x, logits_c, changed, stale, cache, kv_valid,
     prio = (changed.to(torch.float32) * 1e6
             + torch.where(masked, stale, torch.full_like(stale, -1e6)))
     pos = dllm_rows(prio, r)
-    logits_r, _ = model(model.embed_tokens(x[:, pos]), positions=P + pos,
-                        kv_cache=cache, kv_valid=kv_valid,
-                        kv_scatter_idx=P + pos, use_cache=True)
-    logits_c[:, pos] = logits_r.to(logits_c.dtype)
-    x_new = sampling.denoise_commit(
-        x, logits_c.float(), x[0:1] == model.cfg.mask_token_id, k_row,
-        b_end, temperature=temperature, remasking=remasking,
-        generator=generator)
+    with span("lm.forward"):
+        logits_r, _ = model(model.embed_tokens(x[:, pos]), positions=P + pos,
+                            kv_cache=cache, kv_valid=kv_valid,
+                            kv_scatter_idx=P + pos, use_cache=True)
+        logits_c[:, pos] = logits_r.to(logits_c.dtype)
+    with span("lm.commit"):
+        x_new = sampling.denoise_commit(
+            x, logits_c.float(), x[0:1] == model.cfg.mask_token_id, k_row,
+            b_end, temperature=temperature, remasking=remasking,
+            generator=generator)
     fresh = torch.zeros(G, dtype=torch.bool, device=x.device)
     fresh[pos] = True
     stale = torch.where(fresh, torch.zeros_like(stale), stale + 1.0)
@@ -437,19 +460,22 @@ def generate(
             raise ValueError(f"{draft.shape[1]} draft tokens in a "
                              f"{G}-token buffer")
         x_host[:, :draft.shape[1]] = draft
-    x = torch.as_tensor(x_host, device=device)
-    if generator is None:
-        generator = torch.Generator(device=device).manual_seed(0)
-
-    def tables(x0, prompt_len):
+    with span("lm.plan"):
+        x = torch.as_tensor(x_host, device=device)
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        # the no-cache table is in absolute coordinates: a [B, P + G]
+        # buffer whose prefix is never masked
+        x0, prompt_len = (x_host, 0) if gen.prefix_lm else (np.concatenate(
+            [np.zeros((B, P), np.int64), x_host], axis=1), P)
         k_table, block_end = build_control_table(x0, prompt_len, G, gen,
                                                  mask_id)
-        return (k_table.shape[0], torch.as_tensor(k_table, device=device),
-                torch.as_tensor(block_end, device=device))
+        n = k_table.shape[0]
+        k_table = torch.as_tensor(k_table, device=device)
+        block_end = torch.as_tensor(block_end, device=device)
 
     sample = (generator, gen.temperature, gen.remasking)
     if gen.prefix_lm:
-        n, k_table, block_end = tables(x_host, 0)
         if n == 0:
             return (x, []) if verbose else x
         if dllm_cache is not None:
@@ -487,8 +513,6 @@ def generate(
                 "mixed decode_params needs the prefix-cache mode "
                 "(prefix_lm=True) — the no-cache path has no "
                 "prefill/decode split")
-        n, k_table, block_end = tables(np.concatenate(
-            [np.zeros((B, P), np.int64), x_host], axis=1), P)
         if n == 0:
             return (x, []) if verbose else x
         if not verbose:

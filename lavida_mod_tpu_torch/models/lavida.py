@@ -77,6 +77,7 @@ from ..generation import diffusion
 from ..generation.diffusion import build_control_table, generate_cached_fused
 from ..generation.dream_sampler import dream_generate
 from ..ops.quant import attach_lora
+from ..utils.profiling import span
 from . import dream, llada_loader, multimodal, projector, siglip
 from .llada import LLaDA, Norm
 from .projector import Projector
@@ -519,22 +520,29 @@ class LaViDa(nn.Module):
     def encode_prompt(self, input_ids: np.ndarray,
                       images: Sequence[np.ndarray] = (),
                       image_sizes: Sequence[tuple[int, int]] = (),
-                      image_features: Optional[Sequence[torch.Tensor]] = None
-                      ) -> torch.Tensor:
+                      image_features: Optional[Sequence[torch.Tensor]] = None,
+                      *, row: Optional[int] = None) -> torch.Tensor:
         """One sample: ids with -200 markers and per-image view stacks ->
         spliced prefix embeddings [1, P, D] (lavida.py:430-452), one
         vision encode per image; `image_features` supplies the blocks
-        [n_i, D] instead (SHIRG's 980-token selection, models/shirg.py)."""
-        device = self.device
-        feats = list(image_features) if image_features is not None else [
-            multimodal.encode_image(
-                self, torch.as_tensor(np.asarray(v), device=device), size,
-                fused_mlp=self._vision_fused_mlp())
-            for v, size in zip(images, image_sizes)]
-        embeds = multimodal.splice_embeddings(self, input_ids, feats)
-        if self.cfg.tokenizer_model_max_length:
-            embeds = embeds[:self.cfg.tokenizer_model_max_length]
-        return embeds[None]
+        [n_i, D] instead (SHIRG's 980-token selection, models/shirg.py).
+        row: the sample's row in its batch, for the `vision.encode` span."""
+        with span("vision.encode", row=row):
+            if image_features is not None:
+                feats = list(image_features)
+            else:
+                feats = []
+                for v, size in zip(images, image_sizes):
+                    with span("vision.upload"):
+                        views = torch.as_tensor(np.asarray(v),
+                                                device=self.device)
+                    feats.append(multimodal.encode_image(
+                        self, views, size, fused_mlp=self._vision_fused_mlp()))
+            with span("vision.merge"):
+                embeds = multimodal.splice_embeddings(self, input_ids, feats)
+            if self.cfg.tokenizer_model_max_length:
+                embeds = embeds[:self.cfg.tokenizer_model_max_length]
+            return embeds[None]
 
     @torch.no_grad()
     def generate(

@@ -46,6 +46,7 @@ from ..constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
 from ..data.anyres import anyres_grid_shape, unpad_slice
 from ..ops.gather import gather_rows
 from ..ops.pooling import pool_2d
+from ..utils.profiling import span
 
 
 def encode_views(model, pixel_values: torch.Tensor, pool: bool = True,
@@ -112,12 +113,17 @@ def encode_image(model, views: torch.Tensor,
     projector only (unpooled, no newline), as in the reference."""
     vcfg = model.cfg.vision
     if views.shape[0] == 1 and vcfg.image_aspect_ratio in ("square", "pad"):
-        return encode_views(model, views, pool=False, fused_mlp=fused_mlp)[0]
-    feats = encode_views(model, views, fused_mlp=fused_mlp)
+        with span("vision.tower"):
+            return encode_views(model, views, pool=False,
+                                fused_mlp=fused_mlp)[0]
+    with span("vision.tower"):
+        feats = encode_views(model, views, fused_mlp=fused_mlp)
     if image_size is None and views.shape[0] != 1:
         raise ValueError("an anyres image needs its size")
-    return merge_anyres(feats, image_size or (vcfg.siglip.image_size,) * 2,
-                        vcfg, model.image_newline)
+    with span("vision.merge"):
+        return merge_anyres(feats,
+                            image_size or (vcfg.siglip.image_size,) * 2,
+                            vcfg, model.image_newline)
 
 
 def splice_embeddings(model, input_ids: np.ndarray,
