@@ -53,7 +53,12 @@ exits non-zero and never prints the final line:
      plain version at the B = 4 and B = 8 batches, one request's cache (S =
      1088), Dream's GQA, hd 16 (8-byte rows by cp.async), 32, 64 and 256,
      S = 6401 and 16384, padded rows and a row with every key masked, each
-     beside the int8 kernel's time at the same shape.
+     beside the int8 kernel's time at the same shape.  decode_attention
+     (the bf16 cache read in place) within 4e-3 of its plain version (the
+     unsplit softmax) at the batched serving step, bench.py's B = 1
+     request and Dream-7B's GQA batched and at B = 1 (the two at B = 1
+     with key splits), beside dense_attention, the route it replaced; its
+     launches are counted in every request phase below.
      fused_vit_mlp within 5e-2 of its plain version at one image (M =
      3645), 20 views (M = 14580) and a ragged M 77 / D 256 / F 520, its
      error printed beside its first design's, the port's unfused chain
@@ -761,6 +766,7 @@ def phase_main_path(torch, device, card):
     from lavida_mod_tpu_torch.config import GenerationConfig, LaViDaConfig
     from lavida_mod_tpu_torch.models.lavida import LaViDa
     from lavida_mod_tpu_torch.models.multimodal import build_gather_plan
+    from lavida_mod_tpu_torch.ops.decode_attention import decode_attention
     from lavida_mod_tpu_torch.ops.gather import gather_rows
     from lavida_mod_tpu_torch.ops.short_attention import short_attention
 
@@ -780,9 +786,11 @@ def phase_main_path(torch, device, card):
 
     short_attention.launches = 0
     gather_rows.launches = 0
+    decode_attention.launches = 0
     walls = []
     for i, (ids, views, size) in enumerate(requests):
         a0, g0 = short_attention.launches, gather_rows.launches
+        d0 = decode_attention.launches
         idx, _, _, _ = build_gather_plan(cfg, [ids], [[views.shape[0]]],
                                          [[size]])
         torch.cuda.reset_peak_memory_stats()
@@ -795,20 +803,24 @@ def phase_main_path(torch, device, card):
         peak = torch.cuda.max_memory_allocated() / 2**30
         da = short_attention.launches - a0
         dg = gather_rows.launches - g0
+        dd = decode_attention.launches - d0
         print(f"[main] request {i}: image {size} -> {views.shape[0]} views, "
               f"{len(ids) - 1} text tokens, P={idx.shape[1]}, G=32: "
               f"wall {wall * 1e3:.1f} ms, peak {peak:.2f} GiB, "
               f"launches short_attention {da} gather_rows {dg} "
-              f"({card}); tokens {out.tolist()}")
+              f"decode_attention {dd} ({card}); tokens {out.tolist()}")
         if out.shape != (32,):
             raise AssertionError(f"output shape {out.shape}")
         if (out == cfg.llada.mask_token_id).any():
             raise AssertionError("mask tokens left in the output")
-        if da != SIGLIP_LAYERS + LLADA_LAYERS or dg != 1:
+        if da != SIGLIP_LAYERS + LLADA_LAYERS or dg != 1 \
+                or dd != LLADA_LAYERS * STEPS:
             raise AssertionError(f"launches short_attention {da} "
-                                 f"gather_rows {dg}, want 58 and 1")
+                                 f"gather_rows {dg} decode_attention {dd}, "
+                                 f"want 58, 1 and 512")
     counts = {"short_attention": short_attention.launches,
-              "gather_rows": gather_rows.launches}
+              "gather_rows": gather_rows.launches,
+              "decode_attention": decode_attention.launches}
     return model, requests, counts, walls
 
 
@@ -820,8 +832,9 @@ def phase_projector_kinds(torch, model, requests, card):
     kind that keeps the token count (models/projector.py), seeded random
     weights drawn on the card, phase 4's LLaDA and SigLIP kept: the first
     bench request through generate_fused, checked as phase 4 checks it
-    (no mask token left, 26 + 32 short_attention and 1 gather_rows, no
-    other launch); the model's own projector restored after."""
+    (no mask token left, 26 + 32 short_attention, 1 gather_rows and
+    32 x 16 decode_attention, no other launch); the model's own projector
+    restored after."""
     from lavida_mod_tpu_torch.config import GenerationConfig
     from lavida_mod_tpu_torch.models.projector import Projector
     from lavida_mod_tpu_torch.models.siglip import LayerNorm
@@ -851,7 +864,8 @@ def phase_projector_kinds(torch, model, requests, card):
                                                     gen))
             _check(f"projector {kind}", counts, _want(
                 short_attention=SIGLIP_LAYERS + LLADA_LAYERS,
-                gather_rows=1), toks, mask_id=cfg0.llada.mask_token_id)
+                gather_rows=1, decode_attention=LLADA_LAYERS * STEPS), toks,
+                mask_id=cfg0.llada.mask_token_id)
             n = sum(p.numel() for p in proj.parameters())
             print(f"[projector] {kind} ({n / 1e6:.1f} M params, "
                   f"{len(proj.res_blocks)} residual blocks) on phase 4's "
@@ -1202,6 +1216,19 @@ def phase_w4_matmul(torch, device, res):
     return cold
 
 
+# the decode attention over the bf16 cache: (B, T, H, Hkv, hd, S), launches
+# per main-path run (one bf16 request: 32 layers x 16 steps over about
+# 1088 keys).  The batched serving step (no key split), bench.py's B = 1
+# request (its keys split, then merged), Dream-7B's GQA batched and at
+# B = 1 (split)
+DECODE_CASES = [((32, 32, 32, 32, 128, 1184), 0),
+                ((1, 32, 32, 32, 128, 1088), LLADA_LAYERS * STEPS),
+                ((32, 32, 28, 4, 128, 1184), 0),
+                ((1, 32, 28, 4, 128, 1184), 0)]
+# its limit against the plain version: about one bf16 ulp of an output
+# near 1 (the kernel rounds p against its running max)
+DECODE_LIMIT = 4e-3
+
 # #8's int4 instance: (B, T, H, Hkv, hd, S, row 0's pad), launches per run
 # (one B = 4 worker batch: 32 layers x 16 steps)
 KV4_CASES = [((4, 32, 32, 32, 128, 1184, None), LLADA_LAYERS * STEPS),
@@ -1220,8 +1247,11 @@ KV4_CASES = [((4, 32, 32, 32, 128, 1184, None), LLADA_LAYERS * STEPS),
 def phase_batch_kernels(torch, device, res):
     """The three kernels of the batched int4 path against their plain
     versions at its shapes (summed over one B = 4 batch's launches; the
-    B = 8 shapes and a ragged case checked too)."""
+    B = 8 shapes and a ragged case checked too), and the decode attention
+    over the bf16 cache at DECODE_CASES."""
+    from lavida_mod_tpu_torch.ops import decode_attention as tda
     from lavida_mod_tpu_torch.ops import kv8_attention as tk
+    from lavida_mod_tpu_torch.ops.attention import dense_attention, make_bias
     from lavida_mod_tpu_torch.ops import quant as tq
     from lavida_mod_tpu_torch.ops import vit_mlp as tv
     from lavida_mod_tpu_torch.ops import w4_grouped as tg
@@ -1341,6 +1371,38 @@ def phase_batch_kernels(torch, device, res):
         r["int8_kernel_ms"] = r.get("int8_kernel_ms", 0.0) + per * int8_ms
         r["per_shape"][-1]["int8_kernel_ms"] = int8_ms
         del q, k4, v4, c8
+
+    # decode_attention against its plain version (the unsplit softmax) at
+    # DECODE_CASES, each batch row front-padded by its own amount; beside
+    # it the route it replaced, dense_attention with make_bias's mask (its
+    # copies of the cache included), as the library call
+    for (B, T, H, Hkv, hd, S), per in DECODE_CASES:
+        q = randn(B, T, H, hd).bfloat16()
+        k, v = randn(B, S, Hkv, hd).bfloat16(), randn(B, S, Hkv, hd).bfloat16()
+        valid = torch.ones(B, S, dtype=torch.bool, device=device)
+        for b in range(B):
+            valid[b, :(37 * b) % (S // 4)] = False
+        bias = make_bias(kv_valid=valid)
+        before = tda.decode_attention.launches
+        out = tda.decode_attention(q, k, v, valid)
+        torch.cuda.synchronize()
+        if tda.decode_attention.launches != before + 1:
+            raise AssertionError("decode_attention did not launch")
+        ref = tda.decode_attention_reference(q, k, v, valid)
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   atol=DECODE_LIMIT, rtol=DECODE_LIMIT)
+        err = (out.float() - ref.float()).abs().max().item()
+        plan = tda.decode_plan(B, T, H, Hkv, S, hd, tda._sms(device.index))
+        res.add("decode_attention", f"q[{B},{T},{H},{hd}] Hkv {Hkv} S {S}",
+                per, err, lambda: tda.decode_attention(q, k, v, valid),
+                cuda_ms(lambda: tda.decode_attention_reference(
+                    q, k, v, valid), 3),
+                cuda_ms(lambda: dense_attention(q, k, v, bias=bias)),
+                4 * H * T * S * hd * B,
+                4 * q.numel() + 4 * B * S * Hkv * hd + B * S,
+                note=f" (limit {DECODE_LIMIT:g}; {plan.splits} key splits; "
+                     f"library: dense_attention, the route it replaced)")
+        del q, k, v, valid, bias, out, ref
 
     # fused_vit_mlp: one image (5 views x 729 tokens) per call in the
     # adapter path, 26 layers x 4 images per batch; 20 views at once is
@@ -1493,12 +1555,11 @@ def _print_profile(tag, prof, what, card):
 
 def _decode_layer_ms(torch, llada, P: int = 1088):
     """One decode layer at B = 1 (32 rows over a [1, P + 32] bf16 cache),
-    block 0's forward as the decode loop calls it: (CUDA-event time per
+    block 0's forward as the decode loop calls it (attention through the
+    decode kernel under the cache's valid bytes): (CUDA-event time per
     call over back-to-back calls, which the host's enqueue sets when it is
     slower than the card; device time per call, the profiler's sum over
     the kernels of 20 calls; launches per call)."""
-    from lavida_mod_tpu_torch.ops.attention import make_bias
-
     cfg, device = llada.cfg, llada.wte.weight.device
     G, S = 32, P + 32
     gen = torch.Generator(device=device).manual_seed(5)
@@ -1509,14 +1570,13 @@ def _decode_layer_ms(torch, llada, P: int = 1088):
             torch.randn(*shape, generator=gen, device=device).bfloat16())
     sin, cos = llada._rope_tables(max(cfg.max_sequence_length, S), device)
     positions = torch.arange(P, S, device=device)
-    bias = make_bias(kv_valid=torch.ones(1, S, dtype=torch.bool,
-                                         device=device))
+    valid = torch.ones(1, S, dtype=torch.bool, device=device)
     block = llada.blocks[0]
 
     def run():
-        block(x, sin=sin, cos=cos, positions=positions, bias=bias,
+        block(x, sin=sin, cos=cos, positions=positions, bias=None,
               layer_past=past, kv_write_index=P, use_flash=False, q_seg=None,
-              kv_seg=None)
+              kv_seg=None, cache_mask=valid)
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -1548,6 +1608,7 @@ def phase_mixed_path(torch, model, requests, card):
     from lavida_mod_tpu_torch.models.multimodal import build_gather_plan
     from lavida_mod_tpu_torch.ops import w4_fused as tw
     from lavida_mod_tpu_torch.ops import w8a8 as t8
+    from lavida_mod_tpu_torch.ops.decode_attention import decode_attention
     from lavida_mod_tpu_torch.ops.gather import gather_rows
     from lavida_mod_tpu_torch.ops.short_attention import short_attention
 
@@ -1581,12 +1642,14 @@ def phase_mixed_path(torch, model, requests, card):
     ops = {"short_attention": short_attention, "gather_rows": gather_rows,
            "w8a8_matmul": t8.w8a8_matmul, "w4_qkv_norm": tw.w4_qkv_norm,
            "w4_matmul_res": tw.w4_matmul_res,
-           "w4_ffn_fused": tw.w4_ffn_fused}
+           "w4_ffn_fused": tw.w4_ffn_fused,
+           "decode_attention": decode_attention}
     want = {"short_attention": SIGLIP_LAYERS + LLADA_LAYERS,
             "gather_rows": 1, "w8a8_matmul": 4 * LLADA_LAYERS,
             "w4_qkv_norm": (LLADA_LAYERS + 1) * STEPS,
             "w4_matmul_res": LLADA_LAYERS * STEPS,
-            "w4_ffn_fused": LLADA_LAYERS * STEPS}
+            "w4_ffn_fused": LLADA_LAYERS * STEPS,
+            "decode_attention": LLADA_LAYERS * STEPS}
     for op in ops.values():
         op.launches = 0
     walls, peaks = [], []
@@ -1641,7 +1704,8 @@ def phase_mixed_path(torch, model, requests, card):
             raise AssertionError(f"{op} kernels launched {parts}")
     layer_ms = _decode_layer_ms(torch, llada)
     print(f"[mixed] one decode layer at B = 1 (32 rows, fused plan: "
-          f"w4_qkv_norm + w4_matmul_res + w4_ffn_fused): {layer_ms[0]:.4f} "
+          f"w4_qkv_norm + w4_matmul_res + w4_ffn_fused, decode_attention): "
+          f"{layer_ms[0]:.4f} "
           f"ms per call back to back, device {layer_ms[1]:.4f} ms in "
           f"{layer_ms[2]:.0f} kernels ({card})")
     return counts, walls, peaks, layer_ms
@@ -1692,24 +1756,27 @@ def phase_checkpoint(torch, device, card):
     back (and kept for the server phase), the mixed layout, the llada
     template and the BPE tokenizer, one request served twice and
     decoded.  The counts are set to 0 before and
-    read after; writing, loading and quantizing launch none of the six
+    read after; writing, loading and quantizing launch none of the seven
     kernels, so each must have launched exactly twice a mixed request's
     count."""
     from lavida_mod_tpu_torch import rehearse_8b_load
     from lavida_mod_tpu_torch.ops import w4_fused as tw
     from lavida_mod_tpu_torch.ops import w8a8 as t8
+    from lavida_mod_tpu_torch.ops.decode_attention import decode_attention
     from lavida_mod_tpu_torch.ops.gather import gather_rows
     from lavida_mod_tpu_torch.ops.short_attention import short_attention
 
     ops = {"short_attention": short_attention, "gather_rows": gather_rows,
            "w8a8_matmul": t8.w8a8_matmul, "w4_qkv_norm": tw.w4_qkv_norm,
            "w4_matmul_res": tw.w4_matmul_res,
-           "w4_ffn_fused": tw.w4_ffn_fused}
+           "w4_ffn_fused": tw.w4_ffn_fused,
+           "decode_attention": decode_attention}
     want = {"short_attention": SIGLIP_LAYERS + LLADA_LAYERS,
             "gather_rows": 1, "w8a8_matmul": 4 * LLADA_LAYERS,
             "w4_qkv_norm": (LLADA_LAYERS + 1) * STEPS,
             "w4_matmul_res": LLADA_LAYERS * STEPS,
-            "w4_ffn_fused": LLADA_LAYERS * STEPS}
+            "w4_ffn_fused": LLADA_LAYERS * STEPS,
+            "decode_attention": LLADA_LAYERS * STEPS}
     for op in ops.values():
         op.launches = 0
     out = rehearse_8b_load.rehearse(torch, device, keep=True)
@@ -1762,6 +1829,7 @@ def _batch_ops():
     from lavida_mod_tpu_torch.ops import w4_fused as tw
     from lavida_mod_tpu_torch.ops import w4_grouped as tg
     from lavida_mod_tpu_torch.ops import w8a8 as t8
+    from lavida_mod_tpu_torch.ops.decode_attention import decode_attention
     from lavida_mod_tpu_torch.ops.gather import gather_rows
     from lavida_mod_tpu_torch.ops.short_attention import short_attention
 
@@ -1777,6 +1845,7 @@ def _batch_ops():
             "kv8_decode_attention": tk.kv8_decode_attention,
             "kv8_decode_attention_int4": _RegimeCount(
                 tk.kv8_decode_attention, "int4"),
+            "decode_attention": decode_attention,
             "fused_vit_mlp": tv.fused_vit_mlp,
             "short_attention_f32": _RegimeCount(short_attention, "f32")}
 
@@ -1788,7 +1857,8 @@ def _want_batch(B, kv8, chunk):
     attention and MLP per image; one prefill attention per layer and
     chunk.  The grouped matmuls of the decode (32 B <= 256 rows) take its
     decode kernel, the prefill's (over 1000 rows a chunk) its prefill
-    kernel."""
+    kernel.  The steps attend over the bf16 cache through the decode
+    attention kernel, over the int8 one through #8."""
     calls = -(-B // chunk)
     head_fused = B * 32 <= 128
     want = {k: 0 for k in _batch_ops()}
@@ -1801,6 +1871,7 @@ def _want_batch(B, kv8, chunk):
     want["short_attention"] = SIGLIP_LAYERS * B + LLADA_LAYERS * calls
     want["fused_vit_mlp"] = SIGLIP_LAYERS * B
     want["kv8_decode_attention"] = LLADA_LAYERS * STEPS if kv8 else 0
+    want["decode_attention"] = 0 if kv8 else LLADA_LAYERS * STEPS
     return want
 
 
@@ -1875,7 +1946,7 @@ def phase_batched_path(torch, device, card):
         "one B = 4 kv8 batch", card)
     layer_ms = _decode_layer_ms(torch, llada)
     print(f"[batch] one decode layer at B = 1 (32 rows, unfused int4: seven "
-          f"w4_matmul_grouped + norms, SwiGLU, dense attention): "
+          f"w4_matmul_grouped + norms, SwiGLU, decode_attention): "
           f"{layer_ms[0]:.4f} ms per call back to back, device "
           f"{layer_ms[1]:.4f} ms in {layer_ms[2]:.0f} kernels ({card})")
     return model, counts, walls, share, layer_ms
@@ -2155,10 +2226,13 @@ def phase_branches_int4(torch, model, card):
     out, wall, peak, got = _counted(torch, lambda: dllm(gen32, 64))
     pre = dict(short_attention=SIGLIP_LAYERS + LLADA_LAYERS,
                fused_vit_mlp=SIGLIP_LAYERS, w4_matmul_grouped_prefill=lin)
-    # init pass and 16 steps of 32 rows, each with the fused head (#5)
+    # init pass and 16 steps of 32 rows, each with the fused head (#5); the
+    # init pass attends at its write index through the decode kernel, the
+    # steps' scatter mode densely
     _check("dLLM gen 32", got, _want(
         **pre, w4_matmul_grouped_decode=lin * (STEPS + 1),
-        w4_qkv_norm=STEPS + 1), out, mask_id=mask_id)
+        w4_qkv_norm=STEPS + 1, decode_attention=LLADA_LAYERS), out,
+        mask_id=mask_id)
     cached, cwall, cpeak, cgot = _counted(
         torch, lambda: model.generate(ids, [views], [size], gen32))
     agree = float((out == cached).mean())
@@ -2179,13 +2253,15 @@ def phase_branches_int4(torch, model, card):
     # init pass over 256 rows (head unfused), 32 steps of 64 rows (#5 head)
     _check("dLLM gen 256", got, _want(
         **pre, w4_matmul_grouped_decode=lin * (steps + 1) + 1,
-        w4_qkv_norm=steps), out, G=256, mask_id=mask_id)
+        w4_qkv_norm=steps, decode_attention=LLADA_LAYERS), out, G=256,
+        mask_id=mask_id)
     res["dllm256"] = (got, wall, peak)
     model.generate(ids, [views], [size], g256)              # warm-up
     cout, cwall, cpeak, cgot = _counted(
         torch, lambda: model.generate(ids, [views], [size], g256))
     _check("gen 256 cached", cgot, _want(
-        **pre, w4_matmul_grouped_decode=(lin + 1) * steps), cout, G=256,
+        **pre, w4_matmul_grouped_decode=(lin + 1) * steps,
+        decode_attention=LLADA_LAYERS * steps), cout, G=256,
         mask_id=mask_id)
     res["cached256"] = (cgot, cwall, cpeak)
     print(f"[dllm] --gen-len 256 --steps 32 --dllm 64: wall {wall * 1e3:.1f}"
@@ -2205,9 +2281,11 @@ def phase_fim(torch, card, path):
 
     res, wall, peak, got = _counted(torch, lambda: predict_fim.main(
         ["--model-path", str(path), "--device", "cuda"]))
-    # no image: the prefill's attention only; weight-only int8 launches
-    # no W8A8 kernel
-    _check("FIM request", got, _want(short_attention=LLADA_LAYERS))
+    # no image: the prefill's attention, then G = 256 steps in one block
+    # (step ratio 1) over the bf16 cache; weight-only int8 launches no W8A8
+    # kernel
+    _check("FIM request", got, _want(short_attention=LLADA_LAYERS,
+                                     decode_attention=LLADA_LAYERS * 256))
     ids, draft = res["ids"], res["draft"]
     holes = int((draft == 126336).sum())
     if len(ids) != 256 or not (ids[:len(draft)][draft != 126336]
@@ -2251,12 +2329,14 @@ def _eval_want(kind):
     image document through generate_fused, a video document through
     encode_video + generate (no splice gather), one log-likelihood
     ending (mc_num 16 in two forward chunks of 8 rows on the int8 tree,
-    weight-only)."""
+    weight-only).  The steps attend over the bf16 cache through the decode
+    kernel."""
     if kind == "loglik":
         return _want(short_attention=2 * LLADA_LAYERS)
     return _want(short_attention=SIGLIP_LAYERS + LLADA_LAYERS,
                  gather_rows=1 if kind == "image" else 0,
                  w8a8_matmul=4 * LLADA_LAYERS,
+                 decode_attention=LLADA_LAYERS * EVAL_G,
                  w4_qkv_norm=(LLADA_LAYERS + 1) * EVAL_G,
                  w4_matmul_res=LLADA_LAYERS * EVAL_G,
                  w4_ffn_fused=LLADA_LAYERS * EVAL_G)
@@ -3680,9 +3760,11 @@ def phase_train_cli_457m(torch, device, card):
                 if k.startswith("eval/")} != hook[0][3]:
         raise AssertionError(f"eval rows {evals}, hook {hook[0][3]}")
     # two pope documents through generate_fused on the bf16 457m: the
-    # tower's 26 and the LM's 6 layers of #1 and one splice gather each
+    # tower's 26 and the LM's 6 layers of #1, one splice gather and 16
+    # steps of the decode kernel in 6 layers each
     _check("T2 eval hook", hook[0][1], _want(
-        short_attention=2 * (SIGLIP_LAYERS + 6), gather_rows=2))
+        short_attention=2 * (SIGLIP_LAYERS + 6), gather_rows=2,
+        decode_attention=2 * 6 * EVAL_G))
     final = _state_sums(torch, a["state"])
     gb = _dir_gb(os.path.join(out, "checkpoint-2"))
     # run A's wall less the eval call's, as in the runs without the hook
@@ -4067,11 +4149,13 @@ def _dream_ops():
     from lavida_mod_tpu_torch.ops import vit_mlp as tv
     from lavida_mod_tpu_torch.ops import w4_fused as tw
     from lavida_mod_tpu_torch.ops import w8a8 as t8
+    from lavida_mod_tpu_torch.ops.decode_attention import decode_attention
     from lavida_mod_tpu_torch.ops.gather import gather_rows
     from lavida_mod_tpu_torch.ops.short_attention import short_attention
 
     return {"short_attention": short_attention, "gather_rows": gather_rows,
             "fused_vit_mlp": tv.fused_vit_mlp,
+            "decode_attention": decode_attention,
             "w8a8_matmul": t8.w8a8_matmul, "w4_qkv_norm": tw.w4_qkv_norm,
             "w4_matmul_res": tw.w4_matmul_res,
             "w4_ffn_fused": tw.w4_ffn_fused}
@@ -4139,7 +4223,10 @@ def phase_dream_path(torch, device, card):
     first = requests[0]
     bf16_serve(*first)                                       # warm-up
     want = {k: 0 for k in ops}
-    want.update(short_attention=SIGLIP_LAYERS, fused_vit_mlp=SIGLIP_LAYERS)
+    # the sampler's prefill (no flash kernel) and its steps attend through
+    # the decode kernel
+    want.update(short_attention=SIGLIP_LAYERS, fused_vit_mlp=SIGLIP_LAYERS,
+                decode_attention=DREAM_LAYERS * (DREAM_STEPS + 1))
     for op in ops.values():
         op.launches = 0
     bf16_wall, bf16_peak, P = run(0, first, bf16_serve, want, "bf16")
@@ -4171,6 +4258,7 @@ def phase_dream_path(torch, device, card):
     mixed_serve(*first)                                      # warm-up
     want = {"short_attention": SIGLIP_LAYERS + DREAM_LAYERS,
             "gather_rows": 1, "fused_vit_mlp": 0,
+            "decode_attention": DREAM_LAYERS * DREAM_STEPS,
             "w8a8_matmul": 4 * DREAM_LAYERS,
             "w4_qkv_norm": (DREAM_LAYERS + 1) * DREAM_STEPS,
             "w4_matmul_res": DREAM_LAYERS * DREAM_STEPS,
@@ -4295,7 +4383,8 @@ def phase_shirg_bf16(torch, model, card):
 
     serve("base", None, None)                                # warm-up
     shirg_encode(model, views, method="full", selection_params=SHIRG_MERGE)
-    want = _want(short_attention=SIGLIP_LAYERS + LLADA_LAYERS)
+    want = _want(short_attention=SIGLIP_LAYERS + LLADA_LAYERS,
+                 decode_attention=LLADA_LAYERS * STEPS)
     out = {}
     for method, sp in (("base", None), ("full", SHIRG_MERGE)):
         t = {}
@@ -4347,6 +4436,7 @@ def phase_shirg_mixed(torch, model, card):
 
     base = dict(short_attention=SIGLIP_LAYERS + LLADA_LAYERS,
                 w8a8_matmul=4 * LLADA_LAYERS,
+                decode_attention=LLADA_LAYERS * STEPS,
                 w4_qkv_norm=(LLADA_LAYERS + 1) * STEPS,
                 w4_matmul_res=LLADA_LAYERS * STEPS,
                 w4_ffn_fused=LLADA_LAYERS * STEPS)
@@ -5526,6 +5616,7 @@ def phase_int8_tower(torch, model, requests, card, res):
     _check("mixed request with the int8 tower", req_got, _want(
         short_attention=SIGLIP_LAYERS + LLADA_LAYERS, gather_rows=1,
         w8a8_matmul=6 * SIGLIP_LAYERS + 4 * LLADA_LAYERS,
+        decode_attention=LLADA_LAYERS * STEPS,
         w4_qkv_norm=(LLADA_LAYERS + 1) * STEPS,
         w4_matmul_res=LLADA_LAYERS * STEPS,
         w4_ffn_fused=LLADA_LAYERS * STEPS), out[0], G, mask_id)
@@ -5578,6 +5669,8 @@ def main() -> None:
     res.summary("short_attention", "one mixed request (26 SigLIP + 32 "
                 "prefill launches)", card)
     res.summary("w8a8_matmul", "one mixed request (128 launches)", card)
+    res.summary("decode_attention", "one bf16 request (32 layers x 16 "
+                "steps)", card)
     res.summary("short_attention_f32", "one SHIRG-LoRA harness step (26 "
                 "launches in the tower's forward)", card)
     prefix_flash_summary(res, card)
@@ -5780,6 +5873,19 @@ def main() -> None:
               launches_ar_vicuna=ar_counts["w4_matmul_grouped_prefill"]),
         entry("kv8_decode_attention", "kv8_attention.cu",
               "kv8_attention.py:98", b4k["kv8_decode_attention"]),
+        entry("decode_attention", "decode_attention.cu", "attention.py:28",
+              counts["decode_attention"],
+              launches_mixed_path=mixed_counts["decode_attention"],
+              launches_batch_b4=b4["decode_attention"],
+              launches_batch_b8=b8["decode_attention"],
+              launches_checkpoint_path=ckpt_counts["decode_attention"],
+              launches_dllm_gen32=d32["decode_attention"],
+              launches_cached_gen256=c256["decode_attention"],
+              launches_fim=fim_counts["decode_attention"],
+              launches_eval=eval_counts["decode_attention"],
+              launches_shirg_bf16=sh16["decode_attention"],
+              launches_shirg_mixed=shmx["decode_attention"],
+              launches_int8_tower_request=int8_tower[1]["decode_attention"]),
         entry("kv8_decode_attention_int4", "kv8_attention.cu",
               "kv8_attention.py:98",
               server_counts["batch4"]["kv8_decode_attention_int4"],

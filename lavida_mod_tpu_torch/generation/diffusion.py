@@ -27,8 +27,12 @@ lavida_mod_tpu/generation/diffusion.py.
     B = 1, its prefix prefilled by `prefill_cache` into [1, P+G] buffers
     (the JAX package's prefill and pad), then the scatter mode of
     `LLaDA.forward`.
-  - The denoise steps attend densely, as the JAX package's `generate`
-    does by default (its use_flash=False); the prefills run the
+  - The write-index denoise steps over a bf16 cache attend through the
+    decode kernel on the card (ops/decode_attention.py, the buffers read in
+    place; the JAX package's `generate` attends there in plain XLA by
+    default, its use_flash=False), densely on the CPU; the no-cache steps,
+    the read-only cached step and the dLLM scatter step attend densely, an
+    int8 or int4 cache through kernel #8; the prefills run the
     short-attention kernel.
   - `generate` routes as the JAX `generate` (diffusion.py:682-842): the
     prefix cache, dLLM, verbose (cached and no-cache), no cache, draft

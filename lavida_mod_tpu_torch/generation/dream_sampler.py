@@ -201,8 +201,9 @@ def _prefill(model: LLaDA, prefix: torch.Tensor, G: int, use_flash: bool,
 
 def _shifted_logits(model: LLaDA, x: torch.Tensor, cache: list, P: int
                     ) -> torch.Tensor:
-    """One decode step's logits [B, G, V] (dense attention over the
-    cache), shifted one position right."""
+    """One decode step's logits [B, G, V] (the write-index decode over the
+    cache: the decode kernel on the card, dense on the CPU), shifted one
+    position right."""
     G = x.shape[1]
     logits, _ = model(model.embed_tokens(x),
                       positions=torch.arange(P, P + G, device=x.device),
@@ -275,9 +276,10 @@ def dream_generate(
     Returns [B, max_new_tokens] ids (or (ids, history) when verbose).
 
     use_flash_prefill: the prefill's attention through the short-attention
-    kernel (bench.py's serving path); the decode attends densely, as the
-    JAX package's write-index branch does.  tokens_hook / logits_hook /
-    verbose: the reference's sampler extension surface
+    kernel (bench.py's serving path); the decode attends over the bf16
+    cache through the decode kernel on the card and densely on the CPU
+    (the JAX package's write-index branch: plain XLA).  tokens_hook /
+    logits_hook / verbose: the reference's sampler extension surface
     (generation_utils.py:308-309), run by `_dream_hooked`.
     act_int8_prefill: the mixed layout's split (the int8 prefill tree and
     its head prefill, the decode linears denoise); it is wired on the

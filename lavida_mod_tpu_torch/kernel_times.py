@@ -3,14 +3,14 @@
 call that computes the same function:
 
     python3 lavida_mod_tpu_torch/kernel_times.py [CHECKOUT]
-        [--only w4_grouped|kv8|vit_mlp|short_f32|w4_matmul]
+        [--only w4_grouped|kv8|vit_mlp|short_f32|w4_matmul|decode]
 
 CHECKOUT is the root of a tree whose `lavida_mod_tpu_torch` package is
 timed (default: the tree holding this file), so two versions of the
 kernels can be timed in turns on one card, one process each.  It times
 five groups (`--only w4_grouped` the last alone), and with `--only kv8`,
-`--only vit_mlp`, `--only short_f32` or `--only w4_matmul` a sixth,
-seventh, eighth or ninth alone:
+`--only vit_mlp`, `--only short_f32`, `--only w4_matmul` or `--only
+decode` a sixth, seventh, eighth, ninth or tenth alone:
 
   short_attention  per shape of one mixed request (26 SigLIP + 32 prefill
                    launches), against SDPA with the same mask;
@@ -91,6 +91,18 @@ seventh, eighth or ninth alone:
                    yardstick of the same shape and not the same function,
                    dense bf16 torch.matmul over the dequantized weights
                    (four times the weight bytes).
+  decode_attention  the decode attention over the bf16 cache at the
+                   batched serving step (q [32, 32, 32, 128] over S =
+                   1184, each batch row front-padded as generate_batch
+                   pads; 512 launches per batch: 32 layers x 16 steps),
+                   at bench.py's B = 1 request (over 1088 keys, the keys
+                   split; cold: 4 caches cycled) and at Dream-7B's GQA (28
+                   / 4 heads, B = 32), with its bound (q, K, V, the mask
+                   and out bytes over 3.35 TB/s) and its largest error
+                   against the plain version; beside it the route it
+                   replaced, `dense_attention` with make_bias's mask (its
+                   copies of the cache included), and the plain version's
+                   time.
 
 Each is timed three ways:
 
@@ -189,9 +201,10 @@ def main(argv: list[str]) -> None:
         only = argv[i + 1]
         argv = argv[:i] + argv[i + 2:]
         if only not in ("w4_grouped", "kv8", "vit_mlp", "short_f32",
-                        "w4_matmul"):
+                        "w4_matmul", "decode"):
             raise ValueError(f"--only {only}: the groups are w4_grouped, "
-                             f"kv8, vit_mlp, short_f32 and w4_matmul")
+                             f"kv8, vit_mlp, short_f32, w4_matmul and "
+                             f"decode")
     tree = os.path.abspath(argv[0] if argv else os.path.dirname(here))
     # import the checkout's package, not a sibling of this file
     sys.path[:] = [tree] + [p for p in sys.path
@@ -250,6 +263,11 @@ def main(argv: list[str]) -> None:
         out = time_w4_matmul(torch, dev, gen, record, name)
         print(json.dumps({"tree": tree, "device": name, "shapes": rows,
                           "w4_matmul": out}))
+        return
+    if only == "decode":
+        out = time_decode(torch, dev, gen, record, name)
+        print(json.dumps({"tree": tree, "device": name, "shapes": rows,
+                          "decode": out}))
         return
     if only == "short_f32":
         out = time_short_f32(torch, dev, gen, record, name)
@@ -971,6 +989,80 @@ def time_w4_matmul(torch, dev, gen, record, card) -> dict:
                                  "max_abs_err": err, "library": lib_note,
                                  **times})
             del ws, wdeq, codes, packed, lib, wpack
+    return out
+
+
+DECODE_LAUNCHES = 32 * 16   # per batch or request: 32 layers x 16 steps
+# (B, T, Hq, Hkv, hd, S, caches cycled, per batch): the batched serving
+# step (a 621 MB cache: cold by itself), bench.py's B = 1 request, Dream
+DECODE_CASES = [(32, 32, 32, 32, 128, 1184, 1, True),
+                (1, 32, 32, 32, 128, 1088, 4, True),
+                (32, 32, 28, 4, 128, 1184, 1, False)]
+
+
+def time_decode(torch, dev, gen, record, card) -> dict:
+    """The decode attention over the bf16 cache (module note): device time
+    per call and per batch, its bound, its largest error against the plain
+    version, the dense_attention route and the plain version beside it."""
+    from lavida_mod_tpu_torch.ops import decode_attention as tda
+    from lavida_mod_tpu_torch.ops.attention import dense_attention, make_bias
+
+    out = {"calls": []}
+    with torch.no_grad():
+        for B, T, Hq, Hkv, hd, S, n, summed in DECODE_CASES:
+            q = torch.randn(B, T, Hq, hd, device=dev, generator=gen).bfloat16()
+            kv = [tuple(torch.randn(B, S, Hkv, hd, device=dev, generator=gen)
+                        .bfloat16() for _ in range(2)) for _ in range(n)]
+            valid = torch.ones(B, S, dtype=torch.bool, device=dev)
+            for b in range(B):   # front padding, as generate_batch's
+                valid[b, :(37 * b) % (S // 4)] = False
+            bias = make_bias(kv_valid=valid)
+            plan = tda.decode_plan(B, T, Hq, Hkv, S, hd, tda._sms(0))
+            got = tda.decode_attention(q, *kv[0], valid)
+            ref = tda.decode_attention_reference(q, *kv[0], valid)
+            err = (got.float() - ref.float()).abs().max().item()
+            del got, ref
+            nbytes = 2 * 2 * q.numel() + 2 * 2 * B * S * Hkv * hd + B * S
+            bound = nbytes / 3.35e12 * 1e3
+            it = iter(range(1 << 62))
+
+            def call():
+                return tda.decode_attention(q, *kv[next(it) % n], valid)
+
+            def dense():
+                return dense_attention(q, *kv[next(it) % n], bias=bias)
+
+            def plain():
+                return tda.decode_attention_reference(
+                    q, *kv[next(it) % n], valid)
+
+            times = {"kernel": three_times(call), "dense": three_times(dense),
+                     "plain_ms": cuda_ms(plain, iters=3)}
+            shape = (f"q[{B},{T},{Hq},{hd}] Hkv {Hkv} S {S} ({n} caches, "
+                     f"{plan.splits} splits)")
+            record("decode_attention", shape, 0, times["kernel"],
+                   times["dense"])
+            ms = times["kernel"]["ms"]
+            print(f"[times] decode_attention {shape}: device {ms:.4f} ms, "
+                  f"bound {bound:.4f} ms ({100 * bound / ms:.1f} % of it); "
+                  f"dense_attention {times['dense']['ms']:.4f} ms; plain "
+                  f"{times['plain_ms']:.4f} ms; max error {err:.3e} "
+                  f"against the plain version ({card})")
+            row = {"shape": [B, T, Hq, Hkv, hd, S], "caches": n,
+                   "splits": plan.splits, "bound_ms": bound,
+                   "max_abs_err": err, **times}
+            if summed:
+                row["per_batch_ms"] = {
+                    "kernel": DECODE_LAUNCHES * ms,
+                    "dense": DECODE_LAUNCHES * times["dense"]["ms"],
+                    "bound": DECODE_LAUNCHES * bound}
+                print(f"[times] decode_attention per batch "
+                      f"({DECODE_LAUNCHES} launches) {shape}: "
+                      f"{row['per_batch_ms']['kernel']:.2f} ms, dense "
+                      f"{row['per_batch_ms']['dense']:.2f} ms, bound "
+                      f"{row['per_batch_ms']['bound']:.2f} ms ({card})")
+            out["calls"].append(row)
+            del q, kv, valid, bias
     return out
 
 

@@ -168,6 +168,7 @@ def library() -> ctypes.CDLL:
     lib.lavida_prefix_flash_dq.argtypes = [vp] * 9 + [ci] * 6 + [cf, vp]
     lib.lavida_prefix_flash_dkv.argtypes = [vp] * 10 + [ci] * 6 + [cf, vp]
     lib.lavida_w4_matmul.argtypes = [vp] * 6 + [ci] * 10 + [vp]
+    lib.lavida_decode_attention.argtypes = [vp] * 6 + [ci] * 6 + [cf] + [ci] * 2 + [vp]
     for fn in (lib.lavida_w8a8_matmul, lib.lavida_act_quant,
                lib.lavida_w4_qkv_norm, lib.lavida_w4_qkv_norm_bias,
                lib.lavida_w4_matmul_res,
@@ -176,7 +177,8 @@ def library() -> ctypes.CDLL:
                lib.lavida_kv8_decode_attention,
                lib.lavida_kv4_decode_attention, lib.lavida_vit_mlp,
                lib.lavida_prefix_flash_fwd, lib.lavida_prefix_flash_dq,
-               lib.lavida_prefix_flash_dkv, lib.lavida_w4_matmul):
+               lib.lavida_prefix_flash_dkv, lib.lavida_w4_matmul,
+               lib.lavida_decode_attention):
         fn.restype = ci
     return lib
 

@@ -15,7 +15,12 @@ forward paths the slices run:
     G unwritten rows masked by the filled-rows mask (llada.py:465-491),
     attention through the short-attention kernel with segment ids built
     from that mask (llada.py:537-548);
-  - decode with kv_write_index=P and dense attention (llada.py:296-329);
+  - decode with kv_write_index=P (llada.py:296-329): over a bf16 cache on
+    the card, not causal and without a prefix-LM mask, attention through
+    the decode kernel, which reads the [B, S, Hkv, hd] buffers in place
+    (ops/decode_attention.py, head dims 16 and 128); elsewhere (the CPU,
+    other head dims, the AR baselines' causal decode) dense attention, as
+    the JAX package's plain XLA;
   - the two other cache modes of llada.py:296-315, 449-504: with a
     kv_cache and neither index, "concat": the cache is a read-only past of
     S_past rows, this call's keys are appended (S = S_past + T) and the
@@ -108,6 +113,7 @@ from ..config import LLaDAConfig, as_port_config
 from ..ops.activations import gelu_erf, silu
 from ..ops.attention import (NEG_INF, blockwise_attention, bmm_f32,
                              dense_attention, flash_attention, make_bias)
+from ..ops.decode_attention import DEC_HEAD_DIMS, decode_attention
 from ..ops.kv8_attention import kv8_decode_attention, write_rows
 from ..ops.norms import NORM_TYPES, apply_norm
 from ..ops.prefix_flash import prefix_flash_attention
@@ -382,7 +388,7 @@ class LLaDABlock(nn.Module):
 
     def forward(self, x, *, sin, cos, positions, bias, layer_past,
                 kv_write_index, use_flash, q_seg, kv_seg, act_int8=False,
-                kv8_valid=None, prefix_flash=None, kv_scatter_idx=None,
+                cache_mask=None, prefix_flash=None, kv_scatter_idx=None,
                 prefill_tree=False, blockwise=None):
         """x [B, T, D] -> (x, (k, v)).  With `layer_past` (preallocated
         [B, S, Hkv, hd] buffers) this call's rotated k and v are written
@@ -393,8 +399,10 @@ class LLaDABlock(nn.Module):
         past that this call's k and v are appended to, and the present is
         this call's (k, v) alone (llada.py:296-315).  A 4-tuple
         `layer_past` is the int8 or int4 cache: the rows are quantized into
-        it and attention runs the kv8 kernel masked by `kv8_valid` [B, S];
-        the present is the 4-tuple.  prefill_tree: the linears of the
+        it and attention runs the kv8 kernel masked by `cache_mask` [B, S];
+        the present is the 4-tuple.  A bf16 cache with `cache_mask` (the
+        write-index decode on the card) attends through the decode kernel
+        under that mask.  prefill_tree: the linears of the
         int8 prefill tree where the block has one, with int8 activations
         only under act_int8 (weight-only otherwise)."""
         cfg = self.cfg
@@ -433,7 +441,7 @@ class LLaDABlock(nn.Module):
                 raise ValueError("the quantized KV cache is a decode cache:"
                                  " it needs kv_write_index and no flash")
             present = write_rows(*layer_past, k, v, kv_write_index)
-            att = kv8_decode_attention(q, *present, kv_valid=kv8_valid)
+            att = kv8_decode_attention(q, *present, kv_valid=cache_mask)
         else:
             present = (k, v)
             if layer_past is not None:
@@ -456,6 +464,8 @@ class LLaDABlock(nn.Module):
                 # the kernel takes contiguous rows; v is a view of the
                 # fused [q|k|v] projection in the sequential layout
                 att = flash_attention(q, k, v.contiguous(), q_seg, kv_seg)
+            elif cache_mask is not None:
+                att = decode_attention(q, k, v, cache_mask)
             else:
                 att = dense_attention(q, k, v, bias=bias)
         if fused:
@@ -690,6 +700,16 @@ class LLaDA(nn.Module):
               or kv_scatter_idx is not None):
             raise ValueError("kv_write_index / kv_scatter_idx / kv_valid "
                              "need a kv_cache")
+        # a write-index call over a bf16 cache on the card (the decode
+        # steps, and a prefill without the flash kernel) reads the buffers
+        # in place through the decode kernel, at the head dims it is built
+        # for; the causal AR decode, the prefix-LM mask, the flash prefill
+        # and the CPU attend as before
+        decode = (kv_write_index is not None and not kv8 and not use_flash
+                  and not causal and prefix_lengths is None
+                  and kv_cache[0][0].is_cuda
+                  and kv_cache[0][0].dtype == torch.bfloat16
+                  and self.cfg.head_dim in DEC_HEAD_DIMS)
         if kv_scatter_idx is not None:
             if positions is None:
                 raise ValueError("scattered cache updates need explicit "
@@ -714,7 +734,7 @@ class LLaDA(nn.Module):
             valid = filled[None].expand(B, S)
             if kv_valid is not None:
                 valid = valid & kv_valid
-            elif kv8:   # kernel #8 reads the mask as contiguous bytes
+            elif kv8 or decode:   # the kernels read the mask as bytes
                 valid = valid.contiguous()
         elif past and (kv_valid is not None or self_valid is not None):
             pv = (kv_valid if kv_valid is not None else
@@ -748,7 +768,7 @@ class LLaDA(nn.Module):
                       else torch.ones(B, T, dtype=torch.bool, device=device))
                 q_seg = sv.to(torch.int32).contiguous()
         elif (valid is not None or prefix_lengths is not None
-              or causal) and not kv8:
+              or causal) and not (kv8 or decode):
             # the prefix-LM and causal masks are about SEQUENCE structure:
             # sequence indices, not the RoPE positions (llada.py:496-504);
             # the mask's query rows in the buffer (llada.py:499-504)
@@ -776,7 +796,8 @@ class LLaDA(nn.Module):
         kw = dict(sin=sin, cos=cos, positions=positions, bias=bias,
                   kv_write_index=kv_write_index, use_flash=use_flash,
                   q_seg=q_seg, kv_seg=kv_seg, act_int8=act_int8,
-                  kv8_valid=valid if kv8 else None, prefix_flash=pf_args,
+                  cache_mask=valid if kv8 or decode else None,
+                  prefix_flash=pf_args,
                   kv_scatter_idx=kv_scatter_idx, prefill_tree=prefill_tree,
                   blockwise=bw_args)
         if remat:

@@ -4,8 +4,11 @@
     bias, in plain PyTorch (the JAX package leaves it to XLA).  GQA is a
     reshape of the queries into [kv_heads, groups], never a repeat of K/V;
     scores and softmax are f32; probabilities are cast to v's dtype before
-    the PV product.  Serves the decode steps over the bf16 KV cache and
-    the dense training attention (make_bias's prefix-LM mask).
+    the PV product.  Serves the decode steps over the bf16 KV cache on the
+    CPU (on the card the write-index decode reads the cache in place
+    through ops/decode_attention.py; the causal AR decode, the read-only
+    and scatter cache modes and the no-cache steps stay here) and the
+    dense training attention (make_bias's prefix-LM mask).
   - `blockwise_attention`: the memory-bounded training attention, an
     online softmax over key blocks with the prefix-LM and key-padding
     masks built per block (plain XLA in the JAX package, so torch ops are
